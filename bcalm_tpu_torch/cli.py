@@ -1,14 +1,19 @@
 """Command line of the port: the single-device build.
 
-    python -m bcalm_tpu_torch -in reads.fa -kmer-size 31 -abundance-min 2 [-out prefix]
+    python -m bcalm_tpu_torch -in reads.fa -kmer-size 31 -abundance-min 2 \
+        [-out prefix] [-max-memory MiB] [-max-disk MB]
 
 The option surface, the input block stream and the output naming are the
 JAX package's (bcalm_tpu.cli.build_parser, _input_blocks, default_prefix),
 so both packages read the same blocks and write the same
 ``<prefix>.unitigs.fa``.  The device is ``cuda`` unless
 ``BCALM_TORCH_DEVICE`` names another; a requested CUDA device that is
-absent is an error, never a silent CPU run.  Options whose paths are not
-ported yet exit 1 and name their ROADMAP item.
+absent is an error, never a silent CPU run.  ``-max-memory`` sizes the
+counting chunk and the resident budget (engine.configure_chunk; without
+it, the device's memory does); a distinct set past that budget is
+counted in several passes over key ranges, each re-reading the input.
+Options whose paths are not ported yet exit 1 and name their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -38,12 +43,20 @@ def _not_ported(what: str, item: str) -> int:
 
 
 def adapt_max_len(bank, cfg) -> None:
-    """Block geometry from the bank's sampled read length: the same
-    max_len rule as bcalm_tpu.cli._adapt_max_len, so both packages cut the
-    input into identical blocks (first-occurrence keys depend on it)."""
+    """Block geometry and occurrence estimate from the bank: the max_len
+    and est_total_occ rules of bcalm_tpu.cli._adapt_max_len, so both
+    packages cut the input into identical blocks (first-occurrence keys
+    depend on it).  The chunk stays configure_chunk's: the JAX rule's
+    2^24 chunk at >= 2^26 occurrences was measured on a TPU."""
     sampled = bank.sample_max_len()
     if sampled >= cfg.k:
         cfg.max_len = max(cfg.k + 1, min(512, -(-sampled // 16) * 16))
+    raw = sum(os.path.getsize(p) for p in bank.paths if os.path.exists(p))
+    mult = 3.0 if any(str(p).endswith(".gz") for p in bank.paths) else 1.0
+    bases = raw * mult * 0.9
+    if sampled > 0 and bases > 0:
+        cfg.est_total_occ = int(
+            bases * max(0.1, 1.0 - (cfg.k - 1) / max(cfg.k, sampled)))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -97,8 +110,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if props.get_str("-solidity-kind") != "sum" and len(bank.paths) > 1:
         return _not_ported("multi-bank -solidity-kind min|max", "A12")
     for flag, default in (("-minimizer-size", "10"), ("-minimizer-type", "1"),
-                          ("-repartition-type", "1"), ("-max-memory", "0"),
-                          ("-max-disk", "0")):
+                          ("-repartition-type", "1")):
         if props.get_str(flag) != default:
             print(f"note: {flag} is ignored by the single-device port",
                   file=sys.stderr)
@@ -108,14 +120,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         abundance_min=int(props.get_str("-abundance-min")),
         abundance_max=props.get_int("-abundance-max"),
         histo_max=props.get_int("-histo-max"),
+        max_disk_mb=props.get_int("-max-disk"),
     )
+    engine.configure_chunk(cfg, props.get_int("-max-memory"), device)
     adapt_max_len(bank, cfg)
+
+    def blocks():
+        return _input_blocks(bank, cfg, verbose,
+                             nb_cores=props.get_int("-nb-cores"))
+
     ti = TimeInfo()
     with ti.timer("build"):
-        us = engine.build_from_blocks(
-            _input_blocks(bank, cfg, verbose,
-                          nb_cores=props.get_int("-nb-cores")),
-            cfg, device)
+        # reread re-opens the bank for each further pass of a multi-pass
+        # count, with the same block geometry
+        us = engine.build_from_blocks(blocks(), cfg, device, reread=blocks)
     with ti.timer("write"):
         with open(unitigs_path, "w") as f:
             fasta_writer.write_fasta(

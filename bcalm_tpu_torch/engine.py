@@ -1,51 +1,86 @@
 """Single-device end-to-end build on torch: reads -> unitigs + links.
 
-Counterpart of ``bcalm_tpu/engine.py`` for its resident single-device
-path (``build_from_blocks`` without the out-of-core branch):
+Counterpart of ``bcalm_tpu/engine.py``'s single-device path
+(``build_from_blocks``, resident and out-of-core):
 
   1. count_blocks: extraction (K1) into fixed-size chunks, per-chunk
-     counting (sort + K2), LSM merges of the counted runs;
-  2. abundance histogram + solidity fold;
+     counting (sort + K2), LSM merges of the counted runs; when the
+     distinct set outgrows the resident budget, multi-pass counting over
+     key ranges (K5 range fold, K6 bounds) with one asynchronous fetch of
+     each finished range to the host;
+  2. abundance histogram + solidity fold (K7), or in numpy on the host
+     table of a multi-pass count (compact_from_counts);
   3. compact_solid_pos: reorder by first-occurrence key, junctions (K3),
-     consecutive-run contraction and the weighted pointer jump (K4);
+     run scans (K8), consecutive-run contraction and the weighted pointer
+     jump (K4);
   4. assembly on the device, link join and UnitigSet on the host.
 
 Every function takes an explicit ``device``; tensors stay on it until the
 assembled bytes are fetched.  The host pieces that the JAX package keeps
-in its engine (EngineConfig, UnitigSet, link_join) are carried here,
-because importing that engine imports JAX.
+in its engine (EngineConfig, configure_chunk, _BlockCache, UnitigSet,
+link_join) are carried here, because importing that engine imports JAX.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from bcalm_tpu.io import packing
 from bcalm_tpu.utils import dna
+from bcalm_tpu_torch import convert
 from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import count as count_op
 from bcalm_tpu_torch.ops import extract as extract_op
 from bcalm_tpu_torch.ops import runchains
 
-# device memory of one H100 80GB card; the counting budgets are sized for it
-DEVICE_BYTES = 80 * 10**9
+# CPU tensors have no card to ask for its memory: the plain paths are
+# sized as if for an 80 GB card
+CPU_DEVICE_BYTES = 80 * 10**9
+MIN_CHUNK = 1 << 20
+MAX_CHUNK = 1 << 25
+# raw resident runs may reach a few times the resident budget before an
+# exact merge brings them back (the LSM ladder's unmerged generations and
+# the 1.2x hysteresis of split_current_range); the model pays for this many
+RESIDENT_SLACK = 4
 
 
-def resident_slots(k: int) -> int:
-    """Distinct k-mers the resident counter may hold on one card.
+def device_bytes(device) -> int:
+    """Memory of the device: the card's total memory, or CPU_DEVICE_BYTES."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return CPU_DEVICE_BYTES
 
-    A resident distinct k-mer costs (L+2)*8 bytes (lanes, count, pos); a
-    merge costs per slot what counting a chunk slot does, (3L+10)*8 bytes
-    (the L+1 row input, sort key, permutation and sort workspace, sorted
-    lanes and pos, flags, group ids, and the L+2 outputs).  60% of the
-    card keeps the largest merge inside it."""
+
+def chunk_slot_bytes(k: int) -> int:
+    """Device bytes per chunk slot: the (L+1)-row buffer, counting the
+    chunk, (3L+10)*8 (the L+1 row input, sort key, permutation and sort
+    workspace, sorted lanes and pos, flags, group ids, the L+2 outputs),
+    and the previous chunk's L+2 outputs, which the lagged settle keeps
+    until this chunk is counted."""
     L = ln.num_lanes(k)
-    return int(0.6 * DEVICE_BYTES) // ((L + 2) * 8 + (3 * L + 10) * 8)
+    return (L + 1) * 8 + (3 * L + 10) * 8 + (L + 2) * 8
+
+
+def resident_slot_bytes(k: int) -> int:
+    """Device bytes per slot of the resident budget: RESIDENT_SLACK times
+    a settled distinct k-mer ((L+2)*8: lanes, count, pos) plus merging it
+    ((3L+10)*8, as counting a chunk slot)."""
+    L = ln.num_lanes(k)
+    return RESIDENT_SLACK * ((L + 2) * 8 + (3 * L + 10) * 8)
+
+
+def resident_slots(k: int, budget_bytes: int) -> int:
+    """Distinct k-mers the counter may hold resident in three quarters of
+    budget_bytes (the other quarter buys the chunk)."""
+    return (budget_bytes - budget_bytes // 4) // resident_slot_bytes(k)
 
 
 @dataclass
@@ -56,9 +91,41 @@ class EngineConfig:
     block_reads: int = 4096
     max_len: int = 512
     histo_max: int = 10000
-    # occurrence slots counted per chunk, each costing (3L+10)*8 bytes of
-    # workspace (resident_slots); the counted output does not depend on it
-    chunk_kmers: int = 1 << 25
+    # occurrence slots counted per chunk (rounded up to a power of two
+    # covering one block); the counted output does not depend on it
+    chunk_kmers: int = MAX_CHUNK
+    # distinct k-mers held resident before counting goes multi-pass over
+    # key ranges; 0 = resident_slots of the device's memory
+    resident_kmers: int = 0
+    # multi-pass staging of a one-shot block iterator: host RAM, or a
+    # memmap file under spill_dir bounded by max_disk_mb (0 = unbounded)
+    spill_dir: Optional[str] = None
+    max_disk_mb: int = 0
+    # estimate of the total k-mer occurrences (from the input's size);
+    # sharpens the first pass's choice of range count (0 = unknown)
+    est_total_occ: int = 0
+
+
+def configure_chunk(cfg: EngineConfig, max_memory_mb: int, device) -> int:
+    """Size the counting chunk and the resident budget from a device
+    memory budget: ``-max-memory`` M MiB when M > 0, else the device's
+    memory (device_bytes).
+
+    A quarter of the budget buys chunk slots (chunk_slot_bytes, a power of
+    two in [MIN_CHUNK, MAX_CHUNK]); three quarters buy resident slots
+    (resident_slots).  The resident budget holds at least two chunks (a
+    chunk's distinct run must fit): the chunk shrinks to keep that floor
+    inside the budget.  Below MIN_CHUNK the budget cannot be met and the
+    floor wins.  Returns cfg.chunk_kmers."""
+    budget = (max_memory_mb << 20) if max_memory_mb > 0 else device_bytes(device)
+    res = resident_slots(cfg.k, budget)
+    chunk = MAX_CHUNK
+    while chunk > MIN_CHUNK and (chunk * chunk_slot_bytes(cfg.k) > budget // 4
+                                 or 2 * chunk > res):
+        chunk //= 2
+    cfg.chunk_kmers = chunk
+    cfg.resident_kmers = max(2 * chunk, res)
+    return chunk
 
 
 @dataclass
@@ -86,87 +153,491 @@ def _merge_runs(runs):
     weights = torch.cat([r[1] for r in runs])
     pos = torch.cat([r[2] for r in runs])
     unique, counts, minpos, n = count_op.count_canonical(lanes, weights, pos)
-    n = int(n)
+    return _exact(unique, counts, minpos, int(n))
+
+
+def _exact(unique, counts, minpos, n: int):
+    """Exact-size copies of a run's first n columns, so that the wider
+    source can be released."""
+    if n == unique.shape[1]:
+        return unique, counts, minpos
     return unique[:, :n].clone(), counts[:n].clone(), minpos[:n].clone()
 
 
+class _BlockCache:
+    """Staging for multi-pass re-reads of a one-shot block iterator: host
+    RAM, or a memmap-backed file under spill_dir (the ``-max-disk``
+    staging).  max_disk_mb bounds the staging file (0 = unbounded)."""
+
+    def __init__(self, spill_dir: Optional[str] = None, max_disk_mb: int = 0):
+        self.spill_dir = spill_dir
+        self.max_disk_mb = max_disk_mb
+        self._mem: list = []
+        self._meta: list = []       # (B, W, offset) per block
+        self._file = None
+        self._path = None
+        self._bytes = 0
+
+    def add(self, words: np.ndarray, lengths: np.ndarray):
+        if self.spill_dir is None:
+            self._mem.append((words, lengths))
+            return
+        if self._file is None:
+            os.makedirs(self.spill_dir, exist_ok=True)
+            fd, self._path = tempfile.mkstemp(suffix=".blocks",
+                                              dir=self.spill_dir)
+            self._file = os.fdopen(fd, "wb")
+        B, W = words.shape
+        self._meta.append((B, W, self._bytes))
+        data = (words.astype(np.uint32).tobytes()
+                + lengths.astype(np.int32).tobytes())
+        self._bytes += len(data)
+        if self.max_disk_mb and self._bytes > self.max_disk_mb * 1_000_000:
+            raise RuntimeError(
+                f"-max-disk exceeded: block staging needs "
+                f">{self._bytes >> 20} MB (limit {self.max_disk_mb} MB)")
+        self._file.write(data)
+
+    def blocks(self) -> Iterator[packing.ReadBlock]:
+        if self.spill_dir is None:
+            for words, lengths in self._mem:
+                yield packing.ReadBlock(words, lengths)
+            return
+        self._file.flush()
+        mm = np.memmap(self._path, dtype=np.uint8, mode="r")
+        for B, W, off in self._meta:
+            nw = B * W * 4
+            words = np.frombuffer(mm, np.uint32, count=B * W,
+                                  offset=off).reshape(B, W)
+            lengths = np.frombuffer(mm, np.int32, count=B, offset=off + nw)
+            yield packing.ReadBlock(words, lengths)
+
+    def close(self):
+        if self._file is not None:
+            self._file.close()
+            try:
+                os.unlink(self._path)
+            except OSError:
+                pass
+            self._file = None
+
+
+def _solve_G(m: float, t: float) -> float:
+    """Effective key-universe size from m distinct at t occurrences:
+    solve m = G*(1 - exp(-t/G)) ((1-e^-x)/x = m/t, decreasing in x)."""
+    ratio = m / t
+    lo_x, hi_x = 1e-6, 50.0
+    for _ in range(60):
+        mid = 0.5 * (lo_x + hi_x)
+        if (1.0 - np.exp(-mid)) / mid > ratio:
+            lo_x = mid
+        else:
+            hi_x = mid
+    return t / (0.5 * (lo_x + hi_x))
+
+
+class _Fetch:
+    """A finished key range on its way to the host.  On a card: one
+    stacked (L+2, n) copy into pinned memory, asynchronous, completed by
+    an event; the device source lives until materialize()."""
+
+    def __init__(self, unique, counts, minpos):
+        stacked = torch.cat([unique, counts[None], minpos[None]])
+        self.L = unique.shape[0]
+        self.event = None
+        self.src = None
+        self.triple = None
+        if stacked.is_cuda:
+            self.src = stacked
+            self.host = torch.empty(stacked.shape, dtype=torch.int64,
+                                    pin_memory=True)
+            self.host.copy_(stacked, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = stacked
+
+    def materialize(self):
+        """(lanes u32 (L, n), counts int32 (n,), pos u32 (n,)) in numpy."""
+        if self.triple is None:
+            if self.event is not None:
+                self.event.synchronize()
+            arr = self.host.numpy()
+            L = self.L
+            self.triple = (arr[:L].astype(np.uint32),
+                           np.minimum(arr[L], 2**31 - 1).astype(np.int32),
+                           arr[L + 1].astype(np.uint32))
+            self.src = self.host = self.event = None
+        return self.triple
+
+
+def _cap(n: int) -> int:
+    """The JAX package's power-of-two capacity of an n-column run: the
+    unit of its resident-slot accounting, which split_current_range's
+    memory trigger reads."""
+    return runchains.round_capacity(max(1, n))
+
+
+class _RangeCounter:
+    """State of count_blocks: the chunk buffer, the settled runs of the
+    current key range, and the multi-pass range machinery.  Method names
+    follow the nested functions of bcalm_tpu.engine.count_blocks."""
+
+    def __init__(self, cfg: EngineConfig, device, use_cache: bool):
+        self.cfg = cfg
+        self.device = device
+        self.L = ln.num_lanes(cfg.k)
+        self.resident_kmers = (cfg.resident_kmers
+                               or resident_slots(cfg.k, device_bytes(device)))
+        self.buf = None         # (L+1, cap + block_F): lanes + pos row
+        self.cap = 0            # power-of-two counting capacity
+        self.block_F = 0        # slots per block (fixed block geometry)
+        self.fill = 0
+        self.slot_base = 0      # stream slot counter (first-occurrence keys)
+        self.partials: list = []  # (unique, counts, minpos, n, generation)
+        self.pending = None     # last chunk: (unique, counts, minpos, n, occ)
+        self.resident_slots = 0  # sum of _cap(n) over partials
+        self.n_reads = self.n_bases = self.n_occ = 0
+        self.lo = (0,) * self.L
+        self.hi = (ln.SENTINEL,) * self.L
+        self.range_stack: list = []   # pending (lo, hi), ascending on pop
+        self.results: List[_Fetch] = []
+        self.cache = (_BlockCache(cfg.spill_dir, cfg.max_disk_mb)
+                      if use_cache else None)
+        self.pass_no = 0
+        self.did_split = False
+        # a split happened since the last settle: the pending chunk was
+        # counted under the old hi and is cut again when it settles (else
+        # its upper-half keys are counted twice)
+        self.refilter_pending = False
+        self.t_seen = 0           # in-range occurrences settled this pass
+        self.pass_occ_seen = 0    # all occurrences streamed this pass
+        self.total_occ_known = 0  # the stream's total, known after pass 1
+        # saturation anchor of the current range: [exact distinct at the
+        # last full merge, in-range occurrences then, learned dedup ratio]
+        self.anchor = [0, 0, 1.0]
+        self.tm = {"settle_wait": 0.0, "split": 0.0, "final_merge": 0.0,
+                   "fetch_wait": 0.0, "passes": []}
+
+    # ---- settled runs of the current range ----
+    def resident_n(self) -> int:
+        return sum(r[3] for r in self.partials)
+
+    def _append(self, run, gen: int):
+        n = run[0].shape[1]
+        self.partials.append(run + (n, gen))
+        self.resident_slots += _cap(n)
+
+    def merge_generations(self):
+        """LSM compaction: merge equal-generation runs as they appear, so
+        residency tracks the distinct set."""
+        p = self.partials
+        while len(p) >= 2 and p[-1][4] == p[-2][4]:
+            b, a = p.pop(), p.pop()
+            self.resident_slots -= _cap(a[3]) + _cap(b[3])
+            self._append(_merge_runs([a[:3], b[:3]]), a[4] + 1)
+
+    def force_merge_all(self):
+        """Merge all resident runs into one (the exact distinct so far)."""
+        p = self.partials
+        while len(p) > 1:
+            b, a = p.pop(), p.pop()
+            self.resident_slots -= _cap(a[3]) + _cap(b[3])
+            self._append(_merge_runs([a[:3], b[:3]]), max(a[4], b[4]) + 1)
+
+    def projected_distinct(self) -> int:
+        """Duplicate-corrected estimate of the range's distinct count:
+        m(t) = G*(1 - exp(-t/G)) anchored at the last exact merge, clamped
+        to [m0, raw run sum]."""
+        raw = self.resident_n()
+        m0, t0 = self.anchor[0], self.anchor[1]
+        if m0 <= 0 or self.t_seen <= t0:
+            return raw
+        if m0 >= 0.98 * t0:
+            return raw
+        G = _solve_G(m0, t0)
+        m_proj = G * (1.0 - np.exp(-self.t_seen / G))
+        return int(min(max(m_proj, m0), raw))
+
+    def _bound(self, key) -> torch.Tensor:
+        return torch.tensor(key, dtype=torch.int64,
+                            device=self.device).reshape(self.L, 1)
+
+    def split_current_range(self):
+        """Partition the current key range when residency exceeds the
+        budget (bcalm_tpu.engine.count_blocks.split_current_range: the
+        triggers, the rarefaction projection of the range's final distinct
+        count, and P-1 quantile pivots of the merged run).  The kept range
+        narrows to [lo, first pivot); the others queue for later passes;
+        every resident run is cut at the new hi (K6)."""
+        cfg, tm, anchor = self.cfg, self.tm, self.anchor
+        budget = max(self.resident_kmers, 2 * self.cap)
+        if not self.partials:
+            return
+        raw = self.resident_n()
+        m0 = anchor[0]
+        est = m0 + 1.2 * anchor[2] * max(0, raw - m0)
+        if (self.projected_distinct() <= 1.2 * budget
+                and est <= 1.2 * budget
+                and self.resident_slots <= 8 * budget):
+            return
+        t0 = time.time()
+        self.force_merge_all()
+        tm["split_merge"] = round(tm.get("split_merge", 0.0)
+                                  + time.time() - t0, 3)
+        tm["n_force_merges"] = tm.get("n_force_merges", 0) + 1
+        m_new = self.resident_n()
+        anchor[2] = float(np.clip((m_new - m0) / max(1, raw - m0), 0.02, 1.0))
+        anchor[0] = m_new
+        anchor[1] = self.t_seen
+        if m_new <= 1.2 * budget:
+            return
+        tm["n_splits"] = tm.get("n_splits", 0) + 1
+        m2 = m_new
+        t2 = max(1, self.t_seen)
+        total_est = (self.total_occ_known or cfg.est_total_occ
+                     or 2 * self.pass_occ_seen)
+        total_est = max(total_est, self.pass_occ_seen)
+        t_final = t2 * (total_est / max(1, self.pass_occ_seen))
+        if m2 >= 0.98 * t2:
+            d_est = t_final
+        else:
+            G = _solve_G(m2, t2)
+            d_est = G * (1.0 - np.exp(-t_final / G))
+        P = int(np.ceil(d_est * 1.15 / budget))
+        if P <= 1 and m2 <= budget:
+            return
+        P = max(2, min(256, P))
+        u, _, _, n, _ = max(self.partials, key=lambda r: r[3])
+        qidx = np.unique(np.asarray([(j * n) // P for j in range(1, P)],
+                                    np.int64))
+        qidx = qidx[(qidx > 0) & (qidx < n)]
+        if qidx.size == 0:
+            qidx = np.asarray([n // 2], np.int64)
+        cols = u[:, torch.from_numpy(qidx).to(u.device)].cpu().numpy()
+        pivots = []
+        prev = self.lo
+        for j in range(cols.shape[1]):
+            cand = tuple(int(x) for x in cols[:, j])
+            if prev < cand < self.hi:
+                pivots.append(cand)
+                prev = cand
+        if not pivots:
+            return
+        self.did_split = True
+        self.refilter_pending = True
+        bounds = pivots + [self.hi]
+        for i in reversed(range(len(pivots))):
+            self.range_stack.append((bounds[i], bounds[i + 1]))
+        self.hi = pivots[0]
+        hi_t = self._bound(self.hi)
+        runs, self.partials, self.resident_slots = self.partials, [], 0
+        for ru, rc, rp, rn, gen in runs:
+            n_new = int(count_op.lower_bound(ru, rn, hi_t)[0])
+            self._append(_exact(ru, rc, rp, n_new), gen)
+        # re-anchor on the kept range: its distinct is exact (one merged
+        # run, just cut); t_seen rescales by the kept share
+        anchor[0] = self.resident_n()
+        self.t_seen = max(1, int(self.t_seen * anchor[0] / max(1, m2)))
+        anchor[1] = self.t_seen
+        anchor[2] = 1.0
+
+    def settle_pending(self):
+        """Settle the previous chunk's counted run, lagged by one chunk so
+        that reading its size overlaps the next chunk's device work."""
+        if self.pending is None:
+            return
+        unique, counts, minpos, n_dev, occ_dev = self.pending
+        self.pending = None
+        t0 = time.time()
+        n_eff = int(n_dev)
+        self.t_seen += int(occ_dev)
+        self.tm["settle_wait"] += time.time() - t0
+        if self.refilter_pending:
+            n_eff = int(count_op.lower_bound(unique, n_eff,
+                                             self._bound(self.hi))[0])
+            self.refilter_pending = False
+        self._append(_exact(unique, counts, minpos, n_eff), 0)
+        self.merge_generations()
+        t0 = time.time()
+        self.split_current_range()
+        self.tm["split"] += time.time() - t0
+
+    # ---- the chunk buffer ----
+    def range_active(self) -> bool:
+        return self.lo != (0,) * self.L or self.hi != (ln.SENTINEL,) * self.L
+
+    def flush(self):
+        """Count the buffer's first min(fill, cap) columns (restricted to
+        the key range when one is active), settle the previous chunk, and
+        carry the columns past cap to the front."""
+        if self.fill == 0:
+            return
+        m = min(self.fill, self.cap)
+        body = self.buf[:, :m]
+        if self.range_active():
+            counted = count_op.count_chunk_ranged(body, self.lo, self.hi)
+        else:
+            unique, counts, minpos, n = count_op.count_canonical(
+                body[:-1], pos=body[-1])
+            counted = (unique, counts, minpos, n, counts.sum())
+        self.settle_pending()
+        self.pending = counted
+        left = self.fill - m
+        if left:
+            self.buf[:, :left] = self.buf[:, self.cap:self.cap + left]
+        self.fill = left
+
+    def insert(self, words, lengths, F: int, occ: int):
+        cfg = self.cfg
+        if self.buf is None or F != self.block_F:
+            if self.buf is not None:   # geometry change: drain the buffer
+                self.flush()
+            self.block_F = F
+            self.cap = runchains.round_capacity(max(cfg.chunk_kmers, F))
+            self.buf = torch.empty((self.L + 1, self.cap + F),
+                                   dtype=torch.int64, device=self.device)
+            self.fill = 0
+        self.pass_occ_seen += occ
+        extract_op.extract_insert(self.buf, words, lengths, cfg.k,
+                                  self.slot_base & 0x7FFFFFFF, self.fill)
+        self.slot_base += F
+        self.fill += F
+        if self.fill >= self.cap:
+            self.flush()
+
+    def run_pass(self, block_iter, first_pass: bool):
+        """Stream every block once.  slot_base restarts at 0, so every pass
+        gives each occurrence the same first-occurrence key."""
+        k = self.cfg.k
+        self.slot_base = self.fill = self.t_seen = self.pass_occ_seen = 0
+        for block in block_iter:
+            if first_pass and self.cache is not None:
+                self.cache.add(block.words, block.lengths)
+            F = extract_op.block_slots(block.words.shape, k)
+            lens = block.lengths.astype(np.int64)
+            occ = int(np.maximum(0, lens - k + 1).sum())
+            if first_pass:
+                self.n_reads += int((lens > 0).sum())
+                self.n_bases += int(lens.sum())
+                self.n_occ += occ
+            words = torch.from_numpy(block.words.astype(np.int64)).to(self.device)
+            lengths = torch.from_numpy(lens).to(self.device)
+            self.insert(words, lengths, F, occ)
+        self.flush()
+
+    def final_range_run(self):
+        """Merge the range's runs into one exact-size (unique, counts,
+        minpos); the merge takes at least two runs per step and otherwise
+        stays within chunk_kmers columns."""
+        if self.pending is not None and not self.partials:
+            unique, counts, minpos, n_dev, _ = self.pending
+            self.pending = None
+            return _exact(unique, counts, minpos, int(n_dev))
+        self.settle_pending()
+        if not self.partials:
+            e = torch.zeros((0,), dtype=torch.int64, device=self.device)
+            return e.reshape(self.L, 0), e, e.clone()
+        group = [r[:4] for r in self.partials]
+        self.partials = []
+        # the JAX counter leaves resident_slots at the finished range's
+        # sum here, so its memory trigger over-counts in the next range
+        # until a split recounts; the port starts each range from 0
+        self.resident_slots = 0
+        while len(group) > 1:
+            take, rest, acc = [], [], 0
+            for r in group:
+                if len(take) >= 2 and acc + r[3] > self.cfg.chunk_kmers:
+                    rest.append(r)
+                else:
+                    take.append(r)
+                    acc += r[3]
+            merged = _merge_runs([r[:3] for r in take])
+            group = rest + [merged + (merged[0].shape[1],)]
+        return group[0][:3]
+
+    def stats(self) -> Dict:
+        return {"reads": self.n_reads, "bases": self.n_bases,
+                "kmer_occurrences": self.n_occ}
+
+    def count(self, blocks: Iterable[packing.ReadBlock], reread):
+        tm = self.tm
+        block_iter = iter(blocks)
+        try:
+            while True:
+                self.pass_no += 1
+                first = self.pass_no == 1
+                tp = time.time()
+                if first:
+                    self.run_pass(block_iter, True)
+                elif reread is not None:
+                    self.run_pass(reread(), False)
+                else:
+                    self.run_pass(self.cache.blocks(), False)
+                tm["passes"].append(round(time.time() - tp, 3))
+                if self.device.type == "cuda":
+                    tm.setdefault("hbm_mb", []).append(
+                        torch.cuda.memory_allocated(self.device) >> 20)
+                if first and not self.did_split and not self.range_stack:
+                    return self.final_range_run() + (self.stats(),)
+                t0 = time.time()
+                unique, counts, minpos = self.final_range_run()
+                tm["final_merge"] += time.time() - t0
+                self.total_occ_known = self.n_occ
+                # the previous range's copy had a whole pass to land:
+                # completing it now keeps two fetches in flight at most
+                t0 = time.time()
+                if self.results:
+                    self.results[-1].materialize()
+                self.results.append(_Fetch(unique, counts, minpos))
+                tm["fetch_wait"] += time.time() - t0
+                del unique, counts, minpos
+                if not self.range_stack:
+                    break
+                self.lo, self.hi = self.range_stack.pop()
+                self.anchor = [0, 0, 1.0]
+        finally:
+            if self.cache is not None:
+                self.cache.close()
+        # ranges are ascending: their concatenation is the sorted table
+        t0 = time.time()
+        triples = [f.materialize() for f in self.results]
+        tm["fetch_wait"] += time.time() - t0
+        lanes = np.concatenate([t[0] for t in triples], axis=1)
+        counts = np.concatenate([t[1] for t in triples])
+        pos = np.concatenate([t[2] for t in triples])
+        for key in ("settle_wait", "split", "final_merge", "fetch_wait"):
+            tm[key] = round(tm[key], 3)
+        stats = self.stats()
+        stats.update(ooc_passes=self.pass_no, ooc_ranges=len(self.results),
+                     timing=tm)
+        return lanes, counts, pos, stats
+
+
 def count_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
-                 device):
-    """Extract + count canonical k-mers over all blocks, resident on one
-    device.
+                 device, reread=None):
+    """Extract + count canonical k-mers over all blocks on one device.
 
     Blocks stream into a (L+1, chunk) buffer of k-mer lanes plus
     first-occurrence keys; each full chunk is counted into a sorted
-    distinct run, and runs of equal generation merge as they appear
-    (an LSM ladder), so residency tracks the distinct set.
+    distinct run, and runs of equal generation merge as they appear (an
+    LSM ladder), so residency tracks the distinct set.
 
-    Returns (unique (L, n), counts (n,), minpos (n,), stats): the sorted
-    distinct k-mers, their counts and min first-occurrence keys."""
-    k = cfg.k
-    L = ln.num_lanes(k)
-    budget = resident_slots(k)
-    buf = None
-    cap = fill = block_F = 0
-    slot_base = 0
-    runs: list = []          # (unique, counts, minpos, generation)
-    stats = {"reads": 0, "bases": 0, "kmer_occurrences": 0}
+    Out of core: when the distinct set outgrows the resident budget
+    (cfg.resident_kmers), counting goes multi-pass over key ranges
+    (bcalm_tpu.engine.count_blocks): the current range splits at quantile
+    keys of its merged run, keeps the lowest part, and queues the rest
+    for later passes, each of which re-reads the input through reread()
+    when given, else from a _BlockCache.  Each finished range is fetched
+    to the host once, asynchronously, while the next pass runs.
 
-    def merge_generations():
-        while len(runs) >= 2 and runs[-1][3] == runs[-2][3]:
-            b, a = runs.pop(), runs.pop()
-            runs.append(_merge_runs([a[:3], b[:3]]) + (a[3] + 1,))
-
-    def check_budget():
-        if sum(r[0].shape[1] for r in runs) <= budget:
-            return
-        merged = _merge_runs([r[:3] for r in runs])
-        runs[:] = [merged + (max(r[3] for r in runs) + 1,)]
-        if merged[0].shape[1] > budget:
-            raise RuntimeError(
-                f"{merged[0].shape[1]} distinct {k}-mers exceed the resident "
-                f"budget of {budget} on {device}: multi-pass out-of-core "
-                f"counting is not yet ported (ROADMAP A10)")
-
-    def flush():
-        nonlocal fill
-        if fill == 0:
-            return
-        unique, counts, minpos, n = count_op.count_canonical(
-            buf[:L, :fill], pos=buf[L, :fill])
-        n = int(n)
-        runs.append((unique[:, :n].clone(), counts[:n].clone(),
-                     minpos[:n].clone(), 0))
-        fill = 0
-        merge_generations()
-        check_budget()
-
-    for block in blocks:
-        F = extract_op.block_slots(block.words.shape, k)
-        if buf is None or F != block_F:
-            flush()
-            block_F = F
-            cap = max(cfg.chunk_kmers, F)
-            buf = torch.empty((L + 1, cap), dtype=torch.int64, device=device)
-        if fill + F > cap:
-            flush()
-        lens = block.lengths.astype(np.int64)
-        stats["reads"] += int((lens > 0).sum())
-        stats["bases"] += int(lens.sum())
-        stats["kmer_occurrences"] += int(np.maximum(0, lens - k + 1).sum())
-        words = torch.from_numpy(block.words.astype(np.int64)).to(device)
-        lengths = torch.from_numpy(lens).to(device)
-        extract_op.extract_insert(buf, words, lengths, k,
-                                  slot_base & 0x7FFFFFFF, fill)
-        slot_base += F
-        fill += F
-    flush()
-    if not runs:
-        empty = torch.zeros((L, 0), dtype=torch.int64, device=device)
-        e1 = torch.zeros((0,), dtype=torch.int64, device=device)
-        return empty, e1, e1.clone(), stats
-    unique, counts, minpos = (_merge_runs([r[:3] for r in runs])
-                              if len(runs) > 1 else runs[0][:3])
-    return unique, counts, minpos, stats
+    Returns (unique, counts, minpos, stats): the sorted distinct k-mers,
+    their counts and min first-occurrence keys; device tensors of exact
+    size when everything stayed resident, else numpy arrays (lanes u32
+    (L, n), counts int32, pos u32) with stats "ooc_passes", "ooc_ranges"
+    and "timing"."""
+    counter = _RangeCounter(cfg, torch.device(device), reread is None)
+    return counter.count(blocks, reread)
 
 
 def compact_solid_pos(solid, counts, minpos, n_solid: int, k: int):
@@ -314,31 +785,19 @@ def link_join(seqs: List[str], k: int) -> List[Tuple[int, str, int, str]]:
              str(dst_sign[t])) for t in order]
 
 
-def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
-                      device) -> UnitigSet:
-    """Device-resident end-to-end build from packed read blocks."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.time()
-    unique, counts, minpos, stats = count_blocks(blocks, cfg, device)
-    _sync(device)
-    stats["t_count_s"] = round(time.time() - t0, 2)
-    n_u = unique.shape[1]
-    histo = count_op.abundance_histogram(counts, n_u, cfg.histo_max)
-    histo = histo.cpu().numpy().astype(np.int32)
-    solid, counts_s, pos_s, n_solid = count_op.filter_abundance_fold(
-        unique, counts, minpos, n_u, cfg.abundance_min, cfg.abundance_max)
-    n_solid = int(n_solid)
-    stats["distinct_kmers"] = n_u
+def _compact_assemble(solid, counts, minpos, n_solid: int, cfg: EngineConfig,
+                      histo: np.ndarray, stats: Dict) -> UnitigSet:
+    """Compaction, assembly and links of a solid table on its device
+    (sentinel-folded or exact-size; first-occurrence keys in minpos)."""
+    device = solid.device
     stats["solid_kmers"] = n_solid
-    stats["solid_kmer_abundance"] = int(counts_s.sum())
     if n_solid == 0:
+        stats["unitigs"] = 0
         return UnitigSet(k=cfg.k, seqs=[], kc=np.zeros(0, np.int64),
                          abundances=[], circular=np.zeros(0, bool),
                          histogram=histo, stats=stats)
     t1 = time.time()
-    solid_r, counts_r, info = compact_solid_pos(solid, counts_s, pos_s,
+    solid_r, counts_r, info = compact_solid_pos(solid, counts, minpos,
                                                 n_solid, cfg.k)
     n_unitigs = int(info["n_unitigs"])
     _sync(device)
@@ -349,15 +808,91 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     links = link_join(seqs, cfg.k)
     stats["t_assemble_s"] = round(time.time() - t1, 2)
     stats["unitigs"] = len(seqs)
-    if device.type == "cuda":
-        stats["device_peak_mb"] = torch.cuda.max_memory_allocated(device) >> 20
     return UnitigSet(k=cfg.k, seqs=seqs, kc=kc, abundances=abund,
                      circular=circular, links=links, histogram=histo,
                      stats=stats)
 
 
+def compact_from_counts(solid_np: np.ndarray, counts_np: np.ndarray,
+                        cfg: EngineConfig, device,
+                        minpos_np: np.ndarray) -> UnitigSet:
+    """Compaction + assembly + links from a host solid table (lanes u32
+    (L, n), counts, first-occurrence keys u32): the multi-pass count's
+    last step (bcalm_tpu.engine.compact_from_counts on its minpos path)."""
+    device = torch.device(device)
+    solid = convert.lanes_from_numpy(solid_np, device)
+    counts = torch.from_numpy(np.asarray(counts_np, np.int64)).to(device)
+    minpos = convert.pos_from_numpy(minpos_np, device)
+    stats = {"solid_kmer_abundance": int(counts_np.sum(dtype=np.int64))}
+    return _compact_assemble(solid, counts, minpos, int(solid_np.shape[1]),
+                             cfg, None, stats)
+
+
+def _host_solidity(unique: np.ndarray, counts: np.ndarray, cfg: EngineConfig):
+    """Histogram and solidity mask of a host distinct table (numpy)."""
+    histo = np.bincount(np.minimum(counts, cfg.histo_max),
+                        minlength=cfg.histo_max + 1).astype(np.int32)
+    keep = (counts >= cfg.abundance_min) & (counts <= cfg.abundance_max)
+    return histo, keep
+
+
+def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
+                      device, reread=None) -> UnitigSet:
+    """End-to-end build from packed read blocks.  reread: a callable that
+    yields the same blocks again, for the passes of a multi-pass count
+    (else the first pass stages them in a _BlockCache).
+
+    A resident count stays on the device through the solidity fold (K7)
+    and compaction; a multi-pass count's host table gets its histogram
+    and solidity mask in numpy and compacts through compact_from_counts."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    unique, counts, minpos, stats = count_blocks(blocks, cfg, device, reread)
+    _sync(device)
+    stats["t_count_s"] = round(time.time() - t0, 2)
+    if isinstance(unique, np.ndarray):
+        histo, keep = _host_solidity(unique, counts, cfg)
+        stats["distinct_kmers"] = int(counts.shape[0])
+        us = compact_from_counts(unique[:, keep], counts[keep], cfg, device,
+                                 minpos[keep])
+        us.histogram = histo
+        us.stats.update(stats)
+    else:
+        n_u = unique.shape[1]
+        solid, counts_s, pos_s, n_solid, histo = count_op.solid_fold_histogram(
+            unique, counts, minpos, n_u, cfg.abundance_min, cfg.abundance_max,
+            cfg.histo_max)
+        stats["distinct_kmers"] = n_u
+        stats["solid_kmer_abundance"] = int(counts_s.sum())
+        us = _compact_assemble(solid, counts_s, pos_s, int(n_solid[0]), cfg,
+                               histo.cpu().numpy().astype(np.int32), stats)
+    if device.type == "cuda":
+        us.stats["device_peak_mb"] = torch.cuda.max_memory_allocated(device) >> 20
+    return us
+
+
+def count_and_filter(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
+                     device, reread=None):
+    """Counting phase -> host arrays: (solid lanes u32 (L, n), counts
+    int32, minpos u32, histogram int32, stats), the histogram and the
+    solidity filter in numpy (bcalm_tpu.engine.count_and_filter)."""
+    unique, counts, minpos, stats = count_blocks(blocks, cfg, device, reread)
+    if not isinstance(unique, np.ndarray):
+        unique = convert.lanes_to_numpy(unique)
+        counts = convert.counts_to_numpy(counts)
+        minpos = convert.pos_to_numpy(minpos)
+    histo, keep = _host_solidity(unique, counts, cfg)
+    stats["distinct_kmers"] = int(counts.shape[0])
+    stats["solid_kmers"] = int(keep.sum())
+    return unique[:, keep], counts[keep], minpos[keep], histo, stats
+
+
 def build_from_seqs(seqs: Iterable[str], cfg: EngineConfig,
                     device) -> UnitigSet:
+    """build_from_blocks over the packed blocks of `seqs` (a multi-pass
+    count stages them in a _BlockCache)."""
     blocks = packing.iter_blocks(seqs, cfg.k, block_reads=cfg.block_reads,
                                  max_len=cfg.max_len)
     return build_from_blocks(blocks, cfg, device)

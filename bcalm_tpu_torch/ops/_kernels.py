@@ -10,7 +10,7 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch, launches on the current stream, raises when the C
 function returns a CUDA error, and adds one to its entry in ``LAUNCHES``
 each time it launches its kernel(s).  The plain PyTorch versions live beside the
-callers in ops/{extract,count,junctions,chains}.py; these wrappers never
+callers in ops/{extract,count,junctions,chains,runchains}.py; these wrappers never
 fall back to them.
 """
 
@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"extract_insert": 0, "count_runs": 0, "junction_keys": 0,
-            "junction_pairs": 0, "jump_round": 0}
+            "junction_pairs": 0, "jump_round": 0, "range_fold": 0,
+            "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -49,6 +50,11 @@ _SIGNATURES = {
                          _P],
     "bt_junction_pairs": [_P, _I64, _I32, _P, _I64, _I64, _I32, _P, _P],
     "bt_jump_round": [_P, _P, _I64, _P, _P],
+    "bt_range_fold": [_P, _I64, _I64, _I32, _P, _P, _P, _P],
+    "bt_lower_bound": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _P],
+    "bt_solid_fold": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
+                      _P, _I64, _P, _P, _P, _P, _P],
+    "bt_run_scans": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 MAX_LANES = 8
 
@@ -122,13 +128,18 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def _check(t: torch.Tensor, name: str, dtype=torch.int64, ndim=None):
+def _check(t: torch.Tensor, name: str, dtype=torch.int64, ndim=None,
+           rows_strided: bool = False):
+    """rows_strided: a (rows, cols) view whose rows are contiguous but may
+    lie apart (a column slice of a wider buffer) is accepted."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if rows_strided and t.dim() == 2 and t.stride(1) == 1:
+        return
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
@@ -243,3 +254,96 @@ def jump_round(Q: torch.Tensor, Qn: torch.Tensor,
         _launch("bt_jump_round", Q.data_ptr(), Qn.data_ptr(), Q.shape[0],
                 changed.data_ptr())
         LAUNCHES["jump_round"] += 1
+
+
+def _key_arg(key, L: int, what: str):
+    """A key of L u32 lanes as a ctypes array (read by the host code)."""
+    if len(key) != L:
+        raise ValueError(f"{what}: expected {L} lanes, got {len(key)}")
+    return (ctypes.c_uint32 * L)(*[int(x) for x in key])
+
+
+def range_fold(body: torch.Tensor, lo, hi) -> torch.Tensor:
+    """K5: fold, in place, the columns of the (L+1, N) body whose key lies
+    outside [lo, hi) to the sentinel; returns the (1,) count of in-range
+    columns.  lo, hi: L u32 lane values each."""
+    _check(body, "body", ndim=2, rows_strided=True)
+    L = body.shape[0] - 1
+    _lanes_ok(L, "range_fold")
+    occ = torch.zeros((1,), dtype=torch.int64, device=body.device)
+    if body.shape[1]:
+        _launch("bt_range_fold", body.data_ptr(), body.stride(0),
+                body.shape[1], L, _key_arg(lo, L, "lo"),
+                _key_arg(hi, L, "hi"), occ.data_ptr())
+        LAUNCHES["range_fold"] += 1
+    return occ
+
+
+def lower_bound(run: torch.Tensor, n: int, bounds: torch.Tensor) -> torch.Tensor:
+    """K6: for each column of the (L, P) bounds, the number of columns of
+    the run, sorted over its first n, whose key is below it: (P,)."""
+    _check(run, "run", ndim=2)
+    _check(bounds, "bounds", ndim=2)
+    L = run.shape[0]
+    _lanes_ok(L, "lower_bound")
+    if bounds.shape[0] != L or not 0 <= n <= run.shape[1]:
+        raise ValueError("lower_bound: bounds or n do not fit the run")
+    P = bounds.shape[1]
+    out = torch.empty((P,), dtype=torch.int64, device=run.device)
+    if P:
+        _launch("bt_lower_bound", run.data_ptr(), run.stride(0), n, L,
+                bounds.data_ptr(), bounds.stride(0), P, out.data_ptr())
+        LAUNCHES["lower_bound"] += 1
+    return out
+
+
+def solid_fold_histogram(unique: torch.Tensor, counts: torch.Tensor,
+                         minpos: torch.Tensor, n_unique: int,
+                         abundance_min: int, abundance_max: int,
+                         histo_max: int):
+    """K7: (solid, counts', pos', n_solid (1,), histogram (histo_max+1,))."""
+    _check(unique, "unique", ndim=2)
+    _check(counts, "counts", ndim=1)
+    _check(minpos, "minpos", ndim=1)
+    L, N = unique.shape
+    _lanes_ok(L, "solid_fold_histogram")
+    if counts.shape[0] != N or minpos.shape[0] != N or histo_max < 0:
+        raise ValueError("solid_fold_histogram: shapes do not match")
+    dev = unique.device
+    solid = torch.empty_like(unique)
+    scounts = torch.empty_like(counts)
+    spos = torch.empty_like(minpos)
+    n_solid = torch.zeros((1,), dtype=torch.int64, device=dev)
+    histo = torch.zeros((histo_max + 1,), dtype=torch.int64, device=dev)
+    if N:
+        _launch("bt_solid_fold", unique.data_ptr(), unique.stride(0),
+                counts.data_ptr(), minpos.data_ptr(), N, min(n_unique, N), L,
+                abundance_min, abundance_max, histo_max, solid.data_ptr(),
+                solid.stride(0), scounts.data_ptr(), spos.data_ptr(),
+                n_solid.data_ptr(), histo.data_ptr())
+        LAUNCHES["solid_fold_histogram"] += 1
+    return solid, scounts, spos, n_solid, histo
+
+
+def run_scans(succ: torch.Tensor, n_solid: int, C: int):
+    """K8 on the (>= C,) successor array: (is_head, is_tail, rid, head_pos,
+    end_pos, R (1,)) over [0, C)."""
+    _check(succ, "succ", ndim=1)
+    if succ.shape[0] < C or not 0 <= n_solid <= C:
+        raise ValueError("run_scans: succ shorter than C or n_solid > C")
+    dev = succ.device
+    is_head = torch.empty((C,), dtype=torch.bool, device=dev)
+    is_tail = torch.empty((C,), dtype=torch.bool, device=dev)
+    rid = torch.empty((C,), dtype=torch.int64, device=dev)
+    head_pos = torch.empty((C,), dtype=torch.int64, device=dev)
+    end_pos = torch.empty((C,), dtype=torch.int64, device=dev)
+    R = torch.zeros((1,), dtype=torch.int64, device=dev)
+    if C:
+        tiles = -(-C // 1024)
+        scratch = torch.empty((3 * tiles,), dtype=torch.int64, device=dev)
+        _launch("bt_run_scans", succ.data_ptr(), C, n_solid,
+                scratch.data_ptr(), is_head.data_ptr(), is_tail.data_ptr(),
+                rid.data_ptr(), head_pos.data_ptr(), end_pos.data_ptr(),
+                R.data_ptr())
+        LAUNCHES["run_scans"] += 1
+    return is_head, is_tail, rid, head_pos, end_pos, R

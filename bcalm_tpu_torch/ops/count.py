@@ -1,19 +1,23 @@
-"""K-mer counting: lexicographic sort + run reduction (K2).
+"""K-mer counting: sort + run reduction (K2), key ranges (K5, K6) and the
+solidity fold + histogram (K7).
 
-Counterpart of ``bcalm_tpu/ops/count.py``.  Lanes are lane-major (L, N)
-int64 tensors holding u32 values; invalid columns are folded to the
-all-ones sentinel, which sorts after every canonical k-mer.
+Counterpart of ``bcalm_tpu/ops/count.py`` and of the range programs of
+``bcalm_tpu/engine.py`` (_lex_lt, _count_chunk_ranged, _count_lt,
+_settle_n).  Lanes are lane-major (L, N) int64 tensors holding u32
+values; invalid columns are folded to the all-ones sentinel, which sorts
+after every canonical k-mer and compares above every range bound.
 
 :func:`count_canonical` sorts with ``torch.sort`` (ops.sort) and reduces
-the sorted runs with :func:`count_runs`, which launches the CUDA kernels
-(csrc/count.cu) for CUDA tensors and runs :func:`count_runs_plain` for
-CPU tensors.  Counts are int64; the JAX package's are int32 and equal
-wherever those do not overflow.
+the sorted runs with :func:`count_runs`.  Each kernel entry here
+(count_runs, range_fold, lower_bound, solid_fold_histogram) launches its
+CUDA kernel (csrc/{count,ranges,solid}.cu) for CUDA tensors and runs its
+``*_plain`` version for CPU tensors.  Counts are int64; the JAX package's
+are int32 and equal wherever those do not overflow.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -79,6 +83,61 @@ def count_canonical(lanes: torch.Tensor, weights: Optional[torch.Tensor] = None,
                       None if pos is None else pos[perm])
 
 
+def lex_lt_plain(lanes: torch.Tensor, bound: Sequence[int]) -> torch.Tensor:
+    """Columnwise lexicographic lanes[:, i] < bound over L u32 lanes."""
+    lt = torch.zeros(lanes.shape[1], dtype=torch.bool, device=lanes.device)
+    eq = torch.ones_like(lt)
+    for j in range(lanes.shape[0]):
+        b = int(bound[j])
+        lt |= eq & (lanes[j] < b)
+        eq &= lanes[j] == b
+    return lt
+
+
+def range_fold_plain(body: torch.Tensor, lo: Sequence[int],
+                     hi: Sequence[int]) -> torch.Tensor:
+    """Plain version of K5: fold, in place, the columns of the (L+1, N)
+    body (key lanes + pos row) whose key lies outside [lo, hi) to the
+    sentinel; returns the (1,) count of in-range columns."""
+    keys = body[:-1]
+    keep = ~lex_lt_plain(keys, lo) & lex_lt_plain(keys, hi)
+    body.masked_fill_(~keep[None], SENTINEL)
+    return keep.sum().reshape(1)
+
+
+def range_fold(body: torch.Tensor, lo: Sequence[int], hi: Sequence[int]):
+    """K5 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if body.device.type == "cpu":
+        return range_fold_plain(body, lo, hi)
+    return _kernels.range_fold(body, lo, hi)
+
+
+def lower_bound_plain(run: torch.Tensor, n: int,
+                      bounds: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: for each column of the (L, P) bounds, the
+    number of the run's first n columns whose key is below it."""
+    return torch.stack([lex_lt_plain(run[:, :n], bounds[:, p].tolist()).sum()
+                        for p in range(bounds.shape[1])]).reshape(-1)
+
+
+def lower_bound(run: torch.Tensor, n: int, bounds: torch.Tensor):
+    """K6 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if run.device.type == "cpu":
+        return lower_bound_plain(run, n, bounds)
+    return _kernels.lower_bound(run, n, bounds)
+
+
+def count_chunk_ranged(body: torch.Tensor, lo: Sequence[int],
+                       hi: Sequence[int]):
+    """Count a chunk body restricted to the key range [lo, hi): the
+    out-of-range columns fold in place (K5), then count_canonical.
+    Returns (unique, counts, minpos, n_unique, in-range occurrences), the
+    last two as 0-d tensors."""
+    occ = range_fold(body, lo, hi)
+    unique, counts, minpos, n_unique = count_canonical(body[:-1], pos=body[-1])
+    return unique, counts, minpos, n_unique, occ[0]
+
+
 def filter_abundance_fold(unique, counts, minpos, n_unique: int,
                           abundance_min: int, abundance_max: int):
     """Solidity filter: columns outside [abundance_min, abundance_max] (or
@@ -99,3 +158,27 @@ def abundance_histogram(counts: torch.Tensor, n_unique: int,
     takes every count >= histo_max)."""
     binned = torch.clamp(counts[:n_unique], 0, histo_max)
     return torch.bincount(binned, minlength=histo_max + 1)
+
+
+def solid_fold_histogram_plain(unique, counts, minpos, n_unique: int,
+                               abundance_min: int, abundance_max: int,
+                               histo_max: int):
+    """Plain version of K7: filter_abundance_fold + abundance_histogram.
+    Returns (solid, counts', pos', n_solid (1,), histogram)."""
+    solid, scounts, spos, n_solid = filter_abundance_fold(
+        unique, counts, minpos, n_unique, abundance_min, abundance_max)
+    return (solid, scounts, spos, n_solid.reshape(1),
+            abundance_histogram(counts, n_unique, histo_max))
+
+
+def solid_fold_histogram(unique, counts, minpos, n_unique: int,
+                         abundance_min: int, abundance_max: int,
+                         histo_max: int):
+    """K7 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if unique.device.type == "cpu":
+        return solid_fold_histogram_plain(unique, counts, minpos, n_unique,
+                                          abundance_min, abundance_max,
+                                          histo_max)
+    return _kernels.solid_fold_histogram(unique, counts, minpos, n_unique,
+                                         abundance_min, abundance_max,
+                                         histo_max)

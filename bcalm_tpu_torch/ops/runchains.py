@@ -8,8 +8,12 @@ weighted by run length) runs on the contracted run graph, and unitig
 ids/ranks are broadcast back over the runs.
 
 The JAX package writes its scans as log-doubling shifts for the TPU
-compiler; here they are ``torch.cummax``/``torch.cummin`` and
-index-carrying fills.
+compiler; here :func:`run_scans` launches the K8 block scan
+(csrc/runscan.cu) for CUDA tensors and runs :func:`run_scans_plain`
+(``torch.cumsum``/``cummax``/``cummin``) for CPU tensors.  The fills of
+run_decompose gather from the same scans: ``head_pos`` is the nearest
+head at or before each entry and ``end_pos`` the nearest tail at or after
+it.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from bcalm_tpu_torch.models import lanes as ln
+from bcalm_tpu_torch.ops import _kernels
 from bcalm_tpu_torch.ops import chains as chains_op
 from bcalm_tpu_torch.ops import junctions as junctions_op
 from bcalm_tpu_torch.ops import sort as sort_op
@@ -42,16 +47,12 @@ def reorder_by_pos(solid: torch.Tensor, counts: torch.Tensor,
     return torch.where(strand[None], ln.revcomp(lanes, k), lanes), counts[perm]
 
 
-def _cummin_rev(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummin(x.flip(0), 0).values.flip(0)
-
-
-def junction_runs(solid_r: torch.Tensor, n_solid: int, k: int):
-    """Successor array plus the consecutive-run structure of the + half:
-    (succ, {is_head, rid, head_pos, end_pos, R})."""
-    C = solid_r.shape[1]
-    succ = junctions_op.successor_arrays(solid_r, n_solid, k)
-    idx = torch.arange(C, device=solid_r.device)
+def run_scans_plain(succ: torch.Tensor, n_solid: int, C: int):
+    """Plain version of K8: the consecutive-run structure of [0, C) from
+    the successor array.  Returns (is_head, is_tail, rid, head_pos,
+    end_pos, R (1,)); head_pos is -1 before the first head, end_pos is C
+    past the last tail."""
+    idx = torch.arange(C, device=succ.device)
     vplus = idx < n_solid
     nxt = vplus & (succ[:C] == idx + 1) & (idx + 1 < C)
     prev = torch.cat([torch.zeros((1,), dtype=torch.bool, device=idx.device),
@@ -60,24 +61,31 @@ def junction_runs(solid_r: torch.Tensor, n_solid: int, k: int):
     is_tail = vplus & ~nxt
     rid = torch.cumsum(is_head.to(torch.int64), 0) - 1
     head_pos = torch.cummax(torch.where(is_head, idx, -1), 0).values
-    end_pos = _cummin_rev(torch.where(is_tail, idx, C))
-    return succ, {"is_head": is_head, "rid": rid, "head_pos": head_pos,
-                  "end_pos": end_pos, "R": int(is_head.sum())}
+    end_pos = torch.cummin(torch.where(is_tail, idx, C).flip(0), 0).values.flip(0)
+    return is_head, is_tail, rid, head_pos, end_pos, is_head.sum().reshape(1)
 
 
-def _fill(have: torch.Tensor, vals, reverse: bool = False):
-    """Each position takes the values of the nearest position at or before
-    it (at or after it when reverse) where `have` is set; 0 where there is
-    none (the JAX _ffill's fill value)."""
-    n = have.shape[0]
-    idx = torch.arange(n, device=have.device)
-    if reverse:
-        src = _cummin_rev(torch.where(have, idx, n))
-        found = src < n
-    else:
-        src = torch.cummax(torch.where(have, idx, -1), 0).values
-        found = src >= 0
-    src = torch.clamp(src, 0, n - 1)
+def run_scans(succ: torch.Tensor, n_solid: int, C: int):
+    """K8 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if succ.device.type == "cpu":
+        return run_scans_plain(succ, n_solid, C)
+    return _kernels.run_scans(succ, n_solid, C)
+
+
+def junction_runs(solid_r: torch.Tensor, n_solid: int, k: int):
+    """Successor array plus the consecutive-run structure of the + half:
+    (succ, {is_head, is_tail, rid, head_pos, end_pos, R})."""
+    C = solid_r.shape[1]
+    succ = junctions_op.successor_arrays(solid_r, n_solid, k)
+    is_head, is_tail, rid, head_pos, end_pos, R = run_scans(succ, n_solid, C)
+    return succ, {"is_head": is_head, "is_tail": is_tail, "rid": rid,
+                  "head_pos": head_pos, "end_pos": end_pos, "R": int(R[0])}
+
+
+def _gather(src: torch.Tensor, found: torch.Tensor, vals):
+    """vals at the source positions src where found, 0 elsewhere (the JAX
+    _ffill's fill value)."""
+    src = torch.clamp(src, 0, src.shape[0] - 1)
     return tuple(torch.where(found, v[src], 0) for v in vals)
 
 
@@ -132,16 +140,15 @@ def run_decompose(succ: torch.Tensor, n_solid: int, is_head, rid, head_pos,
     a_rank = torch.zeros((C,), dtype=torch.int64, device=dev)
     a_uid[hpos[rvalid]] = cuid[:R_cap][rvalid]
     a_rank[hpos[rvalid]] = crank[:R_cap][rvalid]
-    uid_p, rank_p = _fill(is_head, (a_uid, a_rank))
+    uid_p, rank_p = _gather(head_pos, head_pos >= 0, (a_uid, a_rank))
     uid_plus = torch.where(vplus, uid_p, -1)
     rank_plus = rank_p + (idx - head_pos)
 
-    is_tail = end_pos == idx
     b_uid = torch.full((C,), -1, dtype=torch.int64, device=dev)
     b_rank = torch.zeros((C,), dtype=torch.int64, device=dev)
     b_uid[epos[rvalid]] = cuid[R_cap:][rvalid]
     b_rank[epos[rvalid]] = crank[R_cap:][rvalid]
-    uid_m, rank_m = _fill(is_tail, (b_uid, b_rank), reverse=True)
+    uid_m, rank_m = _gather(end_pos, end_pos < C, (b_uid, b_rank))
     uid_minus = torch.where(vplus, uid_m, -1)
     rank_minus = rank_m + (end_pos - idx)
 

@@ -13,10 +13,18 @@ Phases (any failure raises, and the script exits non-zero):
    ``-kmer-size 31 -abundance-min 2``, first as ``python -m
    bcalm_tpu_torch``, then through ``bcalm_tpu_torch.cli.main`` in this
    process, whose kernel launch counters are reset just before the call;
-4. output invariants of that run: each solid canonical k-mer once, KC
-   sums, every L: link a real (k-1)-overlap;
-5. each kernel vs its plain PyTorch version on the card, on the inputs the
-   full-size run fed it: bitwise equality, CUDA-event times, launches.
+3b. the same reads and flags with ``-max-memory M``, M chosen from the
+   port's memory model so that the resident budget holds at most a third
+   of the distinct k-mers phase 3 counted: counting goes multi-pass over
+   key ranges; again first as ``python -m bcalm_tpu_torch``, then
+   through ``cli.main`` with the counters reset just before it.  At least
+   3 ranges, the FASTA byte-identical to phase 3's, peak device memory
+   within M;
+4. output invariants of the phase 3 run: each solid canonical k-mer once,
+   KC sums, every L: link a real (k-1)-overlap;
+5. each kernel vs its plain PyTorch version on the card, on the inputs
+   the full-size runs fed it: bitwise equality, CUDA-event times, and the
+   launches of the run whose path needs it.
 
 The last line is {"ok": true, "device": {...}}.  Exits 1 without a result
 when no CUDA device is available.
@@ -49,7 +57,22 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
                        "bcalm_tpu/ops/junctions.py:142"),
     "jump_round": ("bcalm_tpu_torch/csrc/chains.cu",
                    "bcalm_tpu/ops/chains.py:298"),
+    "range_fold": ("bcalm_tpu_torch/csrc/ranges.cu",
+                   "bcalm_tpu/engine.py:404"),
+    "lower_bound": ("bcalm_tpu_torch/csrc/ranges.cu",
+                    "bcalm_tpu/engine.py:443"),
+    "solid_fold_histogram": ("bcalm_tpu_torch/csrc/solid.cu",
+                             "bcalm_tpu/ops/count.py:173"),
+    "run_scans": ("bcalm_tpu_torch/csrc/runscan.cu",
+                  "bcalm_tpu/ops/runchains.py:116"),
 }
+# the kernels each main path must launch: the resident build, and the
+# multi-pass build (whose solidity filter runs in numpy on the host)
+RESIDENT_PATH = ("extract_insert", "count_runs", "junction_keys",
+                 "junction_pairs", "jump_round", "solid_fold_histogram",
+                 "run_scans")
+OOC_PATH = ("extract_insert", "count_runs", "junction_keys", "junction_pairs",
+            "jump_round", "range_fold", "lower_bound", "run_scans")
 
 
 # the fixtures of tests/test_oracle.py (the reference's example inputs)
@@ -166,8 +189,10 @@ def write_reads(path: str, coverage: float, seed: int) -> int:
 
 
 class Recorder:
-    """Keeps the first inputs each kernel wrapper received (cloned before
-    the call, since extract_insert writes in place)."""
+    """Keeps the first inputs each kernel wrapper received, copied to the
+    host before the call (extract_insert and range_fold write in place;
+    host copies leave the run's peak device memory as a user's run has
+    it)."""
 
     def __init__(self, kmod):
         self.kmod = kmod
@@ -180,7 +205,8 @@ class Recorder:
         def recorded(*args):
             if name not in self.inputs:
                 self.inputs[name] = tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+                    a.to("cpu", copy=True) if isinstance(a, torch.Tensor) else a
+                    for a in args)
             return fn(*args)
         return recorded
 
@@ -214,13 +240,58 @@ def _report(what: str, wall: float, stats: dict) -> None:
         f"unitigs {stats['unitigs']}; device_peak_mb {stats.get('device_peak_mb', 'not measured')}")
 
 
-def phase_full(tmp: str, coverage: float, seed: int):
-    """The CLI once as `python -m bcalm_tpu_torch` (a user's run), then once
-    through cli.main in this process with the launch counters reset just
-    before it; both outputs must be byte-identical."""
+def _run_cli(tmp: str, args, what: str, out: str):
+    """The CLI once as `python -m bcalm_tpu_torch` (a user's run), then
+    once through cli.main in this process with the launch counters reset
+    just before it; both outputs must be byte-identical.  Returns (path of
+    the in-process output, its stats, its launches, recorded inputs)."""
     from bcalm_tpu_torch import cli
     from bcalm_tpu_torch.ops import _kernels
 
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bcalm_tpu_torch", *args, "-out",
+         os.path.join(tmp, out + "_sub")], cwd=repo, capture_output=True,
+        text=True, env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m bcalm_tpu_torch exited "
+                           f"{proc.returncode}:\n{proc.stderr}")
+    sub_stats = _stats(proc.stdout)
+    _report(f"python -m bcalm_tpu_torch {what} (process start included)",
+            wall, sub_stats)
+
+    buf = io.StringIO()
+    with Recorder(_kernels) as rec:
+        _kernels.reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args + ["-out", os.path.join(tmp, out)])
+        wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"cli.main exited {rc}:\n{buf.getvalue()}")
+    stats = _stats(buf.getvalue())
+    _report("cli.main, same arguments, in this process", wall, stats)
+    stats["wall_s"] = wall
+    path = os.path.join(tmp, out + ".unitigs.fa")
+    with open(path, "rb") as f1, open(os.path.join(tmp, out + "_sub.unitigs.fa"), "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("the two CLI runs wrote different unitigs")
+    say(f"[launches] {json.dumps(launches)}")
+    return path, stats, sub_stats, launches, rec.inputs
+
+
+def _require_launched(launches, path_kernels, what: str):
+    for name in path_kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"{what} main path")
+
+
+def phase_full(tmp: str, coverage: float, seed: int):
+    """The resident build of the E. coli-class reads."""
     fa = os.path.join(tmp, "reads.fa")
     t0 = time.time()
     n_reads = write_reads(fa, coverage, seed)
@@ -228,40 +299,54 @@ def phase_full(tmp: str, coverage: float, seed: int):
         f"seed {seed}) written in {time.time() - t0:.1f}s")
     args = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
             "-verbose", "1"]
-    repo = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", "bcalm_tpu_torch", *args, "-out",
-         os.path.join(tmp, "sub")], cwd=repo, capture_output=True, text=True,
-        env=dict(os.environ, PYTHONPATH=repo), timeout=600)
-    wall = time.time() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"python -m bcalm_tpu_torch exited "
-                           f"{proc.returncode}:\n{proc.stderr}")
-    _report("python -m bcalm_tpu_torch -kmer-size 31 -abundance-min 2 "
-            "(process start included)", wall, _stats(proc.stdout))
+    path, stats, _, launches, inputs = _run_cli(
+        tmp, args, "-kmer-size 31 -abundance-min 2", "ec")
+    _require_launched(launches, RESIDENT_PATH, "resident")
+    return fa, path, stats, launches, inputs
 
-    out = io.StringIO()
-    with Recorder(_kernels) as rec:
-        _kernels.reset_launches()
-        t0 = time.time()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(args + ["-out", os.path.join(tmp, "ec")])
-        wall = time.time() - t0
-        launches = dict(_kernels.LAUNCHES)
-    if rc != 0:
-        raise RuntimeError(f"cli.main exited {rc}:\n{out.getvalue()}")
-    stats = _stats(out.getvalue())
-    _report("cli.main, same arguments, in this process", wall, stats)
-    path = os.path.join(tmp, "ec.unitigs.fa")
-    with open(path, "rb") as f1, open(os.path.join(tmp, "sub.unitigs.fa"), "rb") as f2:
+
+def pick_max_memory(distinct: int, dev):
+    """The largest -max-memory (a multiple of 16 MiB) whose resident
+    budget, in the port's memory model, holds at most a third of the
+    distinct k-mers."""
+    from bcalm_tpu_torch import engine
+
+    for mb in range(16384, 0, -16):
+        cfg = engine.EngineConfig(k=K)
+        engine.configure_chunk(cfg, mb, dev)
+        if cfg.resident_kmers <= distinct // 3:
+            return mb, cfg.chunk_kmers, cfg.resident_kmers
+    raise AssertionError(f"no -max-memory gives a budget under {distinct // 3}")
+
+
+def phase_ooc(tmp: str, fa: str, resident_path: str, resident_stats, dev):
+    """Phase 3b: the multi-pass build of the same reads under -max-memory."""
+    distinct = int(resident_stats["distinct_kmers"])
+    mb, chunk, res = pick_max_memory(distinct, dev)
+    say(f"[ooc] -max-memory {mb} MiB: chunk {chunk} slots, resident budget "
+        f"{res} distinct k-mers ({distinct} distinct counted in phase 3)")
+    args = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
+            "-verbose", "1", "-max-memory", str(mb)]
+    path, stats, sub_stats, launches, inputs = _run_cli(
+        tmp, args, f"-kmer-size 31 -abundance-min 2 -max-memory {mb}", "ooc")
+    for what, st in (("python -m", sub_stats), ("cli.main", stats)):
+        if int(st["ooc_ranges"]) < 3:
+            raise AssertionError(f"{what}: {st['ooc_ranges']} key ranges, "
+                                 f"expected at least 3")
+        if int(st["device_peak_mb"]) > mb:
+            raise AssertionError(f"{what}: peak device memory "
+                                 f"{st['device_peak_mb']} MiB > -max-memory {mb}")
+        say(f"[ooc] {what}: ooc_passes {st['ooc_passes']}, ooc_ranges "
+            f"{st['ooc_ranges']}, device_peak_mb {st['device_peak_mb']} "
+            f"<= {mb}; timing {st['timing']}")
+    with open(path, "rb") as f1, open(resident_path, "rb") as f2:
         if f1.read() != f2.read():
-            raise AssertionError("the two CLI runs wrote different unitigs")
-    say(f"[launches] {json.dumps(launches)}")
-    for name in KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-    return path, stats, launches, rec.inputs
+            raise AssertionError("the multi-pass FASTA differs from the "
+                                 "resident run's")
+    say(f"[ooc] multi-pass FASTA byte-identical to the resident run's; "
+        f"in-process wall {stats['wall_s']:.2f}s")
+    _require_launched(launches, OOC_PATH, "multi-pass")
+    return launches, inputs
 
 
 def _canonical_kmers(seqs, k: int) -> np.ndarray:
@@ -343,9 +428,12 @@ def _max_err(a, b) -> float:
     return float((a.long() - b.long()).abs().max().item()) if a.numel() else 0.0
 
 
-def phase_kernels(inputs, launches):
-    from bcalm_tpu_torch.ops import _kernels, chains, count, extract, junctions
+def phase_kernels(inputs, launches, dev):
+    from bcalm_tpu_torch.ops import (_kernels, chains, count, extract,
+                                     junctions, runchains)
 
+    inputs = {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                          for a in args) for name, args in inputs.items()}
     rows = []
 
     def check(name, kernel_fn, plain_fn, kernel_timed=None, plain_timed=None):
@@ -405,13 +493,39 @@ def phase_kernels(inputs, launches):
     check("jump_round", jr_kernel, jr_plain,
           lambda: _kernels.jump_round(Q, Qn, changed),
           lambda: chains.jump_round_plain(Q))
+
+    # K5 folds in place: compare on fresh copies, time on one scratch copy
+    body, lo, hi = inputs["range_fold"]
+    body_scratch = body.clone()
+
+    def fold(fn):
+        def run():
+            out = body.clone()
+            return out, fn(out, lo, hi)
+        return run
+
+    check("range_fold", fold(_kernels.range_fold), fold(count.range_fold_plain),
+          lambda: _kernels.range_fold(body_scratch, lo, hi),
+          lambda: count.range_fold_plain(body_scratch, lo, hi))
+    run, n, bounds = inputs["lower_bound"]
+    check("lower_bound", lambda: _kernels.lower_bound(run, n, bounds),
+          lambda: count.lower_bound_plain(run, n, bounds))
+    sf_args = inputs["solid_fold_histogram"]
+    check("solid_fold_histogram", lambda: _kernels.solid_fold_histogram(*sf_args),
+          lambda: count.solid_fold_histogram_plain(*sf_args))
+    succ, n_solid, C = inputs["run_scans"]
+    check("run_scans", lambda: _kernels.run_scans(succ, n_solid, C),
+          lambda: runchains.run_scans_plain(succ, n_solid, C))
     for r in rows:
         say(f"[kernel] {r['name']}: equal to plain (bitwise), {r['ms']:.4f} ms "
             f"vs plain {r['plain_ms']:.4f} ms, {r['launches']} launches in the "
             f"full-size run")
     shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
               "junction_keys": tuple(solid.shape), "junction_pairs": tuple(s_keys.shape),
-              "jump_round": tuple(Q.shape)}
+              "jump_round": tuple(Q.shape), "range_fold": tuple(body.shape),
+              "lower_bound": [tuple(run.shape), n, tuple(bounds.shape)],
+              "solid_fold_histogram": tuple(sf_args[0].shape),
+              "run_scans": [tuple(succ.shape), n_solid, C]}
     say(f"[shapes] {json.dumps(shapes)}")
     return rows
 
@@ -430,9 +544,16 @@ def main() -> int:
     name, smi = phase_device()
     phase_fixtures(dev, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        path, stats, launches, inputs = phase_full(tmp, args.coverage, args.seed)
+        fa, path, stats, launches, inputs = phase_full(tmp, args.coverage,
+                                                       args.seed)
+        ooc_launches, ooc_inputs = phase_ooc(tmp, fa, path, stats, dev)
         phase_invariants(path, stats)
-    rows = phase_kernels(inputs, launches)
+    # each kernel is held against its plain version on the inputs of the
+    # run whose path needs it, and reports that run's launches
+    for kernel in ("range_fold", "lower_bound"):
+        inputs[kernel] = ooc_inputs[kernel]
+        launches[kernel] = ooc_launches[kernel]
+    rows = phase_kernels(inputs, launches, dev)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -128,10 +128,21 @@ def test_count_blocks_independent_of_chunk_size(k):
 
 
 def test_count_blocks_raises_past_resident_budget(monkeypatch):
-    monkeypatch.setattr(tengine, "resident_slots", lambda k: 50)
-    cfg = tengine.EngineConfig(k=21, abundance_min=1, block_reads=8,
-                               max_len=64, chunk_kmers=300)
-    with pytest.raises(RuntimeError, match="ROADMAP A10"):
-        tengine.count_blocks(
-            packing.iter_blocks(reads(1), 21, block_reads=8, max_len=64), cfg,
-            "cpu")
+    """Past the resident budget the count no longer raises: it goes
+    multi-pass over key ranges and still equals bcalm_tpu's count."""
+    k = 21
+    seqs = reads(1)
+    jcfg = jengine.EngineConfig(k=k, abundance_min=1, block_reads=2,
+                                max_len=64)
+    ju, jc, jp, jn, _ = jengine.count_blocks(
+        packing.iter_blocks(seqs, k, block_reads=2, max_len=64), jcfg)
+    n = int(jn)
+    monkeypatch.setattr(tengine, "resident_slots", lambda k, budget: 50)
+    cfg = tengine.EngineConfig(k=k, abundance_min=1, block_reads=2,
+                               max_len=64, chunk_kmers=64)
+    tu, tc, tp, stats = tengine.count_blocks(
+        packing.iter_blocks(seqs, k, block_reads=2, max_len=64), cfg, "cpu")
+    assert stats["ooc_passes"] > 1
+    np.testing.assert_array_equal(tu, np.asarray(ju)[:, :n])
+    np.testing.assert_array_equal(tc, np.asarray(jc)[:n])
+    np.testing.assert_array_equal(tp, np.asarray(jp)[:n])

@@ -1,7 +1,8 @@
 """Guards of the port: no JAX, no silent fallback.
 
-- A full CPU build in a fresh interpreter leaves `jax` out of sys.modules
-  (a subprocess, since this test process imports JAX in conftest.py).
+- A full CPU build in a fresh interpreter, resident and multi-pass, leaves
+  `jax` out of sys.modules (a subprocess, since this test process imports
+  JAX in conftest.py).
 - The kernel loader raises when nvcc is absent instead of handing back
   the plain path, and the kernel wrappers refuse CPU tensors.
 - The CLI exits 1 when CUDA is requested and absent.
@@ -28,6 +29,16 @@ reads = ["ACTGATGCAGATGACACTGATGCAGATGACTTGACCA"] * 3 + ["GGTACCATGACACTGATGCAG"
 us = engine.build_from_seqs(reads, engine.EngineConfig(k=15, abundance_min=2), "cpu")
 fasta_writer.write_fasta(us, io.StringIO())
 assert us.seqs, "empty build"
+import random
+random.seed(1)
+g = "".join(random.choice("ACGT") for _ in range(600))
+reads = [g[i:i + 40] for i in range(0, 560, 5)] * 2
+cfg = engine.EngineConfig(k=15, abundance_min=2, block_reads=1, max_len=48,
+                          chunk_kmers=16, resident_kmers=8)
+ooc = engine.build_from_seqs(reads, cfg, "cpu")
+cfg.resident_kmers = 1 << 20
+assert ooc.stats["ooc_passes"] > 1
+assert ooc.seqs == engine.build_from_seqs(reads, cfg, "cpu").seqs
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("OK", len(us.seqs))
 """
@@ -55,6 +66,11 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.junction_pairs(t((2, 32)), t((32,)), 16, False),
     lambda t: _kernels.jump_round(t((8, 4)), t((8, 4)),
                                   torch.zeros(1, dtype=torch.int32)),
+    lambda t: _kernels.range_fold(t((3, 64)), (0, 0), (1, 1)),
+    lambda t: _kernels.lower_bound(t((2, 64)), 64, t((2, 1))),
+    lambda t: _kernels.solid_fold_histogram(t((2, 8)), t((8,)), t((8,)), 8, 2,
+                                            100, 10),
+    lambda t: _kernels.run_scans(t((32,)), 16, 16),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     def cpu(shape):
