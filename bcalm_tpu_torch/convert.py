@@ -56,3 +56,33 @@ def engine_config_from_jax(cfg):
     from bcalm_tpu_torch.engine import EngineConfig
 
     return EngineConfig(**{f: getattr(cfg, f) for f in _SHARED_CONFIG_FIELDS})
+
+
+# the chain decomposition's arrays: int32 in the JAX package (bool for
+# circular), int64 (bool) tensors in the port
+_CHAIN_KEYS = ("uid", "rank", "n_unitigs", "start_oid", "length", "circular")
+
+
+def chain_info_to_numpy(info) -> dict:
+    """Chain dict of tensors -> JAX's numpy form, as -only-uf stores it in
+    chains.npz: int32 arrays (uid and rank of length 2C), a 0-d int32
+    n_unitigs, bool circular."""
+    out = {}
+    for key in _CHAIN_KEYS:
+        arr = info[key].cpu().numpy()
+        if key == "n_unitigs":
+            arr = arr.reshape(())
+        out[key] = arr.astype(bool if key == "circular" else np.int32)
+    return out
+
+
+def chain_info_from_numpy(info, device) -> dict:
+    """A chain dict in JAX's numpy form (chains.npz of either package) ->
+    int64 tensors (bool circular) on `device`."""
+    out = {}
+    for key in _CHAIN_KEYS:
+        arr = np.asarray(info[key])
+        dtype = bool if key == "circular" else np.int64
+        out[key] = torch.from_numpy(arr.astype(dtype).reshape(
+            arr.shape if key != "n_unitigs" else (1,))).to(device)
+    return out

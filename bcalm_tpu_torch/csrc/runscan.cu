@@ -15,61 +15,12 @@
 // block scans those carries (prefix sum, prefix max, suffix min); each
 // tile then scans itself again from its carries and writes.  Bound:
 // memory, about 16 bytes read (succ twice) and 26 written per entry.
-#include "common.cuh"
+#include "scan.cuh"
 
 namespace {
 
-constexpr int kItems = 4;
-constexpr int kTile = bt::kThreads * kItems;
-constexpr int kCarryThreads = 1024;
-
-struct Sum {
-  __device__ long long operator()(long long a, long long b) const { return a + b; }
-};
-struct Max {
-  __device__ long long operator()(long long a, long long b) const { return a > b ? a : b; }
-};
-struct Min {
-  __device__ long long operator()(long long a, long long b) const { return a < b ? a : b; }
-};
-
-// Exclusive scan of v over the threads of the block, in thread order
-// (forward) or in reverse thread order; returns this thread's exclusive
-// value and sets total.  sh holds one slot per warp; every thread of the
-// block must call it.
-template <bool kForward, class Op>
-__device__ long long block_exclusive(long long v, Op op, long long ident,
-                                     long long* sh, long long& total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  long long inc = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    long long y = kForward ? __shfl_up_sync(0xFFFFFFFFu, inc, d)
-                           : __shfl_down_sync(0xFFFFFFFFu, inc, d);
-    if (kForward ? lane >= d : lane + d < 32) inc = op(inc, y);
-  }
-  long long exc = kForward ? __shfl_up_sync(0xFFFFFFFFu, inc, 1)
-                           : __shfl_down_sync(0xFFFFFFFFu, inc, 1);
-  if (kForward ? lane == 0 : lane == 31) exc = ident;
-  if (kForward ? lane == 31 : lane == 0) sh[w] = inc;
-  __syncthreads();
-  if (w == 0) {
-    long long s = lane < nw ? sh[lane] : ident;
-    for (int d = 1; d < 32; d <<= 1) {
-      long long y = kForward ? __shfl_up_sync(0xFFFFFFFFu, s, d)
-                             : __shfl_down_sync(0xFFFFFFFFu, s, d);
-      if (kForward ? lane >= d : lane + d < 32) s = op(s, y);
-    }
-    if (lane < nw) sh[lane] = s;  // inclusive over warps, in scan order
-  }
-  __syncthreads();
-  long long before = ident;
-  if (kForward && w > 0) before = sh[w - 1];
-  if (!kForward && w < nw - 1) before = sh[w + 1];
-  total = kForward ? sh[nw - 1] : sh[0];
-  __syncthreads();  // sh is reused by the next call
-  return op(before, exc);
-}
+constexpr int kItems = kScanItems;
+constexpr int kTile = kScanTile;
 
 __device__ __forceinline__ bool nxt_at(const int64_t* succ, long long C,
                                        long long n, long long j) {

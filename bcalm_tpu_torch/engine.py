@@ -10,15 +10,21 @@ Counterpart of ``bcalm_tpu/engine.py``'s single-device path
      each finished range to the host;
   2. abundance histogram + solidity fold (K7), or in numpy on the host
      table of a multi-pass count (compact_from_counts);
-  3. compact_solid_pos: reorder by first-occurrence key, junctions (K3),
-     run scans (K8), consecutive-run contraction and the weighted pointer
-     jump (K4);
-  4. assembly on the device, link join and UnitigSet on the host.
+  3. with a Store, the checkpoint of the solid set: K9 compaction and one
+     pinned asynchronous copy that rides behind compaction (the host
+     table of a multi-pass count is written as it is);
+  4. compact_solid_pos: reorder by first-occurrence key, junctions (K3),
+     run scans (K8), run contraction (K12), the weighted pointer jump (K4)
+     and its finish (K10); a table without first-occurrence keys
+     (multi-sample counts) goes through compact_solid instead: junctions
+     and the chain decomposition of all 2C oriented nodes (K3, K4, K10);
+  5. spelling on the device (K11), link join and UnitigSet on the host.
 
 Every function takes an explicit ``device``; tensors stay on it until the
 assembled bytes are fetched.  The host pieces that the JAX package keeps
 in its engine (EngineConfig, configure_chunk, _BlockCache, UnitigSet,
-link_join) are carried here, because importing that engine imports JAX.
+link_join, combine_sample_counts, auto_abundance_min, chain_stats) are
+carried here, because importing that engine imports JAX.
 """
 
 from __future__ import annotations
@@ -36,8 +42,11 @@ from bcalm_tpu.io import packing
 from bcalm_tpu.utils import dna
 from bcalm_tpu_torch import convert
 from bcalm_tpu_torch.models import lanes as ln
+from bcalm_tpu_torch.ops import _kernels
+from bcalm_tpu_torch.ops import chains as chains_op
 from bcalm_tpu_torch.ops import count as count_op
 from bcalm_tpu_torch.ops import extract as extract_op
+from bcalm_tpu_torch.ops import junctions as junctions_op
 from bcalm_tpu_torch.ops import runchains
 
 # CPU tensors have no card to ask for its memory: the plain paths are
@@ -140,6 +149,9 @@ class UnitigSet:
     links: List[Tuple[int, str, int, str]] = field(default_factory=list)
     histogram: Optional[np.ndarray] = None
     stats: Dict = field(default_factory=dict)
+    # -only-uf: the chain decomposition in JAX's numpy dtypes, for the
+    # store's chains.npz (convert.chain_info_to_numpy)
+    chain_info: Optional[Dict] = None
 
 
 def _sync(device) -> None:
@@ -237,13 +249,13 @@ def _solve_G(m: float, t: float) -> float:
 
 
 class _Fetch:
-    """A finished key range on its way to the host.  On a card: one
-    stacked (L+2, n) copy into pinned memory, asynchronous, completed by
-    an event; the device source lives until materialize()."""
+    """A stacked (L+2, n) table (lanes, counts, minpos rows: a finished key
+    range, or the store's compacted solid set) on its way to the host.  On
+    a card: one copy into pinned memory, asynchronous, completed by an
+    event; the device source lives until materialize()."""
 
-    def __init__(self, unique, counts, minpos):
-        stacked = torch.cat([unique, counts[None], minpos[None]])
-        self.L = unique.shape[0]
+    def __init__(self, stacked: torch.Tensor):
+        self.L = stacked.shape[0] - 2
         self.event = None
         self.src = None
         self.triple = None
@@ -589,7 +601,8 @@ class _RangeCounter:
                 t0 = time.time()
                 if self.results:
                     self.results[-1].materialize()
-                self.results.append(_Fetch(unique, counts, minpos))
+                self.results.append(_Fetch(torch.cat(
+                    [unique, counts[None], minpos[None]])))
                 tm["fetch_wait"] += time.time() - t0
                 del unique, counts, minpos
                 if not self.range_stack:
@@ -641,9 +654,12 @@ def count_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
 
 
 def compact_solid_pos(solid, counts, minpos, n_solid: int, k: int):
-    """Locality-ordered junction + chain stages on a sentinel-folded solid
-    table.  Returns (solid_r, counts_r, info): the reordered table (width
-    C = round_capacity(n_solid)) that the chain arrays refer to."""
+    """Locality-ordered junction + chain stages on a sentinel-folded or
+    zero-padded solid table (bcalm_tpu engine.compact_solid_pos): the
+    reorder by first-occurrence key, junctions (K3), run scans (K8), run
+    contraction (K12), the weighted jump (K4) and its finish (K10).
+    Returns (solid_r, counts_r, info): the reordered table (width C =
+    round_capacity(n_solid)) that the chain arrays refer to."""
     solid_r, counts_r = runchains.reorder_by_pos(solid, counts, minpos, k)
     C = runchains.round_capacity(max(1, n_solid))
     pad = C - solid_r.shape[1]
@@ -661,6 +677,19 @@ def compact_solid_pos(solid, counts, minpos, n_solid: int, k: int):
     return solid_r, counts_r, info
 
 
+def compact_solid(solid, n_solid: int, k: int):
+    """Canonical-order junction + chain stages (bcalm_tpu engine
+    compact_solid / _compact_solid_jit): junctions (K3) and the chain
+    decomposition of all 2C oriented nodes, the plain doubling (K4) and
+    its finish (K10).  solid: (L, C), columns >= n_solid ignored.
+    Returns (succ, info)."""
+    C = solid.shape[1]
+    succ = junctions_op.successor_arrays(solid, n_solid, k)
+    oid = torch.arange(2 * C, device=solid.device)
+    valid = torch.where(oid >= C, oid - C, oid) < n_solid
+    return succ, chains_op.chain_decompose(succ, valid)
+
+
 def _start_kmer_codes(s_lanes: torch.Tensor, k: int) -> torch.Tensor:
     """(L, U) k-mer lanes -> (k, U) base codes, first base first."""
     r = ln.top_lane_bases(k)
@@ -671,54 +700,73 @@ def _start_kmer_codes(s_lanes: torch.Tensor, k: int) -> torch.Tensor:
     return (s_lanes[lane] >> shift[:, None]) & 3
 
 
-def assemble_device(solid, counts, info, k: int, n_unitigs: int):
-    """Spell unitigs on the device (bcalm_tpu engine._assemble_dev).
-
-    Every member oriented k-mer writes its last base at
-    offset(uid) + k-1 + rank, each unitig's start k-mer writes its k bases,
-    and member counts come out in (uid, rank) order.  Returns (codes u8,
-    member-ordered counts, per-unitig lengths)."""
+def spell_unitigs_plain(solid, counts, uid, rank, length, start_oid,
+                        n_unitigs: int, k: int, n_members: int):
+    """Plain version of K11 (bcalm_tpu engine._assemble_dev): every member
+    oriented k-mer writes its last base at offset(uid) + k-1 + rank and
+    its count at run_start(uid) + rank, then each unitig's start k-mer
+    writes its k bases at offset(uid), where run_start is the exclusive
+    prefix of the lengths and offset(u) = run_start(u) + (k-1) u.  Returns
+    (codes u8 (n_members + (k-1) U,), member-ordered counts (n_members,))."""
     C = solid.shape[1]
-    uid, rank = info["uid"], info["rank"]
-    M = uid.shape[0]
     dev = solid.device
-    len_u = info["length"][:n_unitigs]
-    offsets = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
-                         torch.cumsum(len_u + (k - 1), 0)])
-    codes = torch.zeros((int(offsets[-1]),), dtype=torch.uint8, device=dev)
+    U = n_unitigs
+    len_u = length[:U]
+    run_start = torch.cumsum(len_u, 0) - len_u
+    offsets = run_start + (k - 1) * torch.arange(U, device=dev)
+    total = n_members + (k - 1) * U
+    codes = torch.zeros((total,), dtype=torch.uint8, device=dev)
+    mcounts = torch.zeros((n_members,), dtype=torch.int64, device=dev)
 
-    m_oid = torch.nonzero(uid >= 0).flatten()
+    m_oid = torch.nonzero((uid >= 0) & (uid < U)).flatten()
     v = torch.where(m_oid >= C, m_oid - C, m_oid)
     r = ln.top_lane_bases(k)
     first_b = (solid[0, v] >> (2 * (r - 1))) & 3
     last_b = torch.where(m_oid >= C, first_b ^ 2, solid[-1, v] & 3)
     m_uid, m_rank = uid[m_oid], rank[m_oid]
-    codes[offsets[m_uid] + (k - 1) + m_rank] = last_b.to(torch.uint8)
+    m = run_start[m_uid] + m_rank
+    d = offsets[m_uid] + (k - 1) + m_rank
+    ok = (d >= 0) & (d < total)
+    codes[d[ok]] = last_b[ok].to(torch.uint8)
+    ok = (m >= 0) & (m < n_members)
+    mcounts[m[ok]] = counts[v[ok]]
 
-    so = info["start_oid"][:n_unitigs]
-    sv = torch.where(so >= C, so - C, so)
+    so = start_oid[:U]
+    sv = torch.clamp(torch.where(so >= C, so - C, so), 0, C - 1)
     fwd = _start_kmer_codes(solid[:, sv], k)
     start_codes = torch.where((so >= C)[None], (fwd ^ 2).flip(0), fwd)
-    dest = offsets[:-1][None, :] + torch.arange(k, device=dev)[:, None]
-    codes[dest.flatten()] = start_codes.flatten().to(torch.uint8)
+    dest = (offsets[None, :] + torch.arange(k, device=dev)[:, None]).flatten()
+    ok = (dest >= 0) & (dest < total)
+    codes[dest[ok]] = start_codes.flatten()[ok].to(torch.uint8)
+    return codes, mcounts
 
-    order = torch.sort(m_uid * M + m_rank).indices
-    return codes, counts[v[order]], len_u
+
+def spell_unitigs(solid, counts, uid, rank, length, start_oid, n_unitigs: int,
+                  k: int, n_members: int):
+    """K11 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if solid.device.type == "cpu":
+        return spell_unitigs_plain(solid, counts, uid, rank, length, start_oid,
+                                   n_unitigs, k, n_members)
+    return _kernels.spell_unitigs(solid, counts, uid, rank, length, start_oid,
+                                  n_unitigs, k, n_members)
 
 
-def assemble_unitigs_device(solid, counts, info, k: int, n_unitigs: int):
-    """Device assembly + host string slicing: (seqs, kc, abundances,
-    circular)."""
+def assemble_unitigs_device(solid, counts, info, k: int, n_unitigs: int,
+                            n_solid: int):
+    """Spelling on the device (K11), then host string slicing: (seqs, kc,
+    abundances, circular).  A unitig set of n_solid members spells
+    n_solid + (k-1) U bases."""
     if n_unitigs == 0:
         return [], np.zeros(0, np.int64), [], np.zeros(0, bool)
-    codes_d, counts_d, len_d = assemble_device(solid, counts, info, k,
-                                               n_unitigs)
+    codes_d, counts_d = spell_unitigs(solid, counts, info["uid"], info["rank"],
+                                      info["length"], info["start_oid"],
+                                      n_unitigs, k, n_solid)
     codes = codes_d.cpu().numpy()
     mcounts = counts_d.cpu().numpy().astype(np.int64)
-    length = len_d.cpu().numpy()
+    length = info["length"][:n_unitigs].cpu().numpy()
     circular = info["circular"][:n_unitigs].cpu().numpy()
     offsets = np.concatenate([[0], np.cumsum(length + (k - 1))])
-    ascii_all = dna.CODE_TO_ASCII[codes].tobytes()
+    ascii_all = dna.CODE_TO_ASCII[codes[:offsets[-1]]].tobytes()
     seqs = [ascii_all[offsets[u]: offsets[u + 1]].decode()
             for u in range(n_unitigs)]
     run_bounds = np.concatenate([[0], np.cumsum(length)])
@@ -785,26 +833,27 @@ def link_join(seqs: List[str], k: int) -> List[Tuple[int, str, int, str]]:
              str(dst_sign[t])) for t in order]
 
 
-def _compact_assemble(solid, counts, minpos, n_solid: int, cfg: EngineConfig,
-                      histo: np.ndarray, stats: Dict) -> UnitigSet:
-    """Compaction, assembly and links of a solid table on its device
-    (sentinel-folded or exact-size; first-occurrence keys in minpos)."""
-    device = solid.device
-    stats["solid_kmers"] = n_solid
-    if n_solid == 0:
-        stats["unitigs"] = 0
-        return UnitigSet(k=cfg.k, seqs=[], kc=np.zeros(0, np.int64),
-                         abundances=[], circular=np.zeros(0, bool),
-                         histogram=histo, stats=stats)
-    t1 = time.time()
-    solid_r, counts_r, info = compact_solid_pos(solid, counts, minpos,
-                                                n_solid, cfg.k)
-    n_unitigs = int(info["n_unitigs"])
-    _sync(device)
-    stats["t_compact_s"] = round(time.time() - t1, 2)
+def _empty_set(cfg: EngineConfig, histo, stats: Dict) -> UnitigSet:
+    return UnitigSet(k=cfg.k, seqs=[], kc=np.zeros(0, np.int64),
+                     abundances=[], circular=np.zeros(0, bool),
+                     histogram=histo, stats=stats)
+
+
+def _finish_build(solid_r, counts_r, info, n_solid: int, cfg: EngineConfig,
+                  histo, stats: Dict, only_uf: bool = False,
+                  uf_stats: bool = False) -> UnitigSet:
+    """After compaction: the chain statistics (-uf-stats), the chain
+    checkpoint of -only-uf, or assembly (K11) and links."""
+    if uf_stats or only_uf:
+        info_np = convert.chain_info_to_numpy(info)
+        stats.update(chain_stats(info_np, n_solid))
+    if only_uf:
+        us = _empty_set(cfg, histo, stats)
+        us.chain_info = info_np
+        return us
     t1 = time.time()
     seqs, kc, abund, circular = assemble_unitigs_device(
-        solid_r, counts_r, info, cfg.k, n_unitigs)
+        solid_r, counts_r, info, cfg.k, int(info["n_unitigs"]), n_solid)
     links = link_join(seqs, cfg.k)
     stats["t_assemble_s"] = round(time.time() - t1, 2)
     stats["unitigs"] = len(seqs)
@@ -814,37 +863,96 @@ def _compact_assemble(solid, counts, minpos, n_solid: int, cfg: EngineConfig,
 
 
 def compact_from_counts(solid_np: np.ndarray, counts_np: np.ndarray,
-                        cfg: EngineConfig, device,
-                        minpos_np: np.ndarray) -> UnitigSet:
+                        cfg: EngineConfig, device, only_uf: bool = False,
+                        uf_stats: bool = False,
+                        chain_info: Optional[Dict] = None,
+                        minpos_np: Optional[np.ndarray] = None) -> UnitigSet:
     """Compaction + assembly + links from a host solid table (lanes u32
-    (L, n), counts, first-occurrence keys u32): the multi-pass count's
-    last step (bcalm_tpu.engine.compact_from_counts on its minpos path)."""
+    (L, n), counts; bcalm_tpu.engine.compact_from_counts): the multi-pass
+    count's last step and the resume entry point.
+
+    The table is padded with zeros to round_capacity(n) columns, as JAX
+    pads it.  With first-occurrence keys (minpos_np) it compacts on the
+    locality-ordered path (compact_solid_pos), else on the canonical-order
+    path (compact_solid).  chain_info: a chain checkpoint (-skip-bglue)
+    for exactly this solid set, in JAX's numpy form; with minpos the
+    (deterministic) reorder is re-derived and the decompose skipped.  A
+    checkpoint of another size raises ValueError.  only_uf / uf_stats as
+    in build_from_blocks."""
     device = torch.device(device)
-    solid = convert.lanes_from_numpy(solid_np, device)
-    counts = torch.from_numpy(np.asarray(counts_np, np.int64)).to(device)
-    minpos = convert.pos_from_numpy(minpos_np, device)
-    stats = {"solid_kmer_abundance": int(counts_np.sum(dtype=np.int64))}
-    return _compact_assemble(solid, counts, minpos, int(solid_np.shape[1]),
-                             cfg, None, stats)
+    n_solid = int(solid_np.shape[1])
+    stats = {"solid_kmers": n_solid,
+             "solid_kmer_abundance": int(np.asarray(counts_np).sum(dtype=np.int64))}
+    if n_solid == 0:
+        return _empty_set(cfg, None, stats)
+    cap = runchains.round_capacity(n_solid)
+    L = solid_np.shape[0]
+    solid = torch.zeros((L, cap), dtype=torch.int64, device=device)
+    solid[:, :n_solid] = convert.lanes_from_numpy(solid_np, device)
+    counts = torch.zeros((cap,), dtype=torch.int64, device=device)
+    counts[:n_solid] = convert.counts_from_numpy(counts_np, device)
+    minpos = None
+    if minpos_np is not None:
+        minpos = torch.full((cap,), ln.SENTINEL, dtype=torch.int64,
+                            device=device)
+        minpos[:n_solid] = convert.pos_from_numpy(minpos_np, device)
+    t1 = time.time()
+    if chain_info is not None:
+        if np.asarray(chain_info["uid"]).shape[0] != 2 * cap:
+            raise ValueError("chain checkpoint is stale (solid set size "
+                             "changed); rerun without -skip-bglue")
+        if minpos is not None:
+            solid, counts = runchains.reorder_by_pos(solid, counts, minpos,
+                                                     cfg.k)
+        info = convert.chain_info_from_numpy(chain_info, device)
+    elif minpos is not None:
+        solid, counts, info = compact_solid_pos(solid, counts, minpos,
+                                                n_solid, cfg.k)
+    else:
+        _, info = compact_solid(solid, n_solid, cfg.k)
+    _sync(device)
+    stats["t_compact_s"] = round(time.time() - t1, 2)
+    us = _finish_build(solid, counts, info, n_solid, cfg, None, stats,
+                       only_uf, uf_stats)
+    if device.type == "cuda":
+        us.stats["device_peak_mb"] = torch.cuda.max_memory_allocated(device) >> 20
+    return us
 
 
-def _host_solidity(unique: np.ndarray, counts: np.ndarray, cfg: EngineConfig):
-    """Histogram and solidity mask of a host distinct table (numpy)."""
+def _host_solidity(unique: np.ndarray, counts: np.ndarray, cfg: EngineConfig,
+                   auto_amin_cap: Optional[int] = None):
+    """Histogram and solidity mask of a host distinct table (numpy); with
+    auto_amin_cap, cfg.abundance_min is first chosen from the histogram."""
     histo = np.bincount(np.minimum(counts, cfg.histo_max),
                         minlength=cfg.histo_max + 1).astype(np.int32)
+    if auto_amin_cap is not None:
+        cfg.abundance_min = auto_abundance_min(histo, auto_amin_cap)
     keep = (counts >= cfg.abundance_min) & (counts <= cfg.abundance_max)
     return histo, keep
 
 
 def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
-                      device, reread=None) -> UnitigSet:
+                      device, reread=None, store=None,
+                      auto_amin_cap: Optional[int] = None,
+                      only_uf: bool = False, uf_stats: bool = False,
+                      solidity_kind: str = "sum") -> UnitigSet:
     """End-to-end build from packed read blocks.  reread: a callable that
     yields the same blocks again, for the passes of a multi-pass count
     (else the first pass stages them in a _BlockCache).
 
     A resident count stays on the device through the solidity fold (K7)
     and compaction; a multi-pass count's host table gets its histogram
-    and solidity mask in numpy and compacts through compact_from_counts."""
+    and solidity mask in numpy and compacts through compact_from_counts.
+
+    store (bcalm_tpu.storage.store.Store): the solid k-mers, their counts
+    and first-occurrence keys and the histogram are checkpointed for
+    ``-skip-bcalm``, in JAX's dtypes.  On the resident path K9 compacts
+    the solid set on the device and one pinned asynchronous copy brings it
+    to the host while compaction runs; a multi-pass count writes its host
+    table.  auto_amin_cap: choose cfg.abundance_min from the histogram
+    (``-abundance-min auto``).  only_uf / uf_stats: stop after the chain
+    decomposition, keeping it in UnitigSet.chain_info / add chain
+    statistics (bcalm_tpu's glue debug flags)."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -852,22 +960,63 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     unique, counts, minpos, stats = count_blocks(blocks, cfg, device, reread)
     _sync(device)
     stats["t_count_s"] = round(time.time() - t0, 2)
+
+    def write_store(solid_np, counts_np, minpos_np, histo):
+        if store is not None:
+            store.write_counts(
+                solid_np, counts_np, cfg.k, histogram=histo, minpos=minpos_np,
+                config={"abundance_min": cfg.abundance_min,
+                        "abundance_max": cfg.abundance_max,
+                        "solidity_kind": solidity_kind})
+
     if isinstance(unique, np.ndarray):
-        histo, keep = _host_solidity(unique, counts, cfg)
+        histo, keep = _host_solidity(unique, counts, cfg, auto_amin_cap)
         stats["distinct_kmers"] = int(counts.shape[0])
+        write_store(unique[:, keep], counts[keep], minpos[keep], histo)
         us = compact_from_counts(unique[:, keep], counts[keep], cfg, device,
-                                 minpos[keep])
+                                 only_uf=only_uf, uf_stats=uf_stats,
+                                 minpos_np=minpos[keep])
         us.histogram = histo
         us.stats.update(stats)
     else:
         n_u = unique.shape[1]
-        solid, counts_s, pos_s, n_solid, histo = count_op.solid_fold_histogram(
-            unique, counts, minpos, n_u, cfg.abundance_min, cfg.abundance_max,
-            cfg.histo_max)
+        amax = cfg.abundance_max
+        if auto_amin_cap is not None:
+            # the cutoff depends on the histogram: read it first
+            histo = count_op.solid_fold_histogram(
+                unique, counts, minpos, n_u, 1, amax, cfg.histo_max)[4]
+            cfg.abundance_min = auto_abundance_min(histo.cpu().numpy(),
+                                                   auto_amin_cap)
+        solid, counts_s, pos_s, n_solid_t, histo = count_op.solid_fold_histogram(
+            unique, counts, minpos, n_u, cfg.abundance_min, amax, cfg.histo_max)
+        n_solid = int(n_solid_t[0])
+        histo = histo.cpu().numpy().astype(np.int32)
         stats["distinct_kmers"] = n_u
+        stats["solid_kmers"] = n_solid
         stats["solid_kmer_abundance"] = int(counts_s.sum())
-        us = _compact_assemble(solid, counts_s, pos_s, int(n_solid[0]), cfg,
-                               histo.cpu().numpy().astype(np.int32), stats)
+        fetch = None
+        if store is not None:
+            # the checkpoint needs the solid set compacted in canonical
+            # order (the fold leaves it scattered): K9, then one copy
+            # that rides behind compaction
+            stacked, _ = count_op.solid_compact(unique, counts, minpos, n_u,
+                                                cfg.abundance_min, amax,
+                                                width=n_solid)
+            fetch = _Fetch(stacked)
+            del stacked
+        if n_solid:
+            t1 = time.time()
+            solid_r, counts_r, info = compact_solid_pos(solid, counts_s, pos_s,
+                                                        n_solid, cfg.k)
+            _sync(device)
+            stats["t_compact_s"] = round(time.time() - t1, 2)
+        if fetch is not None:
+            t1 = time.time()
+            write_store(*fetch.materialize(), histo)
+            stats["t_store_s"] = round(time.time() - t1, 2)
+        us = (_finish_build(solid_r, counts_r, info, n_solid, cfg, histo,
+                            stats, only_uf, uf_stats)
+              if n_solid else _empty_set(cfg, histo, stats))
     if device.type == "cuda":
         us.stats["device_peak_mb"] = torch.cuda.max_memory_allocated(device) >> 20
     return us
@@ -887,6 +1036,69 @@ def count_and_filter(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     stats["distinct_kmers"] = int(counts.shape[0])
     stats["solid_kmers"] = int(keep.sum())
     return unique[:, keep], counts[keep], minpos[keep], histo, stats
+
+
+def combine_sample_counts(runs, kind: str = "sum", k: Optional[int] = None):
+    """Combine per-sample distinct (lanes u32 (L, n_i), counts int32) runs
+    under a solidity kind (numpy; bcalm_tpu.engine.combine_sample_counts):
+    sum = total over samples, min = 0 unless present in every sample,
+    else the least count, max = best count.  Returns (lanes (L, n) sorted,
+    counts int32)."""
+    runs = [r for r in runs if r[0].shape[1] > 0]
+    if not runs:
+        L = ln.num_lanes(k) if k is not None else 1
+        return np.zeros((L, 0), np.uint32), np.zeros((0,), np.int32)
+    n_samples = len(runs)
+    lanes = np.concatenate([r[0] for r in runs], axis=1)
+    counts = np.concatenate([r[1] for r in runs])
+    L = lanes.shape[0]
+    order = np.lexsort(tuple(lanes[j] for j in reversed(range(L))))
+    lanes = lanes[:, order]
+    counts = counts[order]
+    first = np.ones(lanes.shape[1], bool)
+    if lanes.shape[1] > 1:
+        first[1:] = np.any(lanes[:, 1:] != lanes[:, :-1], axis=0)
+    starts = np.nonzero(first)[0]
+    sizes = np.diff(np.concatenate([starts, [lanes.shape[1]]]))
+    if kind == "sum":
+        agg = np.add.reduceat(counts.astype(np.int64), starts)
+    elif kind == "max":
+        agg = np.maximum.reduceat(counts, starts).astype(np.int64)
+    elif kind == "min":
+        agg = np.minimum.reduceat(counts, starts).astype(np.int64)
+        agg = np.where(sizes < n_samples, 0, agg)
+    else:
+        raise ValueError(f"unknown solidity kind: {kind}")
+    return lanes[:, starts], np.minimum(agg, 2**31 - 1).astype(np.int32)
+
+
+def auto_abundance_min(histogram: np.ndarray, cap: int = 20) -> int:
+    """The abundance cutoff of ``-abundance-min auto`` (numpy;
+    bcalm_tpu.engine.auto_abundance_min): the first valley of the
+    histogram after count 1, capped by ``-abundance-min-threshold``."""
+    h = np.asarray(histogram, np.int64)
+    if h.size < 4:
+        return 2
+    for i in range(2, min(h.size - 1, cap + 1)):
+        if h[i] <= h[i - 1] and h[i] <= h[i + 1]:
+            return max(2, min(i, cap))
+    return 2 if cap >= 2 else max(1, cap)
+
+
+def chain_stats(info: Dict, n_solid: int) -> Dict:
+    """Chain-decomposition statistics of a numpy chain dict (``-uf-stats``;
+    bcalm_tpu.engine.chain_stats)."""
+    n_unitigs = int(info["n_unitigs"])
+    length = np.asarray(info["length"])[:n_unitigs].astype(np.int64)
+    circular = np.asarray(info["circular"])[:n_unitigs]
+    return {
+        "uf_classes": n_unitigs,
+        "uf_nodes": int(n_solid),
+        "uf_singletons": int((length == 1).sum()),
+        "uf_largest_class": int(length.max()) if n_unitigs else 0,
+        "uf_mean_class": float(length.mean()) if n_unitigs else 0.0,
+        "uf_circular_classes": int(circular.sum()),
+    }
 
 
 def build_from_seqs(seqs: Iterable[str], cfg: EngineConfig,

@@ -139,3 +139,17 @@ def pack_keys(cols: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     if len(cols) % 2:
         keys.append(cols[-1])
     return keys
+
+
+def lanes_to_int(lanes) -> int:
+    """One k-mer's L u32 lane values (host) -> its integer, first base most
+    significant (bcalm_tpu.models.lanes.lanes_to_int)."""
+    x = 0
+    for v in lanes:
+        x = (x << 32) | int(v)
+    return x
+
+
+def int_to_string(x: int, k: int) -> str:
+    """A k-mer's integer -> its bases (bcalm_tpu.models.lanes.int_to_string)."""
+    return "".join("ACTG"[(x >> (2 * (k - 1 - i))) & 3] for i in range(k))

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a into one shared library with
-a plain C interface, loaded with ctypes.  The build happens at first use,
-into ``bcalm_tpu_torch/build/<hash of the sources>/``; a missing nvcc or a
+The sources are compiled with nvcc for sm_90a, one nvcc process per source
+started together, and linked into one shared library with a plain C
+interface, loaded with ctypes.  The build happens at first use, into
+``bcalm_tpu_torch/build/<hash of the sources>/``; a missing nvcc or a
 failed build raises with the compiler's output.  Nothing here is imported
 or built when the module is imported.
 
@@ -10,8 +11,8 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch, launches on the current stream, raises when the C
 function returns a CUDA error, and adds one to its entry in ``LAUNCHES``
 each time it launches its kernel(s).  The plain PyTorch versions live beside the
-callers in ops/{extract,count,junctions,chains,runchains}.py; these wrappers never
-fall back to them.
+callers in ops/{extract,count,junctions,chains,runchains}.py and
+engine.py; these wrappers never fall back to them.
 """
 
 from __future__ import annotations
@@ -30,12 +31,14 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"extract_insert": 0, "count_runs": 0, "junction_keys": 0,
             "junction_pairs": 0, "jump_round": 0, "range_fold": 0,
-            "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0}
+            "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0,
+            "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
+            "run_contract": 0, "run_broadcast": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -55,7 +58,18 @@ _SIGNATURES = {
     "bt_solid_fold": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
                       _P, _I64, _P, _P, _P, _P, _P],
     "bt_run_scans": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+    "bt_solid_compact": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _P,
+                         _P, _I64, _I64, _P, _P],
+    "bt_chain_finish": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P],
+    "bt_spell_unitigs": [_P, _I64, _I32, _I64, _P, _P, _P, _P, _P, _I64, _I32,
+                         _P, _P, _P, _I64, _P, _I64, _P],
+    "bt_run_contract": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
+                        _P],
+    "bt_run_broadcast": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
+                         _P, _P, _P],
 }
+SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
 MAX_LANES = 8
 
 _lib = None
@@ -92,26 +106,43 @@ def _find_nvcc() -> str:
         f"PATH or at {candidate}")
 
 
+def _run_all(cmds):
+    """Run the commands as parallel processes; raise with the first
+    failure's compiler output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed building the bcalm_tpu_torch "
+                           "kernels:\n" + "\n".join(failed))
+
+
 def build(build_dir: Path | None = None) -> Path:
-    """Compile csrc/*.cu into <build_dir>/<source hash>/libbtkernels.so
-    (reused when it exists) and return its path."""
+    """Compile each csrc/*.cu into an object (one nvcc per source, all
+    started together), link them into <build_dir>/<source hash>/
+    libbtkernels.so (reused when it exists) and return its path."""
     out_dir = Path(build_dir or BUILD_DIR) / source_hash()
     lib_path = out_dir / "libbtkernels.so"
     if lib_path.exists():
         return lib_path
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building the "
-            f"bcalm_tpu_torch kernels:\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs = [work / (p.stem + ".o") for p in _sources() if p.suffix == ".cu"]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(SRC_DIR / (o.stem + ".cu"))]
+                  for o in objs])
+        tmp = work / "libbtkernels.so"
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *[str(o) for o in objs]]])
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
@@ -347,3 +378,162 @@ def run_scans(succ: torch.Tensor, n_solid: int, C: int):
                 R.data_ptr())
         LAUNCHES["run_scans"] += 1
     return is_head, is_tail, rid, head_pos, end_pos, R
+
+
+def _scan_scratch(n: int, dev) -> torch.Tensor:
+    """Tile carries of csrc/scan.cuh's exclusive_sum over n entries."""
+    return torch.empty((max(1, -(-n // SCAN_TILE)),), dtype=torch.int64,
+                       device=dev)
+
+
+def solid_compact(unique: torch.Tensor, counts: torch.Tensor,
+                  minpos: torch.Tensor, n_unique: int, abundance_min: int,
+                  abundance_max: int, width=None):
+    """K9: (stacked (L+2, W): the solid columns' lanes, counts and minpos
+    compacted to the front, 0 past n_solid (minpos: the sentinel), W =
+    width or N; n_solid (1,))."""
+    _check(unique, "unique", ndim=2)
+    _check(counts, "counts", ndim=1)
+    _check(minpos, "minpos", ndim=1)
+    L, N = unique.shape
+    _lanes_ok(L, "solid_compact")
+    if counts.shape[0] != N or minpos.shape[0] != N:
+        raise ValueError("solid_compact: shapes do not match")
+    dev = unique.device
+    W = N if width is None else width
+    out = torch.zeros((L + 2, W), dtype=torch.int64, device=dev)
+    out[L + 1].fill_(0xFFFFFFFF)
+    n_solid = torch.zeros((1,), dtype=torch.int64, device=dev)
+    if N:
+        _launch("bt_solid_compact", unique.data_ptr(), unique.stride(0),
+                counts.data_ptr(), minpos.data_ptr(), N, min(n_unique, N), L,
+                abundance_min, abundance_max,
+                _scan_scratch(N, dev).data_ptr(), out.data_ptr(), out.stride(0),
+                W, n_solid.data_ptr())
+        LAUNCHES["solid_compact"] += 1
+    return out, n_solid
+
+
+def chain_finish(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
+                 state: torch.Tensor, wlen=None):
+    """K10: the finish_fast dict (uid, rank, n_unitigs (1,), start_oid,
+    length, circular) of a converged (M, 4) state."""
+    for t, name in ((succ, "succ"), (pred, "pred"), (wlen, "wlen")):
+        if t is not None:
+            _check(t, name, ndim=1)
+    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    _check(state, "state", ndim=2)
+    M = succ.shape[0]
+    if (pred.shape[0] != M or valid.shape[0] != M or state.shape != (M, 4)
+            or (wlen is not None and wlen.shape[0] != M) or M % 2):
+        raise ValueError("chain_finish: expected (M,) arrays and an (M, 4) "
+                         "state, M even")
+    dev = succ.device
+    end_of = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    len_at_start = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    ks = torch.empty((M,), dtype=torch.int64, device=dev)
+    uid = torch.empty((M,), dtype=torch.int64, device=dev)
+    rank = torch.empty((M,), dtype=torch.int64, device=dev)
+    start_oid = torch.zeros((M,), dtype=torch.int64, device=dev)
+    length = torch.zeros((M,), dtype=torch.int64, device=dev)
+    circular = torch.zeros((M,), dtype=torch.bool, device=dev)
+    n_unitigs = torch.zeros((1,), dtype=torch.int64, device=dev)
+    if M:
+        _launch("bt_chain_finish", succ.data_ptr(), pred.data_ptr(),
+                valid.data_ptr(), state.data_ptr(),
+                None if wlen is None else wlen.data_ptr(), M, end_of.data_ptr(),
+                len_at_start.data_ptr(), ks.data_ptr(),
+                _scan_scratch(M, dev).data_ptr(), uid.data_ptr(),
+                rank.data_ptr(), start_oid.data_ptr(), length.data_ptr(),
+                circular.data_ptr(), n_unitigs.data_ptr())
+        LAUNCHES["chain_finish"] += 1
+    return {"uid": uid, "rank": rank, "n_unitigs": n_unitigs,
+            "start_oid": start_oid, "length": length, "circular": circular}
+
+
+def spell_unitigs(solid: torch.Tensor, counts: torch.Tensor, uid: torch.Tensor,
+                  rank: torch.Tensor, length: torch.Tensor,
+                  start_oid: torch.Tensor, n_unitigs: int, k: int,
+                  n_members: int):
+    """K11: (codes u8 (n_members + (k-1) U,), member-ordered counts
+    (n_members,)) of the first U = n_unitigs unitigs."""
+    _check(solid, "solid", ndim=2, rows_strided=True)
+    for t, name in ((counts, "counts"), (uid, "uid"), (rank, "rank"),
+                    (length, "length"), (start_oid, "start_oid")):
+        _check(t, name, ndim=1)
+    L, C = solid.shape
+    _lanes_ok(L, "spell_unitigs")
+    U = n_unitigs
+    if (counts.shape[0] < C or uid.shape[0] != 2 * C or rank.shape[0] != 2 * C
+            or length.shape[0] < U or start_oid.shape[0] < U or L != (k + 15) // 16):
+        raise ValueError("spell_unitigs: shapes do not match")
+    dev = solid.device
+    total = n_members + (k - 1) * U
+    codes = torch.zeros((total,), dtype=torch.uint8, device=dev)
+    mcounts = torch.zeros((n_members,), dtype=torch.int64, device=dev)
+    if U and C:
+        run_start = torch.empty((U,), dtype=torch.int64, device=dev)
+        _launch("bt_spell_unitigs", solid.data_ptr(), solid.stride(0), L, C,
+                counts.data_ptr(), uid.data_ptr(), rank.data_ptr(),
+                length.data_ptr(), start_oid.data_ptr(), U, k,
+                _scan_scratch(U, dev).data_ptr(), run_start.data_ptr(),
+                codes.data_ptr(), total, mcounts.data_ptr(), n_members)
+        LAUNCHES["spell_unitigs"] += 1
+    return codes, mcounts
+
+
+def run_contract(succ: torch.Tensor, is_head: torch.Tensor, rid: torch.Tensor,
+                 end_pos: torch.Tensor, R: int, R_cap: int):
+    """K12a: (hpos, epos (R_cap,), csucc, cvalid, wlen2 (2 R_cap,)) of the
+    contracted run graph."""
+    _check(succ, "succ", ndim=1)
+    _check(is_head, "is_head", dtype=torch.bool, ndim=1)
+    _check(rid, "rid", ndim=1)
+    _check(end_pos, "end_pos", ndim=1)
+    C = is_head.shape[0]
+    if succ.shape[0] != 2 * C or rid.shape[0] != C or end_pos.shape[0] != C \
+            or not 0 <= R <= R_cap:
+        raise ValueError("run_contract: shapes do not match")
+    dev = succ.device
+    hpos = torch.empty((R_cap,), dtype=torch.int64, device=dev)
+    epos = torch.empty((R_cap,), dtype=torch.int64, device=dev)
+    csucc = torch.empty((2 * R_cap,), dtype=torch.int64, device=dev)
+    cvalid = torch.empty((2 * R_cap,), dtype=torch.bool, device=dev)
+    wlen2 = torch.empty((2 * R_cap,), dtype=torch.int64, device=dev)
+    if C and R_cap:
+        _launch("bt_run_contract", succ.data_ptr(), C, is_head.data_ptr(),
+                rid.data_ptr(), end_pos.data_ptr(), R, R_cap, hpos.data_ptr(),
+                epos.data_ptr(), csucc.data_ptr(), cvalid.data_ptr(),
+                wlen2.data_ptr())
+        LAUNCHES["run_contract"] += 1
+    return hpos, epos, csucc, cvalid, wlen2
+
+
+def run_broadcast(cuid: torch.Tensor, crank: torch.Tensor, cstart: torch.Tensor,
+                  rid: torch.Tensor, head_pos: torch.Tensor,
+                  end_pos: torch.Tensor, hpos: torch.Tensor, epos: torch.Tensor,
+                  n_solid: int):
+    """K12b: (uid, rank (2C,), start_oid (2 R_cap,)) over the original
+    oriented nodes."""
+    for t, name in ((cuid, "cuid"), (crank, "crank"), (cstart, "cstart"),
+                    (rid, "rid"), (head_pos, "head_pos"), (end_pos, "end_pos"),
+                    (hpos, "hpos"), (epos, "epos")):
+        _check(t, name, ndim=1)
+    C = rid.shape[0]
+    R_cap = hpos.shape[0]
+    if (cuid.shape[0] != 2 * R_cap or crank.shape[0] != 2 * R_cap
+            or cstart.shape[0] != 2 * R_cap or epos.shape[0] != R_cap
+            or head_pos.shape[0] != C or end_pos.shape[0] != C
+            or not 0 <= n_solid <= C):
+        raise ValueError("run_broadcast: shapes do not match")
+    dev = rid.device
+    uid = torch.empty((2 * C,), dtype=torch.int64, device=dev)
+    rank = torch.empty((2 * C,), dtype=torch.int64, device=dev)
+    start_oid = torch.empty((2 * R_cap,), dtype=torch.int64, device=dev)
+    if C and R_cap:
+        _launch("bt_run_broadcast", cuid.data_ptr(), crank.data_ptr(),
+                cstart.data_ptr(), rid.data_ptr(), head_pos.data_ptr(),
+                end_pos.data_ptr(), hpos.data_ptr(), epos.data_ptr(), n_solid,
+                C, R_cap, uid.data_ptr(), rank.data_ptr(), start_oid.data_ptr())
+        LAUNCHES["run_broadcast"] += 1
+    return uid, rank, start_oid

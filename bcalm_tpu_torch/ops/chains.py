@@ -10,8 +10,9 @@ tensor.
 The JAX package switches to a hierarchical sampled jump (``hier_jump``)
 for M >= 2**18; its output equals the plain doubling's, so the port always
 runs the plain doubling.  Each round is :func:`jump_round`, which launches
-the CUDA kernel (csrc/chains.cu) for CUDA tensors and runs
-:func:`jump_round_plain` for CPU tensors.
+the K4 kernel (csrc/chains.cu) for CUDA tensors and runs
+:func:`jump_round_plain` for CPU tensors; :func:`finish_fast` likewise
+launches K10 (csrc/finish.cu) or runs :func:`finish_fast_plain`.
 """
 
 from __future__ import annotations
@@ -112,11 +113,13 @@ def plain_jumpF(pred: torch.Tensor, valid: torch.Tensor,
     return Q
 
 
-def finish_fast(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
-                state: torch.Tensor, wlen: Optional[torch.Tensor] = None):
-    """Chain start, rank, cycle break, mirror dedup and per-unitig arrays
-    from a converged state (bcalm_tpu finish_fast; out-of-range scatter
-    destinations are masked before the writes)."""
+def finish_fast_plain(succ: torch.Tensor, pred: torch.Tensor,
+                      valid: torch.Tensor, state: torch.Tensor,
+                      wlen: Optional[torch.Tensor] = None):
+    """Plain version of K10 (bcalm_tpu finish_fast): chain start, rank,
+    cycle break, mirror dedup and per-unitig arrays from a converged
+    state; out-of-range scatter destinations are masked before the
+    writes."""
     M = succ.shape[0]
     N = M // 2
     dev = succ.device
@@ -159,11 +162,20 @@ def finish_fast(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
     return {
         "uid": uid,
         "rank": torch.where(uid >= 0, rank, 0),
-        "n_unitigs": n_unitigs,
+        "n_unitigs": n_unitigs.reshape(1),
         "start_oid": start_oid,
         "length": lenw & ((1 << 30) - 1),
         "circular": (lenw & (1 << 30)) != 0,
     }
+
+
+def finish_fast(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
+                state: torch.Tensor, wlen: Optional[torch.Tensor] = None):
+    """K10 entry: kernel for CUDA tensors, plain version for CPU tensors.
+    n_unitigs is a (1,) tensor."""
+    if succ.device.type == "cpu":
+        return finish_fast_plain(succ, pred, valid, state, wlen)
+    return _kernels.chain_finish(succ, pred, valid, state, wlen)
 
 
 def chain_decompose(succ: torch.Tensor, valid: torch.Tensor):

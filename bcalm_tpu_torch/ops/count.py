@@ -1,5 +1,5 @@
-"""K-mer counting: sort + run reduction (K2), key ranges (K5, K6) and the
-solidity fold + histogram (K7).
+"""K-mer counting: sort + run reduction (K2), key ranges (K5, K6), the
+solidity fold + histogram (K7) and the solid compaction of the store (K9).
 
 Counterpart of ``bcalm_tpu/ops/count.py`` and of the range programs of
 ``bcalm_tpu/engine.py`` (_lex_lt, _count_chunk_ranged, _count_lt,
@@ -9,8 +9,9 @@ after every canonical k-mer and compares above every range bound.
 
 :func:`count_canonical` sorts with ``torch.sort`` (ops.sort) and reduces
 the sorted runs with :func:`count_runs`.  Each kernel entry here
-(count_runs, range_fold, lower_bound, solid_fold_histogram) launches its
-CUDA kernel (csrc/{count,ranges,solid}.cu) for CUDA tensors and runs its
+(count_runs, range_fold, lower_bound, solid_fold_histogram, solid_compact)
+launches its CUDA kernel (csrc/{count,ranges,solid,compact}.cu) for CUDA
+tensors and runs its
 ``*_plain`` version for CPU tensors.  Counts are int64; the JAX package's
 are int32 and equal wherever those do not overflow.
 """
@@ -182,3 +183,35 @@ def solid_fold_histogram(unique, counts, minpos, n_unique: int,
     return _kernels.solid_fold_histogram(unique, counts, minpos, n_unique,
                                          abundance_min, abundance_max,
                                          histo_max)
+
+
+def solid_compact_plain(unique, counts, minpos, n_unique: int,
+                        abundance_min: int, abundance_max: int, width=None):
+    """Plain version of K9 (bcalm_tpu filter_abundance_pos): the solid
+    columns' lanes, counts and minpos stably compacted to the front of one
+    stacked (L+2, W) tensor (rows: lanes, counts, minpos; W = width or N),
+    0 past n_solid and the sentinel in the minpos row.  Returns (stacked,
+    n_solid (1,))."""
+    L, N = unique.shape
+    W = N if width is None else width
+    idx = torch.arange(N, device=unique.device)
+    keep = (idx < n_unique) & (counts >= abundance_min) & (counts <= abundance_max)
+    dest = torch.cumsum(keep.to(torch.int64), 0)[keep] - 1
+    fits = dest < W
+    dest = dest[fits]
+    out = torch.zeros((L + 2, W), dtype=torch.int64, device=unique.device)
+    out[L + 1] = SENTINEL
+    out[:L, dest] = unique[:, keep][:, fits]
+    out[L, dest] = counts[keep][fits]
+    out[L + 1, dest] = minpos[keep][fits]
+    return out, keep.sum().reshape(1)
+
+
+def solid_compact(unique, counts, minpos, n_unique: int, abundance_min: int,
+                  abundance_max: int, width=None):
+    """K9 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if unique.device.type == "cpu":
+        return solid_compact_plain(unique, counts, minpos, n_unique,
+                                   abundance_min, abundance_max, width)
+    return _kernels.solid_compact(unique, counts, minpos, n_unique,
+                                  abundance_min, abundance_max, width)

@@ -10,10 +10,13 @@ ids/ranks are broadcast back over the runs.
 The JAX package writes its scans as log-doubling shifts for the TPU
 compiler; here :func:`run_scans` launches the K8 block scan
 (csrc/runscan.cu) for CUDA tensors and runs :func:`run_scans_plain`
-(``torch.cumsum``/``cummax``/``cummin``) for CPU tensors.  The fills of
-run_decompose gather from the same scans: ``head_pos`` is the nearest
-head at or before each entry and ``end_pos`` the nearest tail at or after
-it.
+(``torch.cumsum``/``cummax``/``cummin``) for CPU tensors.  run_decompose's
+contraction and broadcast are :func:`run_contract` and
+:func:`run_broadcast` (K12, csrc/runcontract.cu), which read the same
+scans: a head i is run ``rid[i]``, ``head_pos`` is the nearest head at or
+before each entry and ``end_pos`` the nearest tail at or after it, so each
+member gathers its run's values directly (JAX scatters them at the heads
+and tails and fills).
 """
 
 from __future__ import annotations
@@ -82,11 +85,70 @@ def junction_runs(solid_r: torch.Tensor, n_solid: int, k: int):
                   "head_pos": head_pos, "end_pos": end_pos, "R": int(R[0])}
 
 
-def _gather(src: torch.Tensor, found: torch.Tensor, vals):
-    """vals at the source positions src where found, 0 elsewhere (the JAX
-    _ffill's fill value)."""
-    src = torch.clamp(src, 0, src.shape[0] - 1)
-    return tuple(torch.where(found, v[src], 0) for v in vals)
+def run_contract_plain(succ: torch.Tensor, is_head: torch.Tensor,
+                       rid: torch.Tensor, end_pos: torch.Tensor, R: int,
+                       R_cap: int):
+    """Plain version of K12a: the contracted run graph.  Returns (hpos,
+    epos (R_cap,), csucc, cvalid, wlen2 (2 R_cap,)); run slots past R are
+    padded with hpos = C-1, as JAX's sort-based selection pads."""
+    C = is_head.shape[0]
+    M = 2 * C
+    dev = succ.device
+    hpos = torch.full((R_cap,), C - 1, dtype=torch.int64, device=dev)
+    hpos[:R] = torch.nonzero(is_head).flatten()
+    rvalid = torch.arange(R_cap, device=dev) < R
+    epos = end_pos[hpos]
+    rlen = torch.where(rvalid, epos - hpos + 1, 0)
+
+    def xlate(w):
+        wv = torch.where(w >= C, w - C, w)
+        r_t = rid[torch.clamp(wv, 0, C - 1)]
+        c = torch.where(w >= C, r_t + R_cap, r_t)
+        return torch.where((w >= 0) & rvalid, c, -1)
+
+    w_plus = succ[torch.clamp(epos, 0, C - 1)]
+    w_minus = succ[torch.clamp(hpos + C, 0, M - 1)]
+    return (hpos, epos, torch.cat([xlate(w_plus), xlate(w_minus)]),
+            torch.cat([rvalid, rvalid]), torch.cat([rlen, rlen]))
+
+
+def run_contract(succ, is_head, rid, end_pos, R: int, R_cap: int):
+    """K12a entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if succ.device.type == "cpu":
+        return run_contract_plain(succ, is_head, rid, end_pos, R, R_cap)
+    return _kernels.run_contract(succ, is_head, rid, end_pos, R, R_cap)
+
+
+def run_broadcast_plain(cuid, crank, cstart, rid, head_pos, end_pos, hpos,
+                        epos, n_solid: int):
+    """Plain version of K12b: the contracted chains broadcast over the run
+    members, (uid, rank (2C,)), and the unitig starts as original oriented
+    ids (start_oid (2 R_cap,))."""
+    C = rid.shape[0]
+    R_cap = hpos.shape[0]
+    idx = torch.arange(C, device=rid.device)
+    vplus = idx < n_solid
+    r = torch.clamp(rid, 0, R_cap - 1)
+    uid_plus = torch.where(vplus, cuid[r], -1)
+    uid_minus = torch.where(vplus, cuid[r + R_cap], -1)
+    rank_plus = crank[r] + (idx - head_pos)
+    rank_minus = crank[r + R_cap] + (end_pos - idx)
+    uid = torch.cat([uid_plus, uid_minus])
+    rank = torch.where(uid >= 0, torch.cat([rank_plus, rank_minus]), 0)
+    csv = torch.clamp(torch.where(cstart >= R_cap, cstart - R_cap, cstart),
+                      0, R_cap - 1)
+    start_oid = torch.where(cstart >= R_cap, C + epos[csv], hpos[csv])
+    return uid, rank, start_oid
+
+
+def run_broadcast(cuid, crank, cstart, rid, head_pos, end_pos, hpos, epos,
+                  n_solid: int):
+    """K12b entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if rid.device.type == "cpu":
+        return run_broadcast_plain(cuid, crank, cstart, rid, head_pos,
+                                   end_pos, hpos, epos, n_solid)
+    return _kernels.run_broadcast(cuid, crank, cstart, rid, head_pos, end_pos,
+                                  hpos, epos, n_solid)
 
 
 def contracted_jump(csucc: torch.Tensor, cvalid: torch.Tensor,
@@ -104,56 +166,12 @@ def run_decompose(succ: torch.Tensor, n_solid: int, is_head, rid, head_pos,
     """Chain decomposition over the contracted run graph; the output
     contract of ops.chains.chain_decompose with per-unitig arrays of
     length 2*R_cap."""
-    M = succ.shape[0]
-    C = M // 2
-    dev = succ.device
-    idx = torch.arange(C, device=dev)
-    vplus = idx < n_solid
-
-    # run representatives: heads in index order, padded with C-1
-    hpos = torch.full((R_cap,), C - 1, dtype=torch.int64, device=dev)
-    hpos[:R] = torch.nonzero(is_head).flatten()
-    rvalid = torch.arange(R_cap, device=dev) < R
-    epos = end_pos[hpos]
-    rlen = torch.where(rvalid, epos - hpos + 1, 0)
-
-    def xlate(w):
-        wv = torch.where(w >= C, w - C, w)
-        r_t = rid[torch.clamp(wv, 0, C - 1)]
-        c = torch.where(w >= C, r_t + R_cap, r_t)
-        return torch.where((w >= 0) & rvalid, c, -1)
-
-    w_plus = succ[torch.clamp(epos, 0, C - 1)]
-    w_minus = succ[torch.clamp(hpos + C, 0, M - 1)]
-    csucc = torch.cat([xlate(w_plus), xlate(w_minus)])
-    cvalid = torch.cat([rvalid, rvalid])
-    wlen2 = torch.cat([rlen, rlen])
+    hpos, epos, csucc, cvalid, wlen2 = run_contract(succ, is_head, rid,
+                                                    end_pos, R, R_cap)
     cinfo = contracted_jump(csucc, cvalid, wlen2)
-
-    cstart = cinfo["start_oid"]
-    csv = torch.clamp(torch.where(cstart >= R_cap, cstart - R_cap, cstart),
-                      0, R_cap - 1)
-    orig_start = torch.where(cstart >= R_cap, C + epos[csv], hpos[csv])
-
-    cuid, crank = cinfo["uid"], cinfo["rank"]
-    a_uid = torch.full((C,), -1, dtype=torch.int64, device=dev)
-    a_rank = torch.zeros((C,), dtype=torch.int64, device=dev)
-    a_uid[hpos[rvalid]] = cuid[:R_cap][rvalid]
-    a_rank[hpos[rvalid]] = crank[:R_cap][rvalid]
-    uid_p, rank_p = _gather(head_pos, head_pos >= 0, (a_uid, a_rank))
-    uid_plus = torch.where(vplus, uid_p, -1)
-    rank_plus = rank_p + (idx - head_pos)
-
-    b_uid = torch.full((C,), -1, dtype=torch.int64, device=dev)
-    b_rank = torch.zeros((C,), dtype=torch.int64, device=dev)
-    b_uid[epos[rvalid]] = cuid[R_cap:][rvalid]
-    b_rank[epos[rvalid]] = crank[R_cap:][rvalid]
-    uid_m, rank_m = _gather(end_pos, end_pos < C, (b_uid, b_rank))
-    uid_minus = torch.where(vplus, uid_m, -1)
-    rank_minus = rank_m + (end_pos - idx)
-
-    uid = torch.cat([uid_plus, uid_minus])
-    rank = torch.where(uid >= 0, torch.cat([rank_plus, rank_minus]), 0)
+    uid, rank, start_oid = run_broadcast(cinfo["uid"], cinfo["rank"],
+                                         cinfo["start_oid"], rid, head_pos,
+                                         end_pos, hpos, epos, n_solid)
     return {"uid": uid, "rank": rank, "n_unitigs": cinfo["n_unitigs"],
-            "start_oid": orig_start, "length": cinfo["length"],
+            "start_oid": start_oid, "length": cinfo["length"],
             "circular": cinfo["circular"]}

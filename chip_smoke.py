@@ -13,6 +13,8 @@ Phases (any failure raises, and the script exits non-zero):
    ``-kmer-size 31 -abundance-min 2``, first as ``python -m
    bcalm_tpu_torch``, then through ``bcalm_tpu_torch.cli.main`` in this
    process, whose kernel launch counters are reset just before the call;
+   the build checkpoints its solid set in ``<prefix>_btpu/`` (K9) and
+   removes it at the end;
 3b. the same reads and flags with ``-max-memory M``, M chosen from the
    port's memory model so that the resident budget holds at most a third
    of the distinct k-mers phase 3 counted: counting goes multi-pass over
@@ -20,6 +22,20 @@ Phases (any failure raises, and the script exits non-zero):
    through ``cli.main`` with the counters reset just before it.  At least
    3 ranges, the FASTA byte-identical to phase 3's, peak device memory
    within M;
+3c. store and resume on the same reads: ``-only-uf -uf-stats`` keeps the
+   store and its chains (as many classes as phase 3's unitigs); with the
+   input renamed away, ``-skip-bcalm -skip-bglue`` and, after a fresh
+   ``-only-uf``, ``-skip-bcalm`` alone (in process too, counters reset)
+   write phase 3's bytes; ``-redo-links`` leaves phase 3's FASTA as it is;
+3d. multi-sample solidity: a second read set of the same genome (seed +
+   1); an album of the two under ``-solidity-kind min`` and ``max`` must
+   give the canonical k-mers and the KC of numpy's min/max combination of
+   the two samples' count tables; ``min`` over phase 3's file and a hard
+   link to it (the canonical-order compaction at full width, in process
+   too) gives phase 3's unitigs and KC; M, the doubling rounds and the
+   K4/K10 times of that compaction are printed;
+3e. ``-abundance-min auto``: the chosen cutoff, and the bytes of a run
+   with that cutoff given;
 4. output invariants of the phase 3 run: each solid canonical k-mer once,
    KC sums, every L: link a real (k-1)-overlap;
 5. each kernel vs its plain PyTorch version on the card, on the inputs
@@ -37,6 +53,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -65,14 +82,31 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
                              "bcalm_tpu/ops/count.py:173"),
     "run_scans": ("bcalm_tpu_torch/csrc/runscan.cu",
                   "bcalm_tpu/ops/runchains.py:116"),
+    "solid_compact": ("bcalm_tpu_torch/csrc/compact.cu",
+                      "bcalm_tpu/ops/count.py:197"),
+    "chain_finish": ("bcalm_tpu_torch/csrc/finish.cu",
+                     "bcalm_tpu/ops/chains.py:476"),
+    "spell_unitigs": ("bcalm_tpu_torch/csrc/spell.cu",
+                      "bcalm_tpu/engine.py:1297"),
+    "run_contract": ("bcalm_tpu_torch/csrc/runcontract.cu",
+                     "bcalm_tpu/ops/runchains.py:190"),
+    "run_broadcast": ("bcalm_tpu_torch/csrc/runcontract.cu",
+                      "bcalm_tpu/ops/runchains.py:190"),
 }
-# the kernels each main path must launch: the resident build, and the
-# multi-pass build (whose solidity filter runs in numpy on the host)
-RESIDENT_PATH = ("extract_insert", "count_runs", "junction_keys",
-                 "junction_pairs", "jump_round", "solid_fold_histogram",
-                 "run_scans")
-OOC_PATH = ("extract_insert", "count_runs", "junction_keys", "junction_pairs",
-            "jump_round", "range_fold", "lower_bound", "run_scans")
+# the kernels each main path must launch: the resident build (with its
+# store), the multi-pass build (whose solidity filter and store run in
+# numpy on the host), the -skip-bcalm resume (compaction only), and the
+# multi-sample build (counting, then the canonical-order compaction)
+COMPACT_POS = ("junction_keys", "junction_pairs", "run_scans", "run_contract",
+               "jump_round", "chain_finish", "run_broadcast", "spell_unitigs")
+RESIDENT_PATH = ("extract_insert", "count_runs", "solid_fold_histogram",
+                 "solid_compact") + COMPACT_POS
+OOC_PATH = ("extract_insert", "count_runs", "range_fold",
+            "lower_bound") + COMPACT_POS
+SKIP_BCALM_PATH = COMPACT_POS
+CANONICAL_PATH = ("extract_insert", "count_runs", "junction_keys",
+                  "junction_pairs", "jump_round", "chain_finish",
+                  "spell_unitigs")
 
 
 # the fixtures of tests/test_oracle.py (the reference's example inputs)
@@ -170,12 +204,17 @@ def phase_fixtures(dev, seed: int):
         f"({on_card.stats['unitigs']} unitigs at k=63)")
 
 
-def write_reads(path: str, coverage: float, seed: int) -> int:
+def write_reads(path: str, coverage: float, seed: int,
+                sample_seed=None) -> int:
+    """Reads of the genome made from `seed`; sample_seed draws another read
+    set of the same genome (default: the genome's own generator goes on)."""
     from bench import make_genome, sample_reads
     from bcalm_tpu.utils import dna
 
     rng = np.random.RandomState(seed)
     genome = make_genome(4_600_000, rng, repeat_frac=0.05)
+    if sample_seed is not None:
+        rng = np.random.RandomState(sample_seed)
     n_reads = int(coverage * genome.shape[0] / 150)
     reads = sample_reads(genome, n_reads, 150, rng, err_rate=0.0008,
                          dup_frac=0.2)
@@ -240,47 +279,68 @@ def _report(what: str, wall: float, stats: dict) -> None:
         f"unitigs {stats['unitigs']}; device_peak_mb {stats.get('device_peak_mb', 'not measured')}")
 
 
-def _run_cli(tmp: str, args, what: str, out: str):
-    """The CLI once as `python -m bcalm_tpu_torch` (a user's run), then
-    once through cli.main in this process with the launch counters reset
-    just before it; both outputs must be byte-identical.  Returns (path of
-    the in-process output, its stats, its launches, recorded inputs)."""
-    from bcalm_tpu_torch import cli
-    from bcalm_tpu_torch.ops import _kernels
-
+def _sub(args, what: str):
+    """`python -m bcalm_tpu_torch` once, a user's run: (wall, stats,
+    stdout)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.time()
     proc = subprocess.run(
-        [sys.executable, "-m", "bcalm_tpu_torch", *args, "-out",
-         os.path.join(tmp, out + "_sub")], cwd=repo, capture_output=True,
-        text=True, env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+        [sys.executable, "-m", "bcalm_tpu_torch", *args], cwd=repo,
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=repo),
+        timeout=600)
     wall = time.time() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"python -m bcalm_tpu_torch exited "
+        raise RuntimeError(f"python -m bcalm_tpu_torch {what} exited "
                            f"{proc.returncode}:\n{proc.stderr}")
-    sub_stats = _stats(proc.stdout)
-    _report(f"python -m bcalm_tpu_torch {what} (process start included)",
-            wall, sub_stats)
+    return wall, _stats(proc.stdout), proc.stdout
+
+
+def _inproc(args, what: str):
+    """cli.main in this process with the launch counters reset just before
+    it: (wall, stats, stdout, launches, recorded kernel inputs)."""
+    from bcalm_tpu_torch import cli
+    from bcalm_tpu_torch.ops import _kernels
 
     buf = io.StringIO()
     with Recorder(_kernels) as rec:
         _kernels.reset_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(args + ["-out", os.path.join(tmp, out)])
+            rc = cli.main(args)
         wall = time.time() - t0
         launches = dict(_kernels.LAUNCHES)
     if rc != 0:
-        raise RuntimeError(f"cli.main exited {rc}:\n{buf.getvalue()}")
-    stats = _stats(buf.getvalue())
+        raise RuntimeError(f"cli.main {what} exited {rc}:\n{buf.getvalue()}")
+    return wall, _stats(buf.getvalue()), buf.getvalue(), launches, rec.inputs
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _run_cli(tmp: str, args, what: str, out: str):
+    """The CLI once as `python -m bcalm_tpu_torch` (a user's run), then
+    once through cli.main in this process with the launch counters reset
+    just before it; both outputs must be byte-identical.  Returns (path of
+    the in-process output, its stats, the subprocess's stats, its
+    launches, recorded inputs)."""
+    wall, sub_stats, _ = _sub(args + ["-out", os.path.join(tmp, out + "_sub")],
+                              what)
+    _report(f"python -m bcalm_tpu_torch {what} (process start included)",
+            wall, sub_stats)
+    wall, stats, _, launches, inputs = _inproc(
+        args + ["-out", os.path.join(tmp, out)], what)
     _report("cli.main, same arguments, in this process", wall, stats)
     stats["wall_s"] = wall
     path = os.path.join(tmp, out + ".unitigs.fa")
-    with open(path, "rb") as f1, open(os.path.join(tmp, out + "_sub.unitigs.fa"), "rb") as f2:
-        if f1.read() != f2.read():
-            raise AssertionError("the two CLI runs wrote different unitigs")
+    if _read(path) != _read(os.path.join(tmp, out + "_sub.unitigs.fa")):
+        raise AssertionError("the two CLI runs wrote different unitigs")
+    for prefix in (out, out + "_sub"):
+        if os.path.exists(os.path.join(tmp, prefix + "_btpu")):
+            raise AssertionError(f"{prefix}_btpu/ was left after the run")
     say(f"[launches] {json.dumps(launches)}")
-    return path, stats, sub_stats, launches, rec.inputs
+    return path, stats, sub_stats, launches, inputs
 
 
 def _require_launched(launches, path_kernels, what: str):
@@ -347,6 +407,213 @@ def phase_ooc(tmp: str, fa: str, resident_path: str, resident_stats, dev):
         f"in-process wall {stats['wall_s']:.2f}s")
     _require_launched(launches, OOC_PATH, "multi-pass")
     return launches, inputs
+
+
+def phase_resume(tmp: str, fa: str, ref_path: str, ref_stats: dict):
+    """Phase 3c: -only-uf, -skip-bcalm [-skip-bglue] and -redo-links."""
+    base = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
+            "-verbose", "1"]
+    ref = _read(ref_path)
+    uf = os.path.join(tmp, "uf")
+    wall, st, _ = _sub(base + ["-only-uf", "-uf-stats", "-out", uf], "-only-uf")
+    if (not os.path.exists(os.path.join(uf + "_btpu", "chains.npz"))
+            or os.path.exists(uf + ".unitigs.fa")):
+        raise AssertionError("-only-uf did not keep its store and chains")
+    if int(st["uf_classes"]) != int(ref_stats["unitigs"]):
+        raise AssertionError(f"uf_classes {st['uf_classes']} != phase 3's "
+                             f"{ref_stats['unitigs']} unitigs")
+    say(f"[resume] -only-uf -uf-stats: wall {wall:.2f}s, store and chains "
+        f"kept, uf_classes {st['uf_classes']} (phase 3: {ref_stats['unitigs']} "
+        f"unitigs), uf_largest_class {st['uf_largest_class']}, "
+        f"uf_circular_classes {st['uf_circular_classes']}")
+    away = fa + ".away"
+    os.rename(fa, away)
+    try:
+        wall, st, out = _sub(base + ["-skip-bcalm", "-skip-bglue", "-out", uf],
+                             "-skip-bcalm -skip-bglue")
+        if "reusing stored chain decomposition" not in out:
+            raise AssertionError("-skip-bglue did not read the chains")
+        if _read(uf + ".unitigs.fa") != ref or os.path.exists(uf + "_btpu"):
+            raise AssertionError("-skip-bcalm -skip-bglue: FASTA differs from "
+                                 "phase 3's, or the store was left")
+        say(f"[resume] input renamed away; -skip-bcalm -skip-bglue: wall "
+            f"{wall:.2f}s, FASTA byte-identical to phase 3's, store removed")
+    finally:
+        os.rename(away, fa)
+    uf2, uf3 = os.path.join(tmp, "uf2"), os.path.join(tmp, "uf3")
+    _inproc(base + ["-only-uf", "-out", uf2], "-only-uf")
+    shutil.copytree(uf2 + "_btpu", uf3 + "_btpu")
+    os.rename(fa, away)
+    try:
+        wall, _, _ = _sub(base + ["-skip-bcalm", "-out", uf3], "-skip-bcalm")
+        wall_in, st, _, launches, _ = _inproc(base + ["-skip-bcalm", "-out", uf2],
+                                              "-skip-bcalm")
+    finally:
+        os.rename(away, fa)
+    for prefix in (uf2, uf3):
+        if _read(prefix + ".unitigs.fa") != ref or os.path.exists(prefix + "_btpu"):
+            raise AssertionError("-skip-bcalm: FASTA differs from phase 3's, "
+                                 "or the store was left")
+    _require_launched(launches, SKIP_BCALM_PATH, "-skip-bcalm")
+    say(f"[resume] fresh -only-uf, then -skip-bcalm: wall {wall:.2f}s "
+        f"(python -m), {wall_in:.2f}s in process (t_compact_s "
+        f"{st['t_compact_s']}, t_assemble_s {st['t_assemble_s']}); FASTA "
+        f"byte-identical to phase 3's; launches {json.dumps(launches)}")
+    rl = os.path.join(tmp, "rl")
+    shutil.copyfile(ref_path, rl + ".unitigs.fa")
+    wall, _, _ = _sub(["-in", rl, "-redo-links", "-kmer-size", str(K),
+                       "-out", rl], "-redo-links")
+    if _read(rl + ".unitigs.fa") != ref:
+        raise AssertionError("-redo-links changed phase 3's FASTA")
+    say(f"[resume] -redo-links on phase 3's FASTA: wall {wall:.2f}s, "
+        f"byte-identical")
+
+
+def _kmer_values(lanes: np.ndarray) -> np.ndarray:
+    """(2, n) u32 lanes of k <= 32 -> (n,) 2k-bit values."""
+    return (lanes[0].astype(np.uint64) << np.uint64(32)) | lanes[1].astype(np.uint64)
+
+
+def count_table(path: str, dev):
+    """One sample's distinct canonical k-mers (sorted 62-bit values) and
+    counts, counted on the card at abundance 1."""
+    from bcalm_tpu.cli import _input_blocks
+    from bcalm_tpu.io import bank as bank_mod
+    from bcalm_tpu_torch import cli, engine
+
+    bank = bank_mod.Bank.open(path)
+    cfg = engine.EngineConfig(k=K, abundance_min=1)
+    engine.configure_chunk(cfg, 0, dev)
+    cli.adapt_max_len(bank, cfg)
+    lanes, counts, _, _, _ = engine.count_and_filter(
+        _input_blocks(bank, cfg, 0), cfg, dev)
+    return _kmer_values(lanes), counts.astype(np.int64)
+
+
+def combine(t1, t2, kind: str, amin: int = 2):
+    """numpy's min/max combination of two count tables, filtered at amin."""
+    (v1, c1), (v2, c2) = t1, t2
+    if kind == "min":
+        v, i1, i2 = np.intersect1d(v1, v2, assume_unique=True,
+                                   return_indices=True)
+        c = np.minimum(c1[i1], c2[i2])
+    else:
+        v = np.union1d(v1, v2)
+        c = np.zeros(v.shape[0], np.int64)
+        c[np.searchsorted(v, v1)] = c1
+        j = np.searchsorted(v, v2)
+        c[j] = np.maximum(c[j], c2)
+    keep = c >= amin
+    return v[keep], c[keep]
+
+
+def unitig_kmers(path: str):
+    """(canonical k-mer values in unitig order, k-mers per unitig, KC per
+    unitig) of a unitigs FASTA."""
+    from bcalm_tpu_torch.io import fasta_writer
+
+    seqs, headers = fasta_writer.parse_unitigs_fasta(path)
+    per = np.array([len(s) - K + 1 for s in seqs], np.int64)
+    kc = np.array([int(t[5:]) for h in headers for t in h.split()
+                   if t.startswith("KC:i:")], np.int64)
+    return _canonical_kmers(seqs, K), per, kc
+
+
+def unitig_keys(path: str):
+    """Each unitig as (its least canonical k-mer, k-mers, KC), sorted: the
+    unitig set and KC whatever the ids and orientations."""
+    km, per, kc = unitig_kmers(path)
+    starts = np.concatenate([[0], np.cumsum(per)[:-1]])
+    keys = np.minimum.reduceat(km, starts)
+    order = np.argsort(keys)
+    return keys[order], per[order], kc[order]
+
+
+def phase_multi(tmp: str, fa: str, ref_path: str, coverage: float, seed: int,
+                dev):
+    """Phase 3d: multi-sample solidity (count each sample, combine, the
+    canonical-order compaction)."""
+    fa2 = os.path.join(tmp, "reads2.fa")
+    t0 = time.time()
+    n2 = write_reads(fa2, coverage, seed, sample_seed=seed + 1)
+    album = os.path.join(tmp, "album.txt")
+    with open(album, "w") as f:
+        f.write(f"{fa}\n{fa2}\n")
+    say(f"[multi] second sample: {n2} reads of the same genome (read seed "
+        f"{seed + 1}) in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    tables = [count_table(p, dev) for p in (fa, fa2)]
+    say(f"[multi] the two samples' count tables: {tables[0][0].shape[0]} and "
+        f"{tables[1][0].shape[0]} distinct k-mers ({time.time() - t0:.1f}s)")
+    for kind in ("min", "max"):
+        out = os.path.join(tmp, f"ms_{kind}")
+        wall, st, _ = _sub(["-in", album, "-kmer-size", str(K),
+                            "-abundance-min", "2", "-solidity-kind", kind,
+                            "-verbose", "1", "-out", out], f"album {kind}")
+        v, c = combine(*tables, kind)
+        km, per, kc = unitig_kmers(out + ".unitigs.fa")
+        if not np.array_equal(np.sort(km), v):
+            raise AssertionError(f"-solidity-kind {kind}: the canonical k-mers "
+                                 f"differ from numpy's combination")
+        starts = np.concatenate([[0], np.cumsum(per)[:-1]])
+        if not np.array_equal(np.add.reduceat(c[np.searchsorted(v, km)],
+                                              starts), kc):
+            raise AssertionError(f"-solidity-kind {kind}: KC differs from "
+                                 f"numpy's combination")
+        say(f"[multi] -solidity-kind {kind}: wall {wall:.2f}s, {v.shape[0]} "
+            f"solid k-mers and the KC of {kc.shape[0]} unitigs equal numpy's "
+            f"{kind} combination; t_compact_s {st['t_compact_s']}, "
+            f"device_peak_mb {st.get('device_peak_mb', 'not measured')}")
+    link = os.path.join(tmp, "reads_link.fa")
+    os.link(fa, link)
+    same = os.path.join(tmp, "album_same.txt")
+    with open(same, "w") as f:
+        f.write(f"{fa}\n{link}\n")
+    args = ["-in", same, "-kmer-size", str(K), "-abundance-min", "2",
+            "-solidity-kind", "min", "-verbose", "1"]
+    out = os.path.join(tmp, "ms_same")
+    wall, _, _ = _sub(args + ["-out", out + "_sub"], "album min, same file")
+    wall_in, st, _, launches, inputs = _inproc(args + ["-out", out],
+                                               "album min, same file")
+    want = unitig_keys(ref_path)
+    for prefix in (out, out + "_sub"):
+        got = unitig_keys(prefix + ".unitigs.fa")
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("min over a file and its hard link: unitigs "
+                                 "or KC differ from phase 3's")
+    _require_launched(launches, CANONICAL_PATH, "multi-sample")
+    from bcalm_tpu_torch.ops import runchains
+
+    M = 2 * runchains.round_capacity(int(st["solid_kmers"]))
+    say(f"[multi] -solidity-kind min over phase 3's file and a hard link: "
+        f"wall {wall:.2f}s (python -m), {wall_in:.2f}s in process "
+        f"(t_compact_s {st['t_compact_s']}, t_assemble_s "
+        f"{st['t_assemble_s']}); {len(want[0])} unitigs and their KC equal "
+        f"phase 3's; launches {json.dumps(launches)}")
+    return M, launches, inputs
+
+
+def phase_auto(tmp: str, fa: str, ref_path: str):
+    """Phase 3e: -abundance-min auto."""
+    out = os.path.join(tmp, "auto")
+    base = ["-in", fa, "-kmer-size", str(K), "-verbose", "1"]
+    wall, _, text = _sub(base + ["-abundance-min", "auto", "-out", out],
+                         "-abundance-min auto")
+    lines = [l for l in text.splitlines() if l.startswith("auto abundance-min = ")]
+    if len(lines) != 1:
+        raise AssertionError("-abundance-min auto printed no cutoff")
+    cutoff = int(lines[0].split("= ")[1])
+    if cutoff == 2:
+        want, what = _read(ref_path), "phase 3's run"
+    else:
+        explicit = os.path.join(tmp, "explicit")
+        _sub(base + ["-abundance-min", str(cutoff), "-out", explicit],
+             f"-abundance-min {cutoff}")
+        want, what = _read(explicit + ".unitigs.fa"), f"a -abundance-min {cutoff} run"
+    if _read(out + ".unitigs.fa") != want:
+        raise AssertionError(f"-abundance-min auto ({cutoff}) differs from {what}")
+    say(f"[auto] -abundance-min auto chose {cutoff} (wall {wall:.2f}s); "
+        f"FASTA byte-identical to {what}")
 
 
 def _canonical_kmers(seqs, k: int) -> np.ndarray:
@@ -428,7 +695,13 @@ def _max_err(a, b) -> float:
     return float((a.long() - b.long()).abs().max().item()) if a.numel() else 0.0
 
 
+def _finish_tuple(info):
+    return tuple(info[key] for key in ("uid", "rank", "n_unitigs", "start_oid",
+                                       "length", "circular"))
+
+
 def phase_kernels(inputs, launches, dev):
+    from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.ops import (_kernels, chains, count, extract,
                                      junctions, runchains)
 
@@ -516,6 +789,21 @@ def phase_kernels(inputs, launches, dev):
     succ, n_solid, C = inputs["run_scans"]
     check("run_scans", lambda: _kernels.run_scans(succ, n_solid, C),
           lambda: runchains.run_scans_plain(succ, n_solid, C))
+    sc_args = inputs["solid_compact"]
+    check("solid_compact", lambda: _kernels.solid_compact(*sc_args),
+          lambda: count.solid_compact_plain(*sc_args))
+    cf_args = inputs["chain_finish"]
+    check("chain_finish", lambda: _finish_tuple(_kernels.chain_finish(*cf_args)),
+          lambda: _finish_tuple(chains.finish_fast_plain(*cf_args)))
+    su_args = inputs["spell_unitigs"]
+    check("spell_unitigs", lambda: _kernels.spell_unitigs(*su_args),
+          lambda: engine.spell_unitigs_plain(*su_args))
+    rc_args = inputs["run_contract"]
+    check("run_contract", lambda: _kernels.run_contract(*rc_args),
+          lambda: runchains.run_contract_plain(*rc_args))
+    rb_args = inputs["run_broadcast"]
+    check("run_broadcast", lambda: _kernels.run_broadcast(*rb_args),
+          lambda: runchains.run_broadcast_plain(*rb_args))
     for r in rows:
         say(f"[kernel] {r['name']}: equal to plain (bitwise), {r['ms']:.4f} ms "
             f"vs plain {r['plain_ms']:.4f} ms, {r['launches']} launches in the "
@@ -525,9 +813,41 @@ def phase_kernels(inputs, launches, dev):
               "jump_round": tuple(Q.shape), "range_fold": tuple(body.shape),
               "lower_bound": [tuple(run.shape), n, tuple(bounds.shape)],
               "solid_fold_histogram": tuple(sf_args[0].shape),
-              "run_scans": [tuple(succ.shape), n_solid, C]}
+              "run_scans": [tuple(succ.shape), n_solid, C],
+              "solid_compact": [tuple(sc_args[0].shape), sc_args[6]],
+              "chain_finish": tuple(cf_args[3].shape),
+              "spell_unitigs": [tuple(su_args[0].shape), su_args[6]],
+              "run_contract": [tuple(rc_args[0].shape), rc_args[4], rc_args[5]],
+              "run_broadcast": [tuple(rb_args[3].shape), tuple(rb_args[0].shape)]}
     say(f"[shapes] {json.dumps(shapes)}")
     return rows
+
+
+def phase_canonical_times(M: int, launches, inputs, dev):
+    """Phase 3d's last step: the doubling rounds and the K4/K10 times of
+    the canonical-order compaction at full width (M = 2C oriented nodes),
+    on the inputs that run fed them."""
+    from bcalm_tpu_torch.ops import _kernels, chains
+
+    Q = inputs["jump_round"][0].to(dev)
+    Qn = torch.empty_like(Q)
+    changed = torch.zeros((1,), dtype=torch.int32, device=dev)
+    k4 = _time_ms(lambda: _kernels.jump_round(Q, Qn, changed))
+    k4_plain = _time_ms(lambda: chains.jump_round_plain(Q))
+    del Q, Qn
+    cf_args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in inputs["chain_finish"])
+    got = _finish_tuple(_kernels.chain_finish(*cf_args))
+    want = _finish_tuple(chains.finish_fast_plain(*cf_args))
+    if _max_err(got, want) != 0:
+        raise AssertionError("chain_finish differs from its plain version at "
+                             "full width")
+    k10 = _time_ms(lambda: _kernels.chain_finish(*cf_args), reps=5)
+    k10_plain = _time_ms(lambda: chains.finish_fast_plain(*cf_args), reps=5)
+    say(f"[multi] canonical-order compaction: M = {M} oriented nodes, "
+        f"{launches['jump_round']} doubling rounds; K4 {k4:.4f} ms per round "
+        f"(plain {k4_plain:.4f} ms); K10 {k10:.4f} ms (plain {k10_plain:.4f} "
+        f"ms), equal to its plain version at M")
 
 
 def main() -> int:
@@ -547,6 +867,12 @@ def main() -> int:
         fa, path, stats, launches, inputs = phase_full(tmp, args.coverage,
                                                        args.seed)
         ooc_launches, ooc_inputs = phase_ooc(tmp, fa, path, stats, dev)
+        phase_resume(tmp, fa, path, stats)
+        M, ms_launches, ms_inputs = phase_multi(tmp, fa, path, args.coverage,
+                                                args.seed, dev)
+        phase_canonical_times(M, ms_launches, ms_inputs, dev)
+        del ms_inputs
+        phase_auto(tmp, fa, path)
         phase_invariants(path, stats)
     # each kernel is held against its plain version on the inputs of the
     # run whose path needs it, and reports that run's launches

@@ -1,5 +1,5 @@
-"""`python -m bcalm_tpu_torch` command line: output parity and the option
-surface that is not ported yet.
+"""`python -m bcalm_tpu_torch` command line: output parity and the options
+that are not ported (the multi-device build and the keep-alive server).
 
 The parity test drives both command lines (bcalm_tpu on JAX's CPU
 backend, the port with BCALM_TORCH_DEVICE=cpu) on one FASTA file and
@@ -40,11 +40,7 @@ def test_cli_byte_identical(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [
     (["-devices", "2"], "A14"),
-    (["-skip-bcalm"], "A11"),
-    (["-redo-links"], "A11"),
-    (["-only-uf"], "A12"),
     (["-server", "sock"], "A12"),
-    (["-abundance-min", "auto"], "A12"),
 ])
 def test_not_ported_options_exit_1(tmp_path, monkeypatch, capsys, extra, item):
     fa = tmp_path / "reads.fa"

@@ -209,3 +209,148 @@ def test_multipass_build_card_equals_cpu(card, k):
         fasta_writer.write_fasta(us, buf)
         outs.append(buf.getvalue())
     assert outs[0] == outs[1] and outs[0]
+
+
+@pytest.mark.parametrize("L,amin,amax", [(1, 2, 2**31 - 1), (2, 3, 40),
+                                         (4, 1, 1)])
+def test_solid_compact(card, L, amin, amax):
+    rng = np.random.RandomState(L)
+    N = 300_000
+    unique = torch.from_numpy(rng.randint(0, 2**32, size=(L, N), dtype=np.uint64).astype(np.int64))
+    counts = torch.from_numpy(rng.geometric(0.3, N))
+    minpos = torch.from_numpy(rng.randint(0, 2**31, N))
+    args = (N - 777, amin, amax)
+    out, n = _kernels.solid_compact(unique.to(card), counts.to(card),
+                                    minpos.to(card), *args)
+    want, want_n = count.solid_compact_plain(unique, counts, minpos, *args)
+    assert torch.equal(out.cpu(), want) and torch.equal(n.cpu(), want_n)
+    w = int(want_n[0])
+    narrow, _ = _kernels.solid_compact(unique.to(card), counts.to(card),
+                                       minpos.to(card), *args, width=w)
+    assert torch.equal(narrow.cpu(), want[:, :w])
+
+
+def mirror_graph(N, seed, n_invalid=8):
+    """(2N,) mirror-symmetric succ: chains, cycles and hairpins (v ->
+    mirror(v)) over random orientations; valid (2N,) bool."""
+    rng = np.random.RandomState(seed)
+    n_valid = N - n_invalid
+    succ = np.full(2 * N, -1, np.int64)
+    order = rng.permutation(n_valid)
+    i = 0
+    while i < n_valid:
+        m = int(min(n_valid - i, rng.geometric(0.01)))
+        oids = order[i:i + m] + N * rng.randint(0, 2, m)
+        if m == 1 and rng.rand() < 0.3:
+            succ[oids[0]] = (oids[0] + N) % (2 * N)
+        ring = m > 1 and rng.rand() < 0.2
+        nxt = np.roll(oids, -1)
+        for a, b in zip(oids[:m if ring else m - 1], nxt[:m if ring else m - 1]):
+            succ[a] = b
+            succ[(b + N) % (2 * N)] = (a + N) % (2 * N)
+        i += m
+    valid = (np.arange(2 * N) % N) < n_valid
+    return torch.from_numpy(succ), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("N,weighted", [(4096, False), (4096, True),
+                                        (1 << 18, False)])
+def test_chain_finish(card, N, weighted):
+    succ, valid = mirror_graph(N, N + weighted)
+    pred = chains.build_pred(succ, valid)
+    wlen = None
+    if weighted:
+        w = torch.from_numpy(np.random.RandomState(N).randint(1, 6, N))
+        wlen = torch.cat([w, w])
+    dist0 = None if wlen is None else wlen[torch.clamp(pred, 0, 2 * N - 1)]
+    state = chains.plain_jumpF(pred.to(card), valid.to(card),
+                               None if dist0 is None else dist0.to(card))
+    got = _kernels.chain_finish(succ.to(card), pred.to(card), valid.to(card),
+                                state, None if wlen is None else wlen.to(card))
+    want = chains.finish_fast_plain(succ, pred, valid, state.cpu(), wlen)
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert int(want["n_unitigs"][0]) > 0
+
+
+def compacted(k, seed=5):
+    """The port's locality-ordered compaction (CPU) of a read set: the
+    reordered table, its counts, the run structure and the chain dict."""
+    seqs = reads(seed, n=600, k=k)
+    cfg = engine.EngineConfig(k=k, abundance_min=2, block_reads=64, max_len=128)
+    unique, counts, minpos, _ = engine.count_blocks(
+        packing.iter_blocks(seqs, k, block_reads=64, max_len=128), cfg, "cpu")
+    solid, cs, ps, n_solid, _ = count.solid_fold_histogram(
+        unique, counts, minpos, unique.shape[1], 2, 2**31 - 1, 10)
+    n_solid = int(n_solid[0])
+    solid_r, counts_r, info = engine.compact_solid_pos(solid, cs, ps, n_solid, k)
+    return solid_r, counts_r, info, n_solid
+
+
+@pytest.mark.parametrize("k", [21, 31, 63])
+def test_spell_unitigs(card, k):
+    solid_r, counts_r, info, n_solid = compacted(k)
+    U = int(info["n_unitigs"])
+    args = [info[key] for key in ("uid", "rank", "length", "start_oid")]
+    got = _kernels.spell_unitigs(solid_r.to(card), counts_r.to(card),
+                                 *[a.to(card) for a in args], U, k, n_solid)
+    want = engine.spell_unitigs_plain(solid_r, counts_r, *args, U, k, n_solid)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert U > 1
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_run_contract_broadcast(card, k):
+    solid_r, _, _, n_solid = compacted(k)
+    succ, scan = runchains.junction_runs(solid_r, n_solid, k)
+    R = scan["R"]
+    R_cap = runchains.round_capacity(max(1, R))
+    cargs = (scan["is_head"], scan["rid"], scan["end_pos"], R, R_cap)
+    got = _kernels.run_contract(succ.to(card), *[a.to(card) for a in cargs[:3]],
+                                R, R_cap)
+    want = runchains.run_contract_plain(succ, *cargs)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    hpos, epos, csucc, cvalid, wlen2 = want
+    cinfo = runchains.contracted_jump(csucc, cvalid, wlen2)
+    bargs = (cinfo["uid"], cinfo["rank"], cinfo["start_oid"], scan["rid"],
+             scan["head_pos"], scan["end_pos"], hpos, epos)
+    got = _kernels.run_broadcast(*[a.to(card) for a in bargs], n_solid)
+    want = runchains.run_broadcast_plain(*bargs, n_solid)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_multi_sample_cli_card_equals_cpu(card, tmp_path, monkeypatch):
+    """-solidity-kind min and max over an album of two read sets (the
+    canonical-order compaction), and a store + -skip-bcalm -skip-bglue
+    resume: the card writes the CPU's bytes."""
+    from bcalm_tpu_torch import cli
+
+    paths = []
+    for n in (600, 400):            # one genome: reads() draws it first
+        path = tmp_path / f"s{n}.fa"
+        path.write_text("".join(f">r{i}\n{r}\n"
+                                for i, r in enumerate(reads(11, n=n))))
+        paths.append(str(path))
+    album = tmp_path / "album.txt"
+    album.write_text("\n".join(paths) + "\n")
+    for kind in ("min", "max"):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            monkeypatch.setenv(cli.DEVICE_ENV, dev)
+            out = str(tmp_path / f"{kind}_{dev}")
+            assert cli.main(["-in", str(album), "-kmer-size", "31",
+                             "-abundance-min", "1", "-solidity-kind", kind,
+                             "-nb-cores", "1", "-verbose", "0", "-out", out]) == 0
+            outs.append(open(out + ".unitigs.fa").read())
+        assert outs[0] == outs[1] and outs[0]
+    monkeypatch.setenv(cli.DEVICE_ENV, "cuda")
+    base = ["-in", paths[0], "-kmer-size", "31", "-abundance-min", "2",
+            "-verbose", "0"]
+    out = str(tmp_path / "resume")
+    assert cli.main(base + ["-out", out + "_full"]) == 0
+    assert cli.main(base + ["-out", out, "-only-uf"]) == 0
+    assert cli.main(base + ["-out", out, "-skip-bcalm", "-skip-bglue"]) == 0
+    assert open(out + ".unitigs.fa").read() == open(out + "_full.unitigs.fa").read()

@@ -79,3 +79,23 @@ def test_empty_result():
     us = tengine.build_from_seqs(branching_reads()[:10], cfg, torch.device("cpu"))
     assert us.seqs == [] and us.stats["solid_kmers"] == 0
     assert fasta(us, twriter) == ""
+
+
+def test_unitig_graph_over_the_port():
+    """bcalm_tpu.graph.unitigs (numpy-only) navigates the port's UnitigSet
+    exactly as it navigates bcalm_tpu's."""
+    from bcalm_tpu.graph.unitigs import UnitigGraph
+
+    seqs = branching_reads(4)
+    jcfg = jengine.EngineConfig(k=31, abundance_min=2, block_reads=64,
+                                max_len=160)
+    want = UnitigGraph.from_unitig_set(jengine.build_from_seqs(seqs, jcfg))
+    got = UnitigGraph.from_unitig_set(tengine.build_from_seqs(
+        seqs, convert.engine_config_from_jax(jcfg), "cpu"))
+    assert len(got) == len(want) > 50
+    nodes = list(want.nodes())
+    assert list(got.nodes()) == nodes
+    for node in nodes:
+        assert got.successors(node) == want.successors(node)
+        assert got.predecessors(node) == want.predecessors(node)
+    assert sum(got.is_branching(n) for n in nodes) > 0

@@ -1,8 +1,9 @@
 """Guards of the port: no JAX, no silent fallback.
 
-- A full CPU build in a fresh interpreter, resident and multi-pass, leaves
-  `jax` out of sys.modules (a subprocess, since this test process imports
-  JAX in conftest.py).
+- A full CPU build in a fresh interpreter, resident and multi-pass, and
+  the CLI's store + `-skip-bcalm -skip-bglue` resume and multi-bank
+  `-solidity-kind min` build, leave `jax` out of sys.modules (a
+  subprocess, since this test process imports JAX in conftest.py).
 - The kernel loader raises when nvcc is absent instead of handing back
   the plain path, and the kernel wrappers refuse CPU tensors.
 - The CLI exits 1 when CUDA is requested and absent.
@@ -39,6 +40,27 @@ ooc = engine.build_from_seqs(reads, cfg, "cpu")
 cfg.resident_kmers = 1 << 20
 assert ooc.stats["ooc_passes"] > 1
 assert ooc.seqs == engine.build_from_seqs(reads, cfg, "cpu").seqs
+import os, tempfile
+os.environ[cli.DEVICE_ENV] = "cpu"
+tmp = tempfile.mkdtemp()
+for name, reads in (("a", reads), ("b", reads[::2] + reads)):
+    with open(os.path.join(tmp, name + ".fa"), "w") as f:
+        f.write("".join(f">r{i}\\n{r}\\n" for i, r in enumerate(reads)))
+fa, out = os.path.join(tmp, "a.fa"), os.path.join(tmp, "o")
+base = ["-in", fa, "-kmer-size", "15", "-abundance-min", "2", "-verbose", "0"]
+assert cli.main(base + ["-out", out + "_full"]) == 0
+assert cli.main(base + ["-out", out, "-only-uf"]) == 0
+assert os.path.exists(os.path.join(out + "_btpu", "chains.npz"))
+assert cli.main(base + ["-out", out, "-skip-bcalm", "-skip-bglue"]) == 0
+full = open(out + "_full.unitigs.fa").read()
+assert full and open(out + ".unitigs.fa").read() == full
+assert not os.path.exists(out + "_btpu")
+with open(os.path.join(tmp, "album.txt"), "w") as f:
+    f.write(fa + "\\n" + os.path.join(tmp, "b.fa") + "\\n")
+assert cli.main(["-in", os.path.join(tmp, "album.txt"), "-kmer-size", "15",
+                 "-abundance-min", "2", "-solidity-kind", "min", "-out",
+                 out + "_min", "-verbose", "0"]) == 0
+assert open(out + "_min.unitigs.fa").read().count(">") > 0
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("OK", len(us.seqs))
 """
@@ -71,6 +93,15 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.solid_fold_histogram(t((2, 8)), t((8,)), t((8,)), 8, 2,
                                             100, 10),
     lambda t: _kernels.run_scans(t((32,)), 16, 16),
+    lambda t: _kernels.solid_compact(t((2, 8)), t((8,)), t((8,)), 8, 2, 100),
+    lambda t: _kernels.chain_finish(t((8,)), t((8,)),
+                                    torch.ones(8, dtype=torch.bool), t((8, 4))),
+    lambda t: _kernels.spell_unitigs(t((2, 16)), t((16,)), t((32,)), t((32,)),
+                                     t((32,)), t((32,)), 1, 31, 16),
+    lambda t: _kernels.run_contract(t((32,)), torch.ones(16, dtype=torch.bool),
+                                    t((16,)), t((16,)), 1, 16),
+    lambda t: _kernels.run_broadcast(t((32,)), t((32,)), t((32,)), t((16,)),
+                                     t((16,)), t((16,)), t((16,)), t((16,)), 16),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     def cpu(shape):

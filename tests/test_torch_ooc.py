@@ -254,24 +254,27 @@ def test_run_scans_match_junction_runs(C, n_solid, link):
 
 
 def test_run_scans_sources_are_the_fills():
-    """run_decompose gathers from head_pos/end_pos where the JAX package
-    fills (_ffill) from is_head/is_tail: the same values."""
+    """run_broadcast gathers each member's run values through rid where the
+    JAX package scatters them at the run heads (tails) and fills (_ffill)
+    from is_head (is_tail): the same values below n_solid."""
     rng = np.random.RandomState(4)
     C, n_solid = 2048, 1900
     idx = np.arange(2 * C)
     succ = np.where(rng.rand(2 * C) < 0.8, idx + 1, -1)
-    is_head, is_tail, _, head_pos, end_pos, _ = trun.run_scans_plain(
+    succ[n_solid - 1] = -1      # no edge leaves the solid set
+    is_head, is_tail, rid, _, _, R = trun.run_scans_plain(
         torch.from_numpy(succ), n_solid, C)
-    vals = rng.randint(0, 1000, size=(2, C))
-    fwd = jrun._ffill(jnp.asarray(is_head.numpy()),
-                      tuple(jnp.asarray(v) for v in vals))
-    rev = jrun._ffill(jnp.asarray(is_tail.numpy()),
-                      tuple(jnp.asarray(v) for v in vals), reverse=True)
-    tv = tuple(torch.from_numpy(v) for v in vals)
-    for got, want in ((trun._gather(head_pos, head_pos >= 0, tv), fwd),
-                      (trun._gather(end_pos, end_pos < C, tv), rev)):
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    vals = rng.randint(0, 1000, size=(2, int(R[0])))
+    member_rid = rid.numpy()[:n_solid]
+    for have, reverse in ((is_head.numpy(), False), (is_tail.numpy(), True)):
+        scattered = np.zeros((2, C), np.int32)
+        scattered[:, np.nonzero(have)[0]] = vals
+        want = jrun._ffill(jnp.asarray(have),
+                           tuple(jnp.asarray(v) for v in scattered),
+                           reverse=reverse)
+        for v, w in zip(vals, want):
+            np.testing.assert_array_equal(v[member_rid],
+                                          np.asarray(w)[:n_solid])
 
 
 # ---- configuration ----

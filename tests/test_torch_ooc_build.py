@@ -107,10 +107,10 @@ def test_cli_multipass_rereads_input(tmp_path, monkeypatch):
     seen = {}
     real = tengine.build_from_blocks
 
-    def small_budget(blocks, cfg, device, reread=None):
+    def small_budget(blocks, cfg, device, reread=None, **kw):
         # the block generator has not started: its geometry follows cfg
         cfg.block_reads, cfg.chunk_kmers, cfg.resident_kmers = 16, 1024, 2048
-        us = real(blocks, cfg, device, reread=reread)
+        us = real(blocks, cfg, device, reread=reread, **kw)
         seen.update(us.stats)
         return us
 
