@@ -1,13 +1,15 @@
-"""Command line of the port: the single-device build.
+"""Command line of the port.
 
     python -m bcalm_tpu_torch -in reads.fa -kmer-size 31 -abundance-min 2 \
-        [-out prefix] [-max-memory MiB] [-max-disk MB]
+        [-out prefix] [-max-memory MiB] [-max-disk MB] [-devices N]
 
 The option surface, the input block stream, the output naming and the
-store are the JAX package's (bcalm_tpu.cli.build_parser, _input_blocks,
-default_prefix; bcalm_tpu.storage.store.Store), so both packages read the
-same blocks, write the same ``<prefix>.unitigs.fa`` and read each other's
-``<prefix>_btpu/`` checkpoint.  As in bcalm_tpu.cli.main:
+store are the JAX package's, carried here as copies (build_parser,
+_input_blocks and default_prefix of bcalm_tpu/cli.py; storage.store,
+io.bank and the native ingest parser, which the port builds itself), so
+both packages read the same blocks, write the same ``<prefix>.unitigs.fa``
+and read each other's ``<prefix>_btpu/`` checkpoint.  As in
+bcalm_tpu.cli.main:
 
 - the build checkpoints its solid k-mers in ``<prefix>_btpu/`` and removes
   it at the end; ``-only-uf`` stops after the chain decomposition and
@@ -26,8 +28,10 @@ requested CUDA device that is absent is an error, never a silent CPU run.
 ``-max-memory`` sizes the counting chunk and the resident budget
 (engine.configure_chunk; without it, the device's memory does); a distinct
 set past that budget is counted in several passes over key ranges, each
-re-reading the input.  ``-server``/``-connect`` and ``-devices > 1`` exit
-1 and name their ROADMAP item.
+re-reading the input.  ``-devices N`` (N > 1) runs the
+minimizer-partitioned build on N ranks (parallel.launch, parallel.pipeline):
+one NCCL rank per card, or N gloo processes on the CPU.
+``-server``/``-connect`` exit 1 and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,12 +43,138 @@ from typing import List, Optional
 
 import torch
 
-from bcalm_tpu.cli import build_parser, default_prefix
-from bcalm_tpu.utils.options import OptionFailure
-from bcalm_tpu.utils.timeinfo import TimeInfo, peak_rss_mb
-from bcalm_tpu.version import version_string
+from bcalm_tpu_torch.utils.options import OptionFailure, OptionsParser
+from bcalm_tpu_torch.utils.timeinfo import TimeInfo, peak_rss_mb
+from bcalm_tpu_torch.version import version_string
 
 DEVICE_ENV = "BCALM_TORCH_DEVICE"
+
+
+def build_parser() -> OptionsParser:
+    p = OptionsParser("bcalm-tpu")
+    # core graph options (GraphUnitigsTemplate::getOptionsParser analog)
+    p.one_param("-in", "input reads (fasta/fastq[.gz] or file of filenames)",
+                mandatory=True)
+    p.one_param("-out", "output prefix", default=None)
+    p.one_param("-kmer-size", "k-mer size", default="31")
+    p.one_param("-abundance-min",
+                "filter k-mers seen strictly fewer times than this",
+                default="2")
+    p.one_param("-abundance-max", "max k-mer abundance", default=str(2**31 - 1),
+                visible=False)
+    p.one_param("-minimizer-size", "minimizer size", default="10")
+    p.one_param("-minimizer-type", "0: lexicographic, 1: frequency-based",
+                default="1")
+    p.one_param("-repartition-type", "0: uniform, 1: frequency-balanced",
+                default="1")
+    p.one_param("-max-memory", "max device memory in MB", default="0")
+    p.one_param("-max-disk", "max disk for multi-pass staging in MB "
+                             "(0 = unlimited)", default="0")
+    p.one_param("-nb-cores", "host worker threads (0=auto)", default="0")
+    p.one_param("-verbose", "verbosity level", default="1")
+    p.no_param("-all-abundance-counts",
+               "emit ab:Z: per-k-mer abundance vectors in headers")
+    # stage-skipping / resume flags (scripts/pufferize.py:143)
+    p.no_param("-skip-bcalm", "reuse stored counts, skip counting+compaction input")
+    p.no_param("-skip-bglue", "with -skip-bcalm: skip gluing")
+    p.no_param("-redo-links", "recompute L: link annotations of an existing "
+                              "unitigs file")
+    p.one_param("-nb-glue-partitions", "legacy: glue partition count",
+                default="0", visible=False)
+    # hidden gatb options surfaced for parity (src/bcalm_1.cpp:34-37)
+    p.one_param("-histo-max", "max histogram bin", default="10000",
+                visible=False)
+    p.one_param("-solidity-kind", "multi-sample solidity: sum|min|max",
+                default="sum", visible=False)
+    p.one_param("-abundance-min-threshold",
+                "cap for '-abundance-min auto'", default="20",
+                visible=False)
+    p.one_param("-solid-kmers-out", "write solid (kmer,count) pairs to file",
+                default=None, visible=False)
+    # glue diagnostics (legacy --only-uf/--uf-stats, src/bcalm_1.cpp:26-27)
+    p.no_param("-only-uf", "stop after chain labeling (UF analog); no "
+                           "unitig assembly or output", visible=False)
+    p.no_param("-uf-stats", "print chain-decomposition (UF-class) stats",
+               visible=False)
+    # TPU-specific
+    p.one_param("-devices", "number of devices to use (0 = all)", default="0")
+    p.one_param("-server", "serve build requests on a unix socket "
+                           "(keep-alive mode: amortizes backend init + "
+                           "program loads across invocations)",
+                default=None, visible=False)
+    p.one_param("-connect", "send this command line to a -server socket "
+                            "instead of running locally",
+                default=None, visible=False)
+    p.no_param("-version", "show version")
+    p.no_param("-help", "show this help")
+    p.no_param("-h", "show this help", visible=False)
+    return p
+
+
+def default_prefix(in_path: str) -> str:
+    base = os.path.basename(in_path)
+    for ext in (".gz",):
+        if base.endswith(ext):
+            base = base[: -len(ext)]
+    root, ext = os.path.splitext(base)
+    return root if ext in (".fa", ".fasta", ".fq", ".fastq", ".txt", ".list") \
+        else base
+
+
+def _input_blocks(bank, cfg, verbose: int, nb_cores: int = 0,
+                  info: Optional[dict] = None):
+    """Packed-block stream: native C++ parser when available (with host
+    prefetch overlapping device compute), else python.
+
+    One big file (the common production case) fans its decompressed
+    stream out to a parse-worker pool (io.parallel_ingest — the gatb
+    Dispatcher -nb-cores analog, SURVEY.md §3.2); multiple files fan out
+    per file as before.
+
+    info: when given, info["ingest_parser"] names the parser that ran
+    ("binary", "native" or "python"; bcalm_tpu.cli._input_blocks, the
+    parser choice and the stream unchanged)."""
+    info = {} if info is None else info
+    from bcalm_tpu_torch.io import bank_binary, native as native_mod
+    from bcalm_tpu_torch.io import packing
+    from bcalm_tpu_torch.utils import dispatcher
+
+    binary = [p for p in bank.paths if bank_binary.is_binary_bank(p)]
+    if binary and len(binary) == len(bank.paths):
+        info["ingest_parser"] = "binary"
+        for p in bank.paths:
+            yield from bank_binary.read_bank(p)
+        return
+
+    if native_mod.available():
+        info["ingest_parser"] = "native"
+        if verbose > 1:
+            print("using native ingest (libbcalmio)")
+        workers = nb_cores if nb_cores > 0 else min(4, max(2, len(bank.paths)))
+        if (len(bank.paths) == 1 and workers > 1
+                and native_mod.mem_available()):
+            from bcalm_tpu_torch.io import parallel_ingest
+
+            yield from dispatcher.prefetch(
+                parallel_ingest.iter_blocks_parallel(
+                    bank.paths[0], cfg.k, block_reads=cfg.block_reads,
+                    max_len=cfg.max_len, n_workers=workers))
+            return
+        yield from dispatcher.parallel_files(
+            bank.paths,
+            lambda p: native_mod.iter_blocks_native(
+                p, cfg.k, block_reads=cfg.block_reads, max_len=cfg.max_len
+            ),
+            n_workers=workers,
+        )
+    else:
+        info["ingest_parser"] = "python"
+        yield from dispatcher.prefetch(
+            packing.iter_blocks(
+                bank.sequences(), cfg.k, block_reads=cfg.block_reads,
+                max_len=cfg.max_len,
+            )
+        )
 
 
 def _not_ported(what: str, item: str) -> int:
@@ -129,18 +259,18 @@ def _count_samples(bank, cfg, props, verbose: int, device, auto_amin: bool):
     stats)."""
     import numpy as np
 
-    from bcalm_tpu.cli import _input_blocks
-    from bcalm_tpu.io import bank as bank_mod
     from bcalm_tpu_torch import engine
+    from bcalm_tpu_torch.io import bank as bank_mod
 
     cfg1 = dataclasses.replace(cfg, abundance_min=1, abundance_max=2**31 - 1)
     nb_cores = props.get_int("-nb-cores")
-    runs, stats = [], {}
+    runs, stats, ingest = [], {}, {}
     for p in bank.paths:
         sub = bank_mod.Bank([p])
 
         def blocks(sub=sub):
-            return _input_blocks(sub, cfg, verbose, nb_cores=nb_cores)
+            return _input_blocks(sub, cfg, verbose, nb_cores=nb_cores,
+                                 info=ingest)
 
         s_i, c_i, _, _, st = engine.count_and_filter(blocks(), cfg1, device,
                                                      reread=blocks)
@@ -157,7 +287,89 @@ def _count_samples(bank, cfg, props, verbose: int, device, auto_amin: bool):
     keep = (agg >= cfg.abundance_min) & (agg <= cfg.abundance_max)
     stats["distinct_kmers"] = int(lanes.shape[1])
     stats["solid_kmers"] = int(keep.sum())
+    stats["ingest_parser"] = ingest.get("ingest_parser", "none")
     return lanes[:, keep], agg[keep], histo, stats
+
+
+def _devices_build(props, cfg, device, n_dev: int, in_path: str, prefix: str,
+                   auto_amin: bool, verbose: int) -> int:
+    """-devices N > 1: the minimizer-partitioned build on N ranks
+    (parallel.launch; bcalm_tpu.cli.main's mesh branch, its refusals and
+    messages).  On the CPU the ranks are gloo processes, on the card one
+    NCCL rank per device."""
+    from bcalm_tpu_torch.io import bank as bank_mod
+    from bcalm_tpu_torch.parallel import launch, pipeline
+
+    if props.get_str("-solidity-kind") != "sum":
+        print("-devices with -solidity-kind min/max is not supported "
+              "yet; run without -devices", file=sys.stderr)
+        return 1
+    avail = (torch.cuda.device_count() if device.type == "cuda"
+             else os.cpu_count() or 1)
+    if n_dev > avail:
+        print(f"-devices {n_dev}: only {avail} devices available",
+              file=sys.stderr)
+        return 1
+    adapt_max_len(bank_mod.Bank.open(in_path), cfg)
+    job = {
+        "in_path": in_path, "prefix": prefix, "cfg": cfg, "verbose": verbose,
+        "mcfg": pipeline.MinimizerConfig(
+            m=props.get_int("-minimizer-size"),
+            minimizer_type=props.get_int("-minimizer-type"),
+            repartition_type=props.get_int("-repartition-type")),
+        "auto_amin_cap": (props.get_int("-abundance-min-threshold")
+                          if auto_amin else None),
+        "all_abundance_counts": props.get_bool("-all-abundance-counts"),
+    }
+    if device.type == "cuda":
+        from bcalm_tpu_torch.ops import _kernels
+
+        _kernels.build()    # once here, not once per rank
+    try:
+        launch.spawn(n_dev, device.type, devices_rank, job)
+    except Exception as e:  # noqa: BLE001 — a rank failed: report, exit 1
+        print(f"-devices {n_dev}: a rank failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def devices_rank(mesh, job: dict) -> None:
+    """One rank of a -devices N build: every rank reads the whole input
+    and takes its rows of each round; rank 0 writes the store (removed at
+    the end), the unitigs and the verbose report."""
+    from bcalm_tpu_torch.io import bank as bank_mod
+    from bcalm_tpu_torch.io import fasta_writer
+    from bcalm_tpu_torch.parallel import pipeline
+    from bcalm_tpu_torch.storage.store import Store
+
+    ti = TimeInfo()
+    cfg = job["cfg"]
+    bank = bank_mod.Bank.open(job["in_path"])
+    store = Store(job["prefix"])
+    with ti.timer("build_distributed"):
+        us = pipeline.distributed_build(
+            mesh, bank.sequences(), cfg, job["mcfg"],
+            auto_amin_cap=job["auto_amin_cap"], store=store,
+            reread=lambda: bank.sequences())
+    if mesh.rank != 0:
+        return
+    verbose = job["verbose"]
+    if job["auto_amin_cap"] is not None and verbose:
+        print(f"auto abundance-min = {cfg.abundance_min}")
+    unitigs_path = job["prefix"] + ".unitigs.fa"
+    with ti.timer("write"):
+        with open(unitigs_path, "w") as f:
+            fasta_writer.write_fasta(
+                us, f, all_abundance_counts=job["all_abundance_counts"])
+    store.remove()
+    if verbose:
+        print(f"wrote {len(us.seqs)} unitigs -> {unitigs_path} "
+              f"({mesh.n_dev} devices)")
+        for key, val in sorted(us.stats.items()):
+            print(f"    [{key}] {val}")
+        for name, secs in ti.report().items():
+            print(f"    [time:{name}] {secs:.2f}s")
+        print(f"    [peak_rss_mb] {peak_rss_mb():.0f}")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -177,8 +389,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if props.get_bool("-help") or props.get_bool("-h"):
         print(parser.usage())
         return 0
-    if props.get_int("-devices") > 1:
-        return _not_ported("-devices > 1", "A14")
 
     k = props.get_int("-kmer-size")
     verbose = props.get_int("-verbose")
@@ -200,10 +410,9 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"to run on the CPU", file=sys.stderr)
         return 1
 
-    from bcalm_tpu.cli import _input_blocks
-    from bcalm_tpu.io import bank as bank_mod
-    from bcalm_tpu.storage.store import Store
     from bcalm_tpu_torch import engine
+    from bcalm_tpu_torch.io import bank as bank_mod
+    from bcalm_tpu_torch.storage.store import Store
     from bcalm_tpu_torch.io import fasta_writer
     from bcalm_tpu_torch.models import lanes as ln
 
@@ -243,6 +452,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not os.path.exists(in_path):
             print(f"input not found: {in_path}", file=sys.stderr)
             return 1
+        n_dev = props.get_int("-devices")
+        if n_dev > 1:
+            return _devices_build(props, cfg, device, n_dev, in_path, prefix,
+                                  auto_amin, verbose)
         for flag, default in (("-minimizer-size", "10"),
                               ("-minimizer-type", "1"),
                               ("-repartition-type", "1")):
@@ -252,9 +465,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         bank = bank_mod.Bank.open(in_path)
         adapt_max_len(bank, cfg)
         nb_cores = props.get_int("-nb-cores")
+        ingest: dict = {}
 
         def blocks():
-            return _input_blocks(bank, cfg, verbose, nb_cores=nb_cores)
+            return _input_blocks(bank, cfg, verbose, nb_cores=nb_cores,
+                                 info=ingest)
 
         with ti.timer("build"):
             if solidity_kind != "sum" and len(bank.paths) > 1:
@@ -271,6 +486,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     solidity_kind=solidity_kind)
         if auto_amin and verbose:
             print(f"auto abundance-min = {cfg.abundance_min}")
+        stats.setdefault("ingest_parser", ingest.get("ingest_parser", "none"))
+        if built_us is not None:
+            built_us.stats["ingest_parser"] = stats["ingest_parser"]
         if solid is not None:
             with ti.timer("store"):
                 store.write_counts(

@@ -5,7 +5,8 @@
 // are (ptr, dist|flags, mn, dmn), int64 here; flags sit in bits 28-30 of
 // the dist column exactly as in the JAX package (SETTLED, FIX, ROOTED)
 // and dist saturates at _DMASK.  One thread per node reads its row and
-// its ancestor's row, composes the two spans, writes the new row to a
+// its ancestor's row, composes the two spans (compose.cuh, shared with
+// K16), writes the new row to a
 // second buffer and raises `changed` when the row moved.  The host runs
 // rounds until `changed` stays 0 or the _max_rounds(M)+1 cap, which
 // bounds cycles (their ptr never settles).
@@ -14,13 +15,9 @@
 // (coalesced) and 32 bytes of a random ancestor row, and writes 32; rooted
 // rows are copied without the random read.
 #include "common.cuh"
+#include "compose.cuh"
 
 namespace {
-
-constexpr long long kSettled = 1ll << 28;
-constexpr long long kFix = 1ll << 29;
-constexpr long long kRooted = 1ll << 30;
-constexpr long long kDmask = (1ll << 28) - 1;
 
 __global__ void jump_round_kernel(const int64_t* __restrict__ Q,
                                   int64_t* __restrict__ Qn, long long M,
@@ -28,25 +25,8 @@ __global__ void jump_round_kernel(const int64_t* __restrict__ Q,
   long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (v >= M) return;
   const int64_t* q = Q + 4 * v;
-  int64_t* out = Qn + 4 * v;
-  long long qd = q[1];
-  if (qd & kRooted) {  // rooted rows absorb
-    out[0] = q[0]; out[1] = qd; out[2] = q[2]; out[3] = q[3];
-    return;
-  }
   long long p = q[0] < 0 ? 0 : (q[0] >= M ? M - 1 : q[0]);
-  const int64_t* a = Q + 4 * p;
-  long long ad = a[1];
-  long long dq = qd & kDmask;
-  long long dist = dq + (ad & kDmask);
-  if (dist > kDmask) dist = kDmask;
-  long long flg = ((qd | ad) & kRooted) | ((ad & (kFix | kRooted)) ? kSettled : 0);
-  bool better = a[2] < q[2];
-  long long n0 = a[0], n1 = dist | flg;
-  long long n2 = better ? a[2] : q[2];
-  long long n3 = better ? dq + a[3] : q[3];
-  out[0] = n0; out[1] = n1; out[2] = n2; out[3] = n3;
-  if (n0 != q[0] || n1 != qd || n2 != q[2] || n3 != q[3]) *changed = 1;
+  if (bt::compose_row(q, Q + 4 * p, Qn + 4 * v)) *changed = 1;
 }
 
 }  // namespace

@@ -6,7 +6,10 @@
 // builds the forward and reverse-complement lanes directly (no window-pack
 // doubling: that form exists for the TPU's vector unit), picks the
 // lexicographically smaller, and writes L canonical lanes plus the
-// first-occurrence key ((slot << 1) | rc, clamped below the sentinel) into
+// first-occurrence key ((slot << 1) | rc, clamped below the sentinel; the
+// slot is slot_base + b*P_eff + p, or with a per-row base (the received
+// superkmers of the -devices N build, bcalm_tpu/parallel/pipeline.py:348)
+// (row_base[b] + p) & 0x3FFFFFFF) into
 // column `offset + slot` of the (L+1, cap) int64 chunk buffer.  Invalid
 // positions (p > len - k) write the all-ones sentinel in every row.
 //
@@ -25,7 +28,9 @@ __global__ void extract_insert_kernel(int64_t* __restrict__ buf,
                                       const int64_t* __restrict__ words,
                                       const int64_t* __restrict__ lengths,
                                       int B, int W, int P_eff, int k,
-                                      uint32_t slot_base, long long offset) {
+                                      uint32_t slot_base,
+                                      const int64_t* __restrict__ row_base,
+                                      long long offset) {
   long long f = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (f >= static_cast<long long>(B) * P_eff) return;
   int b = static_cast<int>(f / P_eff);
@@ -55,7 +60,9 @@ __global__ void extract_insert_kernel(int64_t* __restrict__ buf,
   bool use_rc = bt::less<L>(rc, fwd);
 #pragma unroll
   for (int j = 0; j < L; ++j) buf[j * stride + col] = use_rc ? rc[j] : fwd[j];
-  uint32_t slot = slot_base + static_cast<uint32_t>(f);
+  uint32_t slot = row_base
+      ? ((static_cast<uint32_t>(row_base[b]) + static_cast<uint32_t>(p)) & 0x3FFFFFFFu)
+      : slot_base + static_cast<uint32_t>(f);
   uint32_t pos = (slot << 1) | (use_rc ? 1u : 0u);
   buf[L * stride + col] = pos < 0xFFFFFFFEu ? pos : 0xFFFFFFFEu;
 }
@@ -63,10 +70,11 @@ __global__ void extract_insert_kernel(int64_t* __restrict__ buf,
 template <int L>
 void launch(int64_t* buf, long long stride, const int64_t* words,
             const int64_t* lengths, int B, int W, int P_eff, int k,
-            uint32_t slot_base, long long offset, cudaStream_t s) {
+            uint32_t slot_base, const int64_t* row_base, long long offset,
+            cudaStream_t s) {
   long long n = static_cast<long long>(B) * P_eff;
   extract_insert_kernel<L><<<bt::blocks_for(n), bt::kThreads, 0, s>>>(
-      buf, stride, words, lengths, B, W, P_eff, k, slot_base, offset);
+      buf, stride, words, lengths, B, W, P_eff, k, slot_base, row_base, offset);
 }
 
 }  // namespace
@@ -74,11 +82,12 @@ void launch(int64_t* buf, long long stride, const int64_t* words,
 extern "C" int bt_extract_insert(int64_t* buf, long long stride,
                                  const int64_t* words, const int64_t* lengths,
                                  int B, int W, int P_eff, int k, int L,
-                                 unsigned int slot_base, long long offset,
+                                 unsigned int slot_base,
+                                 const int64_t* row_base, long long offset,
                                  void* stream) {
   if (static_cast<long long>(B) * P_eff == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BT_DISPATCH_LANES(L, launch, buf, stride, words, lengths, B, W, P_eff, k,
-                    slot_base, offset, s);
+                    slot_base, row_base, offset, s);
   return static_cast<int>(cudaGetLastError());
 }

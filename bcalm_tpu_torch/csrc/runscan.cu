@@ -3,7 +3,9 @@
 //
 // Replaces the scans of bcalm_tpu/ops/runchains.py:junction_runs (with
 // _cummax :89 and _cummin_rev :104, log-doubling shifts on the TPU).  For
-// i in [0, C), with nxt(i) = i < n_solid && succ[i] == i+1 && i+1 < C:
+// i in [0, C), with nxt(i) = i < n_solid && succ[i] == g+i+1 && i+1 < C
+// (g: the global id of entry 0, nonzero on a rank of the sharded glue,
+// bcalm_tpu/parallel/distcompact.py:218):
 //   is_head[i]  = i < n_solid && !nxt(i-1)
 //   is_tail[i]  = i < n_solid && !nxt(i)
 //   rid[i]      = (heads at or before i) - 1
@@ -23,20 +25,22 @@ constexpr int kItems = kScanItems;
 constexpr int kTile = kScanTile;
 
 __device__ __forceinline__ bool nxt_at(const int64_t* succ, long long C,
-                                       long long n, long long j) {
-  return j >= 0 && j < n && j + 1 < C && succ[j] == j + 1;
+                                       long long n, long long g,
+                                       long long j) {
+  return j >= 0 && j < n && j + 1 < C && succ[j] == g + j + 1;
 }
 
 // Head and tail flags of this thread's entries [base, base + kItems).
 __device__ __forceinline__ void entry_flags(const int64_t* succ, long long C,
-                                            long long n, long long base,
+                                            long long n, long long g,
+                                            long long base,
                                             bool (&head)[kItems],
                                             bool (&tail)[kItems]) {
-  bool prev = nxt_at(succ, C, n, base - 1);
+  bool prev = nxt_at(succ, C, n, g, base - 1);
   for (int q = 0; q < kItems; ++q) {
     long long i = base + q;
     bool live = i < n;
-    bool nx = nxt_at(succ, C, n, i);
+    bool nx = nxt_at(succ, C, n, g, i);
     head[q] = live && !prev;
     tail[q] = live && !nx;
     prev = nx;
@@ -44,13 +48,14 @@ __device__ __forceinline__ void entry_flags(const int64_t* succ, long long C,
 }
 
 __global__ void run_scan_reduce(const int64_t* __restrict__ succ, long long C,
-                                long long n, long long* __restrict__ agg_cnt,
+                                long long n, long long g,
+                                long long* __restrict__ agg_cnt,
                                 long long* __restrict__ agg_last,
                                 long long* __restrict__ agg_first) {
   __shared__ long long sh[32];
   long long base = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x * kItems;
   bool head[kItems], tail[kItems];
-  entry_flags(succ, C, n, base, head, tail);
+  entry_flags(succ, C, n, g, base, head, tail);
   long long cnt = 0, last = -1, first = C;
   for (int q = 0; q < kItems; ++q) {
     long long i = base + q;
@@ -103,7 +108,7 @@ __global__ void run_scan_carry(long long nb, long long C,
 }
 
 __global__ void run_scan_apply(const int64_t* __restrict__ succ, long long C,
-                               long long n,
+                               long long n, long long g,
                                const long long* __restrict__ carry_cnt,
                                const long long* __restrict__ carry_last,
                                const long long* __restrict__ carry_first,
@@ -115,7 +120,7 @@ __global__ void run_scan_apply(const int64_t* __restrict__ succ, long long C,
   __shared__ long long sh[32];
   long long base = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x * kItems;
   bool head[kItems], tail[kItems];
-  entry_flags(succ, C, n, base, head, tail);
+  entry_flags(succ, C, n, g, base, head, tail);
   long long cnt = 0, last = -1, first = C;
   for (int q = 0; q < kItems; ++q) {
     long long i = base + q;
@@ -148,6 +153,7 @@ __global__ void run_scan_apply(const int64_t* __restrict__ succ, long long C,
 }  // namespace
 
 extern "C" int bt_run_scans(const int64_t* succ, long long C, long long n,
+                            long long g,
                             long long* scratch, uint8_t* is_head,
                             uint8_t* is_tail, int64_t* rid, int64_t* head_pos,
                             int64_t* end_pos, int64_t* R, void* stream) {
@@ -158,7 +164,7 @@ extern "C" int bt_run_scans(const int64_t* succ, long long C, long long n,
   long long* agg_last = scratch + nb;
   long long* agg_first = scratch + 2 * nb;
   run_scan_reduce<<<static_cast<unsigned int>(nb), bt::kThreads, 0, s>>>(
-      succ, C, n, agg_cnt, agg_last, agg_first);
+      succ, C, n, g, agg_cnt, agg_last, agg_first);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   run_scan_carry<<<1, kCarryThreads, 0, s>>>(nb, C, agg_cnt, agg_last,
@@ -166,7 +172,7 @@ extern "C" int bt_run_scans(const int64_t* succ, long long C, long long n,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   run_scan_apply<<<static_cast<unsigned int>(nb), bt::kThreads, 0, s>>>(
-      succ, C, n, agg_cnt, agg_last, agg_first, is_head, is_tail, rid,
+      succ, C, n, g, agg_cnt, agg_last, agg_first, is_head, is_tail, rid,
       head_pos, end_pos);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,9 +38,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bcalm_tpu.io import packing
-from bcalm_tpu.utils import dna
 from bcalm_tpu_torch import convert
+from bcalm_tpu_torch.io import packing
 from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import _kernels
 from bcalm_tpu_torch.ops import chains as chains_op
@@ -48,6 +47,7 @@ from bcalm_tpu_torch.ops import count as count_op
 from bcalm_tpu_torch.ops import extract as extract_op
 from bcalm_tpu_torch.ops import junctions as junctions_op
 from bcalm_tpu_torch.ops import runchains
+from bcalm_tpu_torch.utils import dna
 
 # CPU tensors have no card to ask for its memory: the plain paths are
 # sized as if for an 80 GB card

@@ -11,8 +11,8 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch, launches on the current stream, raises when the C
 function returns a CUDA error, and adds one to its entry in ``LAUNCHES``
 each time it launches its kernel(s).  The plain PyTorch versions live beside the
-callers in ops/{extract,count,junctions,chains,runchains}.py and
-engine.py; these wrappers never fall back to them.
+callers in ops/{extract,count,junctions,chains,runchains,superkmer}.py,
+parallel/{pipeline,distcompact}.py and engine.py; these wrappers never fall back to them.
 """
 
 from __future__ import annotations
@@ -38,14 +38,15 @@ LAUNCHES = {"extract_insert": 0, "count_runs": 0, "junction_keys": 0,
             "junction_pairs": 0, "jump_round": 0, "range_fold": 0,
             "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0,
             "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
-            "run_contract": 0, "run_broadcast": 0}
+            "run_contract": 0, "run_broadcast": 0, "form_superkmers": 0,
+            "mmer_histograms": 0, "route_buckets": 0, "glue_compose": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _SIGNATURES = {
     "bt_extract_insert": [_P, _I64, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                          ctypes.c_uint, _I64, _P],
+                          ctypes.c_uint, _P, _I64, _P],
     "bt_count_flags": [_P, _I64, _I64, _I32, _P, _P],
     "bt_count_scatter": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _I64, _P,
                          _P, _P],
@@ -57,7 +58,7 @@ _SIGNATURES = {
     "bt_lower_bound": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _P],
     "bt_solid_fold": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
                       _P, _I64, _P, _P, _P, _P, _P],
-    "bt_run_scans": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+    "bt_run_scans": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     "bt_solid_compact": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _P,
                          _P, _I64, _I64, _P, _P],
     "bt_chain_finish": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
@@ -68,7 +69,19 @@ _SIGNATURES = {
                         _P],
     "bt_run_broadcast": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
                          _P, _P, _P],
+    "bt_junction_entries": [_P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _I32,
+                            _P, _I64, _P, _P, _P],
+    "bt_junction_edges": [_P, _I64, _I32, _P, _I64, _I64, _P, _P, _P, _P],
+    "bt_form_superkmers": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32,
+                           _I32, _I32, ctypes.c_uint, _P, _P, _P, _P, _P],
+    "bt_mmer_histograms": [_P, _P, _I32, _I32, _I32, _I32, _P, _I32, _P, _P],
+    "bt_route_count": [_P, _P, _I64, _I32, _P, _P],
+    "bt_route_place": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P, _P,
+                       _P, _P, _P],
+    "bt_glue_compose": [_P, _P, _P, _I64, _P, _P, _P],
 }
+ROUTE_TILE = 1024  # entries per tile of csrc/route.cu
+MAX_ROW_WORDS = 64  # csrc/superkmer.cu: one block of <= 1024 positions per read
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
 MAX_LANES = 8
 
@@ -191,12 +204,18 @@ def _lanes_ok(L: int, what: str):
 
 def extract_insert(buf: torch.Tensor, words: torch.Tensor,
                    lengths: torch.Tensor, k: int, slot_base: int,
-                   offset: int) -> None:
+                   offset: int, row_base=None) -> None:
     """K1: write the folded (L+1, B*P_eff) extraction of a packed block into
-    buf[:, offset:offset + B*P_eff] (in place)."""
+    buf[:, offset:offset + B*P_eff] (in place).  row_base: (B,) per-row
+    slot bases (slot = (row_base[b] + p) & 0x3FFFFFFF) instead of
+    slot_base + b*P_eff + p."""
     _check(buf, "buf", ndim=2)
     _check(words, "words", ndim=2)
     _check(lengths, "lengths", ndim=1)
+    if row_base is not None:
+        _check(row_base, "row_base", ndim=1)
+        if row_base.shape[0] != words.shape[0]:
+            raise ValueError("extract_insert: one row base per read")
     L = buf.shape[0] - 1
     _lanes_ok(L, "extract_insert")
     B, W = words.shape
@@ -207,7 +226,8 @@ def extract_insert(buf: torch.Tensor, words: torch.Tensor,
         return
     _launch("bt_extract_insert", buf.data_ptr(),
             buf.stride(0), words.data_ptr(), lengths.data_ptr(), B, W, P_eff,
-            k, L, slot_base, offset)
+            k, L, slot_base, None if row_base is None else row_base.data_ptr(),
+            offset)
     LAUNCHES["extract_insert"] += 1
 
 
@@ -356,9 +376,10 @@ def solid_fold_histogram(unique: torch.Tensor, counts: torch.Tensor,
     return solid, scounts, spos, n_solid, histo
 
 
-def run_scans(succ: torch.Tensor, n_solid: int, C: int):
+def run_scans(succ: torch.Tensor, n_solid: int, C: int, gbase: int = 0):
     """K8 on the (>= C,) successor array: (is_head, is_tail, rid, head_pos,
-    end_pos, R (1,)) over [0, C)."""
+    end_pos, R (1,)) over [0, C); entry i links to i+1 when succ[i] ==
+    gbase + i + 1."""
     _check(succ, "succ", ndim=1)
     if succ.shape[0] < C or not 0 <= n_solid <= C:
         raise ValueError("run_scans: succ shorter than C or n_solid > C")
@@ -372,7 +393,7 @@ def run_scans(succ: torch.Tensor, n_solid: int, C: int):
     if C:
         tiles = -(-C // 1024)
         scratch = torch.empty((3 * tiles,), dtype=torch.int64, device=dev)
-        _launch("bt_run_scans", succ.data_ptr(), C, n_solid,
+        _launch("bt_run_scans", succ.data_ptr(), C, n_solid, gbase,
                 scratch.data_ptr(), is_head.data_ptr(), is_tail.data_ptr(),
                 rid.data_ptr(), head_pos.data_ptr(), end_pos.data_ptr(),
                 R.data_ptr())
@@ -537,3 +558,142 @@ def run_broadcast(cuid: torch.Tensor, crank: torch.Tensor, cstart: torch.Tensor,
                 C, R_cap, uid.data_ptr(), rank.data_ptr(), start_oid.data_ptr())
         LAUNCHES["run_broadcast"] += 1
     return uid, rank, start_oid
+
+
+def junction_entries(solid: torch.Tensor, n_local: int, k: int, gbase: int,
+                     tot: int, n_dev: int, key_rows: int):
+    """K3a, global mode: (keys (key_rows, 4N), payload (4N,), owner (4N,))
+    of the four junction entries of each of the N = solid.shape[1] local
+    k-mers."""
+    _check(solid, "solid", ndim=2)
+    L, N = solid.shape
+    _lanes_ok(L, "junction_entries")
+    dev = solid.device
+    keys = torch.empty((key_rows, 4 * N), dtype=torch.int64, device=dev)
+    payload = torch.empty((4 * N,), dtype=torch.int64, device=dev)
+    owner = torch.empty((4 * N,), dtype=torch.int64, device=dev)
+    if N:
+        _launch("bt_junction_entries", solid.data_ptr(), solid.stride(0), N,
+                n_local, L, k, gbase, tot, n_dev, keys.data_ptr(),
+                keys.stride(0), payload.data_ptr(), owner.data_ptr())
+        LAUNCHES["junction_keys"] += 1
+    return keys, payload, owner
+
+
+def junction_edges(s_keys: torch.Tensor, s_pay: torch.Tensor, tot: int):
+    """K3b, global mode: (ok (E,) bool, src (E,), dst (E,)) of the pair
+    rule over E sorted received entries."""
+    _check(s_keys, "s_keys", ndim=2)
+    _check(s_pay, "s_pay", ndim=1)
+    E = s_pay.shape[0]
+    dev = s_pay.device
+    ok = torch.zeros((E,), dtype=torch.bool, device=dev)
+    src = torch.empty((E,), dtype=torch.int64, device=dev)
+    dst = torch.empty((E,), dtype=torch.int64, device=dev)
+    if E:
+        _launch("bt_junction_edges", s_keys.data_ptr(), s_keys.stride(0),
+                s_keys.shape[0], s_pay.data_ptr(), E, tot, ok.data_ptr(),
+                src.data_ptr(), dst.data_ptr())
+        LAUNCHES["junction_pairs"] += 1
+    return ok, src, dst
+
+
+def form_superkmers(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
+                    table: torch.Tensor, rank, max_span: int, Wn: int,
+                    bits: int, with_pos: bool, pos_base: int):
+    """K13: (skm_words (Wn [+1], B*P), owner (B*P,), start (B*P,) bool,
+    n_kmers (1,)); rank None = the m-mer is the key."""
+    _check(words, "words", ndim=2)
+    _check(lengths, "lengths", ndim=1)
+    _check(table, "table", ndim=1)
+    if rank is not None:
+        _check(rank, "rank", ndim=1)
+    B, W = words.shape
+    if W > MAX_ROW_WORDS or not 1 <= m <= 16 or m >= k:
+        raise ValueError(f"form_superkmers: W={W} (max {MAX_ROW_WORDS}), "
+                         f"m={m}, k={k}")
+    dev = words.device
+    N = B * 16 * W
+    skm = torch.empty((Wn + int(with_pos), N), dtype=torch.int64, device=dev)
+    owner = torch.empty((N,), dtype=torch.int64, device=dev)
+    start = torch.empty((N,), dtype=torch.bool, device=dev)
+    n_kmers = torch.zeros((1,), dtype=torch.int64, device=dev)
+    if B:
+        _launch("bt_form_superkmers", words.data_ptr(), lengths.data_ptr(), B,
+                W, k, m, table.data_ptr(),
+                None if rank is None else rank.data_ptr(), max_span, Wn, bits,
+                int(with_pos), pos_base & 0xFFFFFFFF, skm.data_ptr(),
+                owner.data_ptr(), start.data_ptr(), n_kmers.data_ptr())
+        LAUNCHES["form_superkmers"] += 1
+    return skm, owner, start, n_kmers
+
+
+def mmer_histograms(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
+                    rank, load: bool) -> torch.Tensor:
+    """K14: the (4^m,) canonical m-mer histogram (load False) or the
+    window-min-key load (load True; rank None = the m-mer is the key)."""
+    _check(words, "words", ndim=2)
+    _check(lengths, "lengths", ndim=1)
+    if rank is not None:
+        _check(rank, "rank", ndim=1)
+    B, W = words.shape
+    if W > MAX_ROW_WORDS or not 1 <= m <= 16 or m >= k:
+        raise ValueError(f"mmer_histograms: W={W} (max {MAX_ROW_WORDS}), "
+                         f"m={m}, k={k}")
+    histo = torch.zeros((4 ** m,), dtype=torch.int64, device=words.device)
+    if B:
+        _launch("bt_mmer_histograms", words.data_ptr(), lengths.data_ptr(), B,
+                W, k, m, None if rank is None else rank.data_ptr(), int(load),
+                histo.data_ptr())
+        LAUNCHES["mmer_histograms"] += 1
+    return histo
+
+
+def route_buckets(stacked: torch.Tensor, valid: torch.Tensor,
+                  owner: torch.Tensor, n_dev: int, cap: int,
+                  with_slots: bool = False):
+    """K15: (buckets (C, n_dev, cap), bucket_valid (n_dev, cap), n_dropped
+    (1,)[, slots (N,)])."""
+    _check(stacked, "stacked", ndim=2, rows_strided=True)
+    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    _check(owner, "owner", ndim=1)
+    C, N = stacked.shape
+    if valid.shape[0] != N or owner.shape[0] != N or not 1 <= n_dev <= 256:
+        raise ValueError("route_buckets: shapes do not match")
+    dev = stacked.device
+    buckets = torch.zeros((C, n_dev * cap), dtype=torch.int64, device=dev)
+    bvalid = torch.zeros((n_dev * cap,), dtype=torch.bool, device=dev)
+    dropped = torch.zeros((1,), dtype=torch.int64, device=dev)
+    slots = (torch.empty((N,), dtype=torch.int64, device=dev)
+             if with_slots else None)
+    if N:
+        tiles = -(-N // ROUTE_TILE)
+        counts = torch.empty((tiles, n_dev), dtype=torch.int64, device=dev)
+        _launch("bt_route_count", owner.data_ptr(), valid.data_ptr(), N, n_dev,
+                counts.data_ptr())
+        tile_off = torch.cumsum(counts, 0) - counts
+        _launch("bt_route_place", stacked.data_ptr(), stacked.stride(0), C,
+                owner.data_ptr(), valid.data_ptr(), N, n_dev, cap,
+                tile_off.data_ptr(), buckets.data_ptr(), bvalid.data_ptr(),
+                dropped.data_ptr(), None if slots is None else slots.data_ptr())
+        LAUNCHES["route_buckets"] += 1
+    out = (buckets.reshape(C, n_dev, cap), bvalid.reshape(n_dev, cap), dropped)
+    return out + (slots,) if with_slots else out
+
+
+def glue_compose(Q: torch.Tensor, anc: torch.Tensor, need: torch.Tensor):
+    """K16: (Qn (M, 4), changed (1,) int32): rows that need a step composed
+    with their fetched ancestor rows, the others copied."""
+    _check(Q, "Q", ndim=2)
+    _check(anc, "anc", ndim=2)
+    _check(need, "need", dtype=torch.bool, ndim=1)
+    M = Q.shape[0]
+    if Q.shape != (M, 4) or anc.shape != (M, 4) or need.shape[0] != M:
+        raise ValueError("glue_compose: expected two (M, 4) states and (M,) need")
+    Qn = torch.empty_like(Q)
+    changed = torch.zeros((1,), dtype=torch.int32, device=Q.device)
+    if M:
+        _launch("bt_glue_compose", Q.data_ptr(), anc.data_ptr(), need.data_ptr(),
+                M, Qn.data_ptr(), changed.data_ptr())
+        LAUNCHES["glue_compose"] += 1
+    return Qn, changed

@@ -66,10 +66,9 @@ def init_state(pred: torch.Tensor, valid: torch.Tensor,
     ], dim=1).contiguous()
 
 
-def jump_round_plain(Q: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the K4 kernel: one doubling round."""
-    M = Q.shape[0]
-    anc = Q[torch.clamp(Q[:, _PTR], 0, M - 1)]
+def compose_plain(Q: torch.Tensor, anc: torch.Tensor) -> torch.Tensor:
+    """Each row composed with its ancestor's row (bcalm_tpu chains
+    _composeF); ROOTED rows come back unchanged (csrc/compose.cuh)."""
     qd, ad = Q[:, _DSF], anc[:, _DSF]
     dq = qd & _DMASK
     dist = torch.clamp(dq + (ad & _DMASK), max=_DMASK)
@@ -84,6 +83,12 @@ def jump_round_plain(Q: torch.Tensor) -> torch.Tensor:
     ], dim=1)
     rooted = (qd & _F_ROOTED) != 0
     return torch.where(rooted[:, None], Q, new)
+
+
+def jump_round_plain(Q: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the K4 kernel: one doubling round."""
+    M = Q.shape[0]
+    return compose_plain(Q, Q[torch.clamp(Q[:, _PTR], 0, M - 1)])
 
 
 def jump_round(Q: torch.Tensor, Qn: torch.Tensor,

@@ -55,7 +55,7 @@ def kmer_lanes(bases: torch.Tensor, k: int, P_eff: int):
 
 def extract_insert_plain(buf: torch.Tensor, words: torch.Tensor,
                          lengths: torch.Tensor, k: int, slot_base: int,
-                         offset: int) -> None:
+                         offset: int, row_base=None) -> None:
     """Plain PyTorch version of the K1 kernel (same arguments)."""
     B, W = words.shape
     P_eff = max(1, W * BASES_PER_WORD - (k - 1))
@@ -65,7 +65,10 @@ def extract_insert_plain(buf: torch.Tensor, words: torch.Tensor,
     canon = torch.where(use_rc[None], rc, fwd).reshape(L, -1)
     pos_idx = torch.arange(P_eff, device=words.device)
     valid = (pos_idx[None, :] <= (lengths[:, None] - k)).reshape(-1)
-    slot = slot_base + torch.arange(B * P_eff, device=words.device)
+    if row_base is None:
+        slot = slot_base + torch.arange(B * P_eff, device=words.device)
+    else:
+        slot = ((row_base[:, None] + pos_idx[None, :]) & 0x3FFFFFFF).reshape(-1)
     pos = ((slot << 1) & ln.U32) | use_rc.reshape(-1).to(torch.int64)
     pos = torch.clamp(pos, max=0xFFFFFFFE)
     rows = torch.cat([canon, pos[None]], dim=0)
@@ -75,12 +78,17 @@ def extract_insert_plain(buf: torch.Tensor, words: torch.Tensor,
 
 def extract_insert(buf: torch.Tensor, words: torch.Tensor,
                    lengths: torch.Tensor, k: int, slot_base: int,
-                   offset: int) -> None:
+                   offset: int, row_base=None) -> None:
     """Write a block's folded extraction into buf[:, offset:offset+F].
 
     buf: (L+1, cap) int64; words: (B, W) int64 packed reads (u32 values);
-    lengths: (B,) int64; slot_base < 2**31."""
+    lengths: (B,) int64; slot_base < 2**31.  row_base: (B,) int64 per-row
+    stream slots (the received superkmers of the -devices N build,
+    bcalm_tpu/parallel/pipeline.py:348): position p of row b then keys
+    ((row_base[b] + p) & 0x3FFFFFFF) << 1 | rc."""
     if buf.device.type == "cpu":
-        extract_insert_plain(buf, words, lengths, k, slot_base, offset)
+        extract_insert_plain(buf, words, lengths, k, slot_base, offset,
+                             row_base)
     else:
-        _kernels.extract_insert(buf, words, lengths, k, slot_base, offset)
+        _kernels.extract_insert(buf, words, lengths, k, slot_base, offset,
+                                row_base)

@@ -147,3 +147,105 @@ def successor_arrays(solid: torch.Tensor, n_solid: int, k: int) -> torch.Tensor:
     perm = sort_op.lex_argsort([keys[r] for r in range(keys.shape[0])])
     return junction_pairs(keys[:, perm].contiguous(), payload[perm], C,
                           use_hash_keys(k))
+
+
+# ---- global mode: the sharded junction matching of the -devices N build
+# (bcalm_tpu/parallel/distcompact.py:_local_succ_shard) ----
+
+def strand_folded(k: int) -> bool:
+    """The strand bit fits the spare bits of the top key lane."""
+    return ln.top_lane_bases(k - 1) < 16
+
+
+def entry_key_rows(k: int) -> int:
+    """Rows of a global-mode entry key: the (k-1)-mer lanes, plus a strand
+    row when k-1 is a multiple of 16 (always exact, never hashed)."""
+    return ln.num_lanes(k - 1) + (0 if strand_folded(k) else 1)
+
+
+def _make_keys(keys: torch.Tensor, strand: torch.Tensor, valid: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """Fold the strand (and the validity sentinel) into (L2, N) key lanes
+    (bcalm_tpu junctions._make_keys)."""
+    if strand_folded(k):
+        r = ln.top_lane_bases(k - 1)
+        out = torch.cat([(keys[0] | (strand << (2 * r)))[None], keys[1:]])
+    else:
+        out = torch.cat([strand[None], keys])
+    return torch.where(valid[None], out, SENTINEL)
+
+
+def junction_entries_plain(solid: torch.Tensor, n_local: int, k: int,
+                           gbase: int, tot: int, n_dev: int):
+    """Plain version of K3a's global mode: the four junction entries of
+    each local k-mer, (keys (K, 4N), payload (4N,), owner (4N,)); suffix
+    entries at [0, 2N), prefix entries at [2N, 4N); oriented ids global
+    (gbase + i, + tot for the - strand); owner = hash_lanes(key) % n_dev."""
+    from bcalm_tpu_torch.ops import hashing
+
+    N = solid.shape[1]
+    dev = solid.device
+    suf = ln.suffix_kminus1(solid, k)
+    pre = ln.prefix_kminus1(solid, k)
+    suf_c, sig = ln.canonical(suf, k - 1)
+    pre_c, tau = ln.canonical(pre, k - 1)
+    suf_pal = ln.is_palindrome(suf, k - 1)
+    pre_pal = ln.is_palindrome(pre, k - 1)
+    sig = torch.where(suf_pal, False, sig).to(torch.int64)
+    tau = torch.where(pre_pal, False, tau).to(torch.int64)
+    inv_sig = torch.where(suf_pal, 0, 1 - sig)
+    inv_tau = torch.where(pre_pal, 0, 1 - tau)
+    ids = torch.arange(N, device=dev)
+    valid1 = ids < n_local
+    keys = torch.cat([_make_keys(suf_c, sig, valid1, k),
+                      _make_keys(suf_c, inv_sig, valid1, k),
+                      _make_keys(pre_c, tau, valid1, k),
+                      _make_keys(pre_c, inv_tau, valid1, k)], dim=1)
+    g = gbase + ids
+    oid = torch.cat([g, g + tot, g, g + tot])
+    role = torch.cat([torch.zeros(N, dtype=torch.int64, device=dev),
+                      torch.ones(N, dtype=torch.int64, device=dev),
+                      torch.ones(N, dtype=torch.int64, device=dev),
+                      torch.zeros(N, dtype=torch.int64, device=dev)])
+    payload = oid | (role << _ROLE_SHIFT)
+    return keys, payload, hashing.hash_lanes(keys) % n_dev
+
+
+def junction_entries(solid: torch.Tensor, n_local: int, k: int, gbase: int,
+                     tot: int, n_dev: int):
+    """K3a global-mode entry: kernel for CUDA tensors, plain version for
+    CPU tensors."""
+    if solid.device.type == "cpu":
+        return junction_entries_plain(solid, n_local, k, gbase, tot, n_dev)
+    return _kernels.junction_entries(solid, n_local, k, gbase, tot, n_dev,
+                                     entry_key_rows(k))
+
+
+def junction_edges_plain(s_keys: torch.Tensor, s_pay: torch.Tensor, tot: int):
+    """Plain version of K3b's global mode: per sorted entry, (ok, src, dst)
+    of the pair rule (a group of exactly two entries, one OUT and one IN,
+    on distinct vertices; src/dst are meaningful where ok)."""
+    dev = s_pay.device
+    s_valid = s_keys[0] != SENTINEL
+    f = torch.zeros((1,), dtype=torch.bool, device=dev)
+    eq_prev = torch.cat([f, torch.all(s_keys[:, 1:] == s_keys[:, :-1], dim=0)])
+    eq_next = torch.cat([eq_prev[1:], f])
+    pair_head = s_valid & ~eq_prev & eq_next & ~torch.cat([eq_next[1:], f])
+    nxt_pay = torch.cat([s_pay[1:], torch.zeros((1,), dtype=torch.int64,
+                                                device=dev)])
+    role_a, role_b = s_pay >> _ROLE_SHIFT, nxt_pay >> _ROLE_SHIFT
+    oid_a, oid_b = s_pay & _OID_MASK, nxt_pay & _OID_MASK
+    vert_a = torch.where(oid_a >= tot, oid_a - tot, oid_a)
+    vert_b = torch.where(oid_b >= tot, oid_b - tot, oid_b)
+    ok = pair_head & (role_a != role_b) & (vert_a != vert_b)
+    src = torch.where(role_a == ROLE_OUT, oid_a, oid_b)
+    dst = torch.where(role_a == ROLE_OUT, oid_b, oid_a)
+    return ok, src, dst
+
+
+def junction_edges(s_keys: torch.Tensor, s_pay: torch.Tensor, tot: int):
+    """K3b global-mode entry: kernel for CUDA tensors, plain version for
+    CPU tensors."""
+    if s_pay.device.type == "cpu":
+        return junction_edges_plain(s_keys, s_pay, tot)
+    return _kernels.junction_edges(s_keys, s_pay, tot)

@@ -50,14 +50,15 @@ def reorder_by_pos(solid: torch.Tensor, counts: torch.Tensor,
     return torch.where(strand[None], ln.revcomp(lanes, k), lanes), counts[perm]
 
 
-def run_scans_plain(succ: torch.Tensor, n_solid: int, C: int):
+def run_scans_plain(succ: torch.Tensor, n_solid: int, C: int, gbase: int = 0):
     """Plain version of K8: the consecutive-run structure of [0, C) from
-    the successor array.  Returns (is_head, is_tail, rid, head_pos,
-    end_pos, R (1,)); head_pos is -1 before the first head, end_pos is C
-    past the last tail."""
+    the successor array (entry i links to i+1 when succ[i] == gbase+i+1;
+    gbase is a rank's first global slot in the sharded glue).  Returns
+    (is_head, is_tail, rid, head_pos, end_pos, R (1,)); head_pos is -1
+    before the first head, end_pos is C past the last tail."""
     idx = torch.arange(C, device=succ.device)
     vplus = idx < n_solid
-    nxt = vplus & (succ[:C] == idx + 1) & (idx + 1 < C)
+    nxt = vplus & (succ[:C] == gbase + idx + 1) & (idx + 1 < C)
     prev = torch.cat([torch.zeros((1,), dtype=torch.bool, device=idx.device),
                       nxt[:-1]])
     is_head = vplus & ~prev
@@ -68,11 +69,11 @@ def run_scans_plain(succ: torch.Tensor, n_solid: int, C: int):
     return is_head, is_tail, rid, head_pos, end_pos, is_head.sum().reshape(1)
 
 
-def run_scans(succ: torch.Tensor, n_solid: int, C: int):
+def run_scans(succ: torch.Tensor, n_solid: int, C: int, gbase: int = 0):
     """K8 entry: kernel for CUDA tensors, plain version for CPU tensors."""
     if succ.device.type == "cpu":
-        return run_scans_plain(succ, n_solid, C)
-    return _kernels.run_scans(succ, n_solid, C)
+        return run_scans_plain(succ, n_solid, C, gbase)
+    return _kernels.run_scans(succ, n_solid, C, gbase)
 
 
 def junction_runs(solid_r: torch.Tensor, n_solid: int, k: int):

@@ -8,19 +8,21 @@ Every kernel does integer work: exact equality.
 """
 
 import io
+import pickle
 
 import numpy as np
 import pytest
 import torch
 
-from bcalm_tpu.io import packing
-from bcalm_tpu.oracle import brute
 from bcalm_tpu_torch import engine
-from bcalm_tpu_torch.io import fasta_writer
+from bcalm_tpu_torch.io import fasta_writer, packing
 from bcalm_tpu_torch.models import lanes as ln
+from bcalm_tpu_torch.models import minimizer as mz
+from bcalm_tpu_torch.oracle import brute
 from bcalm_tpu_torch.ops import _kernels, chains, count, extract, junctions
-from bcalm_tpu_torch.ops import runchains
+from bcalm_tpu_torch.ops import runchains, superkmer
 from bcalm_tpu_torch.ops import sort as sort_op
+from bcalm_tpu_torch.parallel import distcompact, launch, pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -354,3 +356,158 @@ def test_multi_sample_cli_card_equals_cpu(card, tmp_path, monkeypatch):
     assert cli.main(base + ["-out", out, "-only-uf"]) == 0
     assert cli.main(base + ["-out", out, "-skip-bcalm", "-skip-bglue"]) == 0
     assert open(out + ".unitigs.fa").read() == open(out + "_full.unitigs.fa").read()
+
+
+@pytest.mark.parametrize("k", [21, 31, 63])
+def test_extract_insert_row_base(card, k):
+    """K1 with one stream slot base per row (the received superkmers of
+    the -devices N build), wrapping at 2^30."""
+    L = ln.num_lanes(k)
+    for b in packing.iter_blocks(reads(k, k=k), k, block_reads=64, max_len=128):
+        F = extract.block_slots(b.words.shape, k)
+        words = torch.from_numpy(b.words.astype(np.int64))
+        lengths = torch.from_numpy(b.lengths.astype(np.int64))
+        rng = np.random.RandomState(k)
+        base = torch.from_numpy(rng.randint(0, 2**32, words.shape[0],
+                                            dtype=np.uint64).astype(np.int64))
+        bufs = [torch.full((L + 1, F), 7, dtype=torch.int64) for _ in range(2)]
+        extract.extract_insert_plain(bufs[1], words, lengths, k, 0, 0, base)
+        bufs[0] = bufs[0].to(card)
+        _kernels.extract_insert(bufs[0], words.to(card), lengths.to(card), k,
+                                0, 0, base.to(card))
+        assert torch.equal(bufs[0].cpu(), bufs[1])
+
+
+@pytest.mark.parametrize("C,n_solid,gbase", [(1024, 1000, 5 << 20),
+                                             (1 << 20, 900_000, 3 << 20)])
+def test_run_scans_global_base(card, C, n_solid, gbase):
+    rng = np.random.RandomState(C)
+    idx = np.arange(2 * C)
+    succ = np.where(rng.rand(2 * C) < 0.3, -1, rng.randint(0, 8 * C, 2 * C))
+    succ[:C] = np.where(rng.rand(C) < 0.9, gbase + idx[:C] + 1, succ[:C])
+    succ = torch.from_numpy(succ)
+    got = _kernels.run_scans(succ.to(card), n_solid, C, gbase)
+    want = runchains.run_scans_plain(succ, n_solid, C, gbase)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k", [13, 17, 31, 33, 63])
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_junctions_global_mode(card, k, n_dev):
+    """K3a/K3b global mode: four entries per k-mer with global oriented ids
+    and owner ranks (k = 17: the strand is a key row of its own)."""
+    L = ln.num_lanes(k)
+    kmers = sorted(brute.count_kmers(reads(k, k=k), k))
+    cols = [[(x >> (32 * (L - 1 - j))) & 0xFFFFFFFF for x in kmers]
+            for j in range(L)]
+    solid = torch.tensor(cols, dtype=torch.int64)
+    n = solid.shape[1]
+    gbase, tot = 3 * n, 8 * n
+    got = junctions.junction_entries(solid.to(card), n - 3, k, gbase, tot, n_dev)
+    want = junctions.junction_entries_plain(solid, n - 3, k, gbase, tot, n_dev)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    keys, pay, _ = want
+    perm = sort_op.lex_argsort(list(keys))
+    s_keys, s_pay = keys[:, perm].contiguous(), pay[perm]
+    got = junctions.junction_edges(s_keys.to(card), s_pay.to(card), tot)
+    want = junctions.junction_edges_plain(s_keys, s_pay, tot)
+    ok = want[0]
+    assert torch.equal(got[0].cpu(), ok) and int(ok.sum()) > 0
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu()[ok], b[ok])
+
+
+def skm_block(k, m, seed=0):
+    b = next(packing.iter_blocks(reads(seed, n=1000, k=k), k, block_reads=1024,
+                                 max_len=160))
+    words = torch.from_numpy(b.words.astype(np.int64))
+    lengths = torch.from_numpy(b.lengths.astype(np.int64))
+    histo = superkmer.sample_cmmer_histogram_plain(words, lengths, k, m)
+    rank = torch.from_numpy(mz.frequency_rank(histo.numpy()).astype(np.int64))
+    load = superkmer.sample_minimizer_load_plain(words, lengths, k, m, rank, True)
+    table = torch.from_numpy(mz.build_repartition(load.numpy(), 4).astype(np.int64))
+    return words, lengths, rank, table
+
+
+@pytest.mark.parametrize("k,m", [(31, 10), (21, 8), (63, 12)])
+@pytest.mark.parametrize("use_rank,with_pos", [(True, True), (False, False)])
+def test_form_superkmers(card, k, m, use_rank, with_pos):
+    words, lengths, rank, table = skm_block(k, m)
+    ms = superkmer.default_max_span(k)
+    args = (k, m, table, rank if use_rank else None, ms, use_rank, with_pos,
+            0xFFFFF000)
+    got = superkmer.form_superkmers(words.to(card), lengths.to(card),
+                                    *[a.to(card) if isinstance(a, torch.Tensor)
+                                      else a for a in args])
+    want = superkmer.form_superkmers_plain(words, lengths, *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k,m", [(31, 10), (21, 8)])
+def test_mmer_histograms(card, k, m):
+    words, lengths, rank, _ = skm_block(k, m, seed=1)
+    w, l = words.to(card), lengths.to(card)
+    assert torch.equal(superkmer.sample_cmmer_histogram(w, l, k, m).cpu(),
+                       superkmer.sample_cmmer_histogram_plain(words, lengths, k, m))
+    for use_rank in (True, False):
+        r = rank if use_rank else None
+        got = superkmer.sample_minimizer_load(w, l, k, m,
+                                              None if r is None else r.to(card),
+                                              use_rank)
+        want = superkmer.sample_minimizer_load_plain(words, lengths, k, m, r,
+                                                     use_rank)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n_dev", [1, 4, 8, 256])
+@pytest.mark.parametrize("with_slots", [False, True])
+def test_route_buckets(card, n_dev, with_slots):
+    rng = np.random.RandomState(n_dev)
+    N, C = 300_000, 3
+    stacked = torch.from_numpy(rng.randint(0, 2**32, size=(C, N),
+                                           dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(rng.rand(N) < 0.8)
+    owner = torch.from_numpy(np.where(rng.rand(N) < 0.3, 0,
+                                      rng.randint(0, n_dev, N)))
+    for cap in (N, max(1, N // (3 * n_dev))):
+        args = (n_dev, cap, with_slots)
+        got = _kernels.route_buckets(stacked.to(card), valid.to(card),
+                                     owner.to(card), *args)
+        want = pipeline.route_to_buckets_plain(stacked, valid, owner, *args)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_glue_compose(card):
+    rng = np.random.RandomState(0)
+    M = 1 << 16
+    pred = torch.from_numpy(np.where(rng.rand(M) < 0.9, rng.randint(0, M, M), -1))
+    Q = chains.init_state(pred, torch.ones(M, dtype=torch.bool))
+    for _ in range(4):
+        anc = Q[torch.clamp(Q[:, 0], 0, M - 1)]
+        need = torch.from_numpy(rng.rand(M) < 0.7)
+        got = _kernels.glue_compose(Q.to(card), anc.to(card), need.to(card))
+        want = distcompact.glue_compose_plain(Q, anc, need)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        Q = want[0]
+
+
+def test_devices_build_card_equals_cpu(card, tmp_path):
+    """The -devices build at world size 1: one NCCL rank on the card
+    writes the bytes of one gloo rank on the CPU."""
+    k = 31
+    seqs = reads(13, n=1000, k=k) + reads(14, n=1000, k=k)   # two genomes
+    outs = []
+    for kind in ("cuda", "cpu"):
+        out = tmp_path / kind
+        out.mkdir()
+        job = {"name": "b", "reads": seqs, "cfg": engine.EngineConfig(
+            k=k, abundance_min=2, block_reads=64, max_len=128)}
+        launch.spawn(1, kind, launch.run_builds, [job], str(out))
+        with open(out / "b.0.pkl", "rb") as f:
+            outs.append(pickle.load(f)["fasta"])
+    assert outs[0] == outs[1] and outs[0].count(">") > 1

@@ -1,15 +1,20 @@
-"""Guards of the port: no JAX, no silent fallback.
+"""Guards of the port: no JAX, nothing of bcalm_tpu, no silent fallback.
 
-- A full CPU build in a fresh interpreter, resident and multi-pass, and
-  the CLI's store + `-skip-bcalm -skip-bglue` resume and multi-bank
-  `-solidity-kind min` build, leave `jax` out of sys.modules (a
-  subprocess, since this test process imports JAX in conftest.py).
+- No module of bcalm_tpu_torch and not chip_smoke.py imports bcalm_tpu
+  (the JAX package, numpy-only modules included): an AST scan.
+- A full CPU build in a fresh interpreter, resident and multi-pass, the
+  CLI's store + `-skip-bcalm -skip-bglue` resume, a multi-bank
+  `-solidity-kind min` build and a `-devices 2` build (gloo ranks), leave
+  `jax` and every `bcalm_tpu` module out of sys.modules (a subprocess,
+  since this test process imports JAX in conftest.py).
 - The kernel loader raises when nvcc is absent instead of handing back
   the plain path, and the kernel wrappers refuse CPU tensors.
 - The CLI exits 1 when CUDA is requested and absent.
 """
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -61,9 +66,49 @@ assert cli.main(["-in", os.path.join(tmp, "album.txt"), "-kmer-size", "15",
                  "-abundance-min", "2", "-solidity-kind", "min", "-out",
                  out + "_min", "-verbose", "0"]) == 0
 assert open(out + "_min.unitigs.fa").read().count(">") > 0
+assert cli.main(base + ["-out", out + "_d2", "-devices", "2"]) == 0
+assert open(out + "_d2.unitigs.fa").read() == full
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m == "bcalm_tpu" or m.startswith("bcalm_tpu.")]
+assert not ref, ref
 print("OK", len(us.seqs))
 """
+
+
+def _port_sources():
+    root = pathlib.Path(REPO)
+    return sorted((root / "bcalm_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py"]
+
+
+def _imports_reference(path) -> list:
+    """Import statements of a file that name bcalm_tpu (not
+    bcalm_tpu_torch)."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [f"{path.name}:{node.lineno} {n}" for n in names
+                  if n == "bcalm_tpu" or n.startswith("bcalm_tpu.")]
+    return found
+
+
+def test_port_imports_nothing_of_bcalm_tpu():
+    sources = _port_sources()
+    assert len(sources) > 30
+    bad = [hit for p in sources for hit in _imports_reference(p)]
+    assert not bad, bad
+
+
+def test_import_scan_finds_a_reference_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import bcalm_tpu_torch\n"
+                     "def f():\n    from bcalm_tpu.io import packing\n")
+    assert _imports_reference(probe) == ["probe.py:3 bcalm_tpu.io"]
 
 
 def test_full_build_imports_no_jax():
@@ -102,6 +147,17 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
                                     t((16,)), t((16,)), 1, 16),
     lambda t: _kernels.run_broadcast(t((32,)), t((32,)), t((32,)), t((16,)),
                                      t((16,)), t((16,)), t((16,)), t((16,)), 16),
+    lambda t: _kernels.junction_entries(t((2, 16)), 16, 31, 0, 16, 2, 2),
+    lambda t: _kernels.junction_edges(t((2, 32)), t((32,)), 16),
+    lambda t: _kernels.form_superkmers(t((4, 10)), t((4,)), 31, 10,
+                                       t((4 ** 10,)), None, 10, 5, 4, True, 0),
+    lambda t: _kernels.mmer_histograms(t((4, 10)), t((4,)), 31, 10, None,
+                                       True),
+    lambda t: _kernels.route_buckets(t((3, 64)),
+                                     torch.ones(64, dtype=torch.bool),
+                                     t((64,)), 2, 64),
+    lambda t: _kernels.glue_compose(t((8, 4)), t((8, 4)),
+                                    torch.ones(8, dtype=torch.bool)),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     def cpu(shape):

@@ -15,6 +15,7 @@ import pytest
 
 from bcalm_tpu import cli as jcli
 from bcalm_tpu.storage.store import Store
+from bcalm_tpu_torch.storage.store import Store as TorchStore
 from bcalm_tpu_torch import cli as tcli
 from tests.test_torch_cli import write_reads
 
@@ -213,7 +214,7 @@ def test_default_run_writes_and_removes_the_store(tmp_path, monkeypatch):
     here before the end-of-run removal) and removes it at the end."""
     args = reads_input(tmp_path)
     seen = {}
-    real = Store.remove
+    real = TorchStore.remove
 
     def keep_copy(self):
         if os.path.isdir(self.path):
@@ -221,7 +222,7 @@ def test_default_run_writes_and_removes_the_store(tmp_path, monkeypatch):
         seen["removed"] = self.path
         real(self)
 
-    monkeypatch.setattr(Store, "remove", keep_copy)
+    monkeypatch.setattr(TorchStore, "remove", keep_copy)
     prefix = str(tmp_path / "t")
     assert tcli.main(args + ["-out", prefix]) == 0
     assert not os.path.exists(prefix + "_btpu")
