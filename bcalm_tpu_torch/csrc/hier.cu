@@ -1,0 +1,215 @@
+// K17-K19: the hierarchical pointer jump over the packed chain state.
+//
+// Replace bcalm_tpu/ops/chains.py:hier_jump (:381) and the pieces it runs
+// per level: _phase with fixpoints (:298), _sampled (:336), the level
+// build (:402-441) and the upward composition (:448-463).  Rows are
+// (ptr, dist|flags, mn, dmn), int64, flags in bits 28-30 of the dist
+// column as in compose.cuh.  A level of S rows contracts to S1 = S/4 rows:
+//
+// K17 hier_round: one doubling round of phase A.  A row whose target p is
+//   a sampled fixpoint of the level (valid, murmur-sampled gid, salt per
+//   level) and not ROOTED is served as the identity row (p, FIX, gid[p], 0)
+//   instead of its own row, so a query stops there (SETTLED).  JAX builds
+//   the table T of served rows; here it is decided per query on the fly,
+//   T is never written.  JAX's identity row carries ROOTED when the row
+//   was ROOTED when the phase began, but a row that was ROOTED then is
+//   ROOTED now (ROOTED absorbs) and is then served as itself: the flag of a
+//   served identity row is always FIX alone.  hier_jump runs _R_A rounds
+//   with no changed flag (null) and no sync; given one, `changed` goes to
+//   1 when a row moved (_phase's converge=True).
+// K18 hier_contract: the level build.  A mark pass flags the targets of
+//   the unresolved rows (valid, neither SETTLED nor ROOTED); the selected
+//   rows (sampled or flagged, and valid) get dense ids `did` from the block
+//   scan of scan.cuh, in index order (JAX sorts the selected indices; the
+//   scan gives the same order), S1 for the others, and their index lands at
+//   `parent[did]`; a gather pass builds the level's S1 rows: ptr remapped
+//   through did (ROOTED rows keep their original-space ptr), SETTLED and
+//   FIX cleared, the absorbing filler (j, ROOTED, big, 0) past the
+//   selected count n_c; ok[0] goes to 0 when n_c > S1 (JAX's level
+//   overflow; the rows past S1 are dropped as JAX drops them).
+// K19 hier_expand: the upward pass.  Each row of the level below composes
+//   its phase-A span with the converged row of its target one level up
+//   (did of its ptr), whose ptr is translated back through parent unless
+//   ROOTED.
+// The deepest level runs the plain doubling (K4, csrc/chains.cu).
+//
+// Bound: memory, and random rows.  K17 reads the row (32 bytes), the
+// target's row, gid and valid flag, writes 32; K18 reads the rows twice and
+// writes S1 rows; K19 reads a row, did, a row one level up and its parent,
+// writes 32.  Each kernel is one thread per row with the random reads
+// issued as early as the control flow allows; the selection is a scan, not
+// JAX's sort, and no (S, 4) table of served rows is materialised.
+#include "scan.cuh"
+#include "compose.cuh"
+
+namespace {
+
+// bcalm_tpu/ops/chains.py:_sampled, in wrapping uint32_t arithmetic
+__device__ __forceinline__ bool level_sampled(long long g, uint32_t salt) {
+  uint32_t h = static_cast<uint32_t>(g) ^ salt;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return (h & 7u) == 0u;  // % _SAMPLE_DIV (8)
+}
+
+__device__ __forceinline__ long long clampi(long long x, long long hi) {
+  return x < 0 ? 0 : (x > hi ? hi : x);
+}
+
+__global__ void hier_round_kernel(const int64_t* __restrict__ Q,
+                                  int64_t* __restrict__ Qn,
+                                  const int64_t* __restrict__ gid,
+                                  const uint8_t* __restrict__ valid,
+                                  long long S, uint32_t salt,
+                                  int* __restrict__ changed) {
+  long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= S) return;
+  const int64_t* q = Q + 4 * v;
+  int64_t* out = Qn + 4 * v;
+  if (q[1] & bt::kRooted) {
+    out[0] = q[0]; out[1] = q[1]; out[2] = q[2]; out[3] = q[3];
+    return;
+  }
+  long long p = clampi(q[0], S - 1);
+  const int64_t* t = Q + 4 * p;
+  long long g = gid[p];
+  bool moved;
+  if (!(t[1] & bt::kRooted) && valid[p] && level_sampled(g, salt)) {
+    const int64_t ident[4] = {p, bt::kFix, g, 0};
+    moved = bt::compose_row(q, ident, out);
+  } else {
+    moved = bt::compose_row(q, t, out);
+  }
+  if (moved && changed != nullptr) *changed = 1;
+}
+
+__global__ void hier_mark_kernel(const int64_t* __restrict__ Q,
+                                 const uint8_t* __restrict__ valid, long long S,
+                                 uint8_t* __restrict__ tmask) {
+  long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= S) return;
+  long long f = Q[4 * v + 1];
+  if (valid[v] && !(f & (bt::kSettled | bt::kRooted))) {
+    long long p = Q[4 * v];
+    if (p >= 0 && p < S) tmask[p] = 1;  // JAX's .at[].set(mode="drop")
+  }
+}
+
+struct Selected {
+  const int64_t* gid;
+  const uint8_t* valid;
+  const uint8_t* tmask;
+  uint32_t salt;
+  __device__ long long operator()(long long i) const {
+    return (valid[i] && (tmask[i] || level_sampled(gid[i], salt))) ? 1 : 0;
+  }
+};
+
+struct DenseIds {
+  int64_t* did;
+  int64_t* parent;
+  long long S1;
+  __device__ void operator()(long long i, long long prefix, long long sel) const {
+    did[i] = sel ? prefix : S1;
+    if (sel && prefix < S1) parent[prefix] = i;
+  }
+};
+
+__global__ void hier_gather_kernel(const int64_t* __restrict__ Q,
+                                   const int64_t* __restrict__ gid,
+                                   const int64_t* __restrict__ did,
+                                   const int64_t* __restrict__ parent,
+                                   const int64_t* __restrict__ n_c, long long S,
+                                   long long S1, long long big,
+                                   int64_t* __restrict__ Q1,
+                                   int64_t* __restrict__ gid1,
+                                   uint8_t* __restrict__ valid1,
+                                   int* __restrict__ ok) {
+  long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= S1) return;
+  long long n = n_c[0];
+  if (j == 0 && n > S1) *ok = 0;
+  int64_t* out = Q1 + 4 * j;
+  if (j < n) {
+    long long i = parent[j];
+    const int64_t* r = Q + 4 * i;
+    long long f = r[1];
+    out[0] = (f & bt::kRooted) ? r[0] : did[clampi(r[0], S - 1)];
+    out[1] = f & (bt::kDmask | bt::kRooted);
+    out[2] = r[2];
+    out[3] = r[3];
+    gid1[j] = gid[i];
+    valid1[j] = 1;
+  } else {
+    // the absorbing filler, its SETTLED cleared as the hop clears it
+    out[0] = j; out[1] = bt::kRooted; out[2] = big; out[3] = 0;
+    gid1[j] = big;
+    valid1[j] = 0;
+  }
+}
+
+__global__ void hier_expand_kernel(const int64_t* __restrict__ F,
+                                   const int64_t* __restrict__ parent,
+                                   const int64_t* __restrict__ Qd,
+                                   const int64_t* __restrict__ did, long long S,
+                                   long long S1, int64_t* __restrict__ out) {
+  long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= S) return;
+  const int64_t* q = Qd + 4 * v;
+  int64_t* o = out + 4 * v;
+  if (q[1] & bt::kRooted) {
+    o[0] = q[0]; o[1] = q[1]; o[2] = q[2]; o[3] = q[3];
+    return;
+  }
+  long long tgt = clampi(did[clampi(q[0], S - 1)], S1 - 1);
+  const int64_t* f = F + 4 * tgt;
+  long long fd = f[1];
+  const int64_t anc[4] = {(fd & bt::kRooted) ? f[0] : parent[clampi(f[0], S1 - 1)],
+                          fd, f[2], f[3]};
+  bt::compose_row(q, anc, o);
+}
+
+}  // namespace
+
+extern "C" int bt_hier_round(const int64_t* Q, int64_t* Qn, const int64_t* gid,
+                             const uint8_t* valid, long long S,
+                             unsigned int salt, int* changed, void* stream) {
+  if (S == 0) return 0;
+  hier_round_kernel<<<bt::blocks_for(S), bt::kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(Q, Qn, gid, valid, S,
+                                                           salt, changed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tmask: S zeroed bytes; scratch: scan_tiles(S) int64; parent: S1 zeroed
+extern "C" int bt_hier_contract(const int64_t* Q, const int64_t* gid,
+                                const uint8_t* valid, long long S,
+                                unsigned int salt, long long S1, long long big,
+                                uint8_t* tmask, long long* scratch, int64_t* did,
+                                int64_t* parent, int64_t* n_c, int64_t* Q1,
+                                int64_t* gid1, uint8_t* valid1, int* ok,
+                                void* stream) {
+  if (S == 0 || S1 == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  hier_mark_kernel<<<bt::blocks_for(S), bt::kThreads, 0, s>>>(Q, valid, S, tmask);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rc = exclusive_sum(Selected{gid, valid, tmask, salt},
+                         DenseIds{did, parent, S1}, S, scratch, n_c, s);
+  if (rc != 0) return rc;
+  hier_gather_kernel<<<bt::blocks_for(S1), bt::kThreads, 0, s>>>(
+      Q, gid, did, parent, n_c, S, S1, big, Q1, gid1, valid1, ok);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bt_hier_expand(const int64_t* F, const int64_t* parent,
+                              const int64_t* Qd, const int64_t* did, long long S,
+                              long long S1, int64_t* out, void* stream) {
+  if (S == 0) return 0;
+  hier_expand_kernel<<<bt::blocks_for(S), bt::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(F, parent, Qd, did,
+                                                            S, S1, out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -14,10 +14,12 @@ Counterpart of ``bcalm_tpu/engine.py``'s single-device path
      pinned asynchronous copy that rides behind compaction (the host
      table of a multi-pass count is written as it is);
   4. compact_solid_pos: reorder by first-occurrence key, junctions (K3),
-     run scans (K8), run contraction (K12), the weighted pointer jump (K4)
-     and its finish (K10); a table without first-occurrence keys
-     (multi-sample counts) goes through compact_solid instead: junctions
-     and the chain decomposition of all 2C oriented nodes (K3, K4, K10);
+     run scans (K8), run contraction (K12), the weighted pointer jump
+     (hierarchical from 2^18 contracted nodes, K17-K19 with K4 at its
+     deepest level; else K4) and its finish (K10); a table without
+     first-occurrence keys (multi-sample counts) goes through compact_solid
+     instead: junctions and the chain decomposition of all 2C oriented
+     nodes (K3, K17-K19 and K4, K10);
   5. spelling on the device (K11), link join and UnitigSet on the host.
 
 Every function takes an explicit ``device``; tensors stay on it until the
@@ -657,8 +659,10 @@ def compact_solid_pos(solid, counts, minpos, n_solid: int, k: int):
     """Locality-ordered junction + chain stages on a sentinel-folded or
     zero-padded solid table (bcalm_tpu engine.compact_solid_pos): the
     reorder by first-occurrence key, junctions (K3), run scans (K8), run
-    contraction (K12), the weighted jump (K4) and its finish (K10).
-    Returns (solid_r, counts_r, info): the reordered table (width C =
+    contraction (K12), the weighted jump (K17-K19 over 2*R_cap >=
+    _HIER_MIN contracted nodes, K4 at its deepest level or alone; a level
+    overflow reruns the plain doubling) and its finish (K10).  Returns
+    (solid_r, counts_r, info): the reordered table (width C =
     round_capacity(n_solid)) that the chain arrays refer to."""
     solid_r, counts_r = runchains.reorder_by_pos(solid, counts, minpos, k)
     C = runchains.round_capacity(max(1, n_solid))
@@ -671,23 +675,43 @@ def compact_solid_pos(solid, counts, minpos, n_solid: int, k: int):
     solid_r, counts_r = solid_r[:, :C].contiguous(), counts_r[:C]
     succ, scan = runchains.junction_runs(solid_r, n_solid, k)
     R = scan["R"]
-    info = runchains.run_decompose(
-        succ, n_solid, scan["is_head"], scan["rid"], scan["head_pos"],
-        scan["end_pos"], R, runchains.round_capacity(max(1, R)))
+    R_cap = runchains.round_capacity(max(1, R))
+    info = runchains.run_decompose(succ, n_solid, scan["is_head"], scan["rid"],
+                                   scan["head_pos"], scan["end_pos"], R, R_cap)
     return solid_r, counts_r, info
 
 
 def compact_solid(solid, n_solid: int, k: int):
     """Canonical-order junction + chain stages (bcalm_tpu engine
     compact_solid / _compact_solid_jit): junctions (K3) and the chain
-    decomposition of all 2C oriented nodes, the plain doubling (K4) and
-    its finish (K10).  solid: (L, C), columns >= n_solid ignored.
-    Returns (succ, info)."""
+    decomposition of all 2C oriented nodes, hierarchical for 2C >=
+    _HIER_MIN (K17-K19, K4 at the deepest level; a level overflow reruns
+    the plain doubling) or plain doubling (K4), and its finish (K10).
+    solid: (L, C), columns >= n_solid ignored.  Returns (succ, info)."""
     C = solid.shape[1]
     succ = junctions_op.successor_arrays(solid, n_solid, k)
     oid = torch.arange(2 * C, device=solid.device)
     valid = torch.where(oid >= C, oid - C, oid) < n_solid
     return succ, chains_op.chain_decompose(succ, valid)
+
+
+def _extract_fold(words: torch.Tensor, lengths: torch.Tensor, k: int,
+                  slot_base: int = 0):
+    """The per-block extract + canonical + sentinel fold front end
+    (bcalm_tpu engine._extract_fold): K1 into a fresh (L+1, F) buffer at
+    offset 0, F = extract.block_slots(words.shape, k); the last row holds
+    the first-occurrence keys, clamped below the sentinel.  Returns
+    (folded, the number of valid k-mer positions as a 0-d tensor)."""
+    B, W = words.shape
+    F = extract_op.block_slots((B, W), k)
+    P_eff = F // max(1, B)
+    folded = torch.empty((ln.num_lanes(k) + 1, F), dtype=torch.int64,
+                         device=words.device)
+    extract_op.extract_insert(folded, words, lengths, k, slot_base, 0)
+    return folded, torch.clamp(lengths - k + 1, 0, P_eff).sum()
+
+
+block_slots = extract_op.block_slots
 
 
 def _start_kmer_codes(s_lanes: torch.Tensor, k: int) -> torch.Tensor:

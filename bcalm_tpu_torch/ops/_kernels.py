@@ -12,7 +12,7 @@ outputs with torch, launches on the current stream, raises when the C
 function returns a CUDA error, and adds one to its entry in ``LAUNCHES``
 each time it launches its kernel(s).  The plain PyTorch versions live beside the
 callers in ops/{extract,count,junctions,chains,runchains,superkmer}.py,
-parallel/{pipeline,distcompact}.py and engine.py; these wrappers never fall back to them.
+parallel/{pipeline,distcompact}.py, models/minimizer.py and engine.py; these wrappers never fall back to them.
 """
 
 from __future__ import annotations
@@ -39,7 +39,9 @@ LAUNCHES = {"extract_insert": 0, "count_runs": 0, "junction_keys": 0,
             "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0,
             "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
             "run_contract": 0, "run_broadcast": 0, "form_superkmers": 0,
-            "mmer_histograms": 0, "route_buckets": 0, "glue_compose": 0}
+            "mmer_histograms": 0, "route_buckets": 0, "glue_compose": 0,
+            "hier_round": 0, "hier_contract": 0, "hier_expand": 0,
+            "kmer_minimizers": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -75,10 +77,16 @@ _SIGNATURES = {
     "bt_form_superkmers": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32,
                            _I32, _I32, ctypes.c_uint, _P, _P, _P, _P, _P],
     "bt_mmer_histograms": [_P, _P, _I32, _I32, _I32, _I32, _P, _I32, _P, _P],
-    "bt_route_count": [_P, _P, _I64, _I32, _P, _P],
+    "bt_route_count": [_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P],
     "bt_route_place": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P, _P,
                        _P, _P, _P],
     "bt_glue_compose": [_P, _P, _P, _I64, _P, _P, _P],
+    "bt_hier_round": [_P, _P, _P, _P, _I64, ctypes.c_uint, _P, _P],
+    "bt_hier_contract": [_P, _P, _P, _I64, ctypes.c_uint, _I64, _I64, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P],
+    "bt_hier_expand": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    "bt_kmer_minimizers": [_P, _I64, _I32, _I64, _I32, _I32, _P, _P, _I32, _P,
+                           _P],
 }
 ROUTE_TILE = 1024  # entries per tile of csrc/route.cu
 MAX_ROW_WORDS = 64  # csrc/superkmer.cu: one block of <= 1024 positions per read
@@ -650,15 +658,17 @@ def mmer_histograms(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
 
 
 def route_buckets(stacked: torch.Tensor, valid: torch.Tensor,
-                  owner: torch.Tensor, n_dev: int, cap: int,
-                  with_slots: bool = False):
+                  owner, n_dev: int, cap: int, with_slots: bool = False):
     """K15: (buckets (C, n_dev, cap), bucket_valid (n_dev, cap), n_dropped
-    (1,)[, slots (N,)])."""
+    (1,)[, slots (N,)]).  owner None: hash mode, each entry's owner is
+    hash_lanes of its C channels % n_dev (csrc/hash.cuh)."""
     _check(stacked, "stacked", ndim=2, rows_strided=True)
     _check(valid, "valid", dtype=torch.bool, ndim=1)
-    _check(owner, "owner", ndim=1)
+    if owner is not None:
+        _check(owner, "owner", ndim=1)
     C, N = stacked.shape
-    if valid.shape[0] != N or owner.shape[0] != N or not 1 <= n_dev <= 256:
+    if (valid.shape[0] != N or (owner is not None and owner.shape[0] != N)
+            or not 1 <= n_dev <= 256):
         raise ValueError("route_buckets: shapes do not match")
     dev = stacked.device
     buckets = torch.zeros((C, n_dev * cap), dtype=torch.int64, device=dev)
@@ -669,11 +679,12 @@ def route_buckets(stacked: torch.Tensor, valid: torch.Tensor,
     if N:
         tiles = -(-N // ROUTE_TILE)
         counts = torch.empty((tiles, n_dev), dtype=torch.int64, device=dev)
-        _launch("bt_route_count", owner.data_ptr(), valid.data_ptr(), N, n_dev,
-                counts.data_ptr())
+        owner_p = None if owner is None else owner.data_ptr()
+        _launch("bt_route_count", stacked.data_ptr(), stacked.stride(0), C,
+                owner_p, valid.data_ptr(), N, n_dev, counts.data_ptr())
         tile_off = torch.cumsum(counts, 0) - counts
         _launch("bt_route_place", stacked.data_ptr(), stacked.stride(0), C,
-                owner.data_ptr(), valid.data_ptr(), N, n_dev, cap,
+                owner_p, valid.data_ptr(), N, n_dev, cap,
                 tile_off.data_ptr(), buckets.data_ptr(), bvalid.data_ptr(),
                 dropped.data_ptr(), None if slots is None else slots.data_ptr())
         LAUNCHES["route_buckets"] += 1
@@ -697,3 +708,106 @@ def glue_compose(Q: torch.Tensor, anc: torch.Tensor, need: torch.Tensor):
                 M, Qn.data_ptr(), changed.data_ptr())
         LAUNCHES["glue_compose"] += 1
     return Qn, changed
+
+
+def _check_state(Q: torch.Tensor, name: str) -> int:
+    _check(Q, name, ndim=2)
+    if Q.shape[1] != 4:
+        raise ValueError(f"{name}: expected an (S, 4) state, got {tuple(Q.shape)}")
+    return Q.shape[0]
+
+
+def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid: torch.Tensor,
+               valid: torch.Tensor, salt: int, changed=None) -> None:
+    """K17: one phase-A round Q -> Qn of the hierarchical jump, the level's
+    sampled fixpoints (valid, _sampled(gid, salt)) served as identity rows;
+    changed (optional (1,) int32) is set to 1 when a row moved."""
+    S = _check_state(Q, "Q")
+    _check_state(Qn, "Qn")
+    _check(gid, "gid", ndim=1)
+    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    if changed is not None:
+        _check(changed, "changed", dtype=torch.int32, ndim=1)
+    if Qn.shape[0] != S or gid.shape[0] != S or valid.shape[0] != S:
+        raise ValueError("hier_round: shapes do not match")
+    if S:
+        _launch("bt_hier_round", Q.data_ptr(), Qn.data_ptr(), gid.data_ptr(),
+                valid.data_ptr(), S, salt & 0xFFFFFFFF,
+                None if changed is None else changed.data_ptr())
+        LAUNCHES["hier_round"] += 1
+
+
+def hier_contract(Q: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
+                  salt: int, S1: int, big: int, ok: torch.Tensor):
+    """K18: the next level of the hierarchical jump.  Returns (Q1 (S1, 4),
+    gid1 (S1,), valid1 (S1,) bool, did (S,), parent (S1,), n_c (1,)); ok
+    (1,) int32 is cleared in place when more than S1 rows were selected."""
+    S = _check_state(Q, "Q")
+    _check(gid, "gid", ndim=1)
+    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    _check(ok, "ok", dtype=torch.int32, ndim=1)
+    if gid.shape[0] != S or valid.shape[0] != S or not 1 <= S1:
+        raise ValueError("hier_contract: shapes do not match")
+    dev = Q.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    Q1 = torch.empty((S1, 4), **i64)
+    gid1 = torch.empty((S1,), **i64)
+    valid1 = torch.empty((S1,), dtype=torch.bool, device=dev)
+    did = torch.empty((S,), **i64)
+    parent = torch.zeros((S1,), **i64)
+    n_c = torch.zeros((1,), **i64)
+    tmask = torch.zeros((S,), dtype=torch.uint8, device=dev)
+    _launch("bt_hier_contract", Q.data_ptr(), gid.data_ptr(), valid.data_ptr(),
+            S, salt & 0xFFFFFFFF, S1, big, tmask.data_ptr(),
+            _scan_scratch(S, dev).data_ptr(), did.data_ptr(), parent.data_ptr(),
+            n_c.data_ptr(), Q1.data_ptr(), gid1.data_ptr(), valid1.data_ptr(),
+            ok.data_ptr())
+    LAUNCHES["hier_contract"] += 1
+    return Q1, gid1, valid1, did, parent, n_c
+
+
+def hier_expand(F: torch.Tensor, parent: torch.Tensor, Qd: torch.Tensor,
+                did: torch.Tensor) -> torch.Tensor:
+    """K19: the converged (S, 4) state of a level from its phase-A state Qd
+    and the converged (S1, 4) state F of the level above."""
+    S1 = _check_state(F, "F")
+    S = _check_state(Qd, "Qd")
+    _check(parent, "parent", ndim=1)
+    _check(did, "did", ndim=1)
+    if parent.shape[0] != S1 or did.shape[0] != S or not 1 <= S1:
+        raise ValueError("hier_expand: shapes do not match")
+    out = torch.empty_like(Qd)
+    if S:
+        _launch("bt_hier_expand", F.data_ptr(), parent.data_ptr(), Qd.data_ptr(),
+                did.data_ptr(), S, S1, out.data_ptr())
+        LAUNCHES["hier_expand"] += 1
+    return out
+
+
+def kmer_minimizers(lanes: torch.Tensor, k: int, m: int, rank=None,
+                    table=None, valid=None, histogram: bool = False):
+    """K20 on the (L, N) k-mer lanes: each column's minimizer (rank None:
+    least m-mer value; else least rank[m-mer], first wins), mapped through
+    table when given: (N,); or, histogram=True, the (4^m,) count of every
+    m-mer of the valid columns."""
+    _check(lanes, "lanes", ndim=2, rows_strided=True)
+    for t, name in ((rank, "rank"), (table, "table")):
+        if t is not None:
+            _check(t, name, ndim=1)
+    if valid is not None:
+        _check(valid, "valid", dtype=torch.bool, ndim=1)
+    L, N = lanes.shape
+    _lanes_ok(L, "kmer_minimizers")
+    if not 1 <= m <= 16 or m > k or L != (k + 15) // 16 \
+            or (valid is not None and valid.shape[0] != N):
+        raise ValueError(f"kmer_minimizers: k={k}, m={m}, lanes {tuple(lanes.shape)}")
+    dev = lanes.device
+    out = (torch.zeros((4 ** m,), dtype=torch.int64, device=dev) if histogram
+           else torch.empty((N,), dtype=torch.int64, device=dev))
+    if N:
+        _launch("bt_kmer_minimizers", lanes.data_ptr(), lanes.stride(0), L, N,
+                k, m, None if rank is None else rank.data_ptr(),
+                None if table is None else table.data_ptr(), int(histogram),
+                None if valid is None else valid.data_ptr(), out.data_ptr())
+        LAUNCHES["kmer_minimizers"] += 1
+    return out

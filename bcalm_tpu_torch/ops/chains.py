@@ -1,18 +1,23 @@
-"""Chain extraction by pointer doubling over the successor graph (K4).
+"""Chain extraction by pointer jumping over the successor graph.
 
 Counterpart of ``bcalm_tpu/ops/chains.py``: ``build_pred``, ``_init_Q``,
-``_composeF``, ``_phase`` (without fixpoints), ``plain_jumpF`` and
-``finish_fast``.  The packed state row is (ptr, dist|flags, mn, dmn) with
-the flags in bits 28-30 of the dist column and dist saturating at
-``_DMASK``, as in the JAX package; the port holds it as an (M, 4) int64
+``_composeF``, ``_phase``, ``plain_jumpF``, ``hier_jump``, ``finish_fast``
+and ``chain_decompose``.  The packed state row is (ptr, dist|flags, mn,
+dmn) with the flags in bits 28-30 of the dist column and dist saturating
+at ``_DMASK``, as in the JAX package; the port holds it as an (M, 4) int64
 tensor.
 
-The JAX package switches to a hierarchical sampled jump (``hier_jump``)
-for M >= 2**18; its output equals the plain doubling's, so the port always
-runs the plain doubling.  Each round is :func:`jump_round`, which launches
-the K4 kernel (csrc/chains.cu) for CUDA tensors and runs
-:func:`jump_round_plain` for CPU tensors; :func:`finish_fast` likewise
-launches K10 (csrc/finish.cu) or runs :func:`finish_fast_plain`.
+chain_decompose picks the hierarchical jump (:func:`hier_jump`) for M >=
+``_HIER_MIN`` (variant "auto"), as JAX does: per level, _R_A doubling
+rounds in which sampled fixpoint rows answer as identity rows (K17,
+:func:`hier_round`), the contraction to a level a quarter the size (K18,
+:func:`hier_contract`), plain doubling at the deepest level (K4,
+:func:`jump_round`), and the upward composition (K19,
+:func:`hier_expand`).  Below it, for variant "plain", and for "auto" after
+a level overflowed, the plain doubling runs alone.  Each wrapper launches its kernel (csrc/hier.cu,
+csrc/chains.cu) for CUDA tensors and runs its ``*_plain`` version for CPU
+tensors; :func:`finish_fast` likewise launches K10 (csrc/finish.cu) or runs
+:func:`finish_fast_plain`.
 """
 
 from __future__ import annotations
@@ -22,13 +27,22 @@ from typing import Optional
 
 import torch
 
+from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import _kernels
+from bcalm_tpu_torch.ops.junctions import _mul32
 
 _PTR, _DSF, _MN, _DMN = 0, 1, 2, 3
 _F_SETTLED = 1 << 28
 _F_FIX = 1 << 29
 _F_ROOTED = 1 << 30
 _DMASK = (1 << 28) - 1
+
+_HIER_MIN = 1 << 18     # below this, plain doubling (as in the JAX package)
+_FINAL_CAP = 1 << 15    # deepest level size: plain doubling there
+_SAMPLE_DIV = 8         # fixpoint sampling rate 1/8
+_LEVEL_SHRINK = 4       # static capacity per level
+_R_A = 5                # phase-A rounds per level (gaps <= 32)
+VARIANTS = ("auto", "plain", "hier")
 
 
 def _mirror(x: torch.Tensor, N: int) -> torch.Tensor:
@@ -102,20 +116,191 @@ def jump_round(Q: torch.Tensor, Qn: torch.Tensor,
         _kernels.jump_round(Q, Qn, changed)
 
 
+def _identity_rows(local_idx: torch.Tensor, gid: torch.Tensor,
+                   flg_rooted: torch.Tensor) -> torch.Tensor:
+    """Rows a fixpoint serves: (local id, FIX [| ROOTED | SETTLED], gid, 0)."""
+    flags = torch.where(flg_rooted, _F_FIX | _F_ROOTED | _F_SETTLED, _F_FIX)
+    return torch.stack([local_idx, flags, gid, torch.zeros_like(local_idx)],
+                       dim=1)
+
+
+def _sampled(gid: torch.Tensor, salt: int) -> torch.Tensor:
+    """Murmur-style level sample (1 in _SAMPLE_DIV), u32 wraparound through
+    _mul32: gid may reach M (filler rows)."""
+    h = (gid & ln.U32) ^ (salt & ln.U32)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return (h % _SAMPLE_DIV) == 0
+
+
+def _absorbing_filler(S: int, big: int, device) -> torch.Tensor:
+    """Filler rows for unused level slots: rooted identity, mn = big."""
+    idx = torch.arange(S, device=device)
+    return torch.stack([idx, torch.full_like(idx, _F_ROOTED | _F_SETTLED),
+                        torch.full_like(idx, big), torch.zeros_like(idx)], dim=1)
+
+
+def hier_round_plain(Q: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
+                     salt: int) -> torch.Tensor:
+    """Plain version of K17: one round of _phase with the level's sampled
+    fixpoints served as identity rows.  JAX flags an identity row ROOTED
+    when the row was ROOTED at the phase's start; such a row is ROOTED now
+    and served as itself, so the current flag gives the same table."""
+    S = Q.shape[0]
+    fix = _sampled(gid, salt) & valid
+    rooted = (Q[:, _DSF] & _F_ROOTED) != 0
+    ident = _identity_rows(torch.arange(S, device=Q.device), gid, rooted)
+    T = torch.where((fix & ~rooted)[:, None], ident, Q)
+    return compose_plain(Q, T[torch.clamp(Q[:, _PTR], 0, S - 1)])
+
+
+def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid: torch.Tensor,
+               valid: torch.Tensor, salt: int, changed=None) -> None:
+    """One phase-A round Q -> Qn; changed[0] (optional) is set to 1 when any
+    row moved."""
+    if Q.device.type == "cpu":
+        Qn.copy_(hier_round_plain(Q, gid, valid, salt))
+        if changed is not None and not torch.equal(Qn, Q):
+            changed.fill_(1)
+    else:
+        _kernels.hier_round(Q, Qn, gid, valid, salt, changed)
+
+
+def _phase(Q0: torch.Tensor, gid, valid, salt, rounds: int,
+           converge: bool = True) -> torch.Tensor:
+    """Doubling rounds from Q0 (whose buffer is reused): with the sampled
+    fixpoints of (gid, valid, salt) (K17), or none when salt is None (K4).
+    converge=False runs exactly `rounds` rounds with no changed flag and no
+    host sync; converge=True stops after a round that moved no row (one
+    sync per round) or at the cap."""
+    Q = Q0
+    Qn = torch.empty_like(Q)
+    changed = torch.zeros((1,), dtype=torch.int32, device=Q.device)
+    for _ in range(rounds):
+        if converge:
+            changed.zero_()
+        if salt is None:
+            jump_round(Q, Qn, changed)
+        else:
+            hier_round(Q, Qn, gid, valid, salt, changed if converge else None)
+        Q, Qn = Qn, Q
+        if converge and not int(changed.item()):
+            break
+    return Q
+
+
 def plain_jumpF(pred: torch.Tensor, valid: torch.Tensor,
                 dist0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Doubling rounds to convergence, capped at max_rounds(M) + 1."""
     M = pred.shape[0]
+    return _phase(init_state(pred, valid, dist0), None, None, None,
+                  max_rounds(M) + 1)
+
+
+def hier_contract_plain(Q: torch.Tensor, gid: torch.Tensor,
+                        valid: torch.Tensor, salt: int, S1: int, big: int,
+                        ok: torch.Tensor):
+    """Plain version of K18 (bcalm_tpu hier_jump's level build): the rows
+    to keep (sampled fixpoints and the targets of unresolved rows, valid)
+    in index order with their dense ids; (Q1 (S1, 4), gid1, valid1 (S1,),
+    did (S,), parent (S1,), n_c (1,)); ok (1,) int32 cleared in place when
+    n_c > S1."""
+    S = Q.shape[0]
+    dev = Q.device
+    fix = _sampled(gid, salt) & valid
+    flg = Q[:, _DSF]
+    unres = valid & ((flg & (_F_SETTLED | _F_ROOTED)) == 0)
+    tmask = torch.zeros((S,), dtype=torch.bool, device=dev)
+    p = Q[:, _PTR][unres]
+    tmask[p[(p >= 0) & (p < S)]] = True
+    cmask = (fix | tmask) & valid
+    did = torch.cumsum(cmask.to(torch.int64), 0) - 1
+    n_c = cmask.sum().reshape(1)
+    ok.mul_((n_c <= S1).to(torch.int32))
+    did = torch.where(cmask, did, S1)
+    sel = torch.nonzero(cmask).flatten()[:S1]
+    n = sel.shape[0]
+    parent = torch.zeros((S1,), dtype=torch.int64, device=dev)
+    parent[:n] = sel
+    Q1 = _absorbing_filler(S1, big, dev)
+    Q1[:n] = Q[sel]
+    gid1 = torch.full((S1,), big, dtype=torch.int64, device=dev)
+    gid1[:n] = gid[sel]
+    valid1 = torch.arange(S1, device=dev) < n
+    # ROOTED rows keep their original-space ptr (never dereferenced)
+    rooted1 = (Q1[:, _DSF] & _F_ROOTED) != 0
+    ptr_new = did[torch.clamp(torch.where(rooted1, 0, Q1[:, _PTR]), 0, S - 1)]
+    Q1[:, _PTR] = torch.where(rooted1, Q1[:, _PTR], ptr_new)
+    # a level hop clears SETTLED/FIX (they were level-local)
+    Q1[:, _DSF] &= _DMASK | _F_ROOTED
+    return Q1, gid1, valid1, did, parent, n_c
+
+
+def hier_contract(Q, gid, valid, salt: int, S1: int, big: int, ok):
+    """K18 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if Q.device.type == "cpu":
+        return hier_contract_plain(Q, gid, valid, salt, S1, big, ok)
+    return _kernels.hier_contract(Q, gid, valid, salt, S1, big, ok)
+
+
+def hier_expand_plain(F: torch.Tensor, parent: torch.Tensor, Qd: torch.Tensor,
+                      did: torch.Tensor) -> torch.Tensor:
+    """Plain version of K19 (bcalm_tpu hier_jump's upward pass): each row's
+    phase-A span composed with the converged row of its target one level
+    up, that row's ptr translated back through parent unless ROOTED."""
+    S1, S = F.shape[0], Qd.shape[0]
+    rooted_hi = (F[:, _DSF] & _F_ROOTED) != 0
+    F_conv = F.clone()
+    F_conv[:, _PTR] = torch.where(rooted_hi, F[:, _PTR],
+                                  parent[torch.clamp(F[:, _PTR], 0, S1 - 1)])
+    rooted_q = (Qd[:, _DSF] & _F_ROOTED) != 0
+    tgt = did[torch.clamp(torch.where(rooted_q, 0, Qd[:, _PTR]), 0, S - 1)]
+    return compose_plain(Qd, F_conv[torch.clamp(tgt, 0, S1 - 1)])
+
+
+def hier_expand(F, parent, Qd, did) -> torch.Tensor:
+    """K19 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if F.device.type == "cpu":
+        return hier_expand_plain(F, parent, Qd, did)
+    return _kernels.hier_expand(F, parent, Qd, did)
+
+
+def level_sizes(M: int):
+    """The static level schedule of hier_jump: M, M/4, ... while >= _FINAL_CAP."""
+    sizes = [M]
+    while sizes[-1] // _LEVEL_SHRINK >= _FINAL_CAP:
+        sizes.append(sizes[-1] // _LEVEL_SHRINK)
+    return sizes
+
+
+def hier_jump(pred: torch.Tensor, valid: torch.Tensor,
+              dist0: Optional[torch.Tensor] = None):
+    """Hierarchical pointer jumping (bcalm_tpu hier_jump).  Returns (state,
+    ok): the converged packed-flag state in the original node space, equal
+    to JAX's row for row, and a (1,) bool tensor on the device, False when
+    a level overflowed its capacity (the caller reruns the plain
+    doubling).  No host sync outside the deepest level's rounds."""
+    M = pred.shape[0]
     Q = init_state(pred, valid, dist0)
-    Qn = torch.empty_like(Q)
-    changed = torch.zeros((1,), dtype=torch.int32, device=Q.device)
-    for _ in range(max_rounds(M) + 1):
-        changed.zero_()
-        jump_round(Q, Qn, changed)
-        Q, Qn = Qn, Q
-        if not int(changed.item()):
-            break
-    return Q
+    gid = torch.arange(M, device=pred.device)
+    lvl_valid = valid
+    ok = torch.ones((1,), dtype=torch.int32, device=pred.device)
+    sizes = level_sizes(M)
+    stack = []
+    for li in range(len(sizes) - 1):
+        salt = (0x85EBCA6B * (li + 1)) & ln.U32
+        Q = _phase(Q, gid, lvl_valid, salt, _R_A, converge=False)
+        Q1, gid1, valid1, did, parent, _ = hier_contract(
+            Q, gid, lvl_valid, salt, sizes[li + 1], M, ok)
+        stack.append((Q, did, parent))
+        Q, gid, lvl_valid = Q1, gid1, valid1
+    # deepest level: plain doubling to convergence, the cap covering cycles
+    F = _phase(Q, None, None, None, max_rounds(sizes[-1]) + 1)
+    for Qd, did, parent in reversed(stack):
+        F = hier_expand(F, parent, Qd, did)
+    return F, ok.bool()
 
 
 def finish_fast_plain(succ: torch.Tensor, pred: torch.Tensor,
@@ -183,8 +368,32 @@ def finish_fast(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
     return _kernels.chain_finish(succ, pred, valid, state, wlen)
 
 
-def chain_decompose(succ: torch.Tensor, valid: torch.Tensor):
+def jump_finish(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
+                variant: str = "auto", dist0: Optional[torch.Tensor] = None,
+                wlen: Optional[torch.Tensor] = None):
+    """The pointer jump and its finish.  variant: "plain"; "hier", whose
+    n_unitigs is -1 when a level overflowed; or "auto": hierarchical for M
+    >= _HIER_MIN, as JAX picks, and after a level overflow the plain
+    doubling, as the JAX package's compaction reruns it.  Only "auto"'s
+    overflow check syncs with the host, and only where the hierarchical
+    jump ran."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if variant == "plain" or (variant == "auto" and succ.shape[0] < _HIER_MIN):
+        return finish_fast(succ, pred, valid, plain_jumpF(pred, valid, dist0),
+                           wlen)
+    state, ok = hier_jump(pred, valid, dist0)
+    if variant == "auto":
+        if not bool(ok):
+            state = plain_jumpF(pred, valid, dist0)
+        return finish_fast(succ, pred, valid, state, wlen)
+    info = finish_fast(succ, pred, valid, state, wlen)
+    info["n_unitigs"] = torch.where(ok, info["n_unitigs"], -1)
+    return info
+
+
+def chain_decompose(succ: torch.Tensor, valid: torch.Tensor,
+                    variant: str = "auto"):
     """Deduplicated unitig chains of a mirror-symmetric successor graph
-    (bcalm_tpu chain_decompose; always the plain doubling)."""
-    pred = build_pred(succ, valid)
-    return finish_fast(succ, pred, valid, plain_jumpF(pred, valid))
+    (bcalm_tpu chain_decompose); variant as in jump_finish."""
+    return jump_finish(succ, build_pred(succ, valid), valid, variant)

@@ -153,23 +153,25 @@ def run_broadcast(cuid, crank, cstart, rid, head_pos, end_pos, hpos, epos,
 
 
 def contracted_jump(csucc: torch.Tensor, cvalid: torch.Tensor,
-                    wlen2: torch.Tensor):
-    """Weighted pointer jump + finish over a contracted run graph."""
+                    wlen2: torch.Tensor, variant: str = "auto"):
+    """Weighted pointer jump + finish over a contracted run graph (2*R_cap
+    oriented run nodes); variant as in chains.jump_finish ("auto":
+    hierarchical for R2 >= _HIER_MIN, as JAX picks, the plain doubling
+    after a level overflow)."""
     R2 = csucc.shape[0]
     cpred = chains_op.build_pred(csucc, cvalid)
     dist0 = wlen2[torch.clamp(cpred, 0, R2 - 1)]
-    state = chains_op.plain_jumpF(cpred, cvalid, dist0)
-    return chains_op.finish_fast(csucc, cpred, cvalid, state, wlen=wlen2)
+    return chains_op.jump_finish(csucc, cpred, cvalid, variant, dist0, wlen2)
 
 
 def run_decompose(succ: torch.Tensor, n_solid: int, is_head, rid, head_pos,
-                  end_pos, R: int, R_cap: int):
+                  end_pos, R: int, R_cap: int, variant: str = "auto"):
     """Chain decomposition over the contracted run graph; the output
     contract of ops.chains.chain_decompose with per-unitig arrays of
-    length 2*R_cap."""
+    length 2*R_cap (n_unitigs -1 when variant "hier" overflowed a level)."""
     hpos, epos, csucc, cvalid, wlen2 = run_contract(succ, is_head, rid,
                                                     end_pos, R, R_cap)
-    cinfo = contracted_jump(csucc, cvalid, wlen2)
+    cinfo = contracted_jump(csucc, cvalid, wlen2, variant)
     uid, rank, start_oid = run_broadcast(cinfo["uid"], cinfo["rank"],
                                          cinfo["start_oid"], rid, head_pos,
                                          end_pos, hpos, epos, n_solid)

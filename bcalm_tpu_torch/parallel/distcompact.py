@@ -27,8 +27,16 @@ Counterpart of ``bcalm_tpu/parallel/distcompact.py``'s device path
 Every exchange has a fixed capacity; an overflow is counted over the
 ranks and the capacities grow, as in the JAX package.  The capacities are
 the JAX package's (powers of two >= 16), because the unitig numbering
-depends on them.  The host-driven compaction of the JAX module
-(distributed_compact_pos, distributed_compact) is not carried.
+depends on them.
+
+The host-driven compaction of the JAX module is carried too:
+distributed_compact_pos takes every device's (solid, counts,
+first-occurrence keys) on the host, as its JAX signature does; every rank
+sorts their concatenation by key, flips each k-mer to its as-read strand
+and takes its own position-contiguous shard at JAX's capacity
+(round_capacity(ceil(N / n_dev)) slots, not the 1.3x rule of step 1),
+then runs steps 2-4.  distributed_compact gives it all-zero keys: one run
+per k-mer, the stress case of the sharded jump.
 """
 
 from __future__ import annotations
@@ -335,6 +343,20 @@ def distributed_compact_dev(mesh, stacked: torch.Tensor, n_np: np.ndarray,
         if slot_cap > (1 << 28):
             raise RuntimeError("reshard overflow persists")
     timing["reshard"] = time.time() - t0
+    return _glue_and_assemble(mesh, solid_sh, counts_sh, n_here, slot_cap, k,
+                              timing, probe)
+
+
+def _glue_and_assemble(mesh, solid_sh: torch.Tensor, counts_sh: torch.Tensor,
+                       n_here: int, slot_cap: int, k: int, timing: dict,
+                       probe: Optional[dict] = None):
+    """Steps 2-4 on this rank's shard (L, slot_cap) of n_here k-mers in
+    stream order: junctions, glue with JAX's run_cap/qcap escalation, the
+    gather to rank 0 and its assembly.  Returns the UnitigSet on rank 0,
+    None on the other ranks."""
+    import time
+
+    n_dev = mesh.n_dev
     t0 = time.time()
     succ_sh, dropped = local_succ_shard(mesh, solid_sh, n_here, k,
                                         4 * slot_cap, slot_cap)
@@ -378,6 +400,56 @@ def distributed_compact_dev(mesh, stacked: torch.Tensor, n_np: np.ndarray,
     us.stats["glue_doubling_rounds"] = rounds
     timing["assembly"] = time.time() - t0
     return us
+
+
+def distributed_compact_pos(mesh, solid_per_dev, counts_per_dev, pos_per_dev,
+                            k: int, timing: Optional[dict] = None,
+                            probe: Optional[dict] = None):
+    """Position-ordered compaction of every device's solid k-mers
+    (bcalm_tpu distributed_compact_pos); every rank calls it with the same
+    per-device host lists ((L, n_d) u32 lanes, (n_d,) counts, (n_d,) u32
+    first-occurrence keys).  On the host: the stable sort by key, the
+    strand flip, the re-shard into slot_cap = round_capacity(ceil(N /
+    n_dev)) position-contiguous slots per rank (JAX's capacities, on which
+    the unitig numbering depends); then this rank's junctions, glue and the
+    assembly on rank 0.  Returns the UnitigSet on rank 0, None on the
+    other ranks."""
+    timing = {} if timing is None else timing
+    n_dev = mesh.n_dev
+    L = np.asarray(solid_per_dev[0]).shape[0]
+    lanes = np.concatenate([np.asarray(a) for a in solid_per_dev], axis=1)
+    counts = np.concatenate([np.asarray(c) for c in counts_per_dev])
+    pos = np.concatenate([np.asarray(p) for p in pos_per_dev])
+    N = lanes.shape[1]
+    if N == 0:
+        return (empty_unitigs(k, {"devices": n_dev, "solid_kmers": 0})
+                if mesh.rank == 0 else None)
+    order = np.argsort(pos, kind="stable")
+    lanes_t = torch.from_numpy(lanes[:, order].astype(np.int64))
+    strand = torch.from_numpy((pos[order] & 1).astype(bool))
+    lanes_t = torch.where(strand[None], ln.revcomp(lanes_t, k), lanes_t)
+    counts_t = torch.from_numpy(counts[order].astype(np.int64))
+    slot_cap = round_capacity(max(1, -(-N // n_dev)))
+    off = min(N, mesh.rank * slot_cap)
+    n_here = min(slot_cap, N - off)
+    solid_sh = torch.zeros((L, slot_cap), dtype=torch.int64)
+    solid_sh[:, :n_here] = lanes_t[:, off:off + n_here]
+    counts_sh = torch.zeros((slot_cap,), dtype=torch.int64)
+    counts_sh[:n_here] = counts_t[off:off + n_here]
+    return _glue_and_assemble(mesh, solid_sh.to(mesh.device),
+                              counts_sh.to(mesh.device), n_here, slot_cap, k,
+                              timing, probe)
+
+
+def distributed_compact(mesh, solid_per_dev, counts_per_dev, k: int,
+                        timing: Optional[dict] = None):
+    """Compaction without first-occurrence keys (bcalm_tpu
+    distributed_compact): distributed_compact_pos with all-zero keys, which
+    leaves the k-mers in their given order and makes every k-mer a run."""
+    zeros = [np.zeros((np.asarray(c).shape[0],), np.uint32)
+             for c in counts_per_dev]
+    return distributed_compact_pos(mesh, solid_per_dev, counts_per_dev, zeros,
+                                   k, timing)
 
 
 def assemble_from_glue(outs_np, n_unitigs: int, solid_global: torch.Tensor,

@@ -98,3 +98,45 @@ def run_builds(mesh: Mesh, jobs, out_dir: str) -> None:
         path = os.path.join(out_dir, f"{job['name']}.{mesh.rank}.pkl")
         with open(path, "wb") as f:
             pickle.dump(out, f)
+
+
+def run_entry_points(mesh: Mesh, jobs, out_dir: str) -> None:
+    """Run the per-k-mer mesh entry points for each job on this rank and
+    pickle what they gave to ``out_dir/<name>.<rank>.pkl``.
+
+    A job is a dict with a name and a kind:
+      "count": words, lengths (a global packed block), k, cap, amin, amax;
+        pipeline.distributed_count then gather_solid: this rank's unique
+        and counts (numpy), n_unique, dropped, and the gathered solid set;
+      "compact_pos": solid, counts, pos (per-device host lists), k;
+        distcompact.distributed_compact_pos;
+      "compact": solid, counts, k; distcompact.distributed_compact.
+    The compactions pickle, on rank 0, the UnitigSet's seqs, kc,
+    abundances, circular and links."""
+    import pickle
+
+    from bcalm_tpu_torch.parallel import distcompact, pipeline
+
+    for job in jobs:
+        kind = job["kind"]
+        if kind == "count":
+            res = pipeline.distributed_count(mesh, job["words"], job["lengths"],
+                                             job["k"], job["cap"])
+            solid, counts = pipeline.gather_solid(res, job["amin"], job["amax"])
+            out = {"unique": res.unique.cpu().numpy(),
+                   "counts": res.counts.cpu().numpy(),
+                   "n_unique": res.n_unique, "dropped": res.dropped,
+                   "solid": solid, "solid_counts": counts}
+        else:
+            if kind == "compact_pos":
+                us = distcompact.distributed_compact_pos(
+                    mesh, job["solid"], job["counts"], job["pos"], job["k"])
+            else:
+                us = distcompact.distributed_compact(mesh, job["solid"],
+                                                     job["counts"], job["k"])
+            out = None if us is None else {
+                "seqs": us.seqs, "kc": us.kc, "abundances": us.abundances,
+                "circular": us.circular, "links": us.links, "stats": us.stats}
+        path = os.path.join(out_dir, f"{job['name']}.{mesh.rank}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(out, f)

@@ -24,9 +24,17 @@ rank over ``parallel.mesh``:
 
 Every rank iterates the same input rounds and takes rows
 ``[rank*B, (rank+1)*B)`` of each, so each rank parses the whole input.
-The per-k-mer hash-routing helpers of the JAX module (distributed_count,
-pack_global_blocks, gather_solid) and its compile-latency capacity ladder
-are not carried: the ladder's hit count is reported as 0.
+The JAX module's compile-latency capacity ladder is not carried: the
+ladder's hit count is reported as 0.
+
+The per-k-mer hash-routed count of the JAX module is carried too, the
+building block its tests and multi-host worker use: pack_global_blocks
+packs the reads into one global block, distributed_count extracts each
+rank's rows (K1), routes every k-mer to the rank owning
+``hash_lanes(k-mer) % n_dev`` (K15 in its hash mode + exchange) and
+counts what arrives (torch.sort + K2); solid_per_device and gather_solid
+bring the solid k-mers of every rank to the host.  A bucket overflow is counted over the
+ranks (``dropped``), never silent.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from bcalm_tpu_torch.models import minimizer as mz
 from bcalm_tpu_torch.ops import _kernels
 from bcalm_tpu_torch.ops import count as count_op
 from bcalm_tpu_torch.ops import extract as extract_op
+from bcalm_tpu_torch.ops import hashing
 from bcalm_tpu_torch.ops import superkmer as skm
 from bcalm_tpu_torch.ops.runchains import round_capacity
 
@@ -53,12 +62,15 @@ SAMPLE_ROUNDS = 8
 
 
 def route_to_buckets_plain(stacked: torch.Tensor, valid: torch.Tensor,
-                           owner: torch.Tensor, n_dev: int, cap: int,
+                           owner, n_dev: int, cap: int,
                            with_slots: bool = False):
     """Plain PyTorch version of K15 (bcalm_tpu _route_to_buckets: stable
-    argsort by owner, position within each owner run)."""
+    argsort by owner, position within each owner run); owner None: the
+    hash mode, hash_lanes(stacked) % n_dev."""
     C, N = stacked.shape
     dev = stacked.device
+    if owner is None:
+        owner = hashing.hash_lanes(stacked) % n_dev
     owner = torch.where(valid, owner, n_dev)
     order = torch.sort(owner, stable=True).indices
     s_owner = owner[order]
@@ -85,10 +97,11 @@ def route_to_buckets_plain(stacked: torch.Tensor, valid: torch.Tensor,
 
 
 def route_to_buckets(stacked: torch.Tensor, valid: torch.Tensor,
-                     owner: torch.Tensor, n_dev: int, cap: int,
+                     owner, n_dev: int, cap: int,
                      with_slots: bool = False):
     """Scatter the valid columns of a channel-major (C, N) stack into
-    per-rank buckets by owner, in entry order within each bucket.
+    per-rank buckets by owner (None: hash_lanes of the C channels %
+    n_dev), in entry order within each bucket.
 
     Returns (buckets (C, n_dev, cap), bucket_valid (n_dev, cap), n_dropped
     (1,)[, slots (N,)]); an entry past its bucket's cap is dropped and
@@ -122,6 +135,98 @@ def iter_global_blocks(seqs, k: int, n_dev: int, block_reads: int,
         acc_w += [np.zeros((block_reads, width), np.uint32)] * pad
         acc_l += [np.zeros((block_reads,), np.int32)] * pad
         yield np.concatenate(acc_w), np.concatenate(acc_l)
+
+
+def pack_global_blocks(seqs, k: int, n_dev: int, block_reads: int = 1024,
+                       max_len: int = 512):
+    """All reads packed into one global (B, W) block (numpy), B % n_dev ==
+    0 (zero rows pad it), as bcalm_tpu pack_global_blocks."""
+    blocks = list(packing.iter_blocks(seqs, k, block_reads=block_reads,
+                                      max_len=max_len))
+    if not blocks:
+        W = max(1, (max(max_len, k, 16) + 15) // 16)
+        return np.zeros((n_dev, W), np.uint32), np.zeros((n_dev,), np.int32)
+    words = np.concatenate([b.words for b in blocks])
+    lengths = np.concatenate([b.lengths for b in blocks])
+    pad = (-words.shape[0]) % n_dev
+    if pad:
+        words = np.concatenate([words, np.zeros((pad, words.shape[1]), np.uint32)])
+        lengths = np.concatenate([lengths, np.zeros((pad,), np.int32)])
+    return words, lengths
+
+
+def _local_shard_count(mesh, words: torch.Tensor, lengths: torch.Tensor,
+                       k: int, cap: int):
+    """This rank's part of the per-k-mer count (bcalm_tpu
+    _local_shard_count): its rows' canonical k-mers (K1, invalid slots
+    folded to the sentinel), each routed to rank hash_lanes % n_dev (K15
+    in hash mode, cap per destination), exchanged, and the received ones
+    counted
+    (torch.sort + K2).  Returns (unique (L, n_dev*cap) sorted, zero past
+    n_unique; counts; n_unique; drops summed over the ranks)."""
+    L = ln.num_lanes(k)
+    body = torch.empty((L + 1, extract_op.block_slots(words.shape, k)),
+                       dtype=torch.int64, device=words.device)
+    extract_op.extract_insert(body, words, lengths, k, 0, 0)
+    lanes = body[:L]
+    valid = body[L] != SENTINEL
+    bl, bv, dropped = route_to_buckets(lanes, valid, None, mesh.n_dev, cap)
+    del body, lanes, valid
+    recv, rv = mesh.exchange(bl, bv)
+    mine = torch.where(rv.reshape(-1)[None], recv.reshape(L, -1), SENTINEL)
+    unique, counts, _, n_unique = count_op.count_canonical(mine)
+    return unique, counts, int(n_unique), int(mesh.psum(dropped)[0])
+
+
+@dataclass
+class DistributedCountResult:
+    """distributed_count's result on one rank: its unique (L, n_dev*cap)
+    and counts (n_dev*cap,) tensors, every rank's n_unique (n_dev,) and the
+    drops summed over the ranks."""
+    mesh: object
+    unique: torch.Tensor
+    counts: torch.Tensor
+    n_unique: np.ndarray
+    dropped: int
+
+
+def distributed_count(mesh, words: np.ndarray, lengths: np.ndarray, k: int,
+                      cap_per_dest: int) -> DistributedCountResult:
+    """The per-k-mer hash-routed count (bcalm_tpu distributed_count) of the
+    global (B, W) block, B % n_dev == 0; this rank takes rows [rank*B/n,
+    (rank+1)*B/n).  Every rank calls it."""
+    w, l = _my_rows(mesh, words, lengths)
+    unique, counts, n_u, dropped = _local_shard_count(mesh, w, l, k,
+                                                      cap_per_dest)
+    return DistributedCountResult(mesh, unique, counts,
+                                  mesh.gather_ints([n_u])[:, 0], dropped)
+
+
+def solid_per_device(result: DistributedCountResult, abundance_min: int,
+                     abundance_max: int):
+    """Every rank's solid (k-mer lanes (L, n_d) uint32, counts (n_d,)
+    int32) after solidity, in rank order, on every rank (host numpy, as
+    bcalm_tpu solid_per_device)."""
+    uniq = result.mesh.all_gather(result.unique).cpu().numpy()
+    cnts = result.mesh.all_gather(result.counts).cpu().numpy()
+    parts_k, parts_c = [], []
+    for d, n in enumerate(result.n_unique):
+        u, c = uniq[d][:, :int(n)], cnts[d][:int(n)]
+        keep = (c >= abundance_min) & (c <= abundance_max)
+        parts_k.append(u[:, keep].astype(np.uint32))
+        parts_c.append(c[keep].astype(np.int32))
+    return parts_k, parts_c
+
+
+def gather_solid(result: DistributedCountResult, abundance_min: int,
+                 abundance_max: int):
+    """The global solid set, lexicographically sorted (host numpy: lanes
+    (L, n) uint32, counts (n,) int32), as bcalm_tpu gather_solid."""
+    parts_k, parts_c = solid_per_device(result, abundance_min, abundance_max)
+    solid = np.concatenate(parts_k, axis=1)
+    counts = np.concatenate(parts_c)
+    order = np.lexsort(tuple(solid[j] for j in range(solid.shape[0] - 1, -1, -1)))
+    return solid[:, order], counts[order]
 
 
 @dataclass

@@ -15,7 +15,10 @@ Phases (any failure raises, and the script exits non-zero):
    bcalm_tpu_torch``, then through ``bcalm_tpu_torch.cli.main`` in this
    process, whose kernel launch counters are reset just before the call;
    the build checkpoints its solid set in ``<prefix>_btpu/`` (K9) and
-   removes it at the end;
+   removes it at the end.  Its contracted run graph (2^19 nodes) is jumped
+   hierarchically (K17-K19, K4 at the deepest level); on that graph the
+   hierarchical and the plain variant must give equal finish outputs, and
+   their level sizes, rounds and stage times are printed;
 3b. the same reads and flags with ``-max-memory M``, M chosen from the
    port's memory model so that the resident budget holds at most a third
    of the distinct k-mers phase 3 counted: counting goes multi-pass over
@@ -33,8 +36,9 @@ Phases (any failure raises, and the script exits non-zero):
    give the canonical k-mers and the KC of numpy's min/max combination of
    the two samples' count tables; ``min`` over phase 3's file and a hard
    link to it (the canonical-order compaction at full width, in process
-   too) gives phase 3's unitigs and KC; M, the doubling rounds and the
-   K4/K10 times of that compaction are printed;
+   too) gives phase 3's unitigs and KC; at its M = 2C oriented nodes the
+   hierarchical and the plain jump are compared as in phase 3, and K10's
+   time and the run's device_peak_mb are printed;
 3e. ``-abundance-min auto``: the chosen cutoff, and the bytes of a run
    with that cutoff given;
 3f. the ``-devices N`` build (parallel.pipeline.distributed_build) on the
@@ -50,6 +54,15 @@ Phases (any failure raises, and the script exits non-zero):
    the single-device build of the same reads.  ``python -m bcalm_tpu_torch
    ... -devices N`` with N past the cards exits 1 with the JAX package's
    message;
+3g. the per-k-mer mesh entry points over the same NCCL group, on the
+   first 1/8 of the reads, counters reset just before them:
+   pack_global_blocks, distributed_count (K1, K15 in its hash mode, K2)
+   and gather_solid
+   (nothing dropped, equal to the single-device count), the per-k-mer
+   minimizers and partition ids of the solid set (K20), then
+   distributed_compact_pos with first-occurrence keys and
+   distributed_compact (K3 global mode, K8, K16, K11): both equal to the
+   single-device CLI on those reads (unitigs, KC, km, links);
 4. output invariants of the phase 3 run: each solid canonical k-mer once,
    KC sums, every L: link a real (k-1)-overlap;
 5. each kernel vs its plain PyTorch version on the card, on the inputs
@@ -59,7 +72,12 @@ Phases (any failure raises, and the script exits non-zero):
    where one PyTorch call computes the same function, that call's time;
    K14 in both its modes; K13 and K3's global mode (the sharded glue's
    junction entries) also with 4 ranks as owners, since at world size 1
-   every owner is 0; K15 also at 4 and 8 destinations (synthetic owners).
+   every owner is 0; K15 also at 4 and 8 destinations (synthetic owners)
+   and in its hash mode on phase 3g's k-mers at world size 1 and 4;
+   K17-K19 at level 0 of phase 3's and of phase 3d's hierarchical jump;
+   K20 on phase 3's solid k-mers in its histogram mode (torch.bincount is
+   its library call) and its minimizer mode (partition ids with phase 3f's
+   frequency rank and a 4-rank table; lexicographic minimizers).
 
 The last line is {"ok": true, "device": {...}}.  Exits 1 without a result
 when no CUDA device is available.
@@ -133,7 +151,19 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
                       "bcalm_tpu/parallel/pipeline.py:59"),
     "glue_compose": ("bcalm_tpu_torch/csrc/glue.cu",
                      "bcalm_tpu/parallel/distcompact.py:303"),
+    "hier_round": ("bcalm_tpu_torch/csrc/hier.cu",
+                   "bcalm_tpu/ops/chains.py:298"),
+    "hier_contract": ("bcalm_tpu_torch/csrc/hier.cu",
+                      "bcalm_tpu/ops/chains.py:402"),
+    "hier_expand": ("bcalm_tpu_torch/csrc/hier.cu",
+                    "bcalm_tpu/ops/chains.py:448"),
+    "kmer_minimizers": ("bcalm_tpu_torch/csrc/minimizer.cu",
+                        "bcalm_tpu/models/minimizer.py:59"),
 }
+HIER = ("hier_round", "hier_contract", "hier_expand")
+# kernels whose last call is recorded: the upward pass of the hierarchical
+# jump ends at level 0
+RECORD_LAST = ("hier_expand",)
 # K3's global mode (the sharded junction matching) counts its launches
 # under junction_keys and junction_pairs
 GLOBAL_K3 = ("junction_entries", "junction_edges")
@@ -145,9 +175,12 @@ INT_OPS_PER_S = 67e12
 # the kernels each main path must launch: the resident build (with its
 # store), the multi-pass build (whose solidity filter and store run in
 # numpy on the host), the -skip-bcalm resume (compaction only), and the
-# multi-sample build (counting, then the canonical-order compaction)
+# multi-sample build (counting, then the canonical-order compaction); at
+# the smoke's size both compactions jump hierarchically (K17-K19, K4 at the
+# deepest level)
 COMPACT_POS = ("junction_keys", "junction_pairs", "run_scans", "run_contract",
-               "jump_round", "chain_finish", "run_broadcast", "spell_unitigs")
+               "jump_round", "chain_finish", "run_broadcast",
+               "spell_unitigs") + HIER
 RESIDENT_PATH = ("extract_insert", "count_runs", "solid_fold_histogram",
                  "solid_compact") + COMPACT_POS
 OOC_PATH = ("extract_insert", "count_runs", "range_fold",
@@ -155,11 +188,16 @@ OOC_PATH = ("extract_insert", "count_runs", "range_fold",
 SKIP_BCALM_PATH = COMPACT_POS
 CANONICAL_PATH = ("extract_insert", "count_runs", "junction_keys",
                   "junction_pairs", "jump_round", "chain_finish",
-                  "spell_unitigs")
+                  "spell_unitigs") + HIER
 MESH_PATH = ("form_superkmers", "mmer_histograms", "route_buckets",
              "glue_compose", "extract_insert", "count_runs", "junction_keys",
              "junction_pairs", "solid_fold_histogram", "run_scans",
              "spell_unitigs")
+# the per-k-mer mesh entry points (phase 3g): the hash-routed count, the
+# per-k-mer minimizers of its solid set, the host-driven compactions
+ENTRY_PATH = ("extract_insert", "route_buckets", "count_runs",
+              "kmer_minimizers", "junction_keys", "junction_pairs",
+              "run_scans", "glue_compose", "spell_unitigs")
 
 
 # the fixtures of tests/test_oracle.py (the reference's example inputs)
@@ -341,17 +379,26 @@ def write_reads(path: str, coverage: float, seed: int,
 
 def _record_key(name: str, args) -> str:
     """mmer_histograms runs in two modes, the m-mer histogram and the
-    minimizer load (its last argument): each mode is recorded apart."""
+    minimizer load (its last argument), kmer_minimizers in two, the
+    minimizer (or partition id) and the histogram (its last argument), and
+    route_buckets in two, given owners and hashed ones (no owner array):
+    each mode is recorded apart."""
+    if name == "route_buckets" and args[2] is None:
+        return "route_buckets:hash"
     if name == "mmer_histograms":
         return f"{name}:{'load' if args[-1] else 'mmer'}"
+    if name == "kmer_minimizers":
+        return f"{name}:{'histogram' if args[-1] else 'minimizer'}"
     return name
 
 
 class Recorder:
     """Keeps the first inputs each kernel wrapper (each mode of
-    mmer_histograms) received, copied to the host before the call
-    (extract_insert and range_fold write in place; host copies leave the
-    run's peak device memory as a user's run has it)."""
+    mmer_histograms and kmer_minimizers) received, or for RECORD_LAST its
+    last ones, copied to the host before the call (extract_insert and
+    range_fold write in place; host copies leave the run's peak device
+    memory as a user's run has it).  Arguments passed by keyword are
+    recorded in the wrapper's parameter order, defaults filled in."""
 
     def __init__(self, kmod, names=tuple(KERNELS)):
         self.kmod = kmod
@@ -359,11 +406,18 @@ class Recorder:
         self.saved = {n: getattr(kmod, n) for n in names}
 
     def _wrap(self, name):
-        fn = self.saved[name]
+        import inspect
 
-        def recorded(*args):
+        fn = self.saved[name]
+        sig = inspect.signature(fn)
+
+        def recorded(*args, **kwargs):
+            if kwargs:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                args, kwargs = tuple(bound.arguments.values()), {}
             key = _record_key(name, args)
-            if key not in self.inputs:
+            if key not in self.inputs or name in RECORD_LAST:
                 self.inputs[key] = tuple(
                     a.to("cpu", copy=True) if isinstance(a, torch.Tensor) else a
                     for a in args)
@@ -489,6 +543,74 @@ def phase_full(tmp: str, coverage: float, seed: int):
                                  f"{st.get('ingest_parser')}, expected native")
     say("[full] ingest_parser native in both runs")
     return fa, path, stats, launches, inputs
+
+
+def compare_jumps(what: str, run, q0, q_deep):
+    """The hierarchical and the plain variant of one chain decomposition on
+    the card (run(variant) -> finish outputs): equal outputs, the level
+    sizes, the rounds per level, each variant's stage time (CUDA events,
+    the deepest level's host syncs included), and K4's time per round on
+    the plain variant's state q0 and on the deepest level's q_deep."""
+    from bcalm_tpu_torch.ops import _kernels, chains
+
+    out, launched, ms, peak = {}, {}, {}, {}
+    for variant in ("hier", "plain"):
+        before = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[variant] = run(variant)
+        torch.cuda.synchronize()
+        peak[variant] = (torch.cuda.max_memory_allocated() - base) >> 20
+        launched[variant] = {n: _kernels.LAUNCHES[n] - before[n] for n in before}
+        ms[variant] = _time_ms(lambda: run(variant), reps=5)
+    h, p = out["hier"], out["plain"]
+    n = int(p["n_unitigs"])
+    if int(h["n_unitigs"]) != n:
+        raise AssertionError(f"{what}: hierarchical n_unitigs {int(h['n_unitigs'])}"
+                             f" (-1: a level overflowed), plain {n}")
+    for key in ("uid", "rank"):
+        if not torch.equal(h[key], p[key]):
+            raise AssertionError(f"{what}: hierarchical {key} differs from plain")
+    for key in ("start_oid", "length", "circular"):
+        if not torch.equal(h[key][:n], p[key][:n]):
+            raise AssertionError(f"{what}: hierarchical {key} differs from plain")
+    M = q0.shape[0]
+    sizes = chains.level_sizes(M)
+    lh, lp = launched["hier"], launched["plain"]
+    k4 = {}
+    for name, q in (("M", q0), ("deepest", q_deep)):
+        qn = torch.empty_like(q)
+        changed = torch.zeros((1,), dtype=torch.int32, device=q.device)
+        k4[name] = _time_ms(lambda: _kernels.jump_round(q, qn, changed))
+    say(f"[hier] {what}: M = {M}, levels {sizes}; hierarchical jump ok, its "
+        f"finish outputs equal the plain doubling's ({n} unitigs); hier: "
+        f"{chains._R_A} K17 rounds at each of the first {len(sizes) - 1} "
+        f"levels ({lh['hier_round']} launches), {lh['hier_contract']} K18, "
+        f"{lh['jump_round']} K4 rounds at the deepest level ({sizes[-1]} "
+        f"rows), {lh['hier_expand']} K19; plain: {lp['jump_round']} K4 rounds "
+        f"at M; stage time (pred, jump and finish) hier {ms['hier']:.4f} ms, "
+        f"plain {ms['plain']:.4f} ms; stage peak above its inputs hier "
+        f"{peak['hier']} MiB, plain {peak['plain']} MiB; K4 per round "
+        f"{k4['M']:.4f} ms at M (bound {_bound(2 * _nbytes(q0), 0)[0]:.4f} "
+        f"ms), {k4['deepest']:.4f} ms at the deepest level")
+    return ms
+
+
+def phase_hier_resident(inputs, dev):
+    """Phase 3's hierarchical vs plain jump on the contracted run graph it
+    recorded (run_contract's inputs give csucc, cvalid, wlen2)."""
+    from bcalm_tpu_torch.ops import chains, runchains
+
+    rc = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+               for a in inputs["run_contract"])
+    _, _, csucc, cvalid, wlen2 = runchains.run_contract(*rc)
+    cpred = chains.build_pred(csucc, cvalid)
+    R2 = csucc.shape[0]
+    q0 = chains.init_state(cpred, cvalid, wlen2[torch.clamp(cpred, 0, R2 - 1)])
+    compare_jumps("resident run (phase 3), contracted run graph",
+                  lambda v: runchains.contracted_jump(csucc, cvalid, wlen2, v),
+                  q0, inputs["jump_round"][0].to(dev))
 
 
 def pick_max_memory(distinct: int, dev):
@@ -715,7 +837,8 @@ def phase_multi(tmp: str, fa: str, ref_path: str, coverage: float, seed: int,
         f"(t_compact_s {st['t_compact_s']}, t_assemble_s "
         f"{st['t_assemble_s']}); {len(want[0])} unitigs and their KC equal "
         f"phase 3's; launches {json.dumps(launches)}")
-    return M, launches, inputs, tables[0]
+    return (M, launches, inputs, tables[0],
+            st.get("device_peak_mb", "not measured"))
 
 
 def phase_auto(tmp: str, fa: str, ref_path: str):
@@ -789,10 +912,12 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
             launches = dict(_kernels.LAUNCHES)
         check_mesh(tmp, ref_path, table, us, wall, timing, launches)
         phase_mesh_ranged(tmp, fa, mesh, dev)
+        entry_launches, entry_route = phase_entry_points(tmp, fa, mesh, dev)
     finally:
         dist.destroy_process_group()
     check_too_many_devices(tmp, fa)
-    return launches, rec.inputs
+    return launches, dict(rec.inputs, **{"route_buckets:hash": entry_route}), \
+        entry_launches
 
 
 def check_mesh(tmp, ref_path, table, us, wall, timing, launches):
@@ -857,15 +982,11 @@ def phase_mesh_ranged(tmp: str, fa: str, mesh, dev):
     from bcalm_tpu_torch.parallel import pipeline
 
     part = os.path.join(tmp, "reads_part.fa")
-    record = 3 + 150 + 1          # write_reads' fixed record
-    with open(fa, "rb") as f:
-        data = f.read((os.path.getsize(fa) // record // 32) * record)
-    with open(part, "wb") as f:
-        f.write(data)
+    n_part = _first_reads(fa, part, 32)
     ref = os.path.join(tmp, "part_single")
-    wall, ref_st, _ = _sub(["-in", part, "-kmer-size", str(K),
+    wall, ref_st = _inproc(["-in", part, "-kmer-size", str(K),
                             "-abundance-min", "2", "-verbose", "1", "-out", ref],
-                           "1/32 of the reads")
+                           "1/32 of the reads")[:2]
     bank = bank_mod.Bank.open(part)
     cfg = engine.EngineConfig(k=K, abundance_min=2)
     engine.configure_chunk(cfg, 0, dev)
@@ -900,7 +1021,7 @@ def phase_mesh_ranged(tmp: str, fa: str, mesh, dev):
     # "rounds" is the first pass, cut where the budget was passed;
     # "finish" holds the passes over the key ranges
     split = {key: round(timing[key], 3) for key in ("rounds", "finish")}
-    say(f"[mesh] multi-pass: the first {len(data) // record} reads "
+    say(f"[mesh] multi-pass: the first {n_part} reads "
         f"({ref_st['distinct_kmers']} distinct k-mers, single-device build "
         f"{wall:.2f}s), residency budget {cfg.resident_kmers}: "
         f"{st['ooc_ranges']} key ranges, {st['ooc_passes']} passes, wall "
@@ -910,6 +1031,126 @@ def phase_mesh_ranged(tmp: str, fa: str, mesh, dev):
         f"device_peak_mb {st.get('device_peak_mb', 'not measured')}")
     say(f"[launches] {json.dumps(launches)}")
     return launches
+
+
+def _first_reads(fa: str, path: str, div: int) -> int:
+    """Write the first 1/div of write_reads' file to path; the read count."""
+    record = 3 + 150 + 1          # write_reads' fixed record
+    with open(fa, "rb") as f:
+        data = f.read((os.path.getsize(fa) // record // div) * record)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data) // record
+
+
+def _same_unitigs(path: str, ref_path: str, what: str) -> None:
+    got, want = unitig_keys(path), unitig_keys(ref_path)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: unitigs or KC differ from the "
+                             f"single-device build's")
+    if not np.array_equal(_km(path), _km(ref_path)):
+        raise AssertionError(f"{what}: km differs")
+    if _links(path) != _links(ref_path):
+        raise AssertionError(f"{what}: link count differs")
+
+
+def phase_entry_points(tmp: str, fa: str, mesh, dev):
+    """Phase 3g: the per-k-mer mesh entry points at world size 1 on the
+    first 1/8 of the reads, the launch counters reset just before them:
+    pack_global_blocks -> distributed_count -> gather_solid, the per-k-mer
+    minimizers of the solid set (mmer_histogram -> frequency_rank ->
+    minimizers -> build_repartition -> partition_of, 4 partitions), then
+    distributed_compact_pos with the first-occurrence keys of the
+    single-device count of the same reads, and distributed_compact.  Both
+    must give the single-device CLI's unitigs, KC, km and links, with
+    nothing dropped.  Returns the launches."""
+    from bcalm_tpu_torch import cli, engine
+    from bcalm_tpu_torch.io import bank as bank_mod
+    from bcalm_tpu_torch.io import fasta_writer
+    from bcalm_tpu_torch.models import minimizer
+    from bcalm_tpu_torch.ops import _kernels
+    from bcalm_tpu_torch.parallel import distcompact, pipeline
+
+    part = os.path.join(tmp, "reads_eighth.fa")
+    n_part = _first_reads(fa, part, 8)
+    ref = os.path.join(tmp, "eighth_single")
+    wall_ref, ref_st = _inproc(["-in", part, "-kmer-size", str(K),
+                                "-abundance-min", "2", "-verbose", "1", "-out",
+                                ref], "1/8 of the reads")[:2]
+    bank = bank_mod.Bank.open(part)
+    cfg = engine.EngineConfig(k=K, abundance_min=2)
+    engine.configure_chunk(cfg, 0, dev)
+    cli.adapt_max_len(bank, cfg)
+    s_solid, s_counts, minpos, _, _ = engine.count_and_filter(
+        cli._input_blocks(bank, cfg, 0), cfg, dev)
+    m = 10
+    walls = {}
+    _kernels.reset_launches()
+    t0 = time.time()
+    words, lengths = pipeline.pack_global_blocks(bank.sequences(), K, 1,
+                                                 block_reads=4096, max_len=160)
+    walls["pack"] = time.time() - t0
+    t0 = time.time()
+    cap = 1 << int(np.ceil(np.log2(int(np.maximum(lengths - K + 1, 0).sum()))))
+    # K15's hash mode: its inputs, copied to the host, for phase 5
+    with Recorder(_kernels, ("route_buckets",)) as rec:
+        res = pipeline.distributed_count(mesh, words, lengths, K, cap)
+    solid, counts = pipeline.gather_solid(res, 2, 2**31 - 1)
+    walls["count"] = time.time() - t0
+    t0 = time.time()
+    lanes = torch.from_numpy(np.ascontiguousarray(solid, dtype=np.int64)).to(dev)
+    n = lanes.shape[1]
+    histo = minimizer.mmer_histogram(
+        lanes, torch.ones((n,), dtype=torch.bool, device=dev), K, m)
+    rank = minimizer.frequency_rank(histo.cpu().numpy())
+    rank_t = torch.from_numpy(rank.astype(np.int64)).to(dev)
+    load = np.bincount(minimizer.minimizers(lanes, K, m, rank_t).cpu().numpy(),
+                       minlength=4 ** m)
+    table = minimizer.build_repartition(load.astype(np.int32), 4)
+    parts = minimizer.partition_of(lanes, K, m,
+                                   torch.from_numpy(table.astype(np.int64)).to(dev),
+                                   rank_t).cpu().numpy()
+    walls["minimizers"] = time.time() - t0
+    del lanes
+    t0 = time.time()
+    us_pos = distcompact.distributed_compact_pos(mesh, [solid], [counts],
+                                                 [minpos], K)
+    torch.cuda.synchronize()
+    walls["compact_pos"] = time.time() - t0
+    t0 = time.time()
+    us_zero = distcompact.distributed_compact(mesh, [solid], [counts], K)
+    torch.cuda.synchronize()
+    walls["compact"] = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    _require_launched(launches, ENTRY_PATH, "per-k-mer mesh entry points")
+    if res.dropped != 0:
+        raise AssertionError(f"distributed_count dropped {res.dropped} k-mers")
+    if not (np.array_equal(solid, s_solid) and np.array_equal(counts, s_counts)):
+        raise AssertionError("gather_solid differs from the single-device count")
+    if int(histo.sum()) != n * (K - m + 1):
+        raise AssertionError("mmer_histogram does not count every m-mer")
+    per_part = np.bincount(parts, minlength=4)
+    if not np.array_equal(per_part, [load[table == d].sum() for d in range(4)]):
+        raise AssertionError(f"partition_of: k-mers per partition {per_part} "
+                             f"differ from the minimizer load the table packs")
+    for what, us in (("distributed_compact_pos", us_pos),
+                     ("distributed_compact", us_zero)):
+        path = os.path.join(tmp, f"entry_{what}.unitigs.fa")
+        with open(path, "w") as f:
+            fasta_writer.write_fasta(us, f)
+        _same_unitigs(path, ref + ".unitigs.fa", what)
+    say(f"[entry] per-k-mer mesh entry points, NCCL world size 1, on the first "
+        f"{n_part} reads (single-device cli.main {wall_ref:.2f}s, "
+        f"{ref_st['unitigs']} unitigs): distributed_count over a "
+        f"{tuple(words.shape)} block, cap {cap}, dropped 0, {n} solid k-mers "
+        f"equal to the single-device count; minimizers m = {m}: k-mers per "
+        f"partition {per_part.tolist()}; distributed_compact_pos "
+        f"(glue_runs {us_pos.stats['glue_runs']}) and distributed_compact "
+        f"(glue_runs {us_zero.stats['glue_runs']}) give the CLI's unitigs, KC, "
+        f"km and {_links(ref + '.unitigs.fa')} links; walls (s) "
+        f"{json.dumps({key: round(v, 3) for key, v in walls.items()})}")
+    say(f"[launches] {json.dumps(launches)}")
+    return launches, rec.inputs["route_buckets:hash"]
 
 
 def check_too_many_devices(tmp: str, fa: str) -> None:
@@ -1104,12 +1345,12 @@ def _bound(moved: int, ops: int):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(inputs, launches, dev):
+def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.models import lanes as ln
     from bcalm_tpu_torch.models import minimizer
     from bcalm_tpu_torch.ops import (_kernels, chains, count, extract,
-                                     junctions, runchains, superkmer)
+                                     hashing, junctions, runchains, superkmer)
     from bcalm_tpu_torch.parallel import distcompact, pipeline
 
     inputs = {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
@@ -1252,9 +1493,48 @@ def phase_kernels(inputs, launches, dev):
           lambda: runchains.run_broadcast_plain(*rb_args),
           reads=rb_args[:3] + tuple(a[:n_members] for a in rb_args[3:6])
           + rb_args[6:8])
+    extra = []
+
+    # K17-K19 at level 0 of the resident run's hierarchical jump (the
+    # rows) and of the canonical-order one (phase 3d, M = 2C)
+    def hier_checks(hin, row):
+        Qh, Qn_h, gid_h, valid_h, salt, _ = hin["hier_round"]
+
+        def round_kernel():
+            _kernels.hier_round(Qh, Qn_h, gid_h, valid_h, salt)
+            return Qn_h.clone()
+
+        r17 = check("hier_round", round_kernel,
+                    lambda: chains.hier_round_plain(Qh, gid_h, valid_h, salt),
+                    lambda: _kernels.hier_round(Qh, Qn_h, gid_h, valid_h, salt),
+                    reads=(Qh, gid_h, valid_h), written=_nbytes(Qh), row=row)
+        Qc, gid_c, valid_c, salt_c, S1, big, _ = hin["hier_contract"]
+
+        def contract(fn):
+            def run():
+                ok = torch.ones((1,), dtype=torch.int32, device=dev)
+                return fn(Qc, gid_c, valid_c, salt_c, S1, big, ok) + (ok,)
+            return run
+
+        r18 = check("hier_contract", contract(_kernels.hier_contract),
+                    contract(chains.hier_contract_plain),
+                    reads=(Qc, gid_c, valid_c), row=row)
+        F, parent, Qd, did = hin["hier_expand"]
+        r19 = check("hier_expand", lambda: _kernels.hier_expand(F, parent, Qd, did),
+                    lambda: chains.hier_expand_plain(F, parent, Qd, did),
+                    reads=(F, parent, Qd, did), row=row)
+        return (Qh.shape[0], S1), (r17, r18, r19)
+
+    res_shape, _ = hier_checks({n: inputs[n] for n in HIER}, True)
+    canon = {n: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                      for a in args) for n, args in canon_hier.items()}
+    (S_c, S1_c), rs = hier_checks(canon, False)
+    for name, r in zip(HIER, rs):
+        extra.append((f"{name} at level 0 of the canonical-order compaction "
+                      f"(phase 3d: {S_c} -> {S1_c} rows)", r))
+    del canon
 
     # the -devices path (phase 3f): K13-K16 and K3's global mode
-    extra = []
 
     def gathered(table_, n_pos_):
         """Bytes of a (4^m,) table that n_pos_ lookups must read: each
@@ -1315,6 +1595,45 @@ def phase_kernels(inputs, launches, dev):
                              f"per owner {spread}")
     extra.append((f"form_superkmers with a 4-rank table (build_repartition "
                   f"of the sampled load; starts per owner {spread})", r))
+
+    # K20 on phase 3's solid k-mers (phase 3d's count table of the same
+    # reads, counts >= 2) with phase 3f's frequency rank and the 4-rank
+    # table: the histogram mode (the row; torch.bincount of the m-mers is
+    # its library call), the partition and the lexicographic minimizer
+    values, kcounts = solid_table
+    v = values[kcounts >= 2]
+    lanes20 = torch.from_numpy(np.stack([v >> np.uint64(32),
+                                         v & np.uint64(0xFFFFFFFF)])
+                               .astype(np.int64)).to(dev)
+    n20, m20 = lanes20.shape[1], sm
+    w20 = K - m20 + 1             # m-mers per k-mer
+    all20 = torch.ones((n20,), dtype=torch.bool, device=dev)
+    mm_flat = minimizer.extract_mmers(lanes20, K, m20).reshape(-1)
+    hist = _kernels.kmer_minimizers(lanes20, K, m20, valid=all20, histogram=True)
+    if not torch.equal(hist, torch.bincount(mm_flat, minlength=4 ** m20)):
+        raise AssertionError("kmer_minimizers histogram differs from "
+                             "torch.bincount")
+    check("kmer_minimizers",
+          lambda: _kernels.kmer_minimizers(lanes20, K, m20, valid=all20,
+                                           histogram=True),
+          lambda: minimizer.mmer_histogram_plain(lanes20, all20, K, m20),
+          reads=(lanes20, all20), ops=n20 * w20 * 8,
+          library=lambda: torch.bincount(mm_flat, minlength=4 ** m20))
+    del mm_flat
+    for label, rk, tb in (("partition ids, frequency rank and 4-rank table",
+                           rank, table4),
+                          ("lexicographic minimizers", None, None)):
+        r = check("kmer_minimizers",
+                  lambda: _kernels.kmer_minimizers(lanes20, K, m20, rank=rk,
+                                                   table=tb),
+                  lambda: (minimizer.minimizers_plain(lanes20, K, m20, rk)
+                           if tb is None else
+                           minimizer.partition_of_plain(lanes20, K, m20, tb, rk)),
+                  reads=lanes20,
+                  written=8 * n20 + gathered(rk, n20 * w20) + gathered(tb, n20),
+                  ops=n20 * w20 * 8, row=False)
+        extra.append((f"kmer_minimizers, {label} ({n20} k-mers, m = {m20})", r))
+    del lanes20, all20
     stk, valid, owner, n_dev, cap, with_slots = inputs["route_buckets"]
     check("route_buckets",
           lambda: _kernels.route_buckets(*inputs["route_buckets"]),
@@ -1331,6 +1650,28 @@ def phase_kernels(inputs, launches, dev):
                   reads=(stk, valid, syn), row=False)
         extra.append((f"route_buckets at {nd} destinations (synthetic owners, "
                       f"cap {cap_nd}, with slots)", r))
+    # the hash mode (owner = hash_lanes(k-mer) % n_dev, computed in the
+    # kernel) on phase 3g's k-mers: as the world-size-1 count ran it, and
+    # at 4 ranks, where the owners spread
+    hl, hv, _, hn, hcap, hslots = inputs["route_buckets:hash"]
+    hcap4 = max(1, -(-2 * int(hv.sum()) // 4))
+    for nd, cap_nd, slots_nd in ((hn, hcap, hslots), (4, hcap4, True)):
+        r = check("route_buckets",
+                  lambda: _kernels.route_buckets(hl, hv, None, nd, cap_nd,
+                                                 slots_nd),
+                  lambda: pipeline.route_to_buckets_plain(hl, hv, None, nd,
+                                                          cap_nd, slots_nd),
+                  reads=(hl, hv), row=False)
+        spread = torch.bincount(
+            (hashing.hash_lanes(hl) % nd)[hv], minlength=nd).tolist()
+        if min(spread) == 0:
+            raise AssertionError(f"route_buckets hash mode at {nd} ranks: "
+                                 f"k-mers per owner {spread}")
+        extra.append((f"route_buckets, hash mode at {nd} rank(s) ({hl.shape[1]} "
+                      f"slots of phase 3g's count, {int(hv.sum())} k-mers; per "
+                      f"owner {spread}; {launches['route_buckets:hash']} "
+                      f"launches in phase 3g)", r))
+    del hl, hv
     gQ, anc, need = inputs["glue_compose"]
     check("glue_compose", lambda: _kernels.glue_compose(gQ, anc, need),
           lambda: distcompact.glue_compose_plain(gQ, anc, need),
@@ -1394,25 +1735,26 @@ def phase_kernels(inputs, launches, dev):
               "route_buckets": [tuple(stk.shape), n_dev, cap],
               "glue_compose": tuple(gQ.shape),
               "junction_entries": tuple(ge[0].shape),
-              "junction_edges": tuple(gk.shape)}
+              "junction_edges": tuple(gk.shape),
+              "hier (S, S1)": res_shape,
+              "kmer_minimizers": [(2, n20), m20]}
     say(f"[shapes] {json.dumps(shapes)}")
     return rows
 
 
-def phase_canonical_times(M: int, launches, inputs, dev):
-    """Phase 3d's last step: the doubling rounds and the K4/K10 times of
-    the canonical-order compaction at full width (M = 2C oriented nodes),
-    on the inputs that run fed them."""
+def phase_canonical_times(M: int, launches, inputs, peak_mb, dev):
+    """Phase 3d's last step: the canonical-order compaction at full width
+    (M = 2C oriented nodes) on the inputs that run fed it: the
+    hierarchical vs the plain jump, and K10 against its plain version.
+    Returns the K17-K19 inputs of its level 0 (for phase 5)."""
     from bcalm_tpu_torch.ops import _kernels, chains
 
-    Q = inputs["jump_round"][0].to(dev)
-    Qn = torch.empty_like(Q)
-    changed = torch.zeros((1,), dtype=torch.int32, device=dev)
-    k4 = _time_ms(lambda: _kernels.jump_round(Q, Qn, changed))
-    k4_plain = _time_ms(lambda: chains.jump_round_plain(Q))
-    del Q, Qn
     cf_args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                     for a in inputs["chain_finish"])
+    succ, pred, valid = cf_args[:3]
+    compare_jumps("canonical-order compaction (phase 3d)",
+                  lambda v: chains.chain_decompose(succ, valid, v),
+                  chains.init_state(pred, valid), inputs["jump_round"][0].to(dev))
     got = _finish_tuple(_kernels.chain_finish(*cf_args))
     want = _finish_tuple(chains.finish_fast_plain(*cf_args))
     if _max_err(got, want) != 0:
@@ -1421,9 +1763,10 @@ def phase_canonical_times(M: int, launches, inputs, dev):
     k10 = _time_ms(lambda: _kernels.chain_finish(*cf_args), reps=5)
     k10_plain = _time_ms(lambda: chains.finish_fast_plain(*cf_args), reps=5)
     say(f"[multi] canonical-order compaction: M = {M} oriented nodes, "
-        f"{launches['jump_round']} doubling rounds; K4 {k4:.4f} ms per round "
-        f"(plain {k4_plain:.4f} ms); K10 {k10:.4f} ms (plain {k10_plain:.4f} "
-        f"ms), equal to its plain version at M")
+        f"{launches['hier_round']} K17, {launches['jump_round']} K4 rounds in "
+        f"its run; K10 {k10:.4f} ms (plain {k10_plain:.4f} ms), equal to its "
+        f"plain version at M; device_peak_mb of the run {peak_mb}")
+    return {name: inputs[name] for name in HIER}
 
 
 def main() -> int:
@@ -1469,13 +1812,15 @@ def main() -> int:
                                                        args.seed)
         ooc_launches, ooc_inputs = phase_ooc(tmp, fa, path, stats, dev)
         phase_resume(tmp, fa, path, stats)
-        M, ms_launches, ms_inputs, table = phase_multi(
+        phase_hier_resident(inputs, dev)
+        M, ms_launches, ms_inputs, table, peak_mb = phase_multi(
             tmp, fa, path, args.coverage, args.seed, dev)
-        phase_canonical_times(M, ms_launches, ms_inputs, dev)
+        canon_hier = phase_canonical_times(M, ms_launches, ms_inputs, peak_mb,
+                                           dev)
         del ms_inputs
         phase_auto(tmp, fa, path)
-        mesh_launches, mesh_inputs = phase_mesh(tmp, fa, path, table, dev)
-        del table
+        mesh_launches, mesh_inputs, entry_launches = phase_mesh(
+            tmp, fa, path, table, dev)
         phase_invariants(path, stats)
     # each kernel is held against its plain version on the inputs of the
     # run whose path needs it, and reports that run's launches
@@ -1484,13 +1829,15 @@ def main() -> int:
         launches[kernel] = ooc_launches[kernel]
     for kernel in ("form_superkmers", "mmer_histograms:mmer",
                    "mmer_histograms:load", "route_buckets",
-                   "glue_compose") + GLOBAL_K3:
+                   "route_buckets:hash", "glue_compose") + GLOBAL_K3:
         inputs[kernel] = mesh_inputs[kernel]
     for kernel in ("form_superkmers", "mmer_histograms", "route_buckets",
                    "glue_compose"):
         launches[kernel] = mesh_launches[kernel]
+    launches["kmer_minimizers"] = entry_launches["kmer_minimizers"]
+    launches["route_buckets:hash"] = entry_launches["route_buckets"]
     del mesh_inputs
-    rows = phase_kernels(inputs, launches, dev)
+    rows = phase_kernels(inputs, launches, canon_hier, table, dev)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -232,33 +232,38 @@ def test_solid_compact(card, L, amin, amax):
     assert torch.equal(narrow.cpu(), want[:, :w])
 
 
-def mirror_graph(N, seed, n_invalid=8):
-    """(2N,) mirror-symmetric succ: chains, cycles and hairpins (v ->
-    mirror(v)) over random orientations; valid (2N,) bool."""
+def mirror_graph(N: int, seed: int, long_cycle: int = 0, n_invalid: int = 8):
+    """(2N,) succ (int64) and valid (bool) numpy arrays of a
+    mirror-symmetric graph: first one cycle of `long_cycle` nodes (none
+    for 0), then chains and cycles of geometric length (mean 100) over the
+    other valid vertices in random orientations, a third of the
+    single-vertex chains hairpins (v -> mirror(v)); the last n_invalid
+    vertices invalid.  tests/test_torch_hier.py uses it too."""
     rng = np.random.RandomState(seed)
     n_valid = N - n_invalid
     succ = np.full(2 * N, -1, np.int64)
     order = rng.permutation(n_valid)
     i = 0
     while i < n_valid:
-        m = int(min(n_valid - i, rng.geometric(0.01)))
+        first = i == 0 and long_cycle > 0
+        m = long_cycle if first else int(min(n_valid - i, rng.geometric(0.01)))
         oids = order[i:i + m] + N * rng.randint(0, 2, m)
         if m == 1 and rng.rand() < 0.3:
             succ[oids[0]] = (oids[0] + N) % (2 * N)
-        ring = m > 1 and rng.rand() < 0.2
+        ring = m > 1 and (first or rng.rand() < 0.2)
         nxt = np.roll(oids, -1)
-        for a, b in zip(oids[:m if ring else m - 1], nxt[:m if ring else m - 1]):
-            succ[a] = b
-            succ[(b + N) % (2 * N)] = (a + N) % (2 * N)
+        stop = m if ring else m - 1
+        succ[oids[:stop]] = nxt[:stop]
+        succ[(nxt[:stop] + N) % (2 * N)] = (oids[:stop] + N) % (2 * N)
         i += m
     valid = (np.arange(2 * N) % N) < n_valid
-    return torch.from_numpy(succ), torch.from_numpy(valid)
+    return succ, valid
 
 
 @pytest.mark.parametrize("N,weighted", [(4096, False), (4096, True),
                                         (1 << 18, False)])
 def test_chain_finish(card, N, weighted):
-    succ, valid = mirror_graph(N, N + weighted)
+    succ, valid = map(torch.from_numpy, mirror_graph(N, N + weighted))
     pred = chains.build_pred(succ, valid)
     wlen = None
     if weighted:
@@ -481,6 +486,24 @@ def test_route_buckets(card, n_dev, with_slots):
             assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("L,n_dev", [(1, 1), (2, 4), (3, 8), (8, 256)])
+def test_route_buckets_hash_mode(card, L, n_dev):
+    """K15 with no owner array: each entry goes to hash_lanes of its L
+    lanes % n_dev, as the per-k-mer mesh count routes its k-mers."""
+    rng = np.random.RandomState(L)
+    N = 300_000
+    lanes = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
+                                         dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(rng.rand(N) < 0.8)
+    for cap in (N, max(1, N // (3 * n_dev))):
+        got = _kernels.route_buckets(lanes.to(card), valid.to(card), None,
+                                     n_dev, cap, True)
+        want = pipeline.route_to_buckets_plain(lanes, valid, None, n_dev, cap,
+                                               True)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
 def test_glue_compose(card):
     rng = np.random.RandomState(0)
     M = 1 << 16
@@ -494,6 +517,83 @@ def test_glue_compose(card):
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
         Q = want[0]
+
+
+def hier_level0(M: int):
+    """Level 0 of the hierarchical jump of a weighted graph of M nodes
+    with a cycle of 5000: (Q after phase A, gid, valid, salt)."""
+    succ, valid = map(torch.from_numpy, mirror_graph(M // 2, M.bit_length(),
+                                                     long_cycle=5000))
+    pred = chains.build_pred(succ, valid)
+    dist0 = torch.from_numpy(np.random.RandomState(1).randint(1, 30, M))
+    Q = chains.init_state(pred, valid, dist0[torch.clamp(pred, 0, M - 1)])
+    return Q, torch.arange(M), valid, (0x85EBCA6B * 1) & 0xFFFFFFFF
+
+
+def test_hier_kernels(card):
+    """K17-K19 on level 0 of M = 2**19 against their plain versions, with
+    and without K17's changed flag; K18 with a level too small (ok 0)."""
+    M = 1 << 19
+    Q, gid, valid, salt = hier_level0(M)
+    g, v = gid.to(card), valid.to(card)
+    for r in range(chains._R_A):
+        Qn = torch.empty_like(Q).to(card)
+        changed = torch.zeros(1, dtype=torch.int32, device=card)
+        _kernels.hier_round(Q.to(card), Qn, g, v, salt, changed if r else None)
+        want = chains.hier_round_plain(Q, gid, valid, salt)
+        assert torch.equal(Qn.cpu(), want)
+        if r:
+            assert bool(changed.item()) == (not torch.equal(want, Q))
+        Q = want
+    for S1 in (1 << 12, M // 4):
+        ok_cpu = torch.ones(1, dtype=torch.int32)
+        ok_card = ok_cpu.to(card)
+        got = _kernels.hier_contract(Q.to(card), g, v, salt, S1, M, ok_card)
+        want = chains.hier_contract_plain(Q, gid, valid, salt, S1, M, ok_cpu)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert int(ok_card.item()) == int(ok_cpu.item()) == int(S1 == M // 4)
+    Q1, _, _, did, parent, _ = want
+    F = chains._phase(Q1, None, None, None, chains.max_rounds(M // 4) + 1)
+    got = _kernels.hier_expand(F.to(card), parent.to(card), Q.to(card), did.to(card))
+    assert torch.equal(got.cpu(), chains.hier_expand_plain(F, parent, Q, did))
+
+
+@pytest.mark.parametrize("variant", ["auto", "plain", "hier"])
+def test_chain_decompose_card_equals_cpu(card, variant):
+    succ, valid = map(torch.from_numpy, mirror_graph(1 << 17, 3,
+                                                     long_cycle=5000))
+    want = chains.chain_decompose(succ, valid, variant=variant)
+    got = chains.chain_decompose(succ.to(card), valid.to(card), variant=variant)
+    n = int(want["n_unitigs"])
+    assert int(got["n_unitigs"]) == n > 0
+    for key in ("uid", "rank"):
+        assert torch.equal(got[key].cpu(), want[key])
+    for key in ("start_oid", "length", "circular"):
+        assert torch.equal(got[key].cpu()[:n], want[key][:n])
+
+
+@pytest.mark.parametrize("k,m", [(31, 10), (41, 10), (13, 3), (63, 12)])
+def test_kmer_minimizers(card, k, m):
+    """K20 in each mode: minimizers (lexicographic; a rank with many ties),
+    partition_of through a table, the histogram of the valid columns."""
+    rng = np.random.RandomState(k)
+    L, N = ln.num_lanes(k), 100_000
+    lanes = rng.randint(0, 2**32, size=(L, N), dtype=np.uint64)
+    lanes[0] &= (1 << (2 * (k - 16 * (L - 1)))) - 1
+    lanes = torch.from_numpy(lanes.astype(np.int64))
+    rank = torch.from_numpy(rng.randint(0, 8, 4 ** m))
+    table = torch.from_numpy(rng.randint(0, 16, 4 ** m))
+    valid = torch.from_numpy(rng.rand(N) < 0.8)
+    lc = lanes.to(card)
+    for r in (None, rank):
+        rc = None if r is None else r.to(card)
+        assert torch.equal(mz.minimizers(lc, k, m, rc).cpu(),
+                           mz.minimizers_plain(lanes, k, m, r))
+        assert torch.equal(mz.partition_of(lc, k, m, table.to(card), rc).cpu(),
+                           mz.partition_of_plain(lanes, k, m, table, r))
+    assert torch.equal(mz.mmer_histogram(lc, valid.to(card), k, m).cpu(),
+                       mz.mmer_histogram_plain(lanes, valid, k, m))
 
 
 def test_devices_build_card_equals_cpu(card, tmp_path):

@@ -173,3 +173,19 @@ def test_route_to_buckets(n_dev, overflow):
                                  t64(owner), n_dev, cap)
     assert len(plain) == 3 and all(torch.equal(a, b)
                                    for a, b in zip(plain, got[:3]))
+
+
+@pytest.mark.parametrize("L,n_dev", [(1, 3), (2, 4), (3, 8)])
+def test_route_to_buckets_hash_mode(L, n_dev):
+    """No owner array: the owner is hash_lanes of the entry's lanes %
+    n_dev, as bcalm_tpu's _local_shard_count routes its k-mers."""
+    stacked, valid, _ = route_case(L, 700, L, n_dev)
+    owner = (jhash.hash_lanes(jnp.asarray(stacked)) % np.uint32(n_dev)
+             ).astype(jnp.int32)
+    want = jpl._route_to_buckets(jnp.asarray(stacked), jnp.asarray(valid),
+                                 owner, n_dev, 700 // n_dev, with_slots=True)
+    got = tpl.route_to_buckets(t64(stacked), torch.from_numpy(valid), None,
+                               n_dev, 700 // n_dev, with_slots=True)
+    for name, a, b in zip(("buckets", "bucket_valid", "dropped", "slots"),
+                          want, got):
+        assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
