@@ -39,10 +39,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import time
 from typing import List, Optional
 
 import torch
 
+from bcalm_tpu_torch.utils.logging import Progress
 from bcalm_tpu_torch.utils.options import OptionFailure, OptionsParser
 from bcalm_tpu_torch.utils.timeinfo import TimeInfo, peak_rss_mb
 from bcalm_tpu_torch.version import version_string
@@ -252,11 +254,12 @@ def _load_store(store, cfg, k: int, auto_amin: bool, verbose: int):
     return solid, counts, minpos, store.read_histogram()
 
 
-def _count_samples(bank, cfg, props, verbose: int, device, auto_amin: bool):
+def _count_samples(bank, cfg, props, verbose: int, device, auto_amin: bool,
+                   counted=iter):
     """Multi-sample solidity: each bank counted on its own at abundance 1,
     the counts combined by -solidity-kind, the histogram and the cutoff
-    taken over the combination.  Returns (solid, counts, histogram,
-    stats)."""
+    taken over the combination.  counted wraps each bank's first pass.
+    Returns (solid, counts, histogram, stats)."""
     import numpy as np
 
     from bcalm_tpu_torch import engine
@@ -272,8 +275,8 @@ def _count_samples(bank, cfg, props, verbose: int, device, auto_amin: bool):
             return _input_blocks(sub, cfg, verbose, nb_cores=nb_cores,
                                  info=ingest)
 
-        s_i, c_i, _, _, st = engine.count_and_filter(blocks(), cfg1, device,
-                                                     reread=blocks)
+        s_i, c_i, _, _, st = engine.count_and_filter(counted(blocks()), cfg1,
+                                                     device, reread=blocks)
         runs.append((s_i, c_i))
         for key in ("reads", "bases", "kmer_occurrences"):
             stats[key] = stats.get(key, 0) + st.get(key, 0)
@@ -460,7 +463,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                               ("-minimizer-type", "1"),
                               ("-repartition-type", "1")):
             if props.get_str(flag) != default:
-                print(f"note: {flag} is ignored by the single-device port",
+                print(f"note: {flag} only affects the -devices N mesh "
+                      f"path; ignored on the single-device path",
                       file=sys.stderr)
         bank = bank_mod.Bank.open(in_path)
         adapt_max_len(bank, cfg)
@@ -471,19 +475,39 @@ def main(argv: Optional[List[str]] = None) -> int:
             return _input_blocks(bank, cfg, verbose, nb_cores=nb_cores,
                                  info=ingest)
 
+        progress = Progress("reads packed", enabled=verbose >= 1)
+        ingest_t = {"t0": None, "t1": None, "bases": 0}
+
+        def counted(it):
+            # a first pass: the progress line and the ingest rate
+            if ingest_t["t0"] is None:
+                ingest_t["t0"] = time.time()
+            for blk in it:
+                progress.update(int((blk.lengths > 0).sum()))
+                ingest_t["bases"] += int(blk.lengths.sum())
+                ingest_t["t1"] = time.time()
+                yield blk
+
         with ti.timer("build"):
             if solidity_kind != "sum" and len(bank.paths) > 1:
                 solid, counts, histo, stats = _count_samples(
-                    bank, cfg, props, verbose, device, auto_amin)
+                    bank, cfg, props, verbose, device, auto_amin, counted)
             else:
                 # reread re-opens the bank for each further pass of a
                 # multi-pass count, with the same block geometry
                 built_us = engine.build_from_blocks(
-                    blocks(), cfg, device, reread=blocks, store=store,
+                    counted(blocks()), cfg, device, reread=blocks, store=store,
                     auto_amin_cap=(props.get_int("-abundance-min-threshold")
                                    if auto_amin else None),
                     only_uf=only_uf, uf_stats=uf_stats,
                     solidity_kind=solidity_kind)
+        progress.done()
+        if built_us is not None and ingest_t["t1"]:
+            # stream rate over the packing loop (overlapped with device
+            # compute, so a lower bound on the parser's speed)
+            dt = max(1e-6, ingest_t["t1"] - ingest_t["t0"])
+            built_us.stats["ingest_mbps"] = round(
+                ingest_t["bases"] / 1e6 / dt, 1)
         if auto_amin and verbose:
             print(f"auto abundance-min = {cfg.abundance_min}")
         stats.setdefault("ingest_parser", ingest.get("ingest_parser", "none"))

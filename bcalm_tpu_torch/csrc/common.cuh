@@ -12,7 +12,12 @@ namespace bt {
 
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 constexpr int kThreads = 256;
-constexpr int kMaxLanes = 8;  // k <= 128
+constexpr int kMaxLanes = 32;  // k <= 512 (models/spans.py MAX_K)
+// Lane counts up to kRegLanes (k <= 128) get a kernel of their own, with
+// every lane in a register; 9-16 and 17-32 lanes run the 16- and 32-lane
+// kernels on the value right-aligned in the wider array (lanes above it
+// zero), which shifts, compares and reverse-complements the same way.
+constexpr int kRegLanes = 8;
 
 inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
@@ -66,6 +71,13 @@ __device__ __forceinline__ void revcomp(const uint32_t (&x)[L], int m,
   }
 }
 
+// Live lanes of a kernel instantiated for an A-lane array: A itself when it
+// has a kernel of its own (a compile-time count), else the call's count.
+template <int A>
+__device__ __forceinline__ int live_lanes(int lanes) {
+  return A <= kRegLanes ? A : lanes;
+}
+
 // Lexicographic a < b, lane 0 most significant.
 template <int L>
 __device__ __forceinline__ bool less(const uint32_t (&a)[L],
@@ -79,16 +91,20 @@ __device__ __forceinline__ bool less(const uint32_t (&a)[L],
 
 }  // namespace bt
 
-// Instantiate `fn<L>` for the lane count of the call (1..kMaxLanes).
-#define BT_DISPATCH_LANES(L, fn, ...)            \
-  switch (L) {                                   \
-    case 1: fn<1>(__VA_ARGS__); break;           \
-    case 2: fn<2>(__VA_ARGS__); break;           \
-    case 3: fn<3>(__VA_ARGS__); break;           \
-    case 4: fn<4>(__VA_ARGS__); break;           \
-    case 5: fn<5>(__VA_ARGS__); break;           \
-    case 6: fn<6>(__VA_ARGS__); break;           \
-    case 7: fn<7>(__VA_ARGS__); break;           \
-    case 8: fn<8>(__VA_ARGS__); break;           \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
+// Instantiate `fn<A>` for the lane count L of the call (1..kMaxLanes): A = L
+// up to kRegLanes, else the array width 16 or 32 that holds L lanes.
+#define BT_DISPATCH_LANES(L, fn, ...)                                  \
+  switch (L) {                                                         \
+    case 1: fn<1>(__VA_ARGS__); break;                                 \
+    case 2: fn<2>(__VA_ARGS__); break;                                 \
+    case 3: fn<3>(__VA_ARGS__); break;                                 \
+    case 4: fn<4>(__VA_ARGS__); break;                                 \
+    case 5: fn<5>(__VA_ARGS__); break;                                 \
+    case 6: fn<6>(__VA_ARGS__); break;                                 \
+    case 7: fn<7>(__VA_ARGS__); break;                                 \
+    case 8: fn<8>(__VA_ARGS__); break;                                 \
+    default:                                                           \
+      if ((L) > bt::kRegLanes && (L) <= 16) fn<16>(__VA_ARGS__);       \
+      else if ((L) > 16 && (L) <= bt::kMaxLanes) fn<32>(__VA_ARGS__);  \
+      else return static_cast<int>(cudaErrorInvalidValue);             \
   }

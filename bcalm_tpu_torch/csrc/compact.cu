@@ -6,7 +6,9 @@
 // (L, N) table is solid when i < n_unique and amin <= count <= amax; the
 // solid columns' lanes, counts and minpos move, in their order, to the
 // front of one stacked (L+2, W) output (rows 0..L-1 lanes, L counts, L+1
-// minpos) and n_solid receives their number.  The output has W >= n_solid
+// minpos) and n_solid receives their number.  Without a minpos row (null;
+// the (L+1, W) output of bcalm_tpu/ops/count.py:filter_abundance, :158)
+// only the lanes and counts move.  The output has W >= n_solid
 // columns (N for JAX's shape; n_solid, known from K7, for the store's
 // copy); the wrapper fills it first (0, and the sentinel in the minpos
 // row), as JAX's compact and its SENTINEL past n_solid do.
@@ -40,7 +42,7 @@ struct SolidScatter {
     if (!keep || dest >= W) return;
     for (int j = 0; j < L; ++j) out[j * ostride + dest] = unique[j * ustride + i];
     out[L * ostride + dest] = counts[i];
-    out[(L + 1) * ostride + dest] = minpos[i];
+    if (minpos) out[(L + 1) * ostride + dest] = minpos[i];
   }
 };
 

@@ -30,8 +30,11 @@
 //
 // Bound: memory.  junction_keys reads L*8 bytes per k-mer and writes
 // 2*(K+1)*8 (K key rows); the per-base reverse complement loop is
-// register-only.  junction_pairs reads 3 neighbouring key columns (L1
-// reuse) and does at most two random 8-byte stores per pair.
+// register-only.  Above 8 lanes the k-mer sits right-aligned in a 16- or
+// 32-lane array (common.cuh), and the two reverse complements, ~4k*A
+// funnel shifts per k-mer, outweigh the bytes.  junction_pairs reads 3
+// neighbouring key columns (L1 reuse) and does at most two random 8-byte
+// stores per pair.
 #include "common.cuh"
 #include "hash.cuh"
 
@@ -54,14 +57,17 @@ __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
                                      long long n_solid, int k, int hashed,
                                      int64_t* __restrict__ keys,
                                      long long kstride,
-                                     int64_t* __restrict__ payload) {
+                                     int64_t* __restrict__ payload, int lanes) {
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= C) return;
   const int m = k - 1;
   const int off = L - (m + 15) / 16;  // lanes above the (k-1)-mer
+  const int pad = L - bt::live_lanes<L>(lanes);  // zero lanes above the k-mer
   uint32_t suf[L], pre[L], suf_rc[L], pre_rc[L];
 #pragma unroll
-  for (int j = 0; j < L; ++j) suf[j] = pre[j] = static_cast<uint32_t>(solid[j * stride + i]);
+  for (int j = 0; j < L; ++j) {
+    suf[j] = pre[j] = j < pad ? 0u : static_cast<uint32_t>(solid[(j - pad) * stride + i]);
+  }
   bt::shr2<L>(pre);
 #pragma unroll
   for (int j = 0; j < L; ++j) {
@@ -120,9 +126,10 @@ __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
 template <int L>
 void launch_keys(const int64_t* solid, long long stride, long long C,
                  long long n_solid, int k, int hashed, int64_t* keys,
-                 long long kstride, int64_t* payload, cudaStream_t s) {
+                 long long kstride, int64_t* payload, int lanes,
+                 cudaStream_t s) {
   junction_keys_kernel<L><<<bt::blocks_for(C), bt::kThreads, 0, s>>>(
-      solid, stride, C, n_solid, k, hashed, keys, kstride, payload);
+      solid, stride, C, n_solid, k, hashed, keys, kstride, payload, lanes);
 }
 
 __device__ __forceinline__ bool same_key(const int64_t* keys, long long kstride,
@@ -169,16 +176,19 @@ __global__ void junction_entries_kernel(
     const int64_t* __restrict__ solid, long long stride, long long N,
     long long n_local, int k, long long gbase, long long tot, int n_dev,
     int64_t* __restrict__ keys, long long kstride, int64_t* __restrict__ payload,
-    int64_t* __restrict__ owner) {
+    int64_t* __restrict__ owner, int lanes) {
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= N) return;
   const int m = k - 1;
   const int off = L - (m + 15) / 16;
   const int r = m % 16 == 0 ? 16 : m % 16;
   const bool folded = r < 16;
+  const int pad = L - bt::live_lanes<L>(lanes);  // zero lanes above the k-mer
   uint32_t suf[L], pre[L], suf_rc[L], pre_rc[L];
 #pragma unroll
-  for (int j = 0; j < L; ++j) suf[j] = pre[j] = static_cast<uint32_t>(solid[j * stride + i]);
+  for (int j = 0; j < L; ++j) {
+    suf[j] = pre[j] = j < pad ? 0u : static_cast<uint32_t>(solid[(j - pad) * stride + i]);
+  }
   bt::shr2<L>(pre);
 #pragma unroll
   for (int j = 0; j < L; ++j) {
@@ -234,10 +244,11 @@ template <int L>
 void launch_entries(const int64_t* solid, long long stride, long long N,
                     long long n_local, int k, long long gbase, long long tot,
                     int n_dev, int64_t* keys, long long kstride,
-                    int64_t* payload, int64_t* owner, cudaStream_t s) {
+                    int64_t* payload, int64_t* owner, int lanes,
+                    cudaStream_t s) {
   junction_entries_kernel<L><<<bt::blocks_for(N), bt::kThreads, 0, s>>>(
       solid, stride, N, n_local, k, gbase, tot, n_dev, keys, kstride, payload,
-      owner);
+      owner, lanes);
 }
 
 __global__ void junction_edges_kernel(const int64_t* __restrict__ keys,
@@ -272,7 +283,7 @@ extern "C" int bt_junction_keys(const int64_t* solid, long long stride,
   if (C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BT_DISPATCH_LANES(L, launch_keys, solid, stride, C, n_solid, k, hashed,
-                    keys, kstride, payload, s);
+                    keys, kstride, payload, L, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -296,7 +307,7 @@ extern "C" int bt_junction_entries(const int64_t* solid, long long stride,
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BT_DISPATCH_LANES(L, launch_entries, solid, stride, N, n_local, k, gbase,
-                    tot, n_dev, keys, kstride, payload, owner, s);
+                    tot, n_dev, keys, kstride, payload, owner, L, s);
   return static_cast<int>(cudaGetLastError());
 }
 

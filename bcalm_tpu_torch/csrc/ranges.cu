@@ -27,12 +27,17 @@ struct Key {
   uint32_t v[bt::kMaxLanes];
 };
 
-// Lexicographic col < b over L lanes, lane 0 most significant.
+// Lexicographic col < b over L lanes, lane 0 most significant.  The loop
+// is unrolled over kMaxLanes so that every index into b is a constant: b
+// stays in registers or the kernel's parameters, where an index known only
+// at run time would copy the whole 32-lane key to local memory per thread.
 __device__ __forceinline__ bool col_less(const int64_t* col, long long stride,
-                                         int L, const uint32_t* b) {
-  for (int j = 0; j < L; ++j) {
+                                         int L, const Key& b) {
+#pragma unroll
+  for (int j = 0; j < bt::kMaxLanes; ++j) {
+    if (j == L) break;
     uint32_t x = static_cast<uint32_t>(col[j * stride]);
-    if (x != b[j]) return x < b[j];
+    if (x != b.v[j]) return x < b.v[j];
   }
   return false;
 }
@@ -43,8 +48,8 @@ __global__ void range_fold_kernel(int64_t* __restrict__ body, long long stride,
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   bool keep = false;
   if (i < N) {
-    keep = !col_less(body + i, stride, L, lo.v) &&
-           col_less(body + i, stride, L, hi.v);
+    keep = !col_less(body + i, stride, L, lo) &&
+           col_less(body + i, stride, L, hi);
     if (!keep) {
       for (int j = 0; j <= L; ++j) body[j * stride + i] = bt::kSentinel;
     }
@@ -60,8 +65,11 @@ __global__ void lower_bound_kernel(const int64_t* __restrict__ run,
                                    int64_t* __restrict__ out) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  uint32_t b[bt::kMaxLanes];
-  for (int j = 0; j < L; ++j) b[j] = static_cast<uint32_t>(bounds[j * bstride + p]);
+  Key b;
+#pragma unroll
+  for (int j = 0; j < bt::kMaxLanes; ++j) {
+    b.v[j] = j < L ? static_cast<uint32_t>(bounds[j * bstride + p]) : 0u;
+  }
   long long lo = 0, hi = n;
   while (lo < hi) {
     long long mid = lo + (hi - lo) / 2;

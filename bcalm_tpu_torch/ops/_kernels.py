@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from ..models.spans import MAX_K
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -91,7 +93,7 @@ _SIGNATURES = {
 ROUTE_TILE = 1024  # entries per tile of csrc/route.cu
 MAX_ROW_WORDS = 64  # csrc/superkmer.cu: one block of <= 1024 positions per read
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
-MAX_LANES = 8
+MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 
 _lib = None
 
@@ -416,26 +418,31 @@ def _scan_scratch(n: int, dev) -> torch.Tensor:
 
 
 def solid_compact(unique: torch.Tensor, counts: torch.Tensor,
-                  minpos: torch.Tensor, n_unique: int, abundance_min: int,
+                  minpos, n_unique: int, abundance_min: int,
                   abundance_max: int, width=None):
     """K9: (stacked (L+2, W): the solid columns' lanes, counts and minpos
     compacted to the front, 0 past n_solid (minpos: the sentinel), W =
-    width or N; n_solid (1,))."""
+    width or N; n_solid (1,)).  minpos None: the (L+1, W) lanes and counts
+    alone (filter_abundance)."""
     _check(unique, "unique", ndim=2)
     _check(counts, "counts", ndim=1)
-    _check(minpos, "minpos", ndim=1)
+    if minpos is not None:
+        _check(minpos, "minpos", ndim=1)
     L, N = unique.shape
     _lanes_ok(L, "solid_compact")
-    if counts.shape[0] != N or minpos.shape[0] != N:
+    if counts.shape[0] != N or (minpos is not None and minpos.shape[0] != N):
         raise ValueError("solid_compact: shapes do not match")
     dev = unique.device
     W = N if width is None else width
-    out = torch.zeros((L + 2, W), dtype=torch.int64, device=dev)
-    out[L + 1].fill_(0xFFFFFFFF)
+    out = torch.zeros((L + 1 + (minpos is not None), W), dtype=torch.int64,
+                      device=dev)
+    if minpos is not None:
+        out[L + 1].fill_(0xFFFFFFFF)
     n_solid = torch.zeros((1,), dtype=torch.int64, device=dev)
     if N:
         _launch("bt_solid_compact", unique.data_ptr(), unique.stride(0),
-                counts.data_ptr(), minpos.data_ptr(), N, min(n_unique, N), L,
+                counts.data_ptr(), None if minpos is None else minpos.data_ptr(),
+                N, min(n_unique, N), L,
                 abundance_min, abundance_max,
                 _scan_scratch(N, dev).data_ptr(), out.data_ptr(), out.stride(0),
                 W, n_solid.data_ptr())

@@ -1,5 +1,6 @@
 """K-mer counting: sort + run reduction (K2), key ranges (K5, K6), the
-solidity fold + histogram (K7) and the solid compaction of the store (K9).
+solidity fold + histogram (K7) and the solid compaction of the store (K9,
+also filter_abundance's, without the minpos row).
 
 Counterpart of ``bcalm_tpu/ops/count.py`` and of the range programs of
 ``bcalm_tpu/engine.py`` (_lex_lt, _count_chunk_ranged, _count_lt,
@@ -9,7 +10,8 @@ after every canonical k-mer and compares above every range bound.
 
 :func:`count_canonical` sorts with ``torch.sort`` (ops.sort) and reduces
 the sorted runs with :func:`count_runs`.  Each kernel entry here
-(count_runs, range_fold, lower_bound, solid_fold_histogram, solid_compact)
+(count_runs, range_fold, lower_bound, solid_fold_histogram, solid_compact,
+filter_abundance)
 launches its CUDA kernel (csrc/{count,ranges,solid,compact}.cu) for CUDA
 tensors and runs its
 ``*_plain`` version for CPU tensors.  Counts are int64; the JAX package's
@@ -190,8 +192,8 @@ def solid_compact_plain(unique, counts, minpos, n_unique: int,
     """Plain version of K9 (bcalm_tpu filter_abundance_pos): the solid
     columns' lanes, counts and minpos stably compacted to the front of one
     stacked (L+2, W) tensor (rows: lanes, counts, minpos; W = width or N),
-    0 past n_solid and the sentinel in the minpos row.  Returns (stacked,
-    n_solid (1,))."""
+    0 past n_solid and the sentinel in the minpos row; minpos None: the
+    (L+1, W) lanes and counts alone.  Returns (stacked, n_solid (1,))."""
     L, N = unique.shape
     W = N if width is None else width
     idx = torch.arange(N, device=unique.device)
@@ -199,11 +201,13 @@ def solid_compact_plain(unique, counts, minpos, n_unique: int,
     dest = torch.cumsum(keep.to(torch.int64), 0)[keep] - 1
     fits = dest < W
     dest = dest[fits]
-    out = torch.zeros((L + 2, W), dtype=torch.int64, device=unique.device)
-    out[L + 1] = SENTINEL
+    out = torch.zeros((L + 1 + (minpos is not None), W), dtype=torch.int64,
+                      device=unique.device)
     out[:L, dest] = unique[:, keep][:, fits]
     out[L, dest] = counts[keep][fits]
-    out[L + 1, dest] = minpos[keep][fits]
+    if minpos is not None:
+        out[L + 1] = SENTINEL
+        out[L + 1, dest] = minpos[keep][fits]
     return out, keep.sum().reshape(1)
 
 
@@ -215,3 +219,28 @@ def solid_compact(unique, counts, minpos, n_unique: int, abundance_min: int,
                                    abundance_min, abundance_max, width)
     return _kernels.solid_compact(unique, counts, minpos, n_unique,
                                   abundance_min, abundance_max, width)
+
+
+def filter_abundance_plain(unique, counts, n_unique: int, abundance_min: int,
+                           abundance_max: int):
+    """Plain version of bcalm_tpu/ops/count.py:filter_abundance (:158): the
+    columns with idx < n_unique and abundance_min <= count <= abundance_max,
+    stably compacted to the front, 0 past n_solid.  Returns (solid (L, N),
+    solid_counts (N,), n_solid (0-d))."""
+    out, n_solid = solid_compact_plain(unique, counts, None, n_unique,
+                                       abundance_min, abundance_max)
+    L = unique.shape[0]
+    return out[:L], out[L], n_solid[0]
+
+
+def filter_abundance(unique, counts, n_unique: int, abundance_min: int,
+                     abundance_max: int):
+    """filter_abundance entry: K9 without its minpos row for CUDA tensors,
+    the plain version for CPU tensors."""
+    if unique.device.type == "cpu":
+        return filter_abundance_plain(unique, counts, n_unique, abundance_min,
+                                      abundance_max)
+    out, n_solid = _kernels.solid_compact(unique, counts, None, n_unique,
+                                          abundance_min, abundance_max)
+    L = unique.shape[0]
+    return out[:L], out[L], n_solid[0]

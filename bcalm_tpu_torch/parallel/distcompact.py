@@ -98,12 +98,35 @@ def reshard_pos(mesh, stk: torch.Tensor, k: int, slot_cap: int,
             int(bad[0]))
 
 
+def _scatter_edges(mesh, a: torch.Tensor, b: torch.Tensor, ok: torch.Tensor,
+                   slot_cap: int, cap_entries: int):
+    """The (a -> b) edges routed to the owner of a's slot and scattered
+    into its local table (2*slot_cap,) by a's local oriented id (-1 =
+    none).  Returns (table, drops)."""
+    tot = mesh.n_dev * slot_cap
+    a_slot = torch.where(a >= tot, a - tot, a)
+    bl, bv, drop = route_to_buckets(torch.stack([a, b]), ok,
+                                    a_slot // slot_cap, mesh.n_dev,
+                                    cap_entries)
+    recv, rv = mesh.exchange(bl, bv)
+    edges = recv.reshape(2, -1)
+    ev = rv.reshape(-1)
+    ea, eb = edges[0][ev], edges[1][ev]
+    eslot = torch.where(ea >= tot, ea - tot, ea) - mesh.rank * slot_cap
+    lidx = torch.where(ea >= tot, eslot + slot_cap, eslot)
+    table = torch.full((2 * slot_cap,), -1, dtype=torch.int64,
+                       device=a.device)
+    table[lidx] = eb
+    return table, drop
+
+
 def local_succ_shard(mesh, solid: torch.Tensor, n_local: int, k: int,
-                     cap_entries: int, slot_cap: int):
+                     cap_entries: int, slot_cap: int, with_pred: bool = False):
     """This rank's successor shard (2*slot_cap,) of global oriented ids
     (-1 = none) and the route drops summed over the ranks (bcalm_tpu
-    _local_succ_shard; the predecessor shard it also builds is unused
-    there and not built here)."""
+    _local_succ_shard).  with_pred: also the predecessor shard, the same
+    edges routed to their dst owners, which JAX builds and the glue does
+    not use: (succ, pred, drops)."""
     n_dev, me = mesh.n_dev, mesh.rank
     N = solid.shape[1]
     tot = n_dev * slot_cap
@@ -121,19 +144,20 @@ def local_succ_shard(mesh, solid: torch.Tensor, n_local: int, k: int,
     perm = sort_op.lex_argsort([e_keys[j] for j in range(K)])
     ok, src, dst = junc.junction_edges(e_keys[:, perm].contiguous(),
                                        e_pay[perm], tot)
-    a_slot = torch.where(src >= tot, src - tot, src)
-    bl, bv, drop2 = route_to_buckets(torch.stack([src, dst]), ok,
-                                     a_slot // slot_cap, n_dev, cap_entries)
-    recv, rv = mesh.exchange(bl, bv)
-    edges = recv.reshape(2, -1)
-    ev = rv.reshape(-1)
-    ea, eb = edges[0][ev], edges[1][ev]
-    eslot = torch.where(ea >= tot, ea - tot, ea) - me * slot_cap
-    lidx = torch.where(ea >= tot, eslot + slot_cap, eslot)
-    succ = torch.full((2 * slot_cap,), -1, dtype=torch.int64,
-                      device=solid.device)
-    succ[lidx] = eb
-    return succ, int(mesh.psum(drop1 + drop2)[0])
+    succ, drop2 = _scatter_edges(mesh, src, dst, ok, slot_cap, cap_entries)
+    if not with_pred:
+        return succ, int(mesh.psum(drop1 + drop2)[0])
+    pred, drop3 = _scatter_edges(mesh, dst, src, ok, slot_cap, cap_entries)
+    return succ, pred, int(mesh.psum(drop1 + drop2 + drop3)[0])
+
+
+def distributed_succ(mesh, solid: torch.Tensor, n_local: int, k: int,
+                     cap_entries: int, slot_cap: int):
+    """This rank's successor and predecessor shards and the drops summed
+    over the ranks (bcalm_tpu distributed_succ, :170): (succ, pred,
+    dropped)."""
+    return local_succ_shard(mesh, solid, n_local, k, cap_entries, slot_cap,
+                            with_pred=True)
 
 
 def _respond(mesh, ans_rows: torch.Tensor, qcap: int) -> torch.Tensor:

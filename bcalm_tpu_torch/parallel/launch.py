@@ -7,10 +7,16 @@ joined into one ``torch.distributed`` group: NCCL with rank r on
 ``cuda:r``, or gloo on the CPU (``BCALM_TORCH_DEVICE=cpu``), where the N
 ranks stand in for the JAX package's N virtual CPU devices.
 
-The group meets through a ``file://`` store in a fresh temporary
-directory rather than a TCP port, so concurrent builds (parallel test
-workers among them) cannot collide.  A CPU rank runs torch on one thread:
-N ranks share the host's cores.
+On one host (``spawn``) the group meets through a ``file://`` store in a
+fresh temporary directory rather than a TCP port, so concurrent builds
+(parallel test workers among them) cannot collide.  Across hosts (the
+JAX package's ``jax.distributed.initialize`` over several processes,
+``tests/multihost_worker.py``) each host runs one launcher,
+``spawn_host``, whose ranks meet at ``tcp://<first host>:<port>``; or each
+rank is started by an outside launcher and joins with ``init_from_env``
+(``env://``: MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK).  A
+CUDA rank takes the card of its local rank, its index on its own host.  A
+CPU rank runs torch on one thread: the ranks share the host's cores.
 
 The function each rank runs must be importable by name (a module-level
 function of this package): the spawned interpreters import it afresh.
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -28,39 +35,63 @@ import torch.multiprocessing as mp
 from bcalm_tpu_torch.parallel.mesh import Mesh
 
 
-def init_group(n_dev: int, rank: int, device_kind: str,
-               init_file: str) -> Mesh:
-    """Join this process to the group of n_dev ranks meeting at init_file
-    and return its mesh."""
+def init_group(n_dev: int, rank: int, device_kind: str, init_method: str,
+               local_rank: Optional[int] = None) -> Mesh:
+    """Join this process, rank `rank` of n_dev, to the group meeting at
+    init_method (``file://<path>``, ``tcp://<host>:<port>`` or ``env://``)
+    and return its mesh.  A CUDA rank uses ``cuda:<local_rank>`` (default:
+    rank, all ranks on one host)."""
+    local = rank if local_rank is None else local_rank
     if device_kind == "cuda":
-        torch.cuda.set_device(rank)
-        backend, device = "nccl", torch.device("cuda", rank)
+        torch.cuda.set_device(local)
+        backend, device = "nccl", torch.device("cuda", local)
     else:
         torch.set_num_threads(1)
         backend, device = "gloo", torch.device("cpu")
-    dist.init_process_group(backend, init_method="file://" + init_file,
+    dist.init_process_group(backend, init_method=init_method,
                             world_size=n_dev, rank=rank)
     return Mesh(n_dev, rank, device)
 
 
-def _rank_main(rank: int, n_dev: int, device_kind: str, init_file: str, fn,
-               args) -> None:
-    mesh = init_group(n_dev, rank, device_kind, init_file)
+def init_from_env(device_kind: str) -> Mesh:
+    """Join the group the environment describes, one rank per process
+    started by an outside launcher (torchrun's variables): RANK,
+    WORLD_SIZE, LOCAL_RANK, and MASTER_ADDR, MASTER_PORT for ``env://``."""
+    rank = int(os.environ["RANK"])
+    return init_group(int(os.environ["WORLD_SIZE"]), rank, device_kind,
+                      "env://", int(os.environ.get("LOCAL_RANK", rank)))
+
+
+def _rank_main(local: int, n_dev: int, rank_base: int, device_kind: str,
+               init_method: str, fn, args) -> None:
+    mesh = init_group(n_dev, rank_base + local, device_kind, init_method,
+                      local)
     try:
         fn(mesh, *args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(n_dev: int, device_kind: str, fn, *args) -> None:
-    """Run fn(mesh, *args) on n_dev spawned ranks and wait for all of
-    them.  A rank that raises ends the others and re-raises here
+def spawn_host(n_local: int, n_dev: int, rank_base: int, init_method: str,
+               device_kind: str, fn, *args) -> None:
+    """This host's share of a group of n_dev ranks: run fn(mesh, *args) on
+    n_local spawned ranks, global ranks rank_base .. rank_base + n_local - 1
+    on local ranks 0 .. n_local - 1, meeting the other hosts' ranks at
+    init_method (``tcp://<host of rank 0>:<port>``), and wait for them.  A
+    rank that raises ends this host's others and re-raises here
     (torch.multiprocessing.ProcessRaisedException)."""
+    mp.start_processes(
+        _rank_main, args=(n_dev, rank_base, device_kind, init_method, fn,
+                          args),
+        nprocs=n_local, join=True, start_method="spawn")
+
+
+def spawn(n_dev: int, device_kind: str, fn, *args) -> None:
+    """Run fn(mesh, *args) on n_dev spawned ranks of this host, meeting
+    through a ``file://`` store, and wait for all of them."""
     with tempfile.TemporaryDirectory(prefix="bcalm_torch_group_") as tmp:
-        mp.start_processes(
-            _rank_main, args=(n_dev, device_kind, os.path.join(tmp, "group"),
-                              fn, args),
-            nprocs=n_dev, join=True, start_method="spawn")
+        spawn_host(n_dev, n_dev, 0, "file://" + os.path.join(tmp, "group"),
+                   device_kind, fn, *args)
 
 
 def run_builds(mesh: Mesh, jobs, out_dir: str) -> None:

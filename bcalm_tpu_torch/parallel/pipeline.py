@@ -254,6 +254,12 @@ def _my_rows(mesh, words: np.ndarray, lengths: np.ndarray):
     return w, l
 
 
+def sample_tables(mesh, words: np.ndarray, lengths: np.ndarray, k: int,
+                  mcfg: MinimizerConfig, n_parts: int):
+    """sample_tables_multi over one round (bcalm_tpu sample_tables, :262)."""
+    return sample_tables_multi(mesh, [(words, lengths)], k, mcfg, n_parts)
+
+
 def sample_tables_multi(mesh, sample_rounds, k: int, mcfg: MinimizerConfig,
                         n_parts: int):
     """Frequency rank and repartition table from the buffered sample

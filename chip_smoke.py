@@ -63,6 +63,13 @@ Phases (any failure raises, and the script exits non-zero):
    distributed_compact_pos with first-occurrence keys and
    distributed_compact (K3 global mode, K8, K16, K11): both equal to the
    single-device CLI on those reads (unitigs, KC, km, links);
+3h. long k (9-32 lanes): a second read set of the same genome at 30x with
+   300 bp reads (the MiSeq 2x300 length), 0.08% errors and 20% duplicates,
+   built in this process with ``-kmer-size 151`` (10 lanes), then its first
+   quarter with ``-kmer-size 255`` (16 lanes), the counters reset just
+   before each build: each build's wall, device_peak_mb and launches, its
+   resident path's kernels all launched, and the phase 4 invariants held
+   at its k;
 4. output invariants of the phase 3 run: each solid canonical k-mer once,
    KC sums, every L: link a real (k-1)-overlap;
 5. each kernel vs its plain PyTorch version on the card, on the inputs
@@ -77,7 +84,12 @@ Phases (any failure raises, and the script exits non-zero):
    K17-K19 at level 0 of phase 3's and of phase 3d's hierarchical jump;
    K20 on phase 3's solid k-mers in its histogram mode (torch.bincount is
    its library call) and its minimizer mode (partition ids with phase 3f's
-   frequency rank and a 4-rank table; lexicographic minimizers).
+   frequency rank and a 4-rank table; lexicographic minimizers).  Then one
+   row per lane-dependent kernel at L = 10, on the inputs phase 3h's k = 151
+   build fed it (K1, K3a, K7, K9, K11), or made from them where that build
+   does not run the kernel (K5 and K6 on its sorted chunk, K3's global mode
+   and K20 on a 2^20-column slice of its solid table), and one for K9 in
+   filter_abundance mode (no minpos row) on its counted table.
 
 The last line is {"ok": true, "device": {...}}.  Exits 1 without a result
 when no CUDA device is available.
@@ -103,6 +115,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -114,6 +127,8 @@ import numpy as np
 import torch
 
 K = 31
+LONG_K, LONG_K2 = 151, 255    # 10 and 16 lanes (phase 3h)
+LONG_READ_LEN, LONG_COVERAGE = 300, 30.0
 KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
     "extract_insert": ("bcalm_tpu_torch/csrc/extract.cu",
                        "bcalm_tpu/engine.py:243"),
@@ -198,6 +213,12 @@ MESH_PATH = ("form_superkmers", "mmer_histograms", "route_buckets",
 ENTRY_PATH = ("extract_insert", "route_buckets", "count_runs",
               "kmer_minimizers", "junction_keys", "junction_pairs",
               "run_scans", "glue_compose", "spell_unitigs")
+# the long-k resident builds (phase 3h): the resident path, the jump
+# hierarchical only where the run graph reaches 2^18 nodes
+LONGK_PATH = ("extract_insert", "count_runs", "solid_fold_histogram",
+              "solid_compact", "junction_keys", "junction_pairs", "run_scans",
+              "run_contract", "jump_round", "chain_finish", "run_broadcast",
+              "spell_unitigs")
 
 
 # the fixtures of tests/test_oracle.py (the reference's example inputs)
@@ -356,7 +377,7 @@ def sample_reads(genome, n_reads, read_len, rng, err_rate=0.0,
 
 
 def write_reads(path: str, coverage: float, seed: int,
-                sample_seed=None) -> int:
+                sample_seed=None, read_len: int = 150) -> int:
     """Reads of the genome made from `seed`; sample_seed draws another read
     set of the same genome (default: the genome's own generator goes on)."""
     from bcalm_tpu_torch.utils import dna
@@ -365,13 +386,13 @@ def write_reads(path: str, coverage: float, seed: int,
     genome = make_genome(4_600_000, rng, repeat_frac=0.05)
     if sample_seed is not None:
         rng = np.random.RandomState(sample_seed)
-    n_reads = int(coverage * genome.shape[0] / 150)
-    reads = sample_reads(genome, n_reads, 150, rng, err_rate=0.0008,
+    n_reads = int(coverage * genome.shape[0] / read_len)
+    reads = sample_reads(genome, n_reads, read_len, rng, err_rate=0.0008,
                          dup_frac=0.2)
-    rec = np.empty((reads.shape[0], 3 + 150 + 1), np.uint8)
+    rec = np.empty((reads.shape[0], 3 + read_len + 1), np.uint8)
     rec[:, :3] = np.frombuffer(b">r\n", np.uint8)
-    rec[:, 3:153] = dna.CODE_TO_ASCII[reads]
-    rec[:, 153] = ord("\n")
+    rec[:, 3:3 + read_len] = dna.CODE_TO_ASCII[reads]
+    rec[:, 3 + read_len] = ord("\n")
     with open(path, "wb") as f:
         f.write(rec.tobytes())
     return reads.shape[0]
@@ -470,14 +491,15 @@ def _sub(args, what: str, repo: str = None):
     return wall, _stats(proc.stdout), proc.stdout
 
 
-def _inproc(args, what: str):
+def _inproc(args, what: str, record=tuple(KERNELS)):
     """cli.main in this process with the launch counters reset just before
-    it: (wall, stats, stdout, launches, recorded kernel inputs)."""
+    it: (wall, stats, stdout, launches, the inputs of the kernels named in
+    record)."""
     from bcalm_tpu_torch import cli
     from bcalm_tpu_torch.ops import _kernels
 
     buf = io.StringIO()
-    with Recorder(_kernels) as rec:
+    with Recorder(_kernels, record) as rec:
         _kernels.reset_launches()
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
@@ -583,6 +605,7 @@ def compare_jumps(what: str, run, q0, q_deep):
         qn = torch.empty_like(q)
         changed = torch.zeros((1,), dtype=torch.int32, device=q.device)
         k4[name] = _time_ms(lambda: _kernels.jump_round(q, qn, changed))
+    k4_plain = _time_ms(lambda: chains.jump_round_plain(q0), reps=5)
     say(f"[hier] {what}: M = {M}, levels {sizes}; hierarchical jump ok, its "
         f"finish outputs equal the plain doubling's ({n} unitigs); hier: "
         f"{chains._R_A} K17 rounds at each of the first {len(sizes) - 1} "
@@ -593,7 +616,8 @@ def compare_jumps(what: str, run, q0, q_deep):
         f"plain {ms['plain']:.4f} ms; stage peak above its inputs hier "
         f"{peak['hier']} MiB, plain {peak['plain']} MiB; K4 per round "
         f"{k4['M']:.4f} ms at M (bound {_bound(2 * _nbytes(q0), 0)[0]:.4f} "
-        f"ms), {k4['deepest']:.4f} ms at the deepest level")
+        f"ms, plain version {k4_plain:.4f} ms), {k4['deepest']:.4f} ms at the "
+        f"deepest level")
     return ms
 
 
@@ -893,7 +917,8 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
     from bcalm_tpu_torch.ops import _kernels
     from bcalm_tpu_torch.parallel import launch, pipeline
 
-    mesh = launch.init_group(1, 0, "cuda", os.path.join(tmp, "nccl_group"))
+    mesh = launch.init_group(1, 0, "cuda",
+                             "file://" + os.path.join(tmp, "nccl_group"))
     try:
         bank = bank_mod.Bank.open(fa)
         cfg = engine.EngineConfig(k=K, abundance_min=2)
@@ -1033,9 +1058,9 @@ def phase_mesh_ranged(tmp: str, fa: str, mesh, dev):
     return launches
 
 
-def _first_reads(fa: str, path: str, div: int) -> int:
+def _first_reads(fa: str, path: str, div: int, read_len: int = 150) -> int:
     """Write the first 1/div of write_reads' file to path; the read count."""
-    record = 3 + 150 + 1          # write_reads' fixed record
+    record = 3 + read_len + 1     # write_reads' fixed record
     with open(fa, "rb") as f:
         data = f.read((os.path.getsize(fa) // record // div) * record)
     with open(path, "wb") as f:
@@ -1203,12 +1228,56 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
         + ", ".join(f"{key} {st[key]}" for key in keys))
 
 
+# Run in a tree's root by phase_compare: the lane kernels that take 1-8
+# lanes (K1, K3a, K5, K6) at L = 2 (k = 31) on inputs made from a seed, and
+# their CUDA-event times as one JSON line.  It uses only wrappers whose
+# signatures every tree since PR 5 shares.
+KERNEL_AB = r"""
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+from bcalm_tpu_torch.ops import _kernels, extract, junctions
+
+def time_ms(fn, reps=50):
+    fn(); fn(); torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record(); torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+dev = torch.device("cuda", 0)
+rng = np.random.RandomState(0)
+u32 = lambda *shape: torch.from_numpy(rng.randint(0, 2**32, size=shape, dtype=np.uint64).astype(np.int64)).to(dev)
+k = 31
+words, lengths = u32(4096, 10), torch.full((4096,), 150, dtype=torch.int64, device=dev)
+buf = torch.empty((3, extract.block_slots(tuple(words.shape), k)), dtype=torch.int64, device=dev)
+solid = u32(2, 1 << 22)
+solid[0] &= (1 << 30) - 1
+body = u32(3, 1 << 22)
+lo = tuple(int(x) for x in body[:2, 7].tolist())
+hi = tuple(int(x) for x in body[:2, 9].tolist())
+lo, hi = min(lo, hi), max(lo, hi)
+run = torch.sort(u32(1 << 22))[0][None].repeat(2, 1).contiguous()
+bounds = run[:, ::16384].contiguous()
+print(json.dumps({
+    "extract_insert": time_ms(lambda: _kernels.extract_insert(buf, words, lengths, k, 0, 0)),
+    "junction_keys": time_ms(lambda: _kernels.junction_keys(solid, 1 << 22, k, False, junctions.key_rows(k))),
+    "range_fold": time_ms(lambda: _kernels.range_fold(body, lo, hi)),
+    "lower_bound": time_ms(lambda: _kernels.lower_bound(run, 1 << 22, bounds)),
+}))
+"""
+
+
 def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
     """--compare-tree DIR: `python -m bcalm_tpu_torch` from the tree in DIR
     and from this one in turns (DIR, this, this, DIR) on the phase 3 reads,
-    resident and at -max-memory 2192.  A warm-up run of each tree on a
-    small input builds its kernels and ingest library first, so that no
-    timed run builds anything."""
+    resident and at -max-memory 2192; before them, KERNEL_AB in each tree
+    in the same turns.  A warm-up run of each tree on a small input builds
+    its kernels and ingest library first, so that no timed run builds
+    anything."""
     fa = os.path.join(tmp, "reads.fa")
     n_reads = write_reads(fa, coverage, seed)
     small = os.path.join(tmp, "small.fa")
@@ -1223,6 +1292,14 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
         say(f"[compare] {name} ({root}) warm-up on 2000 reads: {wall:.2f}s "
             f"(builds included), ingest_parser "
             f"{st.get('ingest_parser', 'not printed')}")
+    for name in ("parent", "change", "change", "parent"):
+        proc = subprocess.run([sys.executable, "-c", KERNEL_AB],
+                              cwd=trees[name], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name} kernel timings failed:\n{proc.stderr}")
+        times = json.loads(proc.stdout.strip().splitlines()[-1])
+        say(f"[compare] {name} kernels at L = 2 (ms): "
+            + ", ".join(f"{n} {t:.4f}" for n, t in times.items()))
     base = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
             "-verbose", "1"]
     outputs = {}
@@ -1242,6 +1319,47 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
     if any(len(v) != 1 for v in outputs.values()):
         raise AssertionError("the two trees wrote different unitigs")
     say(f"[compare] {n_reads} reads; both trees wrote the same bytes")
+
+
+def phase_longk(tmp: str, seed: int, dev):
+    """Phase 3h: the k = 151 build of a 300 bp read set and the k = 255
+    build of its first quarter, in this process.  Returns, per k, the
+    build's recorded kernel inputs (k = 255: junction_keys' alone) and its
+    launches (phase 5)."""
+    fa = os.path.join(tmp, "reads300.fa")
+    t0 = time.time()
+    n_reads = write_reads(fa, LONG_COVERAGE, seed, sample_seed=seed + 2,
+                          read_len=LONG_READ_LEN)
+    quarter = os.path.join(tmp, "reads300_quarter.fa")
+    n_quarter = _first_reads(fa, quarter, 4, LONG_READ_LEN)
+    say(f"[longk] {n_reads} reads of {LONG_READ_LEN} bp (the 4.6 Mbp genome, "
+        f"{LONG_COVERAGE}x, sample seed {seed + 2}) written in "
+        f"{time.time() - t0:.1f}s; the first {n_quarter} for k = {LONG_K2}")
+    out = {}
+    for k, reads_fa, record in ((LONG_K, fa, tuple(KERNELS)),
+                                (LONG_K2, quarter, ("junction_keys",))):
+        args = ["-in", reads_fa, "-kmer-size", str(k), "-abundance-min", "2",
+                "-verbose", "1", "-out", os.path.join(tmp, f"long{k}")]
+        wall, st, _, launches, inputs = _inproc(args, f"-kmer-size {k}",
+                                                record=record)
+        _require_launched(launches, LONGK_PATH, f"k = {k}")
+        if st.get("ingest_parser") != "native":
+            raise AssertionError(f"k = {k}: ingest_parser "
+                                 f"{st.get('ingest_parser')}, expected native")
+        n_links = phase_invariants(os.path.join(tmp, f"long{k}.unitigs.fa"),
+                                   st, k, dev)
+        say(f"[longk] k = {k} ({(k + 15) // 16} lanes), in process: wall "
+            f"{wall:.2f}s (kernel inputs recorded to the host: "
+            f"{len(record)} kernels), "
+            f"t_count_s {st['t_count_s']}, t_compact_s {st['t_compact_s']}, "
+            f"t_assemble_s {st['t_assemble_s']}; kmer_occurrences "
+            f"{st['kmer_occurrences']}, distinct_kmers {st['distinct_kmers']}, "
+            f"solid_kmers {st['solid_kmers']}, unitigs {st['unitigs']}, links "
+            f"{n_links}; device_peak_mb {st.get('device_peak_mb', 'not measured')}"
+            f"; ingest_mbps {st.get('ingest_mbps', 'not printed')}")
+        say(f"[launches] k = {k}: {json.dumps(launches)}")
+        out[k] = inputs, launches
+    return out
 
 
 def _canonical_kmers(seqs, k: int) -> np.ndarray:
@@ -1264,16 +1382,52 @@ def _canonical_kmers(seqs, k: int) -> np.ndarray:
     return np.minimum(fwd, rc)[ok]
 
 
-def phase_invariants(path: str, stats: dict):
+def _canonical_hashes(seqs, k: int, dev) -> torch.Tensor:
+    """A strand-independent 64-bit hash of every k-mer of every sequence,
+    any k, on the card: the least of the polynomial hashes (mod 2^64) of
+    its forward and its reverse-complement base string.  Distinct k-mers
+    collide with probability ~n^2 / 2^65 (1e-5 at 2e7 k-mers)."""
+    from bcalm_tpu_torch.io import packing
+
+    lens = torch.tensor([len(s) for s in seqs], dtype=torch.int64, device=dev)
+    flat = torch.from_numpy(packing.encode_ascii("".join(seqs))
+                            .astype(np.int64)).to(dev)
+    P = flat.shape[0] - k + 1
+    base = 0x100000001B3            # odd: invertible mod 2^64
+    fwd = torch.zeros(P, dtype=torch.int64, device=dev)
+    rc = torch.zeros(P, dtype=torch.int64, device=dev)
+    power = 1
+    for j in range(k):
+        b = flat[j:j + P]
+        fwd = fwd * base + (b + 1)
+        # the forward hash of the reverse complement: comp(b_j) at B^j
+        rc = rc + ((b ^ 2) + 1) * (power - (1 << 64) if power >= 1 << 63
+                                   else power)
+        power = power * base % (1 << 64)
+    starts = torch.cumsum(lens, 0) - lens
+    idx = torch.arange(P, device=dev)
+    u = torch.searchsorted(starts, idx, right=True) - 1
+    return torch.minimum(fwd, rc)[idx + k <= starts[u] + lens[u]]
+
+
+def phase_invariants(path: str, stats: dict, k: int = K, dev=None):
+    """Each solid canonical k-mer once in the unitigs (exact 2k-bit values
+    for k <= 32, else _canonical_hashes), the KC sum, and every link a
+    (k-1)-overlap."""
     from bcalm_tpu_torch.io import fasta_writer
 
     seqs, headers = fasta_writer.parse_unitigs_fasta(path)
-    km = _canonical_kmers(seqs, K)
     n_solid = int(stats["solid_kmers"])
-    if km.shape[0] != n_solid or np.unique(km).shape[0] != n_solid:
-        raise AssertionError(f"unitig k-mers: {km.shape[0]} total, "
-                             f"{np.unique(km).shape[0]} distinct, expected "
-                             f"{n_solid} each")
+    if k <= 32:
+        km = _canonical_kmers(seqs, k)
+        total, distinct = km.shape[0], np.unique(km).shape[0]
+    else:
+        km = _canonical_hashes(seqs, k, dev)
+        total, distinct = km.shape[0], torch.unique(km).shape[0]
+    del km
+    if total != n_solid or distinct != n_solid:
+        raise AssertionError(f"k={k}: unitig k-mers: {total} total, "
+                             f"{distinct} distinct, expected {n_solid} each")
     kc = sum(int(t[5:]) for h in headers for t in h.split() if t.startswith("KC:i:"))
     if kc != int(stats["solid_kmer_abundance"]):
         raise AssertionError(f"sum of KC {kc} != solid abundance "
@@ -1288,11 +1442,12 @@ def phase_invariants(path: str, stats: dict):
         for t in h.split():
             if t.startswith("L:"):
                 _, su, v, sv = t.split(":")
-                if oriented(u, su)[-(K - 1):] != oriented(int(v), sv)[:K - 1]:
+                if oriented(u, su)[-(k - 1):] != oriented(int(v), sv)[:k - 1]:
                     raise AssertionError(f"link {u}{su} -> {v}{sv} is no overlap")
                 n_links += 1
-    say(f"[invariants] {n_solid} solid k-mers each once in {len(seqs)} "
+    say(f"[invariants] k={k}: {n_solid} solid k-mers each once in {len(seqs)} "
         f"unitigs; sum KC = {kc}; {n_links} links all (k-1)-overlaps")
+    return n_links
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -1338,6 +1493,43 @@ def _nbytes(x) -> int:
     return 0
 
 
+def _search_bytes(run: torch.Tensor, n: int, bounds: torch.Tensor) -> int:
+    """What K6 must read: each bound's L lanes and the L lanes of the
+    ceil(log2(n + 1)) columns its binary search probes."""
+    L, B = bounds.shape
+    return B * L * 8 * (1 + max(1, math.ceil(math.log2(n + 1))))
+
+
+def _fold_bytes(body: torch.Tensor, lo, hi) -> int:
+    """What K5 must move: of each column, the lanes its two comparisons
+    read (up to the first lane that differs from lo or from hi), all L+1
+    rows of each column it folds, and the count."""
+    from bcalm_tpu_torch.ops import count
+
+    L = body.shape[0] - 1
+    lanes = body[:L]
+    seen = torch.zeros(body.shape[1], dtype=torch.int64, device=body.device)
+    for key in (lo, hi):
+        eq = torch.ones_like(seen, dtype=torch.bool)
+        depth = torch.zeros_like(seen)
+        for j in range(L):
+            depth += eq               # lane j is read where j-1 matched
+            eq &= lanes[j] == key[j]
+        seen = torch.maximum(seen, depth)
+    n_fold = body.shape[1] - int(count.range_fold_plain(body.clone(), lo,
+                                                        hi)[0])
+    return 8 * int(seen.sum()) + 8 * (L + 1) * n_fold + 8
+
+
+def _spell_bytes(solid, counts, uid, rank, length, start_oid, U, k,
+                 n_members) -> int:
+    """What K11 must read: the uid and rank of every oriented id, one lane
+    (its new base) and the count of each member, and the start id, length
+    and every lane of each unitig's first k-mer."""
+    L, C = solid.shape
+    return 2 * C * 16 + n_members * 16 + U * (L + 2) * 8
+
+
 def _bound(moved: int, ops: int):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     integer operations over the peak rate."""
@@ -1345,7 +1537,38 @@ def _bound(moved: int, ops: int):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
+def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
+                 plain_timed=None, reads=(), read_bytes=0, written=None, ops=0,
+                 library=None, label=None, replaces=None, launched=None,
+                 reps=20) -> dict:
+    """Bitwise check of kernel_fn() vs plain_fn() and the kernel's row; the
+    *_timed variants (default: the same calls) are what the CUDA events
+    time.  The bound counts `reads` read once, `read_bytes` more (what a
+    kernel that reads parts of a tensor needs), and the kernel's outputs
+    (or `written` bytes) written once; `library` is one PyTorch call
+    computing the same function, timed beside it.  label, replaces and launched
+    override the row's name, JAX program and launch count (default:
+    launches[name])."""
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{label or name}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    moved = (_nbytes(reads) + read_bytes
+             + (_nbytes(got) if written is None else written))
+    del got, want
+    bound_ms, bound_by = _bound(moved, ops)
+    return {"name": label or name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": replaces or KERNELS[name][1],
+            "launches": launches[name] if launched is None else launched,
+            "max_abs_err": err, "ms": _time_ms(kernel_timed or kernel_fn, reps),
+            "plain_ms": _time_ms(plain_timed or plain_fn, reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _time_ms(library, reps) if library else None}
+
+
+def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.models import lanes as ln
     from bcalm_tpu_torch.models import minimizer
@@ -1357,27 +1580,8 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
                           for a in args) for name, args in inputs.items()}
     rows = []
 
-    def check(name, kernel_fn, plain_fn, kernel_timed=None, plain_timed=None,
-              reads=(), written=None, ops=0, library=None, row=True):
-        """Bitwise check of kernel_fn() vs plain_fn(); the *_timed variants
-        (default: the same calls) are what the CUDA events time.  The bound
-        counts `reads` read once and the kernel's outputs (or `written`
-        bytes) written once; `library` is one PyTorch call computing the
-        same function, timed beside it."""
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        err = _max_err(got, want)
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain version "
-                                 f"(max abs err {err})")
-        moved = _nbytes(reads) + (_nbytes(got) if written is None else written)
-        bound_ms, bound_by = _bound(moved, ops)
-        r = {"name": name, "route": "cuda", "source": KERNELS[name][0],
-             "replaces": KERNELS[name][1], "launches": launches[name],
-             "max_abs_err": err, "ms": _time_ms(kernel_timed or kernel_fn),
-             "plain_ms": _time_ms(plain_timed or plain_fn),
-             "bound_ms": bound_ms, "bound_by": bound_by,
-             "library_ms": _time_ms(library) if library else None}
+    def check(name, *fns, row=True, **kw):
+        r = check_kernel(name, launches, *fns, **kw)
         if row:
             rows.append(r)
         return r
@@ -1444,7 +1648,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
     check("range_fold", fold(_kernels.range_fold), fold(count.range_fold_plain),
           lambda: _kernels.range_fold(body_scratch, lo, hi),
           lambda: count.range_fold_plain(body_scratch, lo, hi),
-          reads=body, written=_nbytes(body) + 8)
+          written=_fold_bytes(body, lo, hi))
     run, n, bounds = inputs["lower_bound"]
     library = None
     if run.shape[0] <= 2:       # one packed int64 key per column
@@ -1456,7 +1660,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
         library = lambda: torch.searchsorted(packed_run, packed_bounds)  # noqa: E731
     check("lower_bound", lambda: _kernels.lower_bound(run, n, bounds),
           lambda: count.lower_bound_plain(run, n, bounds),
-          reads=(run[:, :n], bounds), library=library)
+          read_bytes=_search_bytes(run, n, bounds), library=library)
     sf_args = inputs["solid_fold_histogram"]
     check("solid_fold_histogram", lambda: _kernels.solid_fold_histogram(*sf_args),
           lambda: count.solid_fold_histogram_plain(*sf_args), reads=sf_args)
@@ -1479,7 +1683,8 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
           reads=cf_args)
     su_args = inputs["spell_unitigs"]
     check("spell_unitigs", lambda: _kernels.spell_unitigs(*su_args),
-          lambda: engine.spell_unitigs_plain(*su_args), reads=su_args)
+          lambda: engine.spell_unitigs_plain(*su_args),
+          read_bytes=_spell_bytes(*su_args))
     rc_args = inputs["run_contract"]
     r_succ, r_head, r_rid, r_end, R, _ = rc_args
     # every head flag; the rid, end and two successors of each of R heads
@@ -1709,6 +1914,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
               reads=(gk, gp), row=False)
     extra.append((f"junction_pairs, global mode (edges of {gk.shape[1]} sorted "
                   f"entries)", r))
+    rows += longk_rows(longk, dev)
     for r in rows:
         lib = ("" if r["library_ms"] is None
                else f", library call {r['library_ms']:.4f} ms")
@@ -1739,6 +1945,133 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, dev):
               "hier (S, S1)": res_shape,
               "kmer_minimizers": [(2, n20), m20]}
     say(f"[shapes] {json.dumps(shapes)}")
+    return rows
+
+
+def longk_rows(longk, dev):
+    """Phase 5's rows at L = 10: each lane-dependent kernel on the inputs
+    phase 3h's k = 151 build fed it, or made from them where that build
+    does not run it (launches then 0): K5 and K6 on its first sorted chunk,
+    K3's global mode and K20 on a 2^20-column slice of its solid table; and
+    K9 in filter_abundance mode on its counted table.  Then K3a at L = 16
+    on the k = 255 build's solid table (its two reverse complements are
+    O(k * lanes) per k-mer).  Plain versions are timed over 5 calls (some
+    take seconds at this width)."""
+    from bcalm_tpu_torch import engine
+    from bcalm_tpu_torch.models import minimizer
+    from bcalm_tpu_torch.ops import _kernels, count, extract, junctions
+
+    def on_card(recorded):
+        return {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                            for a in args) for name, args in recorded.items()}
+
+    inputs, launches = longk[LONG_K]
+    inputs = on_card(inputs)
+    rows = []
+    L = (LONG_K + 15) // 16
+    tag = f"@L{L}"
+
+    def row(name, *fns, label=None, on_path=True, **kw):
+        rows.append(check_kernel(name, launches, *fns,
+                                 label=(label or name) + tag,
+                                 launched=launches[name] if on_path else 0,
+                                 reps=5, **kw))
+
+    buf, words, lengths, k, slot_base, offset, row_base = inputs["extract_insert"]
+    if k != LONG_K or buf.shape[0] != L + 1:
+        raise AssertionError(f"phase 3h recorded k = {k}, {buf.shape[0] - 1} lanes")
+    ext_args = (words, lengths, k, slot_base, offset, row_base)
+    scratch = buf.clone()
+
+    def fresh(fn):
+        def run():
+            out = buf.clone()
+            fn(out, *ext_args)
+            return out
+        return run
+
+    row("extract_insert", fresh(_kernels.extract_insert),
+        fresh(extract.extract_insert_plain),
+        lambda: _kernels.extract_insert(scratch, *ext_args),
+        lambda: extract.extract_insert_plain(scratch, *ext_args),
+        reads=(words, lengths),
+        written=buf.shape[0] * extract.block_slots(words.shape, k) * 8)
+    del scratch
+    solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
+    row("junction_keys",
+        lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
+        lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid)
+    # K5 and K6 (the multi-pass count's, not on this resident path) on the
+    # build's first sorted chunk: the middle third of its keys, and 256
+    # quantile bounds as the range split's pivots
+    s_lanes, _, pos = inputs["count_runs"]
+    n_valid = int((s_lanes[0] != 0xFFFFFFFF).sum())
+    body = torch.cat([s_lanes, pos[None]]).contiguous()
+    lo = tuple(int(x) for x in s_lanes[:, n_valid // 3].tolist())
+    hi = tuple(int(x) for x in s_lanes[:, 2 * n_valid // 3].tolist())
+    body_scratch = body.clone()
+
+    def fold(fn):
+        def run():
+            out = body.clone()
+            return out, fn(out, lo, hi)
+        return run
+
+    row("range_fold", fold(_kernels.range_fold), fold(count.range_fold_plain),
+        lambda: _kernels.range_fold(body_scratch, lo, hi),
+        lambda: count.range_fold_plain(body_scratch, lo, hi),
+        written=_fold_bytes(body, lo, hi), on_path=False)
+    del body, body_scratch
+    qi = (torch.arange(256, device=dev) + 1) * n_valid // 257
+    bounds = s_lanes[:, qi].contiguous()
+    row("lower_bound", lambda: _kernels.lower_bound(s_lanes, n_valid, bounds),
+        lambda: count.lower_bound_plain(s_lanes, n_valid, bounds),
+        read_bytes=_search_bytes(s_lanes, n_valid, bounds), on_path=False)
+    sf_args = inputs["solid_fold_histogram"]
+    row("solid_fold_histogram", lambda: _kernels.solid_fold_histogram(*sf_args),
+        lambda: count.solid_fold_histogram_plain(*sf_args), reads=sf_args)
+    sc_args = inputs["solid_compact"]
+    row("solid_compact", lambda: _kernels.solid_compact(*sc_args),
+        lambda: count.solid_compact_plain(*sc_args), reads=sc_args)
+    uq, cq, _, nq, amin, amax = sc_args[:6]
+    fa_args = (uq, cq, nq, amin, amax)
+    # filter_abundance: K9 without its minpos row, through its entry point
+    rows.append(check_kernel(
+        "solid_compact", launches, lambda: count.filter_abundance(*fa_args),
+        lambda: count.filter_abundance_plain(*fa_args), reads=(uq, cq),
+        label=f"filter_abundance{tag}", replaces="bcalm_tpu/ops/count.py:158",
+        launched=0, reps=5))
+    su_args = inputs["spell_unitigs"]
+    row("spell_unitigs", lambda: _kernels.spell_unitigs(*su_args),
+        lambda: engine.spell_unitigs_plain(*su_args),
+        read_bytes=_spell_bytes(*su_args))
+    # the mesh kernels (the -devices path, not run at long k here) on a
+    # slice of the solid table
+    n20 = min(n_solid, 1 << 20)
+    sl = solid[:, :n20].contiguous()
+    ge = (sl, n20, k, 0, n20, 1, junctions.entry_key_rows(k))
+    row("junction_keys", lambda: _kernels.junction_entries(*ge),
+        lambda: junctions.junction_entries_plain(*ge[:6]), reads=sl,
+        label="junction_entries", on_path=False,
+        replaces="bcalm_tpu/parallel/distcompact.py:53")
+    m20 = 10
+    all20 = torch.ones((n20,), dtype=torch.bool, device=dev)
+    mm_flat = minimizer.extract_mmers(sl, k, m20).reshape(-1)
+    row("kmer_minimizers",
+        lambda: _kernels.kmer_minimizers(sl, k, m20, valid=all20,
+                                         histogram=True),
+        lambda: minimizer.mmer_histogram_plain(sl, all20, k, m20),
+        reads=(sl, all20), ops=n20 * (k - m20 + 1) * 8,
+        library=lambda: torch.bincount(mm_flat, minlength=4 ** m20),
+        on_path=False, replaces="bcalm_tpu/models/minimizer.py:72")
+    del sl, all20, mm_flat, inputs
+    inputs2, launches2 = longk[LONG_K2]
+    solid, n_solid, k, hashed, rows_k = on_card(inputs2)["junction_keys"]
+    rows.append(check_kernel(
+        "junction_keys", launches2,
+        lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
+        lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid,
+        label=f"junction_keys@L{solid.shape[0]}", reps=5))
     return rows
 
 
@@ -1822,6 +2155,7 @@ def main() -> int:
         mesh_launches, mesh_inputs, entry_launches = phase_mesh(
             tmp, fa, path, table, dev)
         phase_invariants(path, stats)
+        longk = phase_longk(tmp, args.seed, dev)
     # each kernel is held against its plain version on the inputs of the
     # run whose path needs it, and reports that run's launches
     for kernel in ("range_fold", "lower_bound"):
@@ -1837,7 +2171,7 @@ def main() -> int:
     launches["kmer_minimizers"] = entry_launches["kmer_minimizers"]
     launches["route_buckets:hash"] = entry_launches["route_buckets"]
     del mesh_inputs
-    rows = phase_kernels(inputs, launches, canon_hier, table, dev)
+    rows = phase_kernels(inputs, launches, canon_hier, table, longk, dev)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

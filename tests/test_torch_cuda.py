@@ -280,13 +280,15 @@ def test_chain_finish(card, N, weighted):
     assert int(want["n_unitigs"][0]) > 0
 
 
-def compacted(k, seed=5):
+def compacted(k, seed=5, max_len=128):
     """The port's locality-ordered compaction (CPU) of a read set: the
     reordered table, its counts, the run structure and the chain dict."""
     seqs = reads(seed, n=600, k=k)
-    cfg = engine.EngineConfig(k=k, abundance_min=2, block_reads=64, max_len=128)
+    cfg = engine.EngineConfig(k=k, abundance_min=2, block_reads=64,
+                              max_len=max_len)
     unique, counts, minpos, _ = engine.count_blocks(
-        packing.iter_blocks(seqs, k, block_reads=64, max_len=128), cfg, "cpu")
+        packing.iter_blocks(seqs, k, block_reads=64, max_len=max_len), cfg,
+        "cpu")
     solid, cs, ps, n_solid, _ = count.solid_fold_histogram(
         unique, counts, minpos, unique.shape[1], 2, 2**31 - 1, 10)
     n_solid = int(n_solid[0])
@@ -611,3 +613,215 @@ def test_devices_build_card_equals_cpu(card, tmp_path):
         with open(out / "b.0.pkl", "rb") as f:
             outs.append(pickle.load(f)["fasta"])
     assert outs[0] == outs[1] and outs[0].count(">") > 1
+
+
+# -- 9 to 32 lanes (k = 129-512): the 16- and 32-lane instantiations ------
+
+LONG_K = [143, 151, 255, 512]    # L = 9, 10, 16, 32
+
+
+def solid_columns(kmers, L):
+    cols = [[(x >> (32 * (L - 1 - j))) & 0xFFFFFFFF for x in kmers]
+            for j in range(L)]
+    return torch.tensor(cols, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("k", LONG_K)
+def test_extract_insert_long_k(card, k):
+    """K1 at 9-32 lanes, with a slot base and with per-row bases."""
+    L = ln.num_lanes(k)
+    rng = np.random.RandomState(k)
+    for b in packing.iter_blocks(reads(k, k=k), k, block_reads=64,
+                                 max_len=k + 80):
+        F = extract.block_slots(b.words.shape, k)
+        words = torch.from_numpy(b.words.astype(np.int64))
+        lengths = torch.from_numpy(b.lengths.astype(np.int64))
+        base = torch.from_numpy(rng.randint(0, 2**32, words.shape[0],
+                                            dtype=np.uint64).astype(np.int64))
+        for row_base in (None, base):
+            bufs = [torch.full((L + 1, F + 9), 7, dtype=torch.int64)
+                    for _ in range(2)]
+            extract.extract_insert_plain(bufs[1], words, lengths, k,
+                                         0x7FFFFF00, 9, row_base)
+            bufs[0] = bufs[0].to(card)
+            _kernels.extract_insert(
+                bufs[0], words.to(card), lengths.to(card), k, 0x7FFFFF00, 9,
+                None if row_base is None else row_base.to(card))
+            assert torch.equal(bufs[0].cpu(), bufs[1])
+            assert int((bufs[1][L] != ln.SENTINEL).sum()) > 0
+
+
+@pytest.mark.parametrize("k", LONG_K)
+def test_junctions_long_k(card, k):
+    """K3a/K3b at 9-32 lanes, single-device and global mode."""
+    L = ln.num_lanes(k)
+    kmers = sorted(brute.count_kmers(reads(k, k=k), k))
+    solid = solid_columns(kmers, L)
+    n = solid.shape[1]
+    hashed = junctions.use_hash_keys(k)
+    keys, pay = _kernels.junction_keys(solid.to(card), n - 3, k, hashed,
+                                       junctions.key_rows(k))
+    pkeys, ppay = junctions.junction_keys_plain(solid, n - 3, k)
+    assert torch.equal(keys.cpu(), pkeys) and torch.equal(pay.cpu(), ppay)
+    perm = sort_op.lex_argsort(list(pkeys))
+    s_keys, s_pay = pkeys[:, perm].contiguous(), ppay[perm]
+    succ = _kernels.junction_pairs(s_keys.to(card), s_pay.to(card), n, hashed)
+    want = junctions.junction_pairs_plain(s_keys, s_pay, n, hashed)
+    assert torch.equal(succ.cpu(), want) and int((want >= 0).sum()) > 0
+    gbase, tot = 3 * n, 8 * n
+    got = junctions.junction_entries(solid.to(card), n - 3, k, gbase, tot, 4)
+    want = junctions.junction_entries_plain(solid, n - 3, k, gbase, tot, 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("L", [9, 10, 16, 32])
+def test_range_kernels_long_lanes(card, L):
+    """K5 and K6 at 9-32 lanes."""
+    body = random_body(L, 70_000, L)
+    rng = np.random.RandomState(L)
+    keys = [tuple(body[:L, rng.randint(0, body.shape[1])].tolist())
+            for _ in range(2)]
+    for lo, hi in (((0,) * L, (ln.SENTINEL,) * L), (min(keys), max(keys))):
+        got_buf = body.to(card)
+        got = _kernels.range_fold(got_buf, lo, hi)
+        want_buf = body.clone()
+        want = count.range_fold_plain(want_buf, lo, hi)
+        assert torch.equal(got_buf.cpu(), want_buf)
+        assert int(got[0]) == int(want[0])
+    unique, _, _, n = count.count_canonical(body[:L].contiguous())
+    n = int(n)
+    cols = [unique[:, rng.randint(0, n)] for _ in range(6)]
+    cols += [torch.zeros(L, dtype=torch.int64), unique[:, n - 1]]
+    bounds = torch.stack(cols, dim=1).contiguous()
+    for m in (n, n // 2, 0):
+        got = _kernels.lower_bound(unique.to(card), m, bounds.to(card))
+        assert torch.equal(got.cpu(), count.lower_bound_plain(unique, m, bounds))
+
+
+@pytest.mark.parametrize("L", [9, 10, 16, 32])
+def test_solid_kernels_long_lanes(card, L):
+    """K7, and K9 with and without its minpos row (filter_abundance), at
+    9-32 lanes."""
+    rng = np.random.RandomState(L)
+    N = 200_000
+    unique = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
+                                          dtype=np.uint64).astype(np.int64))
+    counts = torch.from_numpy(rng.geometric(0.3, N))
+    minpos = torch.from_numpy(rng.randint(0, 2**31, N))
+    args = (N - 777, 2, 40)
+    got = _kernels.solid_fold_histogram(unique.to(card), counts.to(card),
+                                        minpos.to(card), *args, 10000)
+    want = count.solid_fold_histogram_plain(unique, counts, minpos, *args,
+                                            10000)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    out, n = _kernels.solid_compact(unique.to(card), counts.to(card),
+                                    minpos.to(card), *args)
+    want, want_n = count.solid_compact_plain(unique, counts, minpos, *args)
+    assert torch.equal(out.cpu(), want) and torch.equal(n.cpu(), want_n)
+    got = count.filter_abundance(unique.to(card), counts.to(card), *args)
+    want = count.filter_abundance_plain(unique, counts, *args)
+    assert got[0].shape == (L, N) and got[1].shape == (N,)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("L,amin,amax", [(1, 2, 2**31 - 1), (2, 3, 40)])
+def test_filter_abundance_mode(card, L, amin, amax):
+    """K9 without its minpos row: (L, N) lanes and (N,) counts, 0 past
+    n_solid."""
+    rng = np.random.RandomState(L + 100)
+    N = 300_000
+    unique = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
+                                          dtype=np.uint64).astype(np.int64))
+    counts = torch.from_numpy(rng.geometric(0.3, N))
+    before = dict(_kernels.LAUNCHES)
+    got = count.filter_abundance(unique.to(card), counts.to(card), N - 5,
+                                 amin, amax)
+    assert _kernels.LAUNCHES["solid_compact"] == before["solid_compact"] + 1
+    want = count.filter_abundance_plain(unique, counts, N - 5, amin, amax)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert 0 < int(want[2]) < N and int(want[1][int(want[2]):].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("k", LONG_K)
+def test_spell_and_minimizers_long_k(card, k):
+    """K11 and K20 (each mode) at 9-32 lanes."""
+    solid_r, counts_r, info, n_solid = compacted(k, max_len=k + 80)
+    U = int(info["n_unitigs"])
+    args = [info[key] for key in ("uid", "rank", "length", "start_oid")]
+    got = _kernels.spell_unitigs(solid_r.to(card), counts_r.to(card),
+                                 *[a.to(card) for a in args], U, k, n_solid)
+    want = engine.spell_unitigs_plain(solid_r, counts_r, *args, U, k, n_solid)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert U > 1
+    m = 10
+    lanes = solid_r[:, :n_solid].contiguous()
+    rng = np.random.RandomState(k)
+    rank = torch.from_numpy(rng.randint(0, 8, 4 ** m))
+    table = torch.from_numpy(rng.randint(0, 16, 4 ** m))
+    valid = torch.from_numpy(rng.rand(n_solid) < 0.8)
+    lc = lanes.to(card)
+    for r in (None, rank):
+        rc = None if r is None else r.to(card)
+        assert torch.equal(mz.minimizers(lc, k, m, rc).cpu(),
+                           mz.minimizers_plain(lanes, k, m, r))
+        assert torch.equal(mz.partition_of(lc, k, m, table.to(card), rc).cpu(),
+                           mz.partition_of_plain(lanes, k, m, table, r))
+    assert torch.equal(mz.mmer_histogram(lc, valid.to(card), k, m).cpu(),
+                       mz.mmer_histogram_plain(lanes, valid, k, m))
+
+
+@pytest.mark.parametrize("k", [151, 255])
+def test_build_card_equals_cpu_long_k(card, k):
+    """The whole single-device build at 10 and 16 lanes, resident and over
+    several key ranges."""
+    seqs = reads(k + 1, n=600, k=k)
+    for extra in ({}, {"block_reads": 4, "chunk_kmers": 512,
+                       "resident_kmers": 1024}):
+        cfg = engine.EngineConfig(k=k, abundance_min=2, max_len=k + 80,
+                                  **{"block_reads": 64, **extra})
+        outs = []
+        for dev in (card, "cpu"):
+            us = engine.build_from_seqs(seqs, cfg, dev)
+            buf = io.StringIO()
+            fasta_writer.write_fasta(us, buf)
+            outs.append(buf.getvalue())
+        assert outs[0] == outs[1] and outs[0]
+
+
+def test_init_group_local_rank(card, tmp_path, monkeypatch):
+    """A rank takes the card of its local rank, not of its global rank:
+    global rank 5 of 8 with local rank 0 uses cuda:0; and a group of one
+    joined through env:// (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE,
+    LOCAL_RANK) runs a collective on cuda:0."""
+    import socket
+
+    import torch.distributed as dist
+
+    seen = {}
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: seen.update(backend=backend, **kw))
+    mesh = launch.init_group(8, 5, "cuda", "tcp://localhost:1", local_rank=0)
+    assert mesh.device == torch.device("cuda", 0) and mesh.rank == 5
+    assert seen == {"backend": "nccl", "init_method": "tcp://localhost:1",
+                    "world_size": 8, "rank": 5}
+    assert torch.cuda.current_device() == 0
+    monkeypatch.undo()
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for key, val in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                     ("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(key, val)
+    mesh = launch.init_from_env("cuda")
+    try:
+        assert mesh.device == torch.device("cuda", 0)
+        assert int(mesh.psum(torch.ones(1, dtype=torch.int64,
+                                        device=mesh.device))[0]) == 1
+    finally:
+        dist.destroy_process_group()

@@ -82,20 +82,28 @@ def test_empty_result():
 
 
 def test_unitig_graph_over_the_port():
-    """bcalm_tpu.graph.unitigs (numpy-only) navigates the port's UnitigSet
-    exactly as it navigates bcalm_tpu's."""
+    """The port's graph.unitigs over the port's UnitigSet navigates as
+    bcalm_tpu's graph over bcalm_tpu's set."""
     from bcalm_tpu.graph.unitigs import UnitigGraph
+    from bcalm_tpu_torch.graph import unitigs as tgraph
 
     seqs = branching_reads(4)
     jcfg = jengine.EngineConfig(k=31, abundance_min=2, block_reads=64,
                                 max_len=160)
     want = UnitigGraph.from_unitig_set(jengine.build_from_seqs(seqs, jcfg))
-    got = UnitigGraph.from_unitig_set(tengine.build_from_seqs(
+    got = tgraph.UnitigGraph.from_unitig_set(tengine.build_from_seqs(
         seqs, convert.engine_config_from_jax(jcfg), "cpu"))
     assert len(got) == len(want) > 50
+
+    def as_tuples(nodes):
+        return [(n.uid, n.strand) for n in nodes]
+
     nodes = list(want.nodes())
-    assert list(got.nodes()) == nodes
+    assert as_tuples(got.nodes()) == as_tuples(nodes)
     for node in nodes:
-        assert got.successors(node) == want.successors(node)
-        assert got.predecessors(node) == want.predecessors(node)
-    assert sum(got.is_branching(n) for n in nodes) > 0
+        mine = tgraph.Node(node.uid, node.strand)
+        assert as_tuples(got.successors(mine)) == as_tuples(want.successors(node))
+        assert (as_tuples(got.predecessors(mine))
+                == as_tuples(want.predecessors(node)))
+    assert sum(got.is_branching(tgraph.Node(n.uid, n.strand))
+               for n in nodes) > 0

@@ -40,7 +40,8 @@ def same(j, t) -> bool:
 
 def block(seed: int, k: int, n: int = 37, max_len: int = 128):
     rng = random.Random(seed)
-    seqs = ["".join(rng.choice("ACGT") for _ in range(rng.randint(5, 120)))
+    seqs = ["".join(rng.choice("ACGT")
+                    for _ in range(rng.randint(5, max_len - 8)))
             for _ in range(n)]
     seqs.append("ACGT" * 30)          # low complexity: long runs of one key
     b = next(packing.iter_blocks(seqs, k, block_reads=64, max_len=max_len))
@@ -75,7 +76,7 @@ def test_canonical_mmers_and_window_min(m):
 
 
 def test_span_helpers():
-    for k in (13, 15, 21, 31, 33, 63, 127):
+    for k in (13, 15, 21, 31, 33, 63, 127, 151, 255, 512):
         ms = jskm.default_max_span(k)
         assert tskm.default_max_span(k) == ms
         for span in (1, 8, ms):
@@ -117,11 +118,14 @@ def test_sampling_histograms_and_tables(k, m):
 
 @pytest.mark.parametrize("k,m,max_span", [(31, 10, None), (21, 8, 8),
                                           (15, 5, None), (63, 12, 3),
-                                          (33, 11, None)])
+                                          (33, 11, None), (151, 10, None),
+                                          (255, 12, 5)])
 @pytest.mark.parametrize("use_rank", [False, True])
 @pytest.mark.parametrize("with_pos", [False, True])
 def test_form_superkmers(k, m, max_span, use_rank, with_pos):
-    words, lengths = block(k * m, k)
+    """K13's plain version; at k = 151 and 255 (Wn = 12 and 18 words) on
+    reads of up to 312 bases."""
+    words, lengths = block(k * m, k, max_len=128 if k < 128 else 320)
     jw, jl = jnp.asarray(words), jnp.asarray(lengths)
     rank = jmz.frequency_rank(np.asarray(jskm.sample_cmmer_histogram(
         jw, jl, k, m)))
@@ -175,7 +179,8 @@ def test_route_to_buckets(n_dev, overflow):
                                    for a, b in zip(plain, got[:3]))
 
 
-@pytest.mark.parametrize("L,n_dev", [(1, 3), (2, 4), (3, 8)])
+@pytest.mark.parametrize("L,n_dev", [(1, 3), (2, 4), (3, 8), (10, 4),
+                                     (32, 2)])
 def test_route_to_buckets_hash_mode(L, n_dev):
     """No owner array: the owner is hash_lanes of the entry's lanes %
     n_dev, as bcalm_tpu's _local_shard_count routes its k-mers."""
