@@ -8,57 +8,198 @@
 // front of one stacked (L+2, W) output (rows 0..L-1 lanes, L counts, L+1
 // minpos) and n_solid receives their number.  Without a minpos row (null;
 // the (L+1, W) output of bcalm_tpu/ops/count.py:filter_abundance, :158)
-// only the lanes and counts move.  The output has W >= n_solid
-// columns (N for JAX's shape; n_solid, known from K7, for the store's
-// copy); the wrapper fills it first (0, and the sentinel in the minpos
-// row), as JAX's compact and its SENTINEL past n_solid do.
+// only the lanes and counts move.  The output has W >= n_solid columns
+// (N for JAX's shape; n_solid, known from K7, for the store's copy);
+// columns [n_solid, W) get 0, and the sentinel in the minpos row, as
+// JAX's compact and its SENTINEL past n_solid give.
 //
-// The destination of a solid column is the exclusive prefix count of the
-// mask (scan.cuh's three-launch tile scan), so the order is stable without
-// atomics.  Bound: memory, the counts read twice and (L+2)*8 bytes read
-// and written per solid column.
-#include "scan.cuh"
+// Bound on this card: memory, the counts read once and (L+2)*8 bytes read
+// and written per solid column.  One pass does it: a single-pass select
+// with decoupled look-back.  Each block takes the next tile of 4096
+// columns from an atomic counter (so every tile it waits on is already
+// running), item q of thread t being column tile * 4096 + q * 256 + t, so
+// every load of the counts and of each row is one contiguous run per
+// warp.  The 0/1 flags are ranked with __ballot_sync and __popc per warp
+// and one pass of warp 0 over the 16 x 8 warp counts; the tile publishes
+// its count, then its inclusive prefix, in a status word (value << 2 |
+// flag), and warp 0 reads its carry from its predecessors' words, 32 at
+// a time.  Each solid column is written once, to carry + rank: the order
+// comes from the prefix, never from atomics on the output, so the
+// compaction is stable.  A second, grid-stride launch fills [n_solid, W),
+// reading n_solid on the device; at W = n_solid it writes nothing.
+#include "common.cuh"
 
 namespace {
 
-struct SolidFlag {
-  const int64_t* counts;
-  long long n_unique, amin, amax;
-  __device__ long long operator()(long long i) const {
-    long long c = counts[i];
-    return (i < n_unique && c >= amin && c <= amax) ? 1 : 0;
-  }
-};
+constexpr int kItems = 16;                        // columns per thread
+constexpr int kWarps = bt::kThreads / 32;         // 8
+constexpr long long kTile = bt::kThreads * kItems;  // 4096 columns
+constexpr unsigned long long kAggregate = 1, kPrefix = 2;
+static_assert(kItems * kWarps == 32 * 4, "warp 0 scans 4 counts a lane");
 
-struct SolidScatter {
-  const int64_t* unique;
-  long long ustride;
-  const int64_t* counts;
-  const int64_t* minpos;
-  int L;
-  int64_t* out;
-  long long ostride, W;
-  __device__ void operator()(long long i, long long dest, long long keep) const {
-    if (!keep || dest >= W) return;
-    for (int j = 0; j < L; ++j) out[j * ostride + dest] = unique[j * ustride + i];
-    out[L * ostride + dest] = counts[i];
-    if (minpos) out[(L + 1) * ostride + dest] = minpos[i];
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             long long value,
+                                             unsigned long long flag) {
+  unsigned long long v = (static_cast<unsigned long long>(value) << 2) | flag;
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
+}
+
+// Called by the 32 lanes of one warp: the sum of the solid counts of the
+// tiles before `tile`, read from their status words 32 at a time, nearest
+// first, up to and including the nearest one that holds its inclusive
+// prefix (tile 0 always does).
+__device__ long long look_back(const unsigned long long* status,
+                               long long tile, int lane) {
+  long long prefix = 0;
+  for (long long t = tile - 1 - lane;; t -= 32) {
+    unsigned long long s = kPrefix;  // before tile 0: an empty prefix
+    if (t >= 0) {
+      do {
+        s = load_status(status + t);
+      } while ((s & 3u) == 0);
+    }
+    const unsigned int found = __ballot_sync(0xFFFFFFFFu, (s & 3u) == kPrefix);
+    const int stop = found ? __ffs(found) - 1 : 31;
+    long long v = lane <= stop ? static_cast<long long>(s >> 2) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+    prefix += v;
+    if (found) return prefix;
   }
-};
+}
+
+__global__ void __launch_bounds__(bt::kThreads)
+solid_compact_kernel(const int64_t* __restrict__ unique, long long ustride,
+                     const int64_t* __restrict__ counts,
+                     const int64_t* __restrict__ minpos, long long N,
+                     long long n_unique, int L, long long amin, long long amax,
+                     unsigned long long* __restrict__ next_tile,
+                     unsigned long long* __restrict__ status,
+                     int64_t* __restrict__ out, long long ostride, long long W,
+                     int64_t* __restrict__ n_solid) {
+  __shared__ long long s_tile, s_carry;
+  __shared__ int s_off[kItems * kWarps];  // (q, warp) -> rank of its first
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = static_cast<long long>(atomicAdd(next_tile, 1ULL));
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long first = tile * kTile + threadIdx.x;
+  unsigned int ballot[kItems];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    const long long i = first + q * bt::kThreads;
+    bool keep = false;
+    if (i < N) {
+      const long long c = counts[i];
+      keep = i < n_unique && c >= amin && c <= amax;
+    }
+    ballot[q] = __ballot_sync(0xFFFFFFFFu, keep);
+    if (lane == 0) s_off[q * kWarps + w] = __popc(ballot[q]);
+  }
+  __syncthreads();
+  if (w == 0) {
+    int v[4], sum = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      v[r] = s_off[lane * 4 + r];
+      sum += v[r];
+    }
+    int inc = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+      if (lane >= d) inc += y;
+    }
+    int run = inc - sum;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      s_off[lane * 4 + r] = run;
+      run += v[r];
+    }
+    const long long count = __shfl_sync(0xFFFFFFFFu, inc, 31);
+    long long carry = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, count, kPrefix);
+    } else {
+      if (lane == 0) store_status(status + tile, count, kAggregate);
+      carry = look_back(status, tile, lane);
+      if (lane == 0) store_status(status + tile, carry + count, kPrefix);
+    }
+    if (lane == 0) {
+      s_carry = carry;
+      if (tile == (N - 1) / kTile) n_solid[0] = carry + count;
+    }
+  }
+  __syncthreads();
+  // destination of each of this thread's columns, -1 where not solid
+  const unsigned int below = (1u << lane) - 1u;
+  long long dest[kItems];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    dest[q] = (ballot[q] >> lane) & 1u
+                  ? s_carry + s_off[q * kWarps + w] + __popc(ballot[q] & below)
+                  : -1;
+    if (dest[q] >= W) dest[q] = -1;
+  }
+  const int rows = L + 1 + (minpos != nullptr);
+  for (int j = 0; j < rows; ++j) {
+    const int64_t* src = j < L ? unique + j * ustride : j == L ? counts : minpos;
+    int64_t* dst = out + j * ostride;
+#pragma unroll
+    for (int q = 0; q < kItems; ++q) {
+      if (dest[q] >= 0) dst[dest[q]] = src[first + q * bt::kThreads];
+    }
+  }
+}
+
+// Columns [n_solid, W) of the output: 0, and the sentinel in the minpos row.
+__global__ void solid_tail_kernel(int64_t* __restrict__ out, long long ostride,
+                                  int L, bool minpos_row, long long W,
+                                  const int64_t* __restrict__ n_solid) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = n_solid[0] + static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < W; i += step) {
+    for (int j = 0; j <= L; ++j) out[j * ostride + i] = 0;
+    if (minpos_row) out[(L + 1) * ostride + i] = bt::kSentinel;
+  }
+}
+
+constexpr unsigned int kTailBlocks = 528;  // 4 per SM
 
 }  // namespace
 
+// scratch: 1 + ceil(N / 4096) zeroed words (the tile counter, then one
+// status word per tile).  N must be > 0.
 extern "C" int bt_solid_compact(const int64_t* unique, long long ustride,
                                 const int64_t* counts, const int64_t* minpos,
                                 long long N, long long n_unique, int L,
                                 long long amin, long long amax,
                                 long long* scratch, int64_t* out,
                                 long long ostride, long long W,
-                                int64_t* n_solid,
-                                void* stream) {
-  if (L < 1 || L > bt::kMaxLanes) return static_cast<int>(cudaErrorInvalidValue);
-  SolidFlag flag{counts, n_unique, amin, amax};
-  SolidScatter scatter{unique, ustride, counts, minpos, L, out, ostride, W};
-  return exclusive_sum(flag, scatter, N, scratch, n_solid,
-                       static_cast<cudaStream_t>(stream));
+                                int64_t* n_solid, void* stream) {
+  if (L < 1 || L > bt::kMaxLanes || N < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* words = reinterpret_cast<unsigned long long*>(scratch);
+  const long long tiles = (N + kTile - 1) / kTile;
+  solid_compact_kernel<<<static_cast<unsigned int>(tiles), bt::kThreads, 0, s>>>(
+      unique, ustride, counts, minpos, N, n_unique, L, amin, amax, words,
+      words + 1, out, ostride, W, n_solid);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || W == 0) return static_cast<int>(err);
+  const long long need = (W + bt::kThreads - 1) / bt::kThreads;
+  solid_tail_kernel<<<need < kTailBlocks ? static_cast<unsigned int>(need)
+                                         : kTailBlocks,
+                      bt::kThreads, 0, s>>>(out, ostride, L, minpos != nullptr,
+                                            W, n_solid);
+  return static_cast<int>(cudaGetLastError());
 }

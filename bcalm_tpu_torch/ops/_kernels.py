@@ -93,9 +93,11 @@ _SIGNATURES = {
 ROUTE_TILE = 1024  # entries per tile of csrc/route.cu
 MAX_ROW_WORDS = 64  # csrc/superkmer.cu: one block of <= 1024 positions per read
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
+COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 
 _lib = None
+_FNS = {}  # C function name -> its bound ctypes function (load())
 
 
 def reset_launches() -> None:
@@ -170,7 +172,8 @@ def build(build_dir: Path | None = None) -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use; its C functions are bound
+    into _FNS once."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -178,6 +181,7 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _FNS[name] = fn
         _lib = lib
     return _lib
 
@@ -199,9 +203,14 @@ def _check(t: torch.Tensor, name: str, dtype=torch.int64, ndim=None,
 
 
 def _launch(fn_name: str, *args) -> None:
-    lib = load()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, fn_name)(*args, stream)
+    """Call the C function with the current device's current stream.  The
+    raw handle is read directly: building a torch.cuda.Stream object for
+    it (torch.cuda.current_stream()) costs more host time than a small
+    kernel such as K6 takes on the device."""
+    if _lib is None:
+        load()
+    err = _FNS[fn_name](*args, torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
 
@@ -350,7 +359,7 @@ def lower_bound(run: torch.Tensor, n: int, bounds: torch.Tensor) -> torch.Tensor
     if bounds.shape[0] != L or not 0 <= n <= run.shape[1]:
         raise ValueError("lower_bound: bounds or n do not fit the run")
     P = bounds.shape[1]
-    out = torch.empty((P,), dtype=torch.int64, device=run.device)
+    out = run.new_empty((P,))
     if P:
         _launch("bt_lower_bound", run.data_ptr(), run.stride(0), n, L,
                 bounds.data_ptr(), bounds.stride(0), P, out.data_ptr())
@@ -434,20 +443,24 @@ def solid_compact(unique: torch.Tensor, counts: torch.Tensor,
         raise ValueError("solid_compact: shapes do not match")
     dev = unique.device
     W = N if width is None else width
-    out = torch.zeros((L + 1 + (minpos is not None), W), dtype=torch.int64,
-                      device=dev)
-    if minpos is not None:
-        out[L + 1].fill_(0xFFFFFFFF)
-    n_solid = torch.zeros((1,), dtype=torch.int64, device=dev)
-    if N:
-        _launch("bt_solid_compact", unique.data_ptr(), unique.stride(0),
-                counts.data_ptr(), None if minpos is None else minpos.data_ptr(),
-                N, min(n_unique, N), L,
-                abundance_min, abundance_max,
-                _scan_scratch(N, dev).data_ptr(), out.data_ptr(), out.stride(0),
-                W, n_solid.data_ptr())
-        LAUNCHES["solid_compact"] += 1
-    return out, n_solid
+    rows = L + 1 + (minpos is not None)
+    if not N:
+        out = torch.zeros((rows, W), dtype=torch.int64, device=dev)
+        if minpos is not None:
+            out[L + 1].fill_(0xFFFFFFFF)
+        return out, torch.zeros((1,), dtype=torch.int64, device=dev)
+    # the kernel writes every column: the solid ones, then the tail
+    out = torch.empty((rows, W), dtype=torch.int64, device=dev)
+    # [0] n_solid, [1] the tile counter, [2:] one status word per tile
+    scratch = torch.zeros((2 + -(-N // COMPACT_TILE),), dtype=torch.int64,
+                          device=dev)
+    _launch("bt_solid_compact", unique.data_ptr(), unique.stride(0),
+            counts.data_ptr(), None if minpos is None else minpos.data_ptr(),
+            N, min(n_unique, N), L, abundance_min, abundance_max,
+            scratch.data_ptr() + 8, out.data_ptr(), out.stride(0), W,
+            scratch.data_ptr())
+    LAUNCHES["solid_compact"] += 1
+    return out, scratch[:1]
 
 
 def chain_finish(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,

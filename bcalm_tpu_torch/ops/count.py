@@ -119,6 +119,8 @@ def lower_bound_plain(run: torch.Tensor, n: int,
                       bounds: torch.Tensor) -> torch.Tensor:
     """Plain version of K6: for each column of the (L, P) bounds, the
     number of the run's first n columns whose key is below it."""
+    if not bounds.shape[1]:
+        return torch.zeros((0,), dtype=torch.int64, device=run.device)
     return torch.stack([lex_lt_plain(run[:, :n], bounds[:, p].tolist()).sum()
                         for p in range(bounds.shape[1])]).reshape(-1)
 

@@ -89,7 +89,11 @@ Phases (any failure raises, and the script exits non-zero):
    build fed it (K1, K3a, K7, K9, K11), or made from them where that build
    does not run the kernel (K5 and K6 on its sorted chunk, K3's global mode
    and K20 on a 2^20-column slice of its solid table), and one for K9 in
-   filter_abundance mode (no minpos row) on its counted table.
+   filter_abundance mode (no minpos row) on its counted table.  K6 also
+   runs at 256 quantile bounds of phase 3b's run; the K6, K9 and
+   filter_abundance rows also carry the device time per call
+   (torch.profiler) of the kernel and of its library call, beside their
+   CUDA-event times, which include the launch path.
 
 The last line is {"ok": true, "device": {...}}.  Exits 1 without a result
 when no CUDA device is available.
@@ -106,7 +110,9 @@ reads: unitig set, KC, km and link count.
 runs only ``python -m bcalm_tpu_torch`` of the tree unpacked in DIR (for
 example a parent commit, ``git archive``) and of this tree in turns on
 the phase 3 reads, resident and with ``-max-memory 2192``, after a
-warm-up run of each that builds its kernels and ingest library.
+warm-up run of each that builds its kernels and ingest library; before
+those runs, KERNEL_AB (below) times the L = 2 lane kernels, K6 and K9 of
+each tree in the same turns.
 """
 
 from __future__ import annotations
@@ -1229,14 +1235,20 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 
 
 # Run in a tree's root by phase_compare: the lane kernels that take 1-8
-# lanes (K1, K3a, K5, K6) at L = 2 (k = 31) on inputs made from a seed, and
-# their CUDA-event times as one JSON line.  It uses only wrappers whose
+# lanes (K1, K3a, K5, K6, K9) at L = 2 (k = 31) on inputs made from a seed,
+# as one JSON line: {"ms": CUDA-event time per call, "device_ms": device
+# time per call}.  K6 runs one bound (the multi-pass count's settle and
+# split: P = 1) and 256 bounds (P = 256) in a sorted run of 2^22 keys of
+# 62 bits; K9 the phase 3 shape (8,125,243 distinct columns, 62.5% solid,
+# width = n_solid).  Beside them their library calls (torch.searchsorted
+# on packed keys, stacked[:, keep]).  It uses only wrappers whose
 # signatures every tree since PR 5 shares.
 KERNEL_AB = r"""
 import json, sys
 import numpy as np
 import torch
 sys.path.insert(0, ".")
+from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import _kernels, extract, junctions
 
 def time_ms(fn, reps=50):
@@ -1247,6 +1259,19 @@ def time_ms(fn, reps=50):
         fn()
     b.record(); torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+def device_ms(fn, reps=20):
+    # device time per call: every kernel, fill and copy the profiler saw
+    # over reps calls; None where it saw none
+    fn(); torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us else None
 
 dev = torch.device("cuda", 0)
 rng = np.random.RandomState(0)
@@ -1260,14 +1285,35 @@ body = u32(3, 1 << 22)
 lo = tuple(int(x) for x in body[:2, 7].tolist())
 hi = tuple(int(x) for x in body[:2, 9].tolist())
 lo, hi = min(lo, hi), max(lo, hi)
-run = torch.sort(u32(1 << 22))[0][None].repeat(2, 1).contiguous()
-bounds = run[:, ::16384].contiguous()
-print(json.dumps({
-    "extract_insert": time_ms(lambda: _kernels.extract_insert(buf, words, lengths, k, 0, 0)),
-    "junction_keys": time_ms(lambda: _kernels.junction_keys(solid, 1 << 22, k, False, junctions.key_rows(k))),
-    "range_fold": time_ms(lambda: _kernels.range_fold(body, lo, hi)),
-    "lower_bound": time_ms(lambda: _kernels.lower_bound(run, 1 << 22, bounds)),
-}))
+keys = torch.sort(torch.from_numpy(rng.randint(0, 2**62, size=1 << 22, dtype=np.int64)).to(dev))[0]
+run = torch.stack([keys >> 32, keys & 0xFFFFFFFF]).contiguous()
+bounds = {1: run[:, 1234567:1234568].contiguous(), 256: run[:, ::16384].contiguous()}
+N = 8125243
+uq = u32(2, N)
+uq[0] &= (1 << 30) - 1
+cq = torch.from_numpy(rng.geometric(0.375, N)).to(dev)
+pq = torch.from_numpy(rng.randint(0, 2**31, N)).to(dev)
+keep = cq >= 2
+sc_args = (uq, cq, pq, N, 2, 2**31 - 1, int(keep.sum()))
+stacked_in = torch.cat([uq, cq[None], pq[None]])
+fns = {
+    "extract_insert": (lambda: _kernels.extract_insert(buf, words, lengths, k, 0, 0), 50),
+    "junction_keys": (lambda: _kernels.junction_keys(solid, 1 << 22, k, False, junctions.key_rows(k)), 50),
+    "range_fold": (lambda: _kernels.range_fold(body, lo, hi), 50),
+}
+pr = ln.pack_keys(list(run))[0].contiguous()
+for P, b in bounds.items():
+    pb = ln.pack_keys(list(b))[0].contiguous()
+    if not torch.equal(_kernels.lower_bound(run, 1 << 22, b), torch.searchsorted(pr, pb)):
+        raise AssertionError("lower_bound differs from torch.searchsorted")
+    fns[f"lower_bound P={P}"] = (lambda b=b: _kernels.lower_bound(run, 1 << 22, b), 20)
+    fns[f"searchsorted P={P}"] = (lambda pr=pr, pb=pb: torch.searchsorted(pr, pb), 20)
+if not torch.equal(_kernels.solid_compact(*sc_args)[0], stacked_in[:, keep]):
+    raise AssertionError("solid_compact differs from stacked[:, keep]")
+fns["solid_compact"] = (lambda: _kernels.solid_compact(*sc_args), 20)
+fns["stacked[:, keep]"] = (lambda: stacked_in[:, keep], 20)
+print(json.dumps({"ms": {n: time_ms(f, r) for n, (f, r) in fns.items()},
+                  "device_ms": {n: device_ms(f, r) for n, (f, r) in fns.items()}}))
 """
 
 
@@ -1298,8 +1344,11 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"{name} kernel timings failed:\n{proc.stderr}")
         times = json.loads(proc.stdout.strip().splitlines()[-1])
-        say(f"[compare] {name} kernels at L = 2 (ms): "
-            + ", ".join(f"{n} {t:.4f}" for n, t in times.items()))
+        dev_ms = times["device_ms"]
+        say(f"[compare] {name} kernels at L = 2 (ms, CUDA events / device "
+            f"time): " + ", ".join(
+                f"{n} {t:.4f} / {_fmt_ms(dev_ms[n])}"
+                for n, t in times["ms"].items()))
     base = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
             "-verbose", "1"]
     outputs = {}
@@ -1464,6 +1513,26 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int = 20):
+    """Device time per call of fn over `reps` calls: every kernel, fill and
+    copy that torch.profiler saw (None where it saw none)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps if us else None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def _max_err(a, b) -> float:
     if isinstance(a, (tuple, list)):
         return max(_max_err(x, y) for x, y in zip(a, b))
@@ -1540,7 +1609,7 @@ def _bound(moved: int, ops: int):
 def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
                  plain_timed=None, reads=(), read_bytes=0, written=None, ops=0,
                  library=None, label=None, replaces=None, launched=None,
-                 reps=20) -> dict:
+                 reps=20, device=False) -> dict:
     """Bitwise check of kernel_fn() vs plain_fn() and the kernel's row; the
     *_timed variants (default: the same calls) are what the CUDA events
     time.  The bound counts `reads` read once, `read_bytes` more (what a
@@ -1548,7 +1617,9 @@ def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
     (or `written` bytes) written once; `library` is one PyTorch call
     computing the same function, timed beside it.  label, replaces and launched
     override the row's name, JAX program and launch count (default:
-    launches[name])."""
+    launches[name]).  device: the row also gets the device time per call
+    of the kernel and of the library call (device_ms, library_device_ms),
+    beside their CUDA-event times, which include the launch path."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = _max_err(got, want)
@@ -1559,13 +1630,17 @@ def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
              + (_nbytes(got) if written is None else written))
     del got, want
     bound_ms, bound_by = _bound(moved, ops)
-    return {"name": label or name, "route": "cuda", "source": KERNELS[name][0],
-            "replaces": replaces or KERNELS[name][1],
-            "launches": launches[name] if launched is None else launched,
-            "max_abs_err": err, "ms": _time_ms(kernel_timed or kernel_fn, reps),
-            "plain_ms": _time_ms(plain_timed or plain_fn, reps),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": _time_ms(library, reps) if library else None}
+    row = {"name": label or name, "route": "cuda", "source": KERNELS[name][0],
+           "replaces": replaces or KERNELS[name][1],
+           "launches": launches[name] if launched is None else launched,
+           "max_abs_err": err, "ms": _time_ms(kernel_timed or kernel_fn, reps),
+           "plain_ms": _time_ms(plain_timed or plain_fn, reps),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": _time_ms(library, reps) if library else None}
+    if device:
+        row["device_ms"] = _device_ms(kernel_timed or kernel_fn, reps)
+        row["library_device_ms"] = _device_ms(library, reps) if library else None
+    return row
 
 
 def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
@@ -1649,18 +1724,25 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
           lambda: _kernels.range_fold(body_scratch, lo, hi),
           lambda: count.range_fold_plain(body_scratch, lo, hi),
           written=_fold_bytes(body, lo, hi))
+    # K6 at the path's P = 1 (its recorded bound), then at P = 256 (256
+    # quantile bounds in the same run, as a range split's pivots)
     run, n, bounds = inputs["lower_bound"]
-    library = None
-    if run.shape[0] <= 2:       # one packed int64 key per column
-        packed_run = ln.pack_keys(list(run[:, :n]))[0].contiguous()
-        packed_bounds = ln.pack_keys(list(bounds))[0].contiguous()
-        if not torch.equal(torch.searchsorted(packed_run, packed_bounds),
-                           _kernels.lower_bound(run, n, bounds)):
-            raise AssertionError("lower_bound differs from torch.searchsorted")
-        library = lambda: torch.searchsorted(packed_run, packed_bounds)  # noqa: E731
-    check("lower_bound", lambda: _kernels.lower_bound(run, n, bounds),
-          lambda: count.lower_bound_plain(run, n, bounds),
-          read_bytes=_search_bytes(run, n, bounds), library=library)
+    quantiles = run[:, (torch.arange(256, device=dev) + 1) * n // 257]
+    for P, bds in ((bounds.shape[1], bounds), (256, quantiles.contiguous())):
+        library = None
+        if run.shape[0] <= 2:       # one packed int64 key per column
+            packed_run = ln.pack_keys(list(run[:, :n]))[0].contiguous()
+            packed_bounds = ln.pack_keys(list(bds))[0].contiguous()
+            if not torch.equal(torch.searchsorted(packed_run, packed_bounds),
+                               _kernels.lower_bound(run, n, bds)):
+                raise AssertionError("lower_bound differs from torch.searchsorted")
+            library = (lambda pr=packed_run, pb=packed_bounds:
+                       torch.searchsorted(pr, pb))
+        check("lower_bound", lambda b=bds: _kernels.lower_bound(run, n, b),
+              lambda b=bds: count.lower_bound_plain(run, n, b),
+              read_bytes=_search_bytes(run, n, bds), library=library,
+              label=None if P == bounds.shape[1] else f"lower_bound@P{P}",
+              launched=None if P == bounds.shape[1] else 0, device=True)
     sf_args = inputs["solid_fold_histogram"]
     check("solid_fold_histogram", lambda: _kernels.solid_fold_histogram(*sf_args),
           lambda: count.solid_fold_histogram_plain(*sf_args), reads=sf_args)
@@ -1675,7 +1757,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
     keep = (idx < nq) & (cq >= amin) & (cq <= amax)
     check("solid_compact", lambda: _kernels.solid_compact(*sc_args),
           lambda: count.solid_compact_plain(*sc_args), reads=sc_args,
-          library=lambda: stacked_in[:, keep])
+          library=lambda: stacked_in[:, keep], device=True)
     del stacked_in
     cf_args = inputs["chain_finish"]
     check("chain_finish", lambda: _finish_tuple(_kernels.chain_finish(*cf_args)),
@@ -1918,6 +2000,9 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
     for r in rows:
         lib = ("" if r["library_ms"] is None
                else f", library call {r['library_ms']:.4f} ms")
+        if "device_ms" in r:
+            lib += (f"; device time {_fmt_ms(r['device_ms'])} ms, library "
+                    f"call's {_fmt_ms(r['library_device_ms'])} ms")
         say(f"[kernel] {r['name']}: equal to plain (bitwise), {r['ms']:.4f} ms "
             f"vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}, {r['launches']} launches in the "
@@ -2026,21 +2111,30 @@ def longk_rows(longk, dev):
     bounds = s_lanes[:, qi].contiguous()
     row("lower_bound", lambda: _kernels.lower_bound(s_lanes, n_valid, bounds),
         lambda: count.lower_bound_plain(s_lanes, n_valid, bounds),
-        read_bytes=_search_bytes(s_lanes, n_valid, bounds), on_path=False)
+        read_bytes=_search_bytes(s_lanes, n_valid, bounds), on_path=False,
+        device=True)
     sf_args = inputs["solid_fold_histogram"]
     row("solid_fold_histogram", lambda: _kernels.solid_fold_histogram(*sf_args),
         lambda: count.solid_fold_histogram_plain(*sf_args), reads=sf_args)
+    # K9 and its filter_abundance mode; their library call is the boolean
+    # column index of the stacked rows (the solid columns alone, no tail)
     sc_args = inputs["solid_compact"]
+    uq, cq, pq, nq, amin, amax = sc_args[:6]
+    keep = ((torch.arange(uq.shape[1], device=dev) < nq) & (cq >= amin)
+            & (cq <= amax))
+    stacked_in = torch.cat([uq, cq[None], pq[None]])
     row("solid_compact", lambda: _kernels.solid_compact(*sc_args),
-        lambda: count.solid_compact_plain(*sc_args), reads=sc_args)
-    uq, cq, _, nq, amin, amax = sc_args[:6]
+        lambda: count.solid_compact_plain(*sc_args), reads=sc_args,
+        library=lambda: stacked_in[:, keep], device=True)
+    stacked_in = stacked_in[:-1]
     fa_args = (uq, cq, nq, amin, amax)
     # filter_abundance: K9 without its minpos row, through its entry point
     rows.append(check_kernel(
         "solid_compact", launches, lambda: count.filter_abundance(*fa_args),
         lambda: count.filter_abundance_plain(*fa_args), reads=(uq, cq),
         label=f"filter_abundance{tag}", replaces="bcalm_tpu/ops/count.py:158",
-        launched=0, reps=5))
+        launched=0, reps=5, library=lambda: stacked_in[:, keep], device=True))
+    del stacked_in, keep
     su_args = inputs["spell_unitigs"]
     row("spell_unitigs", lambda: _kernels.spell_unitigs(*su_args),
         lambda: engine.spell_unitigs_plain(*su_args),

@@ -60,6 +60,45 @@ def test_solid_compact_plain_matches_filter_abundance_pos(L, n_unique, amin,
     assert torch.equal(narrow, out[:, :n])
 
 
+# K9's kernel compacts tiles of 4096 columns: N at a tile minus one, a
+# tile and a tile plus one, with none, some or all columns solid, or
+# n_unique = 0
+@pytest.mark.parametrize("N,kind", [(4095, "none"), (4096, "all"),
+                                    (4097, "no_unique"), (4095, "some"),
+                                    (4096, "some"), (4097, "some")])
+def test_solid_compact_edges_match_filter_abundance(N, kind):
+    """solid_compact_plain vs filter_abundance_pos and filter_abundance_plain
+    vs filter_abundance at the widths N, above n_solid (a 0 and sentinel
+    tail) and below it (the first solid columns only)."""
+    rng = np.random.RandomState(N)
+    L, amin, amax = 2, 2, 40
+    unique = rng.randint(0, 2**32, size=(L, N), dtype=np.uint64).astype(np.uint32)
+    counts = {"none": np.ones(N), "all": np.full(N, 7)}.get(
+        kind, rng.geometric(0.3, N)).astype(np.int32)
+    minpos = rng.randint(0, 2**31, N).astype(np.uint32)
+    n_unique = 0 if kind == "no_unique" else N - 2
+    nu = jnp.asarray(n_unique, jnp.int32)
+    js, jc, jp, jn = jcount.filter_abundance_pos(
+        jnp.asarray(unique), jnp.asarray(counts), jnp.asarray(minpos), nu,
+        amin, amax)
+    fs, fc, fn = jcount.filter_abundance(jnp.asarray(unique),
+                                         jnp.asarray(counts), nu, amin, amax)
+    want = np.concatenate([np.asarray(js), np.asarray(jc)[None],
+                           np.asarray(jp)[None]]).astype(np.int64)
+    n = int(jn)
+    assert n == int(fn) == {"none": 0, "all": N - 2, "no_unique": 0}.get(kind, n)
+    tu, tc, tp = t64(unique), t64(counts), t64(minpos)
+    for width in (N, n + (N - n) // 2, n // 2):
+        out, tn = tcount.solid_compact_plain(tu, tc, tp, n_unique, amin, amax,
+                                             width=width)
+        assert int(tn[0]) == n
+        np.testing.assert_array_equal(out.numpy(), want[:, :width])
+    ts, tsc, tsn = tcount.filter_abundance_plain(tu, tc, n_unique, amin, amax)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(fs))
+    np.testing.assert_array_equal(tsc.numpy(), np.asarray(fc))
+    assert int(tsn) == n
+
+
 def hairpin_graph(N, seed):
     """succ of chains, cycles and hairpins (a -> ... -> mirror(a)) over N
     vertices, mirror-symmetric, with a few invalid vertices at the end."""

@@ -825,3 +825,74 @@ def test_init_group_local_rank(card, tmp_path, monkeypatch):
                                         device=mesh.device))[0]) == 1
     finally:
         dist.destroy_process_group()
+
+
+# -- K6's warp search and K9's one-pass compaction at their edges ---------
+
+def dup_run(L, n, seed):
+    """(L, n) keys sorted over all n columns, drawn from a pool of n // 50
+    so that stretches of ~50 equal keys are common; lanes use all 32 bits
+    and share prefixes."""
+    rng = np.random.RandomState(seed)
+    pool = rng.randint(0, 2**32, size=(L, max(1, n // 50)), dtype=np.uint64)
+    pool[: L // 2] &= 0xF            # equal leading lanes, as long k-mers have
+    keys = pool[:, rng.randint(0, pool.shape[1], n)]
+    return np.ascontiguousarray(keys[:, np.lexsort(keys[::-1])])
+
+
+def as_bytes(keys):
+    """(L, m) u32 lanes -> m big-endian byte strings: numpy compares them in
+    the lanes' lexicographic order."""
+    return np.ascontiguousarray(keys.T.astype(">u4")).view(f"S{4 * keys.shape[0]}")[:, 0]
+
+
+@pytest.mark.parametrize("L", [1, 2, 5, 8, 9, 16, 17, 32])
+def test_lower_bound_warp_search(card, L):
+    """K6 on 4096 bounds: keys of the run (duplicates), keys between and
+    outside them, 0 and the sentinel; n from the whole run down to 0, and
+    P = 0.  Reference: numpy's searchsorted on byte strings."""
+    rng = np.random.RandomState(L)
+    n_all = 60_000
+    keys = dup_run(L, n_all, L)
+    bounds = np.concatenate([
+        keys[:, rng.randint(0, n_all, 2048)],
+        rng.randint(0, 2**32, size=(L, 2040), dtype=np.uint64),
+        np.zeros((L, 4), np.uint64), np.full((L, 4), 0xFFFFFFFF, np.uint64)],
+        axis=1)
+    run = torch.from_numpy(keys.astype(np.int64)).to(card)
+    b = torch.from_numpy(bounds.astype(np.int64)).to(card)
+    s_keys, s_bounds = as_bytes(keys), as_bytes(bounds)
+    for n in (n_all, n_all // 3 + 1, 33, 32, 31, 1, 0):
+        got = _kernels.lower_bound(run, n, b).cpu().numpy()
+        np.testing.assert_array_equal(
+            got, np.searchsorted(s_keys[:n], s_bounds, side="left"))
+    few = b[:, ::512].contiguous()
+    assert torch.equal(_kernels.lower_bound(run, n_all // 3, few).cpu(),
+                       count.lower_bound_plain(run.cpu(), n_all // 3, few.cpu()))
+    assert _kernels.lower_bound(run, n_all, b[:, :0]).shape == (0,)
+
+
+@pytest.mark.parametrize("L,N,solid", [(2, 3_000_000, 0.6), (2, 3_000_000, 1.0),
+                                       (2, 3_000_000, 0.0), (1, 4095, 0.6),
+                                       (3, 4096, 0.6), (2, 4097, 0.6),
+                                       (10, 2_000_000, 0.6)])
+def test_solid_compact_lookback(card, L, N, solid):
+    """K9 over many look-back tiles (4096 columns each), at a tile's size
+    minus one, the size and plus one, with none, some and all columns
+    solid: widths N, n_solid and below it, and the filter_abundance mode."""
+    rng = np.random.RandomState(N + L)
+    unique = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
+                                          dtype=np.uint64).astype(np.int64))
+    counts = torch.from_numpy(np.where(rng.rand(N) < solid, 5, 1))
+    minpos = torch.from_numpy(rng.randint(0, 2**31, N))
+    args = (N - 3, 2, 40)
+    want, want_n = count.solid_compact_plain(unique, counts, minpos, *args)
+    gu, gc, gp = unique.to(card), counts.to(card), minpos.to(card)
+    w = int(want_n[0])
+    for width in (None, w, w // 2):
+        out, n = _kernels.solid_compact(gu, gc, gp, *args, width=width)
+        assert int(n[0]) == w
+        assert torch.equal(out.cpu(), want[:, :N if width is None else width])
+    got = count.filter_abundance(gu, gc, *args)
+    for a, b in zip(got, count.filter_abundance_plain(unique, counts, *args)):
+        assert torch.equal(a.cpu(), b)

@@ -206,6 +206,47 @@ def test_lower_bound_matches_count_lt_and_settle_n(L):
                                              jnp.asarray(b))) for b in bounds]
 
 
+def dup_run(L, n, seed):
+    """(L, n) u32 keys sorted over all n columns, from a pool of n // 40 so
+    that stretches of ~40 equal keys are common; the first lanes small,
+    so keys often differ only in their last lanes."""
+    rng = np.random.RandomState(seed)
+    pool = rng.randint(0, 2**32, size=(L, n // 40), dtype=np.uint64)
+    pool[:L // 2] &= 3
+    keys = pool[:, rng.randint(0, n // 40, n)].astype(np.uint32)
+    return np.ascontiguousarray(keys[:, np.lexsort(keys[::-1])])
+
+
+@pytest.mark.parametrize("L", [9, 16, 32])
+@pytest.mark.parametrize("n_of", ["all", "one", "none"])
+def test_lower_bound_edges_match_count_lt_and_settle_n(L, n_of):
+    """K6's plain version at 9-32 lanes, on the edges the warp search must
+    keep: runs of equal keys, bounds equal to run keys (at the start, the
+    middle and the end of a stretch), 0 and the sentinel, n = the run, 1
+    and 0, and P = 0.  One jit shape per L."""
+    N = 600
+    rng = np.random.RandomState(L)
+    keys = dup_run(L, N, L)
+    n = {"all": N, "one": 1, "none": 0}[n_of]
+    ju = np.where(np.arange(N) < n, keys, 0).astype(np.uint32)   # zero tail
+    refolded = np.where(np.arange(N) < n, keys, SENT).astype(np.uint32)
+    first = keys[:, :1]
+    bounds = np.concatenate(
+        [keys[:, rng.randint(0, N, 6)], first, keys[:, -1:],
+         np.zeros((L, 1), np.uint32), np.full((L, 1), SENT, np.uint32),
+         keys[:, rng.randint(0, N, 2)] + np.uint32(1)], axis=1)
+    run = convert.lanes_from_numpy(ju, "cpu")
+    B = convert.lanes_from_numpy(bounds, "cpu")
+    got = tcount.lower_bound_plain(run, n, B).tolist()
+    for j in range(bounds.shape[1]):
+        bj = jnp.asarray(bounds[:, j])
+        assert got[j] == int(jengine._settle_n(jnp.asarray(ju),
+                                               jnp.asarray(n, jnp.int32), bj))
+        assert got[j] == int(jengine._count_lt(jnp.asarray(refolded), bj))
+    assert got[-3] == n        # the sentinel bound is above every key
+    assert tcount.lower_bound_plain(run, n, B[:, :0]).shape == (0,)
+
+
 @pytest.mark.parametrize("histo_max", [10000, 5])
 def test_solid_fold_histogram_matches_jax(histo_max):
     rng = np.random.RandomState(histo_max)
