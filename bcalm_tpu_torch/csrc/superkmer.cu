@@ -5,50 +5,51 @@
 // canonical_mmers :74 and window_min_keys :85); K14 replaces
 // sample_cmmer_histogram :194 and sample_minimizer_load :211.
 //
-// One block per read row of a (B, W) block, one thread per position p of
-// the row's P = 16W positions.  The row's W words sit in shared memory;
-// base q of the row is read at q mod P, which is what the JAX version's
-// rolled window packs read past the row's end.  Each thread builds its
-// canonical m-mer (forward value and reverse complement from m bases, no
-// window-pack doubling: that form exists for the TPU's vector unit), its
-// key (the frequency rank, or the m-mer), and the minimum key of its
-// window [p, p+k-m+1) from shared memory.  K13 then needs two scans along
-// the row, done in shared memory (Hillis-Steele, log2 P steps): a prefix
-// max of the run-change positions (position within the run, for the span
-// cuts) and a suffix min of the run terminators (the run's end, for the
-// span).  Each position writes Wn packed words (window packs at p + 16w,
-// the span in the low bits of the last), an optional stream-slot word,
-// its owner (table[window key]) and its start flag, at column b*P + p, so
-// the layout is the JAX version's.  K14 adds one to its histogram bin per
-// valid position (integer atomics: the sum is exact and deterministic).
+// Every position p of a read row of P = 16W positions gets its canonical
+// m-mer (each m-mer canonicalized on its own; bases past the row's end
+// are the row's first bases again, which is what the JAX version's rolled
+// window packs read), its key (the frequency rank, or the m-mer) and the
+// minimum key of its window [p, p + k - m + 1).  K13 then needs two scans
+// along the row: a prefix max of the run-change positions (position
+// within the run, for the span cuts) and a suffix min of the run
+// terminators (the run's end, for the span).  Each position writes Wn
+// packed words (16-base packs at p + 16w, the span in the low bits of the
+// last), an optional stream-slot word, its owner (table[window key]) and
+// its start flag, at column b*P + p, so the layout is the JAX version's.
 //
-// Bound: memory.  K13 writes (Wn + 1 + 1) * 8 + 1 bytes per position and
-// reads 8 bytes of the table (and 8 of the rank), both of which stay in L2
-// for a 4^10-entry table; the reads' own words are 8W bytes per row.  The
-// shared-memory scans are ~2 * 9 steps per row, far below the stores.
-// K14 reads the same and does one global atomic per position, spread over
-// 4^m bins.
+// K13 is bound on this card by its launch path at the -devices rounds'
+// size (1,024 rows of 160 positions), then by its dependent steps per
+// row; the bytes (Wn + 2) * 8 + 1 written per position, and the table and
+// rank lookups, which stay in L2, are far below either.  So a warp takes
+// a row, and a block takes up to 8 rows.  The row's W words sit in shared
+// memory followed by the wrapped copy of its first words that the rolled
+// packs read past the row's end, so a 16-base pack at any base offset is
+// one __funnelshift_l of two neighbouring words (no per-base modulo), and
+// the reverse complement is a __brev.  The window minimum is van Herk /
+// Gil-Werman's: prefix and suffix minima over segments of k - m + 1 keys
+// (a lane a segment), two reads per position.  Lane l holds positions
+// i*32 + l, so every store of a row is 32 neighbouring columns, and both
+// scans are warp shuffles (5 steps a row of 32 positions) with a carry
+// from row to row: no block barrier inside a row.  The valid k-mer count
+// is an extra block's sum over the row lengths: no fill beforehand,
+// one launch.
+//
+// K14 reads the row in a block of one thread per position (base q at q
+// mod P, the window minimum a loop over its k - m + 1 keys) and adds one
+// to its histogram bin per valid position (integer atomics: the sum is
+// exact and deterministic).  It reads the words, the rank for its load
+// mode, and does one global atomic per position, spread over 4^m bins.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxRowWords = 64;  // P <= 1024 positions per row
 
-struct Row {
-  const int64_t* words;
-  int W, P;
-};
+// K14's helpers: base q of a row read at q mod P.
 
 __device__ __forceinline__ uint32_t base_at(const uint32_t* w, int P, int q) {
   q %= P;
   return (w[q >> 4] >> (2 * (15 - (q & 15)))) & 3u;
-}
-
-// 16-base window pack starting at q (wrapping mod P).
-__device__ __forceinline__ uint32_t fwd_pack(const uint32_t* w, int P, int q) {
-  uint32_t v = 0;
-  for (int i = 0; i < 16; ++i) v = (v << 2) | base_at(w, P, q + i);
-  return v;
 }
 
 __device__ __forceinline__ uint32_t canonical_mmer(const uint32_t* w, int P,
@@ -87,70 +88,166 @@ __device__ uint32_t window_key(const int64_t* words, int W, int P, int m,
   return wmin;
 }
 
-__global__ void form_superkmers_kernel(
+constexpr int kRowWarps = 8;          // rows (warps) per K13 block
+constexpr int kRowSmem = 40 * 1024;   // shared bytes K13 gives its rows
+
+// 16 bases starting at base q of a row staged with its wrapped copy.
+__device__ __forceinline__ uint32_t pack16(const uint32_t* ext, int q) {
+  return __funnelshift_l(ext[(q >> 4) + 1], ext[q >> 4], 2 * (q & 15));
+}
+
+// min(m-mer, its reverse complement) of the first m bases of a 16-base pack.
+__device__ __forceinline__ uint32_t canonical_of(uint32_t v, int m) {
+  const uint32_t mask = m == 16 ? 0xFFFFFFFFu : (1u << (2 * m)) - 1u;
+  const uint32_t fwd = v >> (2 * (16 - m));
+  // reverse the 16 bases: swap the bits of each base, reverse all 32 bits
+  const uint32_t rev =
+      __brev(((v >> 1) & 0x55555555u) | ((v & 0x55555555u) << 1));
+  const uint32_t rc = (rev & mask) ^ (0xAAAAAAAAu & mask);
+  return fwd < rc ? fwd : rc;
+}
+
+// Per-row shared words: the staged words (ext_words), the prefix minima
+// and the keys, then their suffix minima (Lx = P + w - 1 each).
+__host__ __device__ __forceinline__ int row_ext_words(int W, int Wn, int w) {
+  const int past = Wn > (w + 15) / 16 + 1 ? Wn : (w + 15) / 16 + 1;
+  return W + past + 1;
+}
+
+__global__ void __launch_bounds__(32 * kRowWarps)
+form_superkmers_kernel(
     const int64_t* __restrict__ words, const int64_t* __restrict__ lengths,
-    int W, int k, int m, const int64_t* __restrict__ table,
+    int B, int W, int k, int m, const int64_t* __restrict__ table,
     const int64_t* __restrict__ rank, int max_span, int Wn, int bits,
     int with_pos, uint32_t pos_base, int64_t* __restrict__ skm,
     long long N, int64_t* __restrict__ owner, uint8_t* __restrict__ start,
-    unsigned long long* __restrict__ n_kmers) {
+    int64_t* __restrict__ n_kmers) {
   extern __shared__ uint32_t sh[];
-  const int P = 16 * W;
-  uint32_t* s_words = sh;               // W
-  uint32_t* s_key = s_words + W;        // P (keys, then window-min keys)
-  int* s_a = reinterpret_cast<int*>(s_key + P);  // P (prefix max)
-  int* s_t = s_a + P;                   // P (suffix min)
-  uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_t + P);  // P
-  const int p = threadIdx.x;
-  const int b = blockIdx.x;
-  uint32_t wmin = window_key(words, W, P, m, k - m + 1, rank, s_words, s_key);
-  bool valid = p < P && p <= static_cast<int>(lengths[b]) - k;
-  __syncthreads();  // every thread has read s_key
-  if (p < P) {
-    s_key[p] = wmin;
-    s_valid[p] = valid;
-  }
-  __syncthreads();
-  bool change = false;
-  if (p < P) {
-    uint32_t prev_key = p == 0 ? s_key[0] : s_key[p - 1];
-    bool prev_valid = p == 0 ? false : s_valid[p - 1];
-    change = valid && (!prev_valid || wmin != prev_key);
-    s_a[p] = change ? p : 0;
-    s_t[p] = (change || !valid) ? p : P;
-  }
-  __syncthreads();
-  for (int d = 1; d < P; d <<= 1) {
-    int a = 0, t = 0;
-    if (p < P) {
-      a = s_a[p];
-      if (p >= d && s_a[p - d] > a) a = s_a[p - d];
-      t = s_t[p];
-      if (p + d < P && s_t[p + d] < t) t = s_t[p + d];
+  __shared__ long long s_n;
+  const int P = 16 * W, w_len = k - m + 1, Lx = P + w_len - 1;
+  const int ew = row_ext_words(W, Wn, w_len);
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + r;
+  uint32_t* ext = sh + r * (ew + 2 * Lx);
+  uint32_t* pre = ext + ew;   // prefix minima inside each segment
+  uint32_t* suf = pre + Lx;   // keys, then suffix minima inside each segment
+  if (b < B) {
+    const int64_t* row = words + static_cast<long long>(b) * W;
+    for (int j = lane; j < ew; j += 32) {
+      int jj = j;
+      while (jj >= W) jj -= W;
+      ext[j] = static_cast<uint32_t>(row[jj]);
     }
-    __syncthreads();
-    if (p < P) {
-      s_a[p] = a;
-      s_t[p] = t;
+    __syncwarp();
+#pragma unroll 8
+    for (int q = lane; q < Lx; q += 32) {
+      const uint32_t cm = canonical_of(pack16(ext, q), m);
+      suf[q] = rank ? static_cast<uint32_t>(__ldg(rank + cm)) : cm;
     }
+    __syncwarp();
+    for (int a = lane * w_len; a < Lx; a += 32 * w_len) {
+      const int e = a + w_len < Lx ? a + w_len : Lx;
+      // four keys loaded before each four stores: the loads need not wait
+      uint32_t run = 0xFFFFFFFFu, kv[4];
+      for (int x = a; x < e; x += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) kv[u] = x + u < e ? suf[x + u] : run;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          run = min(run, kv[u]);
+          if (x + u < e) pre[x + u] = run;
+        }
+      }
+      run = 0xFFFFFFFFu;
+      for (int x = e - 1; x >= a; x -= 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) kv[u] = x - u >= a ? suf[x - u] : run;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          run = min(run, kv[u]);
+          if (x - u >= a) suf[x - u] = run;
+        }
+      }
+    }
+    __syncwarp();
+    const int last = static_cast<int>(lengths[b]) - k;  // valid: p <= last
+    auto wmin = [&](int p) { return min(suf[p], pre[p + w_len - 1]); };
+    auto change_at = [&](int p, uint32_t wm) {
+      return p <= last && (p == 0 || p - 1 > last || wmin(p - 1) != wm);
+    };
+    const long long col0 = static_cast<long long>(b) * P;
+    const int n_rows = (P + 31) >> 5;
+#pragma unroll 8
+    for (int p = lane; p < P; p += 32) owner[col0 + p] = __ldg(table + wmin(p));
+    // forward: the run start (prefix max of the change positions) -> start
+    // flags
+    int carry_a = 0;
+#pragma unroll 2
+    for (int i = 0; i < n_rows; ++i) {
+      const int p = i * 32 + lane;
+      const bool in = p < P;
+      const uint32_t wm = in ? wmin(p) : 0u;
+      const bool change = in && change_at(p, wm);
+      int a = change ? p : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, a, d);
+        if (lane >= d) a = max(a, y);
+      }
+      a = max(a, carry_a);
+      carry_a = __shfl_sync(0xFFFFFFFFu, a, 31);
+      if (in) {
+        const int within0 = p - a;
+        start[col0 + p] =
+            change || (p <= last && within0 > 0 && within0 % max_span == 0);
+      }
+    }
+    // backward: the run end (suffix min of the terminators) -> span; packs
+    int carry_t = P;
+#pragma unroll 2
+    for (int i = n_rows - 1; i >= 0; --i) {
+      const int p = i * 32 + lane;
+      const bool in = p < P;
+      int t = P;
+      if (in && (p > last || change_at(p, wmin(p)))) t = p;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_down_sync(0xFFFFFFFFu, t, d);
+        if (lane + d < 32) t = min(t, y);
+      }
+      t = min(t, carry_t);
+      int end0 = __shfl_down_sync(0xFFFFFFFFu, t, 1);
+      if (lane == 31) end0 = carry_t;
+      carry_t = __shfl_sync(0xFFFFFFFFu, t, 0);
+      if (in) {
+        const int span = end0 - p < max_span ? end0 - p : max_span;
+        const long long col = col0 + p;
+        for (int v = 0; v < Wn; ++v) {
+          uint32_t x = pack16(ext, p + 16 * v);
+          if (v == Wn - 1) x = ((x >> bits) << bits) | static_cast<uint32_t>(span);
+          skm[v * N + col] = x;
+        }
+        if (with_pos) skm[Wn * N + col] = pos_base + static_cast<uint32_t>(col);
+      }
+    }
+  }
+  // the last block, which holds no row: n_kmers, the valid positions of
+  // every row, from the lengths
+  if (blockIdx.x == gridDim.x - 1) {
+    if (threadIdx.x == 0) s_n = 0;
     __syncthreads();
+    long long n = 0;
+    for (int j = threadIdx.x; j < B; j += blockDim.x) {
+      const long long v = lengths[j] - k + 1;
+      n += v < 0 ? 0 : v > P ? P : v;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) n += __shfl_xor_sync(0xFFFFFFFFu, n, d);
+    if (lane == 0 && n) atomicAdd(reinterpret_cast<unsigned long long*>(&s_n),
+                                  static_cast<unsigned long long>(n));
+    __syncthreads();
+    if (threadIdx.x == 0) n_kmers[0] = s_n;
   }
-  int n_valid = __syncthreads_count(valid);
-  if (p == 0 && n_valid) atomicAdd(n_kmers, static_cast<unsigned long long>(n_valid));
-  if (p >= P) return;
-  int within0 = p - s_a[p];
-  bool st = change || (valid && within0 > 0 && within0 % max_span == 0);
-  int end0 = p + 1 < P ? s_t[p + 1] : P;
-  int span = end0 - p < max_span ? end0 - p : max_span;
-  long long col = static_cast<long long>(b) * P + p;
-  for (int w = 0; w < Wn; ++w) {
-    uint32_t v = fwd_pack(s_words, P, p + 16 * w);
-    if (w == Wn - 1) v = ((v >> bits) << bits) | static_cast<uint32_t>(span);
-    skm[w * N + col] = v;
-  }
-  if (with_pos) skm[Wn * N + col] = pos_base + static_cast<uint32_t>(col);
-  owner[col] = table[wmin];
-  start[col] = st;
 }
 
 __global__ void mmer_histograms_kernel(const int64_t* __restrict__ words,
@@ -194,14 +291,21 @@ extern "C" int bt_form_superkmers(const int64_t* words, const int64_t* lengths,
                                   int64_t* owner, uint8_t* start,
                                   int64_t* n_kmers, void* stream) {
   if (B == 0) return 0;
-  if (W > kMaxRowWords) return static_cast<int>(cudaErrorInvalidValue);
-  const int P = 16 * W;
-  size_t smem = W * 4 + P * 4 + 2 * P * 4 + P;
-  form_superkmers_kernel<<<B, threads_for(P), smem,
+  if (W < 1 || W > kMaxRowWords || m < 1 || m > 16 || k <= m || k > 512 ||
+      max_span < 1 || Wn < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int P = 16 * W, w_len = k - m + 1;
+  const size_t row_bytes =
+      4 * static_cast<size_t>(row_ext_words(W, Wn, w_len) + 2 * (P + w_len - 1));
+  int rows = static_cast<int>(kRowSmem / row_bytes);
+  rows = rows < 1 ? 1 : rows > kRowWarps ? kRowWarps : rows;
+  // one more block than the rows need: it sums the valid positions
+  const unsigned int blocks = static_cast<unsigned int>((B + rows - 1) / rows + 1);
+  form_superkmers_kernel<<<blocks, 32 * rows, rows * row_bytes,
                            static_cast<cudaStream_t>(stream)>>>(
-      words, lengths, W, k, m, table, rank, max_span, Wn, bits, with_pos,
-      pos_base, skm, static_cast<long long>(B) * P, owner, start,
-      reinterpret_cast<unsigned long long*>(n_kmers));
+      words, lengths, B, W, k, m, table, rank, max_span, Wn, bits, with_pos,
+      pos_base, skm, static_cast<long long>(B) * P, owner, start, n_kmers);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -79,9 +79,8 @@ _SIGNATURES = {
     "bt_form_superkmers": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32,
                            _I32, _I32, ctypes.c_uint, _P, _P, _P, _P, _P],
     "bt_mmer_histograms": [_P, _P, _I32, _I32, _I32, _I32, _P, _I32, _P, _P],
-    "bt_route_count": [_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P],
-    "bt_route_place": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P, _P,
-                       _P, _P, _P],
+    "bt_route_buckets": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P,
+                         _P, _P, _P],
     "bt_glue_compose": [_P, _P, _P, _I64, _P, _P, _P],
     "bt_hier_round": [_P, _P, _P, _P, _I64, ctypes.c_uint, _P, _P],
     "bt_hier_contract": [_P, _P, _P, _I64, ctypes.c_uint, _I64, _I64, _P, _P,
@@ -90,8 +89,8 @@ _SIGNATURES = {
     "bt_kmer_minimizers": [_P, _I64, _I32, _I64, _I32, _I32, _P, _P, _I32, _P,
                            _P],
 }
-ROUTE_TILE = 1024  # entries per tile of csrc/route.cu
-MAX_ROW_WORDS = 64  # csrc/superkmer.cu: one block of <= 1024 positions per read
+ROUTE_TILE = 1024  # entries per look-back tile of csrc/route.cu
+MAX_ROW_WORDS = 64  # csrc/superkmer.cu: rows of <= 1024 positions
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
 COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
@@ -645,14 +644,15 @@ def form_superkmers(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
     skm = torch.empty((Wn + int(with_pos), N), dtype=torch.int64, device=dev)
     owner = torch.empty((N,), dtype=torch.int64, device=dev)
     start = torch.empty((N,), dtype=torch.bool, device=dev)
-    n_kmers = torch.zeros((1,), dtype=torch.int64, device=dev)
-    if B:
-        _launch("bt_form_superkmers", words.data_ptr(), lengths.data_ptr(), B,
-                W, k, m, table.data_ptr(),
-                None if rank is None else rank.data_ptr(), max_span, Wn, bits,
-                int(with_pos), pos_base & 0xFFFFFFFF, skm.data_ptr(),
-                owner.data_ptr(), start.data_ptr(), n_kmers.data_ptr())
-        LAUNCHES["form_superkmers"] += 1
+    if not B:
+        return skm, owner, start, torch.zeros((1,), dtype=torch.int64, device=dev)
+    n_kmers = torch.empty((1,), dtype=torch.int64, device=dev)  # the kernel writes it
+    _launch("bt_form_superkmers", words.data_ptr(), lengths.data_ptr(), B, W,
+            k, m, table.data_ptr(), None if rank is None else rank.data_ptr(),
+            max_span, Wn, bits, int(with_pos), pos_base & 0xFFFFFFFF,
+            skm.data_ptr(), owner.data_ptr(), start.data_ptr(),
+            n_kmers.data_ptr())
+    LAUNCHES["form_superkmers"] += 1
     return skm, owner, start, n_kmers
 
 
@@ -691,24 +691,24 @@ def route_buckets(stacked: torch.Tensor, valid: torch.Tensor,
             or not 1 <= n_dev <= 256):
         raise ValueError("route_buckets: shapes do not match")
     dev = stacked.device
-    buckets = torch.zeros((C, n_dev * cap), dtype=torch.int64, device=dev)
-    bvalid = torch.zeros((n_dev * cap,), dtype=torch.bool, device=dev)
-    dropped = torch.zeros((1,), dtype=torch.int64, device=dev)
+    # the kernel writes every slot (the placed entries, then each bucket's
+    # tail) and zeroes its scratch: [0] dropped, [1] the tile counter, [2:]
+    # one status word per tile and owner
+    buckets = torch.empty((C, n_dev, cap), dtype=torch.int64, device=dev)
+    bvalid = torch.empty((n_dev, cap), dtype=torch.bool, device=dev)
+    scratch = torch.empty((2 + -(-N // ROUTE_TILE) * n_dev,), dtype=torch.int64,
+                          device=dev)
     slots = (torch.empty((N,), dtype=torch.int64, device=dev)
              if with_slots else None)
-    if N:
-        tiles = -(-N // ROUTE_TILE)
-        counts = torch.empty((tiles, n_dev), dtype=torch.int64, device=dev)
-        owner_p = None if owner is None else owner.data_ptr()
-        _launch("bt_route_count", stacked.data_ptr(), stacked.stride(0), C,
-                owner_p, valid.data_ptr(), N, n_dev, counts.data_ptr())
-        tile_off = torch.cumsum(counts, 0) - counts
-        _launch("bt_route_place", stacked.data_ptr(), stacked.stride(0), C,
-                owner_p, valid.data_ptr(), N, n_dev, cap,
-                tile_off.data_ptr(), buckets.data_ptr(), bvalid.data_ptr(),
-                dropped.data_ptr(), None if slots is None else slots.data_ptr())
+    if N or cap:
+        _launch("bt_route_buckets", stacked.data_ptr(), stacked.stride(0), C,
+                None if owner is None else owner.data_ptr(), valid.data_ptr(),
+                N, n_dev, cap, scratch.data_ptr(), buckets.data_ptr(),
+                bvalid.data_ptr(), None if slots is None else slots.data_ptr())
         LAUNCHES["route_buckets"] += 1
-    out = (buckets.reshape(C, n_dev, cap), bvalid.reshape(n_dev, cap), dropped)
+    else:
+        scratch.zero_()
+    out = (buckets, bvalid, scratch[:1])
     return out + (slots,) if with_slots else out
 
 

@@ -111,8 +111,12 @@ runs only ``python -m bcalm_tpu_torch`` of the tree unpacked in DIR (for
 example a parent commit, ``git archive``) and of this tree in turns on
 the phase 3 reads, resident and with ``-max-memory 2192``, after a
 warm-up run of each that builds its kernels and ingest library; before
-those runs, KERNEL_AB (below) times the L = 2 lane kernels, K6 and K9 of
-each tree in the same turns.
+those runs, KERNEL_AB (below) times the L = 2 lane kernels, K6, K9, K13
+and K15 of each tree in the same turns (CUDA events, device time and
+operations, and for K13 and K15 the host time per call split into the
+wrapper's Python, the ctypes call and the runtime's launch), and DIST_AB
+runs each tree's ``-devices`` build at world size 1 on the first 1/8 of
+the reads in the same turns, held against the single-device build.
 """
 
 from __future__ import annotations
@@ -1235,21 +1239,36 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 
 
 # Run in a tree's root by phase_compare: the lane kernels that take 1-8
-# lanes (K1, K3a, K5, K6, K9) at L = 2 (k = 31) on inputs made from a seed,
-# as one JSON line: {"ms": CUDA-event time per call, "device_ms": device
-# time per call}.  K6 runs one bound (the multi-pass count's settle and
-# split: P = 1) and 256 bounds (P = 256) in a sorted run of 2^22 keys of
-# 62 bits; K9 the phase 3 shape (8,125,243 distinct columns, 62.5% solid,
-# width = n_solid).  Beside them their library calls (torch.searchsorted
-# on packed keys, stacked[:, keep]).  It uses only wrappers whose
-# signatures every tree since PR 5 shares.
+# lanes (K1, K3a, K5, K6, K9) at L = 2 (k = 31), K13 and K15, on inputs
+# made from a seed, as one JSON line: {"ms": CUDA-event time per call,
+# "device_ms": device time per call, "ops": device operations per call
+# (kernels, fills and copies the profiler saw), "host_ms": host time per
+# call of enqueues without a synchronisation, split into "python" (checks,
+# allocations and torch operations: the wrapper with its C functions
+# replaced by no-ops), "ctypes" (each C call the wrapper makes, with
+# arguments that make it return before it launches) and "launch" (the
+# rest: the CUDA runtime's launch path)}.  K6 runs one bound (the
+# multi-pass count's settle and split: P = 1) and 256 bounds (P = 256) in
+# a sorted run of 2^22 keys of 62 bits; K9 the phase 3 shape (8,125,243
+# distinct columns, 62.5% solid, width = n_solid).  Beside them their
+# library calls (torch.searchsorted on packed keys, stacked[:, keep]).
+# K13 runs on 1,024 reads of 150 bp (W = 10, k = 31, m = 10, rank and
+# position channel) with a 1-rank and a 4-rank table; K15 on K13's own
+# output (phase 3f's (5, 163,840) shape: skm_words, start as valid,
+# owner) at 1, 4 and 8 destinations with slots, cap from
+# superkmer_capacity, and in its hash mode on 2^24 2-lane slots, ~80%
+# valid, at 1 and 4 ranks with cap = ceil(2 valid / n) (phase 3g's
+# sizing).  K13 and K15 are held bitwise against their plain versions.
+# It calls only wrappers whose signatures have not changed since K20 was
+# ported, so an older tree runs it as well.
 KERNEL_AB = r"""
-import json, sys
+import json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ".")
 from bcalm_tpu_torch.models import lanes as ln
-from bcalm_tpu_torch.ops import _kernels, extract, junctions
+from bcalm_tpu_torch.ops import _kernels, extract, junctions, superkmer
+from bcalm_tpu_torch.parallel import pipeline
 
 def time_ms(fn, reps=50):
     fn(); fn(); torch.cuda.synchronize()
@@ -1261,17 +1280,60 @@ def time_ms(fn, reps=50):
     return a.elapsed_time(b) / reps
 
 def device_ms(fn, reps=20):
-    # device time per call: every kernel, fill and copy the profiler saw
-    # over reps calls; None where it saw none
+    # (device time per call, device operations per call): every kernel,
+    # fill and copy the profiler saw over reps calls; (None, 0) where it
+    # saw none
     fn(); torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps if us else None
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.device_time_total for e in evs)
+    return (us / 1e3 / reps if us else None), len(evs) / reps
+
+# the argument of each C function that makes it return before it launches
+# (bt_route_count and bt_route_place: the two launches of the earlier K15)
+EARLY = {"bt_route_count": 6, "bt_route_place": 6, "bt_route_buckets": 6,
+         "bt_form_superkmers": 2}
+
+def host_ms(fn, reps=20):
+    calls, saved = [], dict(_kernels._FNS)
+    def spy(name):
+        def call(*a):
+            calls.append((name, a))
+            return saved[name](*a)
+        return call
+    fn(); torch.cuda.synchronize()
+    _kernels._FNS.update({n: spy(n) for n in saved})
+    try:
+        fn()
+    finally:
+        _kernels._FNS.update(saved)
+    torch.cuda.synchronize()
+    def per_call(f):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        t = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return t
+    total = per_call(fn)
+    _kernels._FNS.update({n: (lambda *a: 0) for n in saved})
+    try:
+        python = per_call(fn)
+    finally:
+        _kernels._FNS.update(saved)
+    early = [(saved[n], a[:EARLY[n]] + (0,) + a[EARLY[n] + 1:]) for n, a in calls]
+    ctypes_ms = per_call(lambda: [f(*a) for f, a in early])
+    return {"total": total, "python": python, "ctypes": ctypes_ms,
+            "launch": total - python - ctypes_ms, "c_calls": len(calls)}
+
+def same(got, want, what):
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(what + " differs from its plain version")
 
 dev = torch.device("cuda", 0)
 rng = np.random.RandomState(0)
@@ -1312,15 +1374,113 @@ if not torch.equal(_kernels.solid_compact(*sc_args)[0], stacked_in[:, keep]):
     raise AssertionError("solid_compact differs from stacked[:, keep]")
 fns["solid_compact"] = (lambda: _kernels.solid_compact(*sc_args), 20)
 fns["stacked[:, keep]"] = (lambda: stacked_in[:, keep], 20)
+# K13 and K15 (with the host split)
+m, rows = 10, 1024
+ms_ = superkmer.default_max_span(k)
+Wn, bits = superkmer.span_words(k, ms_), superkmer.span_field_bits(ms_)
+kw = u32(rows, 10)
+kl = torch.full((rows,), 150, dtype=torch.int64, device=dev)
+rank = torch.from_numpy(rng.permutation(4 ** m).astype(np.int64)).to(dev)
+split = {}
+for n in (1, 4, 8):
+    table = torch.from_numpy(rng.randint(0, n, 4 ** m).astype(np.int64)).to(dev)
+    args = (kw, kl, k, m, table, rank, ms_, Wn, bits, True, 0xFFFFF000)
+    got = _kernels.form_superkmers(*args)
+    same(got, superkmer.form_superkmers_plain(kw, kl, k, m, table, rank, ms_, True,
+                                              True, 0xFFFFF000), "form_superkmers")
+    if n in (1, 4):
+        fns[f"form_superkmers {n}-rank"] = (lambda args=args: _kernels.form_superkmers(*args), 20)
+        split[f"form_superkmers {n}-rank"] = True
+    sw, own, st = got[0], got[1], got[2]
+    cap = pipeline.superkmer_capacity(rows, 160, k, m, n, ms_)
+    rargs = (sw, st, own, n, cap, True)
+    same(_kernels.route_buckets(*rargs), pipeline.route_to_buckets_plain(*rargs),
+         "route_buckets")
+    name = f"route_buckets 3f n={n}"
+    fns[name] = (lambda rargs=rargs: _kernels.route_buckets(*rargs), 20)
+    split[name] = True
+hl = u32(2, 1 << 24)
+hv = torch.from_numpy(rng.rand(1 << 24) < 0.8).to(dev)
+n_valid = int(hv.sum())
+for n in (1, 4):
+    rargs = (hl, hv, None, n, -(-2 * n_valid // n), True)
+    same(_kernels.route_buckets(*rargs), pipeline.route_to_buckets_plain(*rargs),
+         "route_buckets hash mode")
+    name = f"route_buckets hash n={n}"
+    fns[name] = (lambda rargs=rargs: _kernels.route_buckets(*rargs), 20)
+    split[name] = True
+dms = {n: device_ms(f, r) for n, (f, r) in fns.items()}
 print(json.dumps({"ms": {n: time_ms(f, r) for n, (f, r) in fns.items()},
-                  "device_ms": {n: device_ms(f, r) for n, (f, r) in fns.items()}}))
+                  "device_ms": {n: d[0] for n, d in dms.items()},
+                  "ops": {n: d[1] for n, d in dms.items()},
+                  "host_ms": {n: host_ms(fns[n][0]) for n in split}}))
 """
+
+
+# Run in a tree's root by phase_compare: parallel.pipeline.distributed_build
+# in this process over an NCCL group of world size 1 (argv: the reads, the
+# output FASTA, a fresh group file), as phase 3f runs it; prints one JSON
+# line with the wall, timing's rounds and the stats the rounds move.
+DIST_AB = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+sys.path.insert(0, ".")
+from bcalm_tpu_torch import cli, engine
+from bcalm_tpu_torch.io import bank as bank_mod
+from bcalm_tpu_torch.io import fasta_writer
+from bcalm_tpu_torch.parallel import launch, pipeline
+fa, out, group = sys.argv[1:4]
+dev = torch.device("cuda", 0)
+mesh = launch.init_group(1, 0, "cuda", "file://" + group)
+try:
+    bank = bank_mod.Bank.open(fa)
+    cfg = engine.EngineConfig(k=31, abundance_min=2)
+    engine.configure_chunk(cfg, 0, dev)
+    cli.adapt_max_len(bank, cfg)
+    timing = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    us = pipeline.distributed_build(mesh, bank.sequences(), cfg,
+                                    pipeline.MinimizerConfig(m=10),
+                                    timing=timing)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    with open(out, "w") as f:
+        fasta_writer.write_fasta(us, f)
+finally:
+    dist.destroy_process_group()
+st = us.stats
+print(json.dumps({"wall": wall, "rounds": timing["rounds"],
+                  "superkmers": st["superkmers"],
+                  "exchange_cap_retries": st["exchange_cap_retries"],
+                  "device_peak_mb": st.get("device_peak_mb")}))
+"""
+
+
+def kernel_ab_line(times: dict) -> str:
+    """KERNEL_AB's JSON line as text: per kernel, CUDA-event ms / device ms
+    [device operations per call], and for K13 and K15 the host ms per call
+    (python + ctypes + launch)."""
+    parts = []
+    for n, t in times["ms"].items():
+        text = (f"{n} {t:.4f} / {_fmt_ms(times['device_ms'][n])} "
+                f"[{times['ops'][n]:g} ops]")
+        h = times["host_ms"].get(n)
+        if h:
+            text += (f" host {h['total']:.4f} = python {h['python']:.4f} + "
+                     f"ctypes {h['ctypes']:.4f} + launch {h['launch']:.4f} "
+                     f"({h['c_calls']} C calls)")
+        parts.append(text)
+    return ("kernels (ms: CUDA events / device time [device operations per "
+            "call], host time per call): " + ", ".join(parts))
 
 
 def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
     """--compare-tree DIR: `python -m bcalm_tpu_torch` from the tree in DIR
     and from this one in turns (DIR, this, this, DIR) on the phase 3 reads,
-    resident and at -max-memory 2192; before them, KERNEL_AB in each tree
+    resident and at -max-memory 2192; before them, KERNEL_AB and DIST_AB
+    (the -devices build at world size 1 on 1/8 of the reads) in each tree
     in the same turns.  A warm-up run of each tree on a small input builds
     its kernels and ingest library first, so that no timed run builds
     anything."""
@@ -1343,12 +1503,33 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
                               cwd=trees[name], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{name} kernel timings failed:\n{proc.stderr}")
-        times = json.loads(proc.stdout.strip().splitlines()[-1])
-        dev_ms = times["device_ms"]
-        say(f"[compare] {name} kernels at L = 2 (ms, CUDA events / device "
-            f"time): " + ", ".join(
-                f"{n} {t:.4f} / {_fmt_ms(dev_ms[n])}"
-                for n, t in times["ms"].items()))
+        say(f"[compare] {name} " + kernel_ab_line(
+            json.loads(proc.stdout.strip().splitlines()[-1])))
+    # the -devices build at world size 1 on the first 1/8 of the reads,
+    # against the single-device build of the same reads
+    part = os.path.join(tmp, "reads_eighth.fa")
+    n_part = _first_reads(fa, part, 8)
+    ref = os.path.join(tmp, "eighth_single")
+    _sub(["-in", part, "-kmer-size", str(K), "-abundance-min", "2", "-out",
+          ref], "1/8 of the reads")
+    for turn, name in enumerate(("parent", "change", "change", "parent")):
+        out = os.path.join(tmp, f"dist{turn}.unitigs.fa")
+        proc = subprocess.run(
+            [sys.executable, "-c", DIST_AB, part, out,
+             os.path.join(tmp, f"dist_group{turn}")], cwd=trees[name],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name} distributed_build failed:\n"
+                               f"{proc.stderr}")
+        _same_unitigs(out, ref + ".unitigs.fa",
+                      f"{name} distributed_build on {n_part} reads")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        say(f"[compare] {name} distributed_build, NCCL world size 1, "
+            f"{n_part} reads: wall {r['wall']:.2f}s, rounds "
+            f"{r['rounds']:.3f}s, superkmers {r['superkmers']}, "
+            f"exchange_cap_retries {r['exchange_cap_retries']}, "
+            f"device_peak_mb {r['device_peak_mb']}; unitigs, KC, km and "
+            f"links equal the single-device build's")
     base = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
             "-verbose", "1"]
     outputs = {}
@@ -1847,11 +2028,11 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
      pos_base) = inputs["form_superkmers"]
     P = 16 * sw.shape[1]
     n_pos = sw.shape[0] * P
-    # per position: the m-mer and its reverse complement, the window
-    # minimum, two shared-memory scans, Wn 16-base packs; its rank and
-    # owner are one 8-byte lookup each
-    skm_ops = n_pos * (6 * sm + 2 * (sk - sm + 1)
-                       + 8 * int(np.ceil(np.log2(P))) + 80 * Wn)
+    # per position: the canonical m-mer (a funnel shift, a bit reversal,
+    # ~12 operations), the window minimum (van Herk/Gil-Werman: ~4), two
+    # scans (5 shuffle steps each, ~20), Wn 16-base packs (~3 each); its
+    # rank and owner are one 8-byte lookup each
+    skm_ops = n_pos * (36 + 3 * Wn)
     skm_gathers = gathered(table, n_pos) + gathered(rank, n_pos)
 
     def skm_check(table_, row=True):
@@ -1863,7 +2044,8 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
                       sw, sl, sk, sm, table_, rank, max_span, rank is not None,
                       with_pos, pos_base),
                   reads=(sw, sl),
-                  written=_nbytes(got) + skm_gathers, ops=skm_ops, row=row)
+                  written=_nbytes(got) + skm_gathers, ops=skm_ops, row=row,
+                  device=True)
         return r, got[1][got[2]]
 
     _, owners = skm_check(table)
@@ -1925,7 +2107,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
     check("route_buckets",
           lambda: _kernels.route_buckets(*inputs["route_buckets"]),
           lambda: pipeline.route_to_buckets_plain(*inputs["route_buckets"]),
-          reads=(stk, valid, owner))
+          reads=(stk, valid, owner), device=True)
     rng = torch.Generator(device="cpu").manual_seed(0)
     for nd in (4, 8):
         syn = torch.randint(0, nd, (stk.shape[1],), generator=rng).to(dev)
@@ -1934,7 +2116,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
                   lambda: _kernels.route_buckets(stk, valid, syn, nd, cap_nd, True),
                   lambda: pipeline.route_to_buckets_plain(stk, valid, syn, nd,
                                                           cap_nd, True),
-                  reads=(stk, valid, syn), row=False)
+                  reads=(stk, valid, syn), row=False, device=True)
         extra.append((f"route_buckets at {nd} destinations (synthetic owners, "
                       f"cap {cap_nd}, with slots)", r))
     # the hash mode (owner = hash_lanes(k-mer) % n_dev, computed in the
@@ -1948,7 +2130,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
                                                  slots_nd),
                   lambda: pipeline.route_to_buckets_plain(hl, hv, None, nd,
                                                           cap_nd, slots_nd),
-                  reads=(hl, hv), row=False)
+                  reads=(hl, hv), row=False, device=True)
         spread = torch.bincount(
             (hashing.hash_lanes(hl) % nd)[hv], minlength=nd).tolist()
         if min(spread) == 0:
@@ -2008,8 +2190,10 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
             f"({r['bound_by']}){lib}, {r['launches']} launches in the "
             f"full-size run")
     for what, r in extra:
-        say(f"[kernel] {what}: equal to plain, {r['ms']:.4f} ms vs plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+        dev_ms = (f" / device {_fmt_ms(r['device_ms'])} ms" if "device_ms" in r
+                  else "")
+        say(f"[kernel] {what}: equal to plain, {r['ms']:.4f} ms{dev_ms} vs "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
               "junction_keys": tuple(solid.shape), "junction_pairs": tuple(s_keys.shape),
               "jump_round": tuple(Q.shape), "range_fold": tuple(body.shape),

@@ -896,3 +896,88 @@ def test_solid_compact_lookback(card, L, N, solid):
     got = count.filter_abundance(gu, gc, *args)
     for a, b in zip(got, count.filter_abundance_plain(unique, counts, *args)):
         assert torch.equal(a.cpu(), b)
+
+
+def twice_equal(fn, want):
+    """fn() twice: each result equal to want, and the two runs' bytes equal
+    (the placement must not depend on the order tiles or rows run in)."""
+    first = fn()
+    second = fn()
+    for a, b, c in zip(first, second, want):
+        assert torch.equal(a.cpu(), c)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,n_dev", [(0, 3), (1, 1), (1023, 2), (1025, 3),
+                                     (2_000_000, 1), (2_000_000, 4),
+                                     (300_000, 32), (300_000, 33),
+                                     (300_000, 256), (5000, 256)])
+def test_route_buckets_lookback(card, N, n_dev):
+    """K15's one-pass multi-split over 1024-entry look-back tiles: no entry,
+    one, a tile minus and plus one, and thousands of tiles; owners out of
+    range among them; every entry invalid; every entry to one owner; a cap
+    that every owner overflows at once; with and without slots."""
+    rng = np.random.RandomState(N + n_dev)
+    C = 3
+    stacked = torch.from_numpy(rng.randint(0, 2**32, size=(C, N),
+                                           dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(rng.rand(N) < 0.8)
+    owner = torch.from_numpy(rng.randint(-1, n_dev + 1, N))
+    n_valid = int(valid.sum())
+    cases = [(valid, owner, max(1, N)),
+             (valid, owner, max(1, n_valid // (2 * n_dev))),
+             (torch.zeros(N, dtype=torch.bool), owner, 5),
+             (valid, torch.full((N,), n_dev - 1, dtype=torch.int64),
+              max(1, n_valid // 2))]
+    for v, o, cap in cases:
+        for with_slots in (False, True):
+            args = (n_dev, cap, with_slots)
+            want = pipeline.route_to_buckets_plain(stacked, v, o, *args)
+            gs, gv, go = stacked.to(card), v.to(card), o.to(card)
+            twice_equal(lambda: _kernels.route_buckets(gs, gv, go, *args), want)
+
+
+@pytest.mark.parametrize("L,n_dev", [(1, 1), (2, 4), (10, 3), (32, 33)])
+def test_route_buckets_hash_lookback(card, L, n_dev):
+    """K15's hash mode (owner = hash_lanes % n_dev, hashed once per entry)
+    over many tiles, at 1, 2, 10 and 32 lanes, with and without overflow."""
+    rng = np.random.RandomState(L * n_dev)
+    N = 1_000_003
+    lanes = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
+                                         dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(rng.rand(N) < 0.8)
+    gl, gv = lanes.to(card), valid.to(card)
+    for cap in (-(-2 * N // n_dev), max(1, N // (3 * n_dev))):
+        want = pipeline.route_to_buckets_plain(lanes, valid, None, n_dev, cap,
+                                               True)
+        twice_equal(lambda: _kernels.route_buckets(gl, gv, None, n_dev, cap,
+                                                   True), want)
+
+
+@pytest.mark.parametrize("k,m,W,max_span", [(31, 10, 10, None), (31, 10, 64, 3),
+                                            (21, 8, 3, 2), (151, 10, 20, None),
+                                            (255, 12, 17, 5)])
+def test_form_superkmers_rows(card, k, m, W, max_span):
+    """K13's warp-per-row windows: rows of length 0, k - 1, k and 16W and
+    random ones; an all-A row and a periodic one, whose runs of equal keys
+    are longer than 2 max_span; W = 64; k = 151 and 255 (Wn = 12 and 18);
+    with and without the rank and the position channel."""
+    rng = np.random.RandomState(k + W)
+    B, P = 300, 16 * W
+    words = rng.randint(0, 2**32, size=(B, W), dtype=np.uint64).astype(np.int64)
+    words[0] = 0                      # all A: one key over the whole row
+    words[1] = 0x1B1B1B1B             # ACTG repeated: a period of 4
+    lengths = rng.randint(0, P + 1, B)
+    lengths[:6] = [P, P, 0, k - 1, k, P]
+    words, lengths = torch.from_numpy(words), torch.from_numpy(lengths)
+    rank = torch.from_numpy(rng.permutation(4 ** m).astype(np.int64))
+    table = torch.from_numpy(rng.randint(0, 4, 4 ** m).astype(np.int64))
+    ms = max_span or superkmer.default_max_span(k)
+    gw, gl, gt, gr = (t.to(card) for t in (words, lengths, table, rank))
+    for use_rank, with_pos in ((True, True), (False, False), (True, False)):
+        want = superkmer.form_superkmers_plain(
+            words, lengths, k, m, table, rank if use_rank else None, ms,
+            use_rank, with_pos, 0xFFFFFF00)
+        twice_equal(lambda: superkmer.form_superkmers(
+            gw, gl, k, m, gt, gr if use_rank else None, ms, use_rank,
+            with_pos, 0xFFFFFF00), want)

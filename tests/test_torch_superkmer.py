@@ -194,3 +194,50 @@ def test_route_to_buckets_hash_mode(L, n_dev):
     for name, a, b in zip(("buckets", "bucket_valid", "dropped", "slots"),
                           want, got):
         assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
+
+
+@pytest.mark.parametrize("n_dev", [3, 33])
+def test_route_to_buckets_overflow_every_owner(n_dev):
+    """Uniform owners and a cap of half each owner's share: every bucket
+    overflows at once, and the drops are counted."""
+    N, C = 900, 2
+    rng = np.random.RandomState(n_dev)
+    stacked = rng.randint(0, 2**32, size=(C, N), dtype=np.uint64).astype(np.uint32)
+    valid = rng.rand(N) < 0.8
+    owner = rng.randint(0, n_dev, N).astype(np.int32)
+    cap = max(1, int(valid.sum()) // (2 * n_dev))
+    assert np.bincount(owner[valid], minlength=n_dev).min() > cap
+    want = jpl._route_to_buckets(jnp.asarray(stacked), jnp.asarray(valid),
+                                 jnp.asarray(owner), n_dev, cap,
+                                 with_slots=True)
+    got = tpl.route_to_buckets(t64(stacked), torch.from_numpy(valid),
+                               t64(owner), n_dev, cap, with_slots=True)
+    for name, a, b in zip(("buckets", "bucket_valid", "dropped", "slots"),
+                          want, got):
+        assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
+    assert int(got[1].sum(1).min()) == cap
+
+
+def test_form_superkmers_row_lengths():
+    """K13's plain version on rows of length 0, k - 1, k and 16W (a whole
+    row), an all-A row (one run of keys across the row) and a random one."""
+    k, m, W = 31, 10, 8
+    P = 16 * W
+    rng = np.random.RandomState(5)
+    words = rng.randint(0, 2**32, size=(6, W), dtype=np.uint64).astype(np.uint32)
+    words[4] = 0
+    lengths = np.array([0, k - 1, k, P, P, 77], np.int32)
+    jw, jl = jnp.asarray(words), jnp.asarray(lengths)
+    rank = jmz.frequency_rank(np.asarray(jskm.sample_cmmer_histogram(
+        jw, jl, k, m)))
+    table = rng.randint(0, 4, 4 ** m).astype(np.int32)
+    ms = 4
+    out = jskm.form_superkmers(jw, jl, k, m, jnp.asarray(table),
+                               jnp.asarray(rank), max_span=ms, use_rank=True,
+                               with_pos=True, pos_base=np.uint32(7))
+    tout = tskm.form_superkmers(t64(words), t64(lengths), k, m, t64(table),
+                                t64(rank), ms, True, True, 7)
+    for name, a, b in zip(("skm_words", "owner", "start", "n_kmers"), out,
+                          tout):
+        assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
+    assert int(tout[3][0]) == 0 + 0 + 1 + 2 * (P - k + 1) + (77 - k + 1)
