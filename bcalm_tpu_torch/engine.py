@@ -307,6 +307,9 @@ class _RangeCounter:
         self.cap = 0            # power-of-two counting capacity
         self.block_F = 0        # slots per block (fixed block geometry)
         self.fill = 0
+        # buf[:, :fill] holds columns K1 wrote under a wider key range than
+        # the current one (flush)
+        self.owed = False
         self.slot_base = 0      # stream slot counter (first-occurrence keys)
         self.partials: list = []  # (unique, counts, minpos, n, generation)
         self.pending = None     # last chunk: (unique, counts, minpos, n, occ)
@@ -484,23 +487,33 @@ class _RangeCounter:
     def flush(self):
         """Count the buffer's first min(fill, cap) columns (restricted to
         the key range when one is active), settle the previous chunk, and
-        carry the columns past cap to the front."""
+        carry the columns past cap to the front.
+
+        K1 folds the columns outside the range as it writes them, so a
+        chunk is folded again (K5) only when it is owed: it holds columns
+        carried past a split that narrowed the range after they were
+        written.  Otherwise every column that is not the sentinel is in
+        range, and the in-range occurrences are the counts' sum."""
         if self.fill == 0:
             return
         m = min(self.fill, self.cap)
         body = self.buf[:, :m]
-        if self.range_active():
+        if self.owed:
             counted = count_op.count_chunk_ranged(body, self.lo, self.hi)
         else:
             unique, counts, minpos, n = count_op.count_canonical(
                 body[:-1], pos=body[-1])
             counted = (unique, counts, minpos, n, counts.sum())
+        written_under = self.hi
         self.settle_pending()
         self.pending = counted
         left = self.fill - m
         if left:
             self.buf[:, :left] = self.buf[:, self.cap:self.cap + left]
         self.fill = left
+        # a split only narrows hi; lo changes between passes, on an empty
+        # buffer
+        self.owed = left > 0 and self.hi != written_under
 
     def insert(self, words, lengths, F: int, occ: int):
         cfg = self.cfg
@@ -513,8 +526,11 @@ class _RangeCounter:
                                    dtype=torch.int64, device=self.device)
             self.fill = 0
         self.pass_occ_seen += occ
+        rng = ({"lo": self.lo, "hi": self.hi} if self.range_active()
+               else {})
         extract_op.extract_insert(self.buf, words, lengths, cfg.k,
-                                  self.slot_base & 0x7FFFFFFF, self.fill)
+                                  self.slot_base & 0x7FFFFFFF, self.fill,
+                                  **rng)
         self.slot_base += F
         self.fill += F
         if self.fill >= self.cap:

@@ -18,6 +18,7 @@ parallel/{pipeline,distcompact}.py, models/minimizer.py and engine.py; these wra
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"extract_insert": 0, "count_runs": 0, "junction_keys": 0,
+LAUNCHES = {"extract_insert": 0, "extract_insert_ranged": 0,
+            "count_runs": 0, "junction_keys": 0,
             "junction_pairs": 0, "jump_round": 0, "range_fold": 0,
             "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0,
             "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
@@ -50,7 +52,7 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _SIGNATURES = {
     "bt_extract_insert": [_P, _I64, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                          ctypes.c_uint, _P, _I64, _P],
+                          ctypes.c_uint, _P, _I64, _P, _P, _P],
     "bt_count_flags": [_P, _I64, _I64, _I32, _P, _P],
     "bt_count_scatter": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _I64, _P,
                          _P, _P],
@@ -58,7 +60,7 @@ _SIGNATURES = {
                          _P],
     "bt_junction_pairs": [_P, _I64, _I32, _P, _I64, _I64, _I32, _P, _P],
     "bt_jump_round": [_P, _P, _I64, _P, _P],
-    "bt_range_fold": [_P, _I64, _I64, _I32, _P, _P, _P, _P],
+    "bt_range_fold": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P],
     "bt_lower_bound": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _P],
     "bt_solid_fold": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
                       _P, _I64, _P, _P, _P, _P, _P],
@@ -97,6 +99,7 @@ MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 
 _lib = None
 _FNS = {}  # C function name -> its bound ctypes function (load())
+_SCRATCH = {}  # device index -> K5's (sum, ticket) pair (_fold_scratch)
 
 
 def reset_launches() -> None:
@@ -222,11 +225,13 @@ def _lanes_ok(L: int, what: str):
 
 def extract_insert(buf: torch.Tensor, words: torch.Tensor,
                    lengths: torch.Tensor, k: int, slot_base: int,
-                   offset: int, row_base=None) -> None:
+                   offset: int, row_base=None, *, lo=None, hi=None) -> None:
     """K1: write the folded (L+1, B*P_eff) extraction of a packed block into
     buf[:, offset:offset + B*P_eff] (in place).  row_base: (B,) per-row
     slot bases (slot = (row_base[b] + p) & 0x3FFFFFFF) instead of
-    slot_base + b*P_eff + p."""
+    slot_base + b*P_eff + p.  lo, hi (range mode, L u32 lanes each): a
+    column whose canonical key lies outside [lo, hi) is written as the
+    sentinel; these launches count as extract_insert_ranged."""
     _check(buf, "buf", ndim=2)
     _check(words, "words", ndim=2)
     _check(lengths, "lengths", ndim=1)
@@ -236,17 +241,23 @@ def extract_insert(buf: torch.Tensor, words: torch.Tensor,
             raise ValueError("extract_insert: one row base per read")
     L = buf.shape[0] - 1
     _lanes_ok(L, "extract_insert")
+    if (lo is None) != (hi is None):
+        raise ValueError("extract_insert: range mode takes both lo and hi")
     B, W = words.shape
     P_eff = max(1, 16 * W - (k - 1))
     if lengths.shape[0] != B or offset + B * P_eff > buf.shape[1]:
         raise ValueError("extract_insert: block does not fit the buffer")
+    if B * P_eff >= 2**31:
+        raise ValueError("extract_insert: a block takes fewer than 2^31 slots")
     if B * P_eff == 0:
         return
+    ranged = lo is not None
     _launch("bt_extract_insert", buf.data_ptr(),
             buf.stride(0), words.data_ptr(), lengths.data_ptr(), B, W, P_eff,
             k, L, slot_base, None if row_base is None else row_base.data_ptr(),
-            offset)
-    LAUNCHES["extract_insert"] += 1
+            offset, _key_arg(lo, L, "lo") if ranged else None,
+            _key_arg(hi, L, "hi") if ranged else None)
+    LAUNCHES["extract_insert_ranged" if ranged else "extract_insert"] += 1
 
 
 def count_runs(s_lanes: torch.Tensor, weights, pos):
@@ -326,10 +337,32 @@ def jump_round(Q: torch.Tensor, Qn: torch.Tensor,
 
 
 def _key_arg(key, L: int, what: str):
-    """A key of L u32 lanes as a ctypes array (read by the host code)."""
+    """A key of L u32 lanes as a ctypes array (read by the host code).
+    Tuples, the multi-pass count's range bounds, which every block of a
+    pass passes again, are converted once."""
     if len(key) != L:
         raise ValueError(f"{what}: expected {L} lanes, got {len(key)}")
+    if isinstance(key, tuple):
+        return _key_array(key)
     return (ctypes.c_uint32 * L)(*[int(x) for x in key])
+
+
+@functools.lru_cache(maxsize=64)
+def _key_array(key: tuple):
+    return (ctypes.c_uint32 * len(key))(*[int(x) for x in key])
+
+
+def _fold_scratch(device: torch.device) -> torch.Tensor:
+    """K5's (sum, ticket) pair on this card: zeroed once, and left zeroed
+    by every launch (its last block resets it), so launches on one stream
+    share it."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    t = _SCRATCH.get(key)
+    if t is None:
+        t = _SCRATCH[key] = torch.zeros((2,), dtype=torch.int64,
+                                        device=torch.device("cuda", key))
+    return t
 
 
 def range_fold(body: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -339,12 +372,13 @@ def range_fold(body: torch.Tensor, lo, hi) -> torch.Tensor:
     _check(body, "body", ndim=2, rows_strided=True)
     L = body.shape[0] - 1
     _lanes_ok(L, "range_fold")
-    occ = torch.zeros((1,), dtype=torch.int64, device=body.device)
-    if body.shape[1]:
-        _launch("bt_range_fold", body.data_ptr(), body.stride(0),
-                body.shape[1], L, _key_arg(lo, L, "lo"),
-                _key_arg(hi, L, "hi"), occ.data_ptr())
-        LAUNCHES["range_fold"] += 1
+    if not body.shape[1]:
+        return torch.zeros((1,), dtype=torch.int64, device=body.device)
+    occ = torch.empty((1,), dtype=torch.int64, device=body.device)
+    _launch("bt_range_fold", body.data_ptr(), body.stride(0), body.shape[1],
+            L, _key_arg(lo, L, "lo"), _key_arg(hi, L, "hi"),
+            _fold_scratch(body.device).data_ptr(), occ.data_ptr())
+    LAUNCHES["range_fold"] += 1
     return occ
 
 

@@ -6,7 +6,9 @@ of 2-bit packed reads yields its canonical k-mer lanes and its
 first-occurrence key ``((slot_base + slot) << 1) | rc`` (clamped below the
 sentinel), invalid positions fold to the all-ones sentinel, and the
 (L+1, B*P_eff) result lands in the chunk buffer at `offset`.  The port
-writes into the buffer in place (the JAX version donates it).
+writes into the buffer in place (the JAX version donates it).  In range
+mode (lo, hi) the columns outside the multi-pass count's key range fold
+too, as ``bcalm_tpu/engine.py:_count_chunk_ranged`` folds them.
 
 :func:`extract_insert` launches the CUDA kernel (csrc/extract.cu) for CUDA
 tensors and runs :func:`extract_insert_plain` for CPU tensors.
@@ -18,6 +20,7 @@ import torch
 
 from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import _kernels
+from bcalm_tpu_torch.ops import count as count_op
 
 BASES_PER_WORD = 16
 
@@ -55,7 +58,8 @@ def kmer_lanes(bases: torch.Tensor, k: int, P_eff: int):
 
 def extract_insert_plain(buf: torch.Tensor, words: torch.Tensor,
                          lengths: torch.Tensor, k: int, slot_base: int,
-                         offset: int, row_base=None) -> None:
+                         offset: int, row_base=None, *, lo=None,
+                         hi=None) -> None:
     """Plain PyTorch version of the K1 kernel (same arguments)."""
     B, W = words.shape
     P_eff = max(1, W * BASES_PER_WORD - (k - 1))
@@ -65,6 +69,9 @@ def extract_insert_plain(buf: torch.Tensor, words: torch.Tensor,
     canon = torch.where(use_rc[None], rc, fwd).reshape(L, -1)
     pos_idx = torch.arange(P_eff, device=words.device)
     valid = (pos_idx[None, :] <= (lengths[:, None] - k)).reshape(-1)
+    if lo is not None:   # the key range: count_chunk_ranged's keep
+        valid &= (~count_op.lex_lt_plain(canon, lo)
+                  & count_op.lex_lt_plain(canon, hi))
     if row_base is None:
         slot = slot_base + torch.arange(B * P_eff, device=words.device)
     else:
@@ -78,17 +85,16 @@ def extract_insert_plain(buf: torch.Tensor, words: torch.Tensor,
 
 def extract_insert(buf: torch.Tensor, words: torch.Tensor,
                    lengths: torch.Tensor, k: int, slot_base: int,
-                   offset: int, row_base=None) -> None:
+                   offset: int, row_base=None, *, lo=None, hi=None) -> None:
     """Write a block's folded extraction into buf[:, offset:offset+F].
 
     buf: (L+1, cap) int64; words: (B, W) int64 packed reads (u32 values);
     lengths: (B,) int64; slot_base < 2**31.  row_base: (B,) int64 per-row
     stream slots (the received superkmers of the -devices N build,
     bcalm_tpu/parallel/pipeline.py:348): position p of row b then keys
-    ((row_base[b] + p) & 0x3FFFFFFF) << 1 | rc."""
-    if buf.device.type == "cpu":
-        extract_insert_plain(buf, words, lengths, k, slot_base, offset,
-                             row_base)
-    else:
-        _kernels.extract_insert(buf, words, lengths, k, slot_base, offset,
-                                row_base)
+    ((row_base[b] + p) & 0x3FFFFFFF) << 1 | rc.  lo, hi (range mode, L
+    u32 lanes each): columns whose canonical key lies outside [lo, hi)
+    are written as the sentinel too (the multi-pass count's key range)."""
+    fn = (extract_insert_plain if buf.device.type == "cpu"
+          else _kernels.extract_insert)
+    fn(buf, words, lengths, k, slot_base, offset, row_base, lo=lo, hi=hi)

@@ -25,7 +25,9 @@ Phases (any failure raises, and the script exits non-zero):
    key ranges; again first as ``python -m bcalm_tpu_torch``, then
    through ``cli.main`` with the counters reset just before it.  At least
    3 ranges, the FASTA byte-identical to phase 3's, peak device memory
-   within M;
+   within M, K1 launched in range mode (after the first split it folds
+   the columns outside the range as it writes them; K5 runs only on the
+   chunks a split left owing a fold, and their count is printed);
 3c. store and resume on the same reads: ``-only-uf -uf-stats`` keeps the
    store and its chains (as many classes as phase 3's unitigs); with the
    input renamed away, ``-skip-bcalm -skip-bglue`` and, after a fresh
@@ -77,6 +79,13 @@ Phases (any failure raises, and the script exits non-zero):
    launches of the run whose path needs it, the bound (bytes moved over
    the card's memory rate, or integer operations over its peak rate) and,
    where one PyTorch call computes the same function, that call's time;
+   K1 on phase 3's block, with per-row slot bases on phase 3f's received
+   superkmers, in range mode on phase 3b's first range-mode block, and at
+   L = 10 and 16 on phase 3h's blocks; K5 on phase 3b's first chunk in
+   range mode (that block extracted without the range, the chunk a column
+   slice), the same chunk at an odd stride, and the first chunk 3b owed a
+   fold, if any; each K1 and K5 row with its device time and operations
+   and its launches in phases 3, 3b, 3f and 3h;
    K14 in both its modes; K13 and K3's global mode (the sharded glue's
    junction entries) also with 4 ranks as owners, since at world size 1
    every owner is 0; K15 also at 4 and 8 destinations (synthetic owners)
@@ -90,7 +99,7 @@ Phases (any failure raises, and the script exits non-zero):
    does not run the kernel (K5 and K6 on its sorted chunk, K3's global mode
    and K20 on a 2^20-column slice of its solid table), and one for K9 in
    filter_abundance mode (no minpos row) on its counted table.  K6 also
-   runs at 256 quantile bounds of phase 3b's run; the K6, K9 and
+   runs at 256 quantile bounds of phase 3b's run; the K1, K5, K6, K9 and
    filter_abundance rows also carry the device time per call
    (torch.profiler) of the kernel and of its library call, beside their
    CUDA-event times, which include the launch path.
@@ -111,10 +120,11 @@ runs only ``python -m bcalm_tpu_torch`` of the tree unpacked in DIR (for
 example a parent commit, ``git archive``) and of this tree in turns on
 the phase 3 reads, resident and with ``-max-memory 2192``, after a
 warm-up run of each that builds its kernels and ingest library; before
-those runs, KERNEL_AB (below) times the L = 2 lane kernels, K6, K9, K13
-and K15 of each tree in the same turns (CUDA events, device time and
-operations, and for K13 and K15 the host time per call split into the
-wrapper's Python, the ctypes call and the runtime's launch), and DIST_AB
+those runs, KERNEL_AB (below) times the L = 2 lane kernels, K1 at L = 10
+and in range mode, K6, K9, K13 and K15 of each tree in the same turns
+(CUDA events, device time and operations, and for K13 and K15 the host
+time per call split into the wrapper's Python, the ctypes call and the
+runtime's launch), and DIST_AB
 runs each tree's ``-devices`` build at world size 1 on the first 1/8 of
 the reads in the same turns, held against the single-device build.
 """
@@ -199,16 +209,17 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 # the kernels each main path must launch: the resident build (with its
 # store), the multi-pass build (whose solidity filter and store run in
-# numpy on the host), the -skip-bcalm resume (compaction only), and the
-# multi-sample build (counting, then the canonical-order compaction); at
-# the smoke's size both compactions jump hierarchically (K17-K19, K4 at the
-# deepest level)
+# numpy on the host; K1 folds in range mode after the first split, and K5
+# runs only on chunks owed a fold, so it need not launch), the -skip-bcalm
+# resume (compaction only), and the multi-sample build (counting, then the
+# canonical-order compaction); at the smoke's size both compactions jump
+# hierarchically (K17-K19, K4 at the deepest level)
 COMPACT_POS = ("junction_keys", "junction_pairs", "run_scans", "run_contract",
                "jump_round", "chain_finish", "run_broadcast",
                "spell_unitigs") + HIER
 RESIDENT_PATH = ("extract_insert", "count_runs", "solid_fold_histogram",
                  "solid_compact") + COMPACT_POS
-OOC_PATH = ("extract_insert", "count_runs", "range_fold",
+OOC_PATH = ("extract_insert", "extract_insert_ranged", "count_runs",
             "lower_bound") + COMPACT_POS
 SKIP_BCALM_PATH = COMPACT_POS
 CANONICAL_PATH = ("extract_insert", "count_runs", "junction_keys",
@@ -411,11 +422,14 @@ def write_reads(path: str, coverage: float, seed: int,
 def _record_key(name: str, args) -> str:
     """mmer_histograms runs in two modes, the m-mer histogram and the
     minimizer load (its last argument), kmer_minimizers in two, the
-    minimizer (or partition id) and the histogram (its last argument), and
-    route_buckets in two, given owners and hashed ones (no owner array):
+    minimizer (or partition id) and the histogram (its last argument),
+    route_buckets in two, given owners and hashed ones (no owner array),
+    and extract_insert in two, with and without a key range (lo, hi):
     each mode is recorded apart."""
     if name == "route_buckets" and args[2] is None:
         return "route_buckets:hash"
+    if name == "extract_insert" and len(args) > 7 and args[7] is not None:
+        return "extract_insert:ranged"
     if name == "mmer_histograms":
         return f"{name}:{'load' if args[-1] else 'mmer'}"
     if name == "kmer_minimizers":
@@ -443,16 +457,17 @@ class Recorder:
         sig = inspect.signature(fn)
 
         def recorded(*args, **kwargs):
+            flat = args
             if kwargs:
                 bound = sig.bind(*args, **kwargs)
                 bound.apply_defaults()
-                args, kwargs = tuple(bound.arguments.values()), {}
-            key = _record_key(name, args)
+                flat = tuple(bound.arguments.values())
+            key = _record_key(name, flat)
             if key not in self.inputs or name in RECORD_LAST:
                 self.inputs[key] = tuple(
                     a.to("cpu", copy=True) if isinstance(a, torch.Tensor) else a
-                    for a in args)
-            return fn(*args)
+                    for a in flat)
+            return fn(*args, **kwargs)
         return recorded
 
     def __enter__(self):
@@ -686,7 +701,11 @@ def phase_ooc(tmp: str, fa: str, resident_path: str, resident_stats, dev):
             raise AssertionError("the multi-pass FASTA differs from the "
                                  "resident run's")
     say(f"[ooc] multi-pass FASTA byte-identical to the resident run's; "
-        f"in-process wall {stats['wall_s']:.2f}s")
+        f"in-process wall {stats['wall_s']:.2f}s; launches: K1 "
+        f"{launches['extract_insert']} without a key range, "
+        f"{launches['extract_insert_ranged']} in range mode; K5 "
+        f"{launches['range_fold']} (chunks owed a fold); K6 "
+        f"{launches['lower_bound']}")
     _require_launched(launches, OOC_PATH, "multi-pass")
     return launches, inputs
 
@@ -946,13 +965,13 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
             wall = time.time() - t0
             launches = dict(_kernels.LAUNCHES)
         check_mesh(tmp, ref_path, table, us, wall, timing, launches)
-        phase_mesh_ranged(tmp, fa, mesh, dev)
+        ranged_launches = phase_mesh_ranged(tmp, fa, mesh, dev)
         entry_launches, entry_route = phase_entry_points(tmp, fa, mesh, dev)
     finally:
         dist.destroy_process_group()
     check_too_many_devices(tmp, fa)
     return launches, dict(rec.inputs, **{"route_buckets:hash": entry_route}), \
-        entry_launches
+        entry_launches, ranged_launches
 
 
 def check_mesh(tmp, ref_path, table, us, wall, timing, launches):
@@ -1239,7 +1258,8 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 
 
 # Run in a tree's root by phase_compare: the lane kernels that take 1-8
-# lanes (K1, K3a, K5, K6, K9) at L = 2 (k = 31), K13 and K15, on inputs
+# lanes (K1, K3a, K5, K6, K9) at L = 2 (k = 31), K1 also at L = 10 and in
+# range mode, K13 and K15, on inputs
 # made from a seed, as one JSON line: {"ms": CUDA-event time per call,
 # "device_ms": device time per call, "ops": device operations per call
 # (kernels, fills and copies the profiler saw), "host_ms": host time per
@@ -1258,16 +1278,17 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 # owner) at 1, 4 and 8 destinations with slots, cap from
 # superkmer_capacity, and in its hash mode on 2^24 2-lane slots, ~80%
 # valid, at 1 and 4 ranks with cap = ceil(2 valid / n) (phase 3g's
-# sizing).  K13 and K15 are held bitwise against their plain versions.
-# It calls only wrappers whose signatures have not changed since K20 was
-# ported, so an older tree runs it as well.
+# sizing).  K13, K15 and K1 in range mode are held bitwise against their
+# plain versions.  It calls only wrappers whose signatures have not
+# changed since K20 was ported, and K1's range mode only where the
+# wrapper takes lo and hi, so an older tree runs it as well.
 KERNEL_AB = r"""
-import json, sys, time
+import inspect, json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ".")
 from bcalm_tpu_torch.models import lanes as ln
-from bcalm_tpu_torch.ops import _kernels, extract, junctions, superkmer
+from bcalm_tpu_torch.ops import _kernels, count, extract, junctions, superkmer
 from bcalm_tpu_torch.parallel import pipeline
 
 def time_ms(fn, reps=50):
@@ -1358,8 +1379,31 @@ pq = torch.from_numpy(rng.randint(0, 2**31, N)).to(dev)
 keep = cq >= 2
 sc_args = (uq, cq, pq, N, 2, 2**31 - 1, int(keep.sum()))
 stacked_in = torch.cat([uq, cq[None], pq[None]])
+# K1 at L = 10 (k = 151 on 300 bp reads, phase 3h's block shape), and in
+# range mode at L = 2 with bounds from the block's own keys; a tree whose
+# K1 has no range mode runs the work the multi-pass count did there: K1,
+# then K5 over the block's columns
+w10 = torch.from_numpy(np.random.RandomState(10).randint(
+    0, 2**32, size=(4096, 19), dtype=np.uint64).astype(np.int64)).to(dev)
+l10 = torch.full((4096,), 300, dtype=torch.int64, device=dev)
+buf10 = torch.empty((11, extract.block_slots(tuple(w10.shape), 151)), dtype=torch.int64, device=dev)
+ref = torch.empty_like(buf)
+extract.extract_insert_plain(ref, words, lengths, k, 0, 0)
+live = ref[:2, ref[2] != 0xFFFFFFFF]
+klo, khi = sorted(tuple(int(x) for x in live[:, j].tolist())
+                  for j in (live.shape[1] // 3, 2 * live.shape[1] // 3))
+if "lo" in inspect.signature(_kernels.extract_insert).parameters:
+    ranged = lambda: _kernels.extract_insert(buf, words, lengths, k, 0, 0, lo=klo, hi=khi)
+else:
+    ranged = lambda: (_kernels.extract_insert(buf, words, lengths, k, 0, 0),
+                      _kernels.range_fold(buf, klo, khi))
+count.range_fold_plain(ref, klo, khi)
+ranged()
+same([buf], [ref], "extract_insert in range mode")
 fns = {
     "extract_insert": (lambda: _kernels.extract_insert(buf, words, lengths, k, 0, 0), 50),
+    "extract_insert L=10": (lambda: _kernels.extract_insert(buf10, w10, l10, 151, 0, 0), 20),
+    "extract_insert ranged": (ranged, 50),
     "junction_keys": (lambda: _kernels.junction_keys(solid, 1 << 22, k, False, junctions.key_rows(k)), 50),
     "range_fold": (lambda: _kernels.range_fold(body, lo, hi), 50),
 }
@@ -1554,8 +1598,8 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
 def phase_longk(tmp: str, seed: int, dev):
     """Phase 3h: the k = 151 build of a 300 bp read set and the k = 255
     build of its first quarter, in this process.  Returns, per k, the
-    build's recorded kernel inputs (k = 255: junction_keys' alone) and its
-    launches (phase 5)."""
+    build's recorded kernel inputs (k = 255: extract_insert's and
+    junction_keys' alone) and its launches (phase 5)."""
     fa = os.path.join(tmp, "reads300.fa")
     t0 = time.time()
     n_reads = write_reads(fa, LONG_COVERAGE, seed, sample_seed=seed + 2,
@@ -1567,7 +1611,8 @@ def phase_longk(tmp: str, seed: int, dev):
         f"{time.time() - t0:.1f}s; the first {n_quarter} for k = {LONG_K2}")
     out = {}
     for k, reads_fa, record in ((LONG_K, fa, tuple(KERNELS)),
-                                (LONG_K2, quarter, ("junction_keys",))):
+                                (LONG_K2, quarter, ("extract_insert",
+                                                    "junction_keys"))):
         args = ["-in", reads_fa, "-kmer-size", str(k), "-abundance-min", "2",
                 "-verbose", "1", "-out", os.path.join(tmp, f"long{k}")]
         wall, st, _, launches, inputs = _inproc(args, f"-kmer-size {k}",
@@ -1695,8 +1740,9 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 
 def _device_ms(fn, reps: int = 20):
-    """Device time per call of fn over `reps` calls: every kernel, fill and
-    copy that torch.profiler saw (None where it saw none)."""
+    """(device time per call, device operations per call) of fn over `reps`
+    calls: every kernel, fill and copy that torch.profiler saw (None where
+    it saw none)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1705,9 +1751,10 @@ def _device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps if us else None
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.device_time_total for e in evs)
+    return (us / 1e3 / reps if us else None), len(evs) / reps
 
 
 def _fmt_ms(ms) -> str:
@@ -1798,9 +1845,10 @@ def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
     (or `written` bytes) written once; `library` is one PyTorch call
     computing the same function, timed beside it.  label, replaces and launched
     override the row's name, JAX program and launch count (default:
-    launches[name]).  device: the row also gets the device time per call
-    of the kernel and of the library call (device_ms, library_device_ms),
-    beside their CUDA-event times, which include the launch path."""
+    launches[name]).  device: the row also gets the device time and
+    operations per call of the kernel (device_ms, device_ops) and the
+    device time of the library call (library_device_ms), beside their
+    CUDA-event times, which include the launch path."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = _max_err(got, want)
@@ -1819,17 +1867,113 @@ def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": _time_ms(library, reps) if library else None}
     if device:
-        row["device_ms"] = _device_ms(kernel_timed or kernel_fn, reps)
-        row["library_device_ms"] = _device_ms(library, reps) if library else None
+        row["device_ms"], row["device_ops"] = _device_ms(
+            kernel_timed or kernel_fn, reps)
+        row["library_device_ms"] = (_device_ms(library, reps)[0] if library
+                                    else None)
     return row
 
 
-def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
+def _phase_launches(phases, counter: str) -> dict:
+    return {ph: counts[counter] for ph, counts in phases.items()}
+
+
+def k1_row(args, launches, label, counter, phases, reps=20) -> dict:
+    """K1 on recorded arguments (buf, words, lengths, k, slot_base, offset,
+    row_base[, lo, hi]): bitwise against its plain version on fresh copies
+    of the buffer (it writes in place), timed into one preallocated copy
+    (no 0.8 GB clone inside the timing), with its device time and
+    operations and the launches of `counter` in each phase."""
+    from bcalm_tpu_torch.ops import _kernels, extract
+
+    buf, words, lengths, k, slot_base, offset, row_base = args[:7]
+    kw = ({"lo": args[7], "hi": args[8]}
+          if len(args) > 7 and args[7] is not None else {})
+    ext_args = (words, lengths, k, slot_base, offset, row_base)
+    scratch = buf.clone()
+
+    def fresh(fn):
+        def run():
+            out = buf.clone()
+            fn(out, *ext_args, **kw)
+            return out
+        return run
+
+    r = check_kernel(
+        "extract_insert", launches, fresh(_kernels.extract_insert),
+        fresh(extract.extract_insert_plain),
+        lambda: _kernels.extract_insert(scratch, *ext_args, **kw),
+        lambda: extract.extract_insert_plain(scratch, *ext_args, **kw),
+        reads=(words, lengths),
+        written=buf.shape[0] * extract.block_slots(words.shape, k) * 8,
+        label=label, launched=launches[counter], reps=reps, device=True)
+    r["phase_launches"] = _phase_launches(phases, counter)
+    return r
+
+
+def k5_row(body, lo, hi, launches, label, phases, launched=None,
+           reps=20) -> dict:
+    """K5 on a chunk body (it folds in place: compared on fresh copies,
+    timed on one scratch copy of the same strides), with its device time
+    and operations and its launches in each phase."""
+    from bcalm_tpu_torch.ops import _kernels, count
+
+    def copy_of(t):
+        out = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                  device=t.device)
+        out.copy_(t)
+        return out
+
+    body_scratch = copy_of(body)
+
+    def fold(fn):
+        def run():
+            out = copy_of(body)
+            return out, fn(out, lo, hi)
+        return run
+
+    r = check_kernel("range_fold", launches, fold(_kernels.range_fold),
+                     fold(count.range_fold_plain),
+                     lambda: _kernels.range_fold(body_scratch, lo, hi),
+                     lambda: count.range_fold_plain(body_scratch, lo, hi),
+                     written=_fold_bytes(body, lo, hi), label=label,
+                     launched=launched, reps=reps, device=True)
+    r["phase_launches"] = _phase_launches(phases, "range_fold")
+    return r
+
+
+def k5_chunks(ranged_args, owed_args):
+    """K5's inputs in phase 5: phase 3b's first chunk in range mode (the
+    buffer its first range-mode K1 launch wrote into, with that block
+    extracted without the range, as the chunk was before K1 folded; cut to
+    the chunk's cap columns: a column slice whose stride is cap + F), the
+    same chunk at an odd stride, and the first chunk 3b owed a fold, when
+    it owed one.  Returns [(label, body, lo, hi, on 3b's path)]."""
+    from bcalm_tpu_torch.ops import extract
+
+    buf, words, lengths, k, slot_base, offset, row_base, lo, hi = ranged_args
+    chunk = buf.clone()
+    extract.extract_insert_plain(chunk, words, lengths, k, slot_base, offset,
+                                 row_base)
+    cap = chunk.shape[1] - extract.block_slots(words.shape, k)
+    width = cap + 1 + cap % 2
+    odd = torch.empty((chunk.shape[0], width), dtype=chunk.dtype,
+                      device=chunk.device)
+    odd[:, :cap] = chunk[:, :cap]
+    out = [("range_fold", chunk[:, :cap], lo, hi, True),
+           ("range_fold:odd_stride", odd[:, :cap], lo, hi, False)]
+    if owed_args is not None:
+        out.append(("range_fold:owed",) + tuple(owed_args) + (True,))
+    return out
+
+
+def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
+                  dev):
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.models import lanes as ln
     from bcalm_tpu_torch.models import minimizer
-    from bcalm_tpu_torch.ops import (_kernels, chains, count, extract,
-                                     hashing, junctions, runchains, superkmer)
+    from bcalm_tpu_torch.ops import (_kernels, chains, count, hashing,
+                                     junctions, runchains, superkmer)
     from bcalm_tpu_torch.parallel import distcompact, pipeline
 
     inputs = {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
@@ -1842,25 +1986,19 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
             rows.append(r)
         return r
 
-    # K1 writes in place: compare on fresh copies of the recorded buffer,
-    # time into one preallocated buffer (no 0.8 GB clone inside the timing)
-    buf, words, lengths, k, slot_base, offset, row_base = inputs["extract_insert"]
-    ext_args = (words, lengths, k, slot_base, offset, row_base)
-    scratch = buf.clone()
-
-    def fresh(fn):
-        def run():
-            out = buf.clone()
-            fn(out, *ext_args)
-            return out
-        return run
-
-    check("extract_insert", fresh(_kernels.extract_insert),
-          fresh(extract.extract_insert_plain),
-          lambda: _kernels.extract_insert(scratch, *ext_args),
-          lambda: extract.extract_insert_plain(scratch, *ext_args),
-          reads=(words, lengths),
-          written=buf.shape[0] * extract.block_slots(words.shape, k) * 8)
+    # K1 in each of its modes, on the inputs of the run that used it:
+    # phase 3's first block, the received superkmers of phase 3f (per-row
+    # slot bases) and phase 3b's first block in range mode
+    words = inputs["extract_insert"][1]
+    if inputs["extract_insert:row_base"][6] is None:
+        raise AssertionError("phase 3f's K1 recorded no per-row slot bases")
+    for key, label, counter, run_launches in (
+            ("extract_insert", None, "extract_insert", launches),
+            ("extract_insert:row_base", "extract_insert:row_base",
+             "extract_insert", phases["3f"]),
+            ("extract_insert:ranged", "extract_insert:ranged",
+             "extract_insert_ranged", launches)):
+        rows.append(k1_row(inputs[key], run_launches, label, counter, phases))
     s_lanes, w, pos = inputs["count_runs"]
     check("count_runs", lambda: _kernels.count_runs(s_lanes, w, pos),
           lambda: count.count_runs_plain(s_lanes, w, pos),
@@ -1891,20 +2029,13 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
           lambda: _kernels.jump_round(Q, Qn, changed),
           lambda: chains.jump_round_plain(Q), reads=Q)
 
-    # K5 folds in place: compare on fresh copies, time on one scratch copy
-    body, lo, hi = inputs["range_fold"]
-    body_scratch = body.clone()
-
-    def fold(fn):
-        def run():
-            out = body.clone()
-            return out, fn(out, lo, hi)
-        return run
-
-    check("range_fold", fold(_kernels.range_fold), fold(count.range_fold_plain),
-          lambda: _kernels.range_fold(body_scratch, lo, hi),
-          lambda: count.range_fold_plain(body_scratch, lo, hi),
-          written=_fold_bytes(body, lo, hi))
+    k5_shapes = []
+    for label, body, lo, hi, on_path in k5_chunks(
+            inputs["extract_insert:ranged"], inputs.get("range_fold:owed")):
+        rows.append(k5_row(body, lo, hi, launches, label, phases,
+                           launched=None if on_path else 0))
+        k5_shapes.append([label, tuple(body.shape), body.stride(0)])
+    del body
     # K6 at the path's P = 1 (its recorded bound), then at P = 256 (256
     # quantile bounds in the same run, as a range split's pivots)
     run, n, bounds = inputs["lower_bound"]
@@ -2178,17 +2309,22 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
               reads=(gk, gp), row=False)
     extra.append((f"junction_pairs, global mode (edges of {gk.shape[1]} sorted "
                   f"entries)", r))
-    rows += longk_rows(longk, dev)
+    rows += longk_rows(longk, phases, dev)
     for r in rows:
         lib = ("" if r["library_ms"] is None
                else f", library call {r['library_ms']:.4f} ms")
         if "device_ms" in r:
-            lib += (f"; device time {_fmt_ms(r['device_ms'])} ms, library "
-                    f"call's {_fmt_ms(r['library_device_ms'])} ms")
+            lib += (f"; device time {_fmt_ms(r['device_ms'])} ms "
+                    f"[{r['device_ops']:g} device operations per call], "
+                    f"library call's {_fmt_ms(r['library_device_ms'])} ms")
+        by_phase = ""
+        if "phase_launches" in r:
+            by_phase = " (by phase: " + ", ".join(
+                f"{ph} {n}" for ph, n in r["phase_launches"].items()) + ")"
         say(f"[kernel] {r['name']}: equal to plain (bitwise), {r['ms']:.4f} ms "
             f"vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}, {r['launches']} launches in the "
-            f"full-size run")
+            f"full-size run{by_phase}")
     for what, r in extra:
         dev_ms = (f" / device {_fmt_ms(r['device_ms'])} ms" if "device_ms" in r
                   else "")
@@ -2196,7 +2332,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
               "junction_keys": tuple(solid.shape), "junction_pairs": tuple(s_keys.shape),
-              "jump_round": tuple(Q.shape), "range_fold": tuple(body.shape),
+              "jump_round": tuple(Q.shape), "range_fold": k5_shapes,
               "lower_bound": [tuple(run.shape), n, tuple(bounds.shape)],
               "solid_fold_histogram": tuple(sf_args[0].shape),
               "run_scans": [tuple(succ.shape), n_solid, C],
@@ -2217,18 +2353,19 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, dev):
     return rows
 
 
-def longk_rows(longk, dev):
+def longk_rows(longk, phases, dev):
     """Phase 5's rows at L = 10: each lane-dependent kernel on the inputs
     phase 3h's k = 151 build fed it, or made from them where that build
     does not run it (launches then 0): K5 and K6 on its first sorted chunk,
     K3's global mode and K20 on a 2^20-column slice of its solid table; and
-    K9 in filter_abundance mode on its counted table.  Then K3a at L = 16
-    on the k = 255 build's solid table (its two reverse complements are
-    O(k * lanes) per k-mer).  Plain versions are timed over 5 calls (some
-    take seconds at this width)."""
+    K9 in filter_abundance mode on its counted table.  K1 also at L = 16,
+    on the k = 255 build's first block; then K3a at L = 16 on that build's
+    solid table (its two reverse complements are O(k * lanes) per k-mer).
+    Plain versions are timed over 5 calls (some take seconds at this
+    width)."""
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.models import minimizer
-    from bcalm_tpu_torch.ops import _kernels, count, extract, junctions
+    from bcalm_tpu_torch.ops import _kernels, count, junctions
 
     def on_card(recorded):
         return {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
@@ -2246,26 +2383,19 @@ def longk_rows(longk, dev):
                                  launched=launches[name] if on_path else 0,
                                  reps=5, **kw))
 
-    buf, words, lengths, k, slot_base, offset, row_base = inputs["extract_insert"]
+    buf, words, lengths, k = inputs["extract_insert"][:4]
     if k != LONG_K or buf.shape[0] != L + 1:
         raise AssertionError(f"phase 3h recorded k = {k}, {buf.shape[0] - 1} lanes")
-    ext_args = (words, lengths, k, slot_base, offset, row_base)
-    scratch = buf.clone()
-
-    def fresh(fn):
-        def run():
-            out = buf.clone()
-            fn(out, *ext_args)
-            return out
-        return run
-
-    row("extract_insert", fresh(_kernels.extract_insert),
-        fresh(extract.extract_insert_plain),
-        lambda: _kernels.extract_insert(scratch, *ext_args),
-        lambda: extract.extract_insert_plain(scratch, *ext_args),
-        reads=(words, lengths),
-        written=buf.shape[0] * extract.block_slots(words.shape, k) * 8)
-    del scratch
+    rows.append(k1_row(inputs["extract_insert"], launches,
+                       "extract_insert" + tag, "extract_insert", phases,
+                       reps=5))
+    del buf, words, lengths
+    inputs2, launches2 = longk[LONG_K2]
+    k255 = on_card({"extract_insert": inputs2["extract_insert"]})
+    rows.append(k1_row(k255["extract_insert"], launches2,
+                       f"extract_insert@L{(LONG_K2 + 15) // 16}",
+                       "extract_insert", phases, reps=5))
+    del k255
     solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
     row("junction_keys",
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
@@ -2278,19 +2408,9 @@ def longk_rows(longk, dev):
     body = torch.cat([s_lanes, pos[None]]).contiguous()
     lo = tuple(int(x) for x in s_lanes[:, n_valid // 3].tolist())
     hi = tuple(int(x) for x in s_lanes[:, 2 * n_valid // 3].tolist())
-    body_scratch = body.clone()
-
-    def fold(fn):
-        def run():
-            out = body.clone()
-            return out, fn(out, lo, hi)
-        return run
-
-    row("range_fold", fold(_kernels.range_fold), fold(count.range_fold_plain),
-        lambda: _kernels.range_fold(body_scratch, lo, hi),
-        lambda: count.range_fold_plain(body_scratch, lo, hi),
-        written=_fold_bytes(body, lo, hi), on_path=False)
-    del body, body_scratch
+    rows.append(k5_row(body, lo, hi, launches, "range_fold" + tag, phases,
+                       launched=0, reps=5))
+    del body
     qi = (torch.arange(256, device=dev) + 1) * n_valid // 257
     bounds = s_lanes[:, qi].contiguous()
     row("lower_bound", lambda: _kernels.lower_bound(s_lanes, n_valid, bounds),
@@ -2343,8 +2463,8 @@ def longk_rows(longk, dev):
         library=lambda: torch.bincount(mm_flat, minlength=4 ** m20),
         on_path=False, replaces="bcalm_tpu/models/minimizer.py:72")
     del sl, all20, mm_flat, inputs
-    inputs2, launches2 = longk[LONG_K2]
-    solid, n_solid, k, hashed, rows_k = on_card(inputs2)["junction_keys"]
+    solid, n_solid, k, hashed, rows_k = on_card(
+        {"junction_keys": inputs2["junction_keys"]})["junction_keys"]
     rows.append(check_kernel(
         "junction_keys", launches2,
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
@@ -2430,14 +2550,25 @@ def main() -> int:
                                            dev)
         del ms_inputs
         phase_auto(tmp, fa, path)
-        mesh_launches, mesh_inputs, entry_launches = phase_mesh(
+        mesh_launches, mesh_inputs, entry_launches, mesh_ranged = phase_mesh(
             tmp, fa, path, table, dev)
         phase_invariants(path, stats)
         longk = phase_longk(tmp, args.seed, dev)
     # each kernel is held against its plain version on the inputs of the
-    # run whose path needs it, and reports that run's launches
-    for kernel in ("range_fold", "lower_bound"):
-        inputs[kernel] = ooc_inputs[kernel]
+    # run whose path needs it, and reports that run's launches; K1 and K5
+    # also their launches in each phase (3f: the -devices build and its
+    # multi-pass branch; 3h: both long-k builds)
+    phases = {"3": dict(launches), "3b": ooc_launches,
+              "3f": {n: mesh_launches[n] + mesh_ranged[n]
+                     for n in mesh_launches},
+              "3h": {n: longk[LONG_K][1][n] + longk[LONG_K2][1][n]
+                     for n in longk[LONG_K][1]}}
+    inputs["lower_bound"] = ooc_inputs["lower_bound"]
+    inputs["extract_insert:ranged"] = ooc_inputs["extract_insert:ranged"]
+    inputs["extract_insert:row_base"] = mesh_inputs["extract_insert"]
+    if "range_fold" in ooc_inputs:
+        inputs["range_fold:owed"] = ooc_inputs["range_fold"]
+    for kernel in ("range_fold", "lower_bound", "extract_insert_ranged"):
         launches[kernel] = ooc_launches[kernel]
     for kernel in ("form_superkmers", "mmer_histograms:mmer",
                    "mmer_histograms:load", "route_buckets",
@@ -2449,7 +2580,8 @@ def main() -> int:
     launches["kmer_minimizers"] = entry_launches["kmer_minimizers"]
     launches["route_buckets:hash"] = entry_launches["route_buckets"]
     del mesh_inputs
-    rows = phase_kernels(inputs, launches, canon_hier, table, longk, dev)
+    rows = phase_kernels(inputs, launches, canon_hier, table, longk, phases,
+                         dev)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

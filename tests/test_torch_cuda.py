@@ -981,3 +981,85 @@ def test_form_superkmers_rows(card, k, m, W, max_span):
         twice_equal(lambda: superkmer.form_superkmers(
             gw, gl, k, m, gt, gr if use_rank else None, ms, use_rank,
             with_pos, 0xFFFFFF00), want)
+
+
+# -- K1's word-parallel windows and range mode; K5's vector fold ----------
+
+WINDOW_K = [1, 15, 16, 17, 31, 32, 33, 127, 128, 129, 151, 255, 256, 257, 512]
+
+
+@pytest.mark.parametrize("k", WINDOW_K)
+def test_extract_insert_windows(card, k):
+    """K1 at every lane boundary: random rows of W words with lengths 0,
+    k - 1, k and 16W and random ones; rows narrower than k (P_eff = 1,
+    every slot folds); with a slot base near 2^31 and with per-row bases;
+    in range mode with bounds taken from the block's own keys."""
+    L = ln.num_lanes(k)
+    rng = np.random.RandomState(k)
+    blocks = []
+    for W in (k // 16 + 3, k // 16 + 1):
+        B, P = 97, 16 * W
+        words = rng.randint(0, 2**32, size=(B, W), dtype=np.uint64).astype(np.int64)
+        words[0] = 0                          # all A
+        words[1] = 0xFFFFFFFF                 # all T
+        lengths = rng.randint(0, P + 1, B)
+        lengths[:6] = [P, P, 0, max(0, k - 1), min(k, P), P]
+        blocks.append((torch.from_numpy(words), torch.from_numpy(lengths)))
+    if k > 16:                                # rows narrower than k
+        Wn = (k - 1) // 16
+        words = torch.from_numpy(rng.randint(0, 2**32, size=(9, Wn), dtype=np.uint64).astype(np.int64))
+        blocks.append((words, torch.full((9,), 16 * Wn, dtype=torch.int64)))
+    for words, lengths in blocks:
+        F = extract.block_slots(words.shape, k)
+        ref = torch.full((L + 1, F), 7, dtype=torch.int64)
+        extract.extract_insert_plain(ref, words, lengths, k, 0, 0)
+        live = torch.nonzero(ref[L] != ln.SENTINEL).reshape(-1)
+        modes = [{}]
+        if live.numel() >= 2:
+            pick = live[torch.from_numpy(rng.randint(0, live.numel(), 2))]
+            keys = sorted(tuple(ref[:L, i].tolist()) for i in pick)
+            modes += [{"lo": keys[0], "hi": keys[1]},
+                      {"lo": keys[1], "hi": (ln.SENTINEL,) * L}]
+        else:
+            modes.append({"lo": (0,) * L, "hi": (ln.SENTINEL,) * L})
+        base = torch.from_numpy(rng.randint(0, 2**32, words.shape[0],
+                                            dtype=np.uint64).astype(np.int64))
+        for row_base in (None, base):
+            for kw in modes:
+                bufs = [torch.full((L + 1, F + 9), 7, dtype=torch.int64)
+                        for _ in range(2)]
+                extract.extract_insert_plain(bufs[1], words, lengths, k,
+                                             0x7FFFFF00, 9, row_base, **kw)
+                before = dict(_kernels.LAUNCHES)
+                bufs[0] = bufs[0].to(card)
+                _kernels.extract_insert(
+                    bufs[0], words.to(card), lengths.to(card), k, 0x7FFFFF00,
+                    9, None if row_base is None else row_base.to(card), **kw)
+                assert torch.equal(bufs[0].cpu(), bufs[1])
+                name = "extract_insert_ranged" if kw else "extract_insert"
+                assert _kernels.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("L", list(range(1, 33)))
+def test_range_fold_columns(card, L):
+    """K5 at every lane count on column slices: odd strides, column
+    offsets that break the 16-byte alignment, N not a multiple of 4, an
+    empty range (every column folds: the 16-byte stores) and the whole
+    range; the count right on consecutive calls (the scratch pair is left
+    zeroed)."""
+    rng = np.random.RandomState(100 + L)
+    for N, width, start in ((4099, 4105, 3), (70_001, 70_004, 0),
+                            (64, 64, 0), (5, 8, 1), (2051, 2052, 1)):
+        body = random_body(L, N, L + N)
+        keys = sorted(tuple(body[:L, rng.randint(0, N)].tolist())
+                      for _ in range(2))
+        wide = torch.full((L + 1, width), 3, dtype=torch.int64)
+        wide[:, start:start + N] = body
+        for lo, hi in ((keys[0], keys[1]), ((0,) * L, (ln.SENTINEL,) * L),
+                       (keys[1], keys[1]), (keys[0], (ln.SENTINEL,) * L)):
+            got_buf = wide.to(card)
+            got = _kernels.range_fold(got_buf[:, start:start + N], lo, hi)
+            want_buf = wide.clone()
+            want = count.range_fold_plain(want_buf[:, start:start + N], lo, hi)
+            assert torch.equal(got_buf.cpu(), want_buf)
+            assert int(got[0]) == int(want[0])

@@ -78,6 +78,61 @@ def test_multipass_tables_equal_jax(name):
         assert tstats["ooc_passes"] <= -(-tout[0].shape[1] // resident) + 2
 
 
+# a split while the chunk buffer holds columns carried past cap: K1 wrote
+# them under the wider range, so the next chunk is owed a K5 fold; every
+# scenario splits so at least twice.  (reads seed, genome length, read
+# length, step, copies, k, chunk, resident, block reads)
+SPLIT_CARRY = {
+    "k13": (41, 3000, 50, 2, 2, 13, 256, 512, 8),
+    "k31": (31, 5000, 60, 3, 2, 31, 512, 1024, 16),
+    "k31_small_chunk": (37, 5000, 64, 3, 2, 31, 256, 1024, 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CARRY))
+def test_split_with_carry_folds_owed_chunks(name, monkeypatch):
+    """K1 folds in range mode; K5 runs only on chunks owed a fold; no
+    column outside the current range reaches a chunk count; the tables,
+    passes, ranges and occurrences equal bcalm_tpu's."""
+    seed, glen, rlen, step, copies, k, chunk, resident, br = SPLIT_CARRY[name]
+    reads = _reads(seed, glen, rlen, step, copies)
+    jcfg, tcfg = configs(k, chunk, resident, block_reads=br)
+    counter = tengine._RangeCounter(tcfg, torch.device("cpu"), True)
+    seen = {"folds": 0, "ranged_inserts": 0, "chunks": 0}
+    count_canonical, range_fold = tcount.count_canonical, tcount.range_fold
+    extract_insert = tengine.extract_op.extract_insert
+
+    def checked_count(lanes, weights=None, pos=None):
+        if weights is None:       # a chunk (merges carry weights)
+            inside = (~tcount.lex_lt_plain(lanes, counter.lo)
+                      & tcount.lex_lt_plain(lanes, counter.hi))
+            assert bool((inside | ~tcount.column_valid(lanes)).all()), \
+                "a column outside the key range reached count_canonical"
+            seen["chunks"] += 1
+        return count_canonical(lanes, weights, pos)
+
+    def counted_fold(body, lo, hi):
+        assert counter.owed
+        seen["folds"] += 1
+        return range_fold(body, lo, hi)
+
+    def counted_insert(*args, **kw):
+        assert ("lo" in kw) == counter.range_active()
+        seen["ranged_inserts"] += "lo" in kw
+        return extract_insert(*args, **kw)
+
+    monkeypatch.setattr(tcount, "count_canonical", checked_count)
+    monkeypatch.setattr(tcount, "range_fold", counted_fold)
+    monkeypatch.setattr(tengine.extract_op, "extract_insert", counted_insert)
+    tout = counter.count(blocks_of(reads, tcfg), None)
+    assert seen["folds"] >= 2 and seen["ranged_inserts"] > 0
+    assert seen["chunks"] > seen["folds"]
+    tstats = assert_same_tables(
+        jengine.count_blocks(blocks_of(reads, jcfg), jcfg), tout)
+    assert tstats["kmer_occurrences"] == sum(
+        max(0, len(r) - k + 1) for r in reads)
+
+
 def test_multipass_reread_no_cache():
     reads = _reads(11, 4000, 60, 3)
     jcfg, tcfg = configs(21)
