@@ -23,14 +23,7 @@ inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-// Whole-field shifts of an L-lane value by one base (2 bits).
-template <int L>
-__device__ __forceinline__ void shl2(uint32_t (&x)[L]) {
-#pragma unroll
-  for (int j = 0; j < L - 1; ++j) x[j] = (x[j] << 2) | (x[j + 1] >> 30);
-  x[L - 1] <<= 2;
-}
-
+// Whole-field shift of an L-lane value right by one base (2 bits).
 template <int L>
 __device__ __forceinline__ void shr2(uint32_t (&x)[L]) {
 #pragma unroll
@@ -44,31 +37,52 @@ __device__ __forceinline__ uint32_t top_mask(int m) {
   return r == 16 ? 0xFFFFFFFFu : ((1u << (2 * r)) - 1u);
 }
 
-// Reverse complement of a right-aligned m-mer held in L lanes (lanes above
-// the m-mer's own are zero and stay zero).
+// The 16 bases of a word in reverse order (base i of a left-aligned
+// window moves to exponent i), each complemented (code ^ 2).
+__device__ __forceinline__ uint32_t revcomp_word(uint32_t x) {
+  uint32_t y = __brev(x);
+  y = ((y >> 1) & 0x55555555u) | ((y & 0x55555555u) << 1);
+  return y ^ 0xAAAAAAAAu;
+}
+
+// Whole-field shift of an L-lane value right by B words, when `on`.
+template <int B, int L>
+__device__ __forceinline__ void shr_words(uint32_t (&x)[L], bool on) {
+  if constexpr (B < L) {
+    if (on) {
+#pragma unroll
+      for (int j = L - 1; j >= B; --j) x[j] = x[j - B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) x[j] = 0u;
+    }
+  }
+}
+
+// Reverse complement of a right-aligned m-mer held in L lanes, lanes and
+// bits above its 2m bits zero (they stay zero).  The whole field, read as
+// a string of 16L bases (m-mer last), is reversed word by word
+// (revcomp_word of lane t into lane L-1-t): the m-mer's reverse
+// complement is then its first m bases, followed by 16L - m complemented
+// zero bases.  A right shift by 2(16L - m) bits drops those and brings
+// zeros in above: whole words by a barrel of five conditional moves of
+// 16, 8, 4, 2 and 1 words (every index compile-time, so the arrays stay
+// in registers), then the rest by funnel shifts.  O(L) word operations,
+// where a base at a time was O(m * L).
 template <int L>
-__device__ __forceinline__ void revcomp(const uint32_t (&x)[L], int m,
-                                        uint32_t (&rc)[L]) {
-  uint32_t t[L];
+__device__ __forceinline__ void revcomp_field(const uint32_t (&x)[L], int m,
+                                              uint32_t (&rc)[L]) {
 #pragma unroll
-  for (int j = 0; j < L; ++j) {
-    t[j] = x[j];
-    rc[j] = 0u;
-  }
-  for (int s = 0; s < m; ++s) {
-    uint32_t b = t[L - 1] & 3u;
-    shr2<L>(t);
-    shl2<L>(rc);
-    rc[L - 1] |= b ^ 2u;
-  }
-  // clear whatever shl2 pushed above the m-mer's 2m bits
-  int live = (m + 15) / 16;
-  uint32_t tm = top_mask(m);
+  for (int t = 0; t < L; ++t) rc[L - 1 - t] = revcomp_word(x[t]);
+  const int shift = 2 * (16 * L - m);
+  const int words = shift >> 5, bits = shift & 31;
+  shr_words<16>(rc, words & 16);
+  shr_words<8>(rc, words & 8);
+  shr_words<4>(rc, words & 4);
+  shr_words<2>(rc, words & 2);
+  shr_words<1>(rc, words & 1);
 #pragma unroll
-  for (int j = 0; j < L; ++j) {
-    if (j < L - live) rc[j] = 0u;
-    else if (j == L - live) rc[j] &= tm;
-  }
+  for (int j = L - 1; j > 0; --j) rc[j] = __funnelshift_r(rc[j], rc[j - 1], bits);
+  rc[0] >>= bits;
 }
 
 // Live lanes of a kernel instantiated for an A-lane array: A itself when it

@@ -49,14 +49,6 @@ __device__ __forceinline__ uint32_t row_word(const long long* row, int i,
   return (i >= 0 && i < W) ? static_cast<uint32_t>(__ldg(row + i)) : 0u;
 }
 
-// The 16 bases of a word in reverse order (base i of a left-aligned
-// window moves to exponent i), each complemented.
-__device__ __forceinline__ uint32_t revcomp_word(uint32_t x) {
-  uint32_t y = __brev(x);
-  y = ((y >> 1) & 0x55555555u) | ((y & 0x55555555u) << 1);
-  return y ^ 0xAAAAAAAAu;
-}
-
 template <int A, bool kRange>
 __global__ void __launch_bounds__(bt::kThreads)
 extract_insert_kernel(int64_t* __restrict__ buf, long long stride,
@@ -107,7 +99,7 @@ extract_insert_kernel(int64_t* __restrict__ buf, long long stride,
       uint32_t v = 0u;
       if (t < nl) {
         const uint32_t next = row_word(row, ws + t + 1, W);
-        v = revcomp_word(__funnelshift_l(next, upper, ss));
+        v = bt::revcomp_word(__funnelshift_l(next, upper, ss));
         if (t == nl - 1) v &= tm;
         upper = next;
       }

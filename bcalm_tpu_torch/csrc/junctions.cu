@@ -28,13 +28,19 @@
 // entry: the pair rule of junction_pairs, emitting (ok, src, dst) per entry
 // instead of scattering, since src and dst belong to other ranks.
 //
-// Bound: memory.  junction_keys reads L*8 bytes per k-mer and writes
-// 2*(K+1)*8 (K key rows); the per-base reverse complement loop is
-// register-only.  Above 8 lanes the k-mer sits right-aligned in a 16- or
-// 32-lane array (common.cuh), and the two reverse complements, ~4k*A
-// funnel shifts per k-mer, outweigh the bytes.  junction_pairs reads 3
-// neighbouring key columns (L1 reuse) and does at most two random 8-byte
-// stores per pair.
+// Bound on this card: memory.  junction_keys reads L*8 bytes per k-mer
+// and writes 2*(K+1)*8 (K key rows); junction_entries writes 4*(K+2)*8.
+// Their arithmetic is the two (k-1)-mers' reverse complements, which
+// common.cuh's revcomp_field builds a word at a time (revcomp_word on
+// each lane, then one field shift): O(A) word operations per side, where
+// the base-by-base shifts it replaces cost ~4(k-1)*A (~9,600 at k = 151,
+// A = 16) and outweighed the bytes above 8 lanes.  Above 8 lanes the
+// k-mer sits right-aligned in a 16- or 32-lane array (common.cuh); every
+// lane loop runs over the array's compile-time width with the live lanes
+// as a predicate, so the arrays stay in registers.  A thread's loads and
+// stores are consecutive columns of each row: coalesced per warp.
+// junction_pairs reads 3 neighbouring key columns (L1 reuse) and does at
+// most two random 8-byte stores per pair.
 #include "common.cuh"
 #include "hash.cuh"
 
@@ -51,6 +57,45 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
+// The suffix and prefix (k-1)-mers of solid k-mer i (right-aligned in L
+// lanes, zeros above), their reverse complements, the strands that make
+// them canonical (sig, tau: the reverse complement is smaller) and their
+// palindrome flags.
+template <int L>
+struct Sides {
+  uint32_t suf[L], pre[L], suf_rc[L], pre_rc[L];
+  bool sig, tau, suf_pal, pre_pal;
+};
+
+template <int L>
+__device__ __forceinline__ void load_sides(const int64_t* solid,
+                                           long long stride, long long i,
+                                           int m, int lanes, Sides<L>& s) {
+  const int off = L - (m + 15) / 16;  // lanes above the (k-1)-mer
+  const int pad = L - bt::live_lanes<L>(lanes);  // zero lanes above the k-mer
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    s.suf[j] = s.pre[j] =
+        j < pad ? 0u : static_cast<uint32_t>(solid[(j - pad) * stride + i]);
+  }
+  bt::shr2<L>(s.pre);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (j < off) s.suf[j] = s.pre[j] = 0u;
+    else if (j == off) s.suf[j] &= bt::top_mask(m);
+  }
+  bt::revcomp_field<L>(s.suf, m, s.suf_rc);
+  bt::revcomp_field<L>(s.pre, m, s.pre_rc);
+  s.sig = bt::less<L>(s.suf_rc, s.suf);
+  s.tau = bt::less<L>(s.pre_rc, s.pre);
+  s.suf_pal = s.pre_pal = m % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    s.suf_pal &= s.suf[j] == s.suf_rc[j];
+    s.pre_pal &= s.pre[j] == s.pre_rc[j];
+  }
+}
+
 template <int L>
 __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
                                      long long stride, long long C,
@@ -62,30 +107,11 @@ __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
   if (i >= C) return;
   const int m = k - 1;
   const int off = L - (m + 15) / 16;  // lanes above the (k-1)-mer
-  const int pad = L - bt::live_lanes<L>(lanes);  // zero lanes above the k-mer
-  uint32_t suf[L], pre[L], suf_rc[L], pre_rc[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    suf[j] = pre[j] = j < pad ? 0u : static_cast<uint32_t>(solid[(j - pad) * stride + i]);
-  }
-  bt::shr2<L>(pre);
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    if (j < off) suf[j] = pre[j] = 0u;
-    else if (j == off) suf[j] &= bt::top_mask(m);
-  }
-  bt::revcomp<L>(suf, m, suf_rc);
-  bt::revcomp<L>(pre, m, pre_rc);
-  bool sig = bt::less<L>(suf_rc, suf);
-  bool tau = bt::less<L>(pre_rc, pre);
-  bool suf_pal = (m % 2 == 0), pre_pal = (m % 2 == 0);
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    suf_pal &= suf[j] == suf_rc[j];
-    pre_pal &= pre[j] == pre_rc[j];
-  }
+  Sides<L> s;
+  load_sides<L>(solid, stride, i, m, lanes, s);
+  const bool sig = s.sig, tau = s.tau;
   bool valid = i < n_solid;
-  bool vs = valid && !suf_pal, vp = valid && !pre_pal;
+  bool vs = valid && !s.suf_pal, vp = valid && !s.pre_pal;
   long long oid_s = sig ? i + C : i, oid_p = tau ? i + C : i;
   payload[i] = oid_s | (static_cast<long long>(sig ? 1 : 0) << kRoleShift);
   payload[C + i] = oid_p | (static_cast<long long>(tau ? 0 : 1) << kRoleShift);
@@ -93,8 +119,8 @@ __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       if (j < off) continue;
-      uint32_t sc = sig ? suf_rc[j] : suf[j];
-      uint32_t pc = tau ? pre_rc[j] : pre[j];
+      uint32_t sc = sig ? s.suf_rc[j] : s.suf[j];
+      uint32_t pc = tau ? s.pre_rc[j] : s.pre[j];
       keys[(j - off) * kstride + i] = vs ? sc : bt::kSentinel;
       keys[(j - off) * kstride + C + i] = vp ? pc : bt::kSentinel;
     }
@@ -107,8 +133,8 @@ __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
   for (int j = 0; j < L; ++j) {
     if (j < off) continue;
     uint32_t jj = static_cast<uint32_t>(j - off);
-    uint32_t sc = sig ? suf_rc[j] : suf[j];
-    uint32_t pc = tau ? pre_rc[j] : pre[j];
+    uint32_t sc = sig ? s.suf_rc[j] : s.suf[j];
+    uint32_t pc = tau ? s.pre_rc[j] : s.pre[j];
 #pragma unroll
     for (int w = 0; w < 3; ++w) {
       uint32_t add = static_cast<uint32_t>(w + 1) * jj + 1u;
@@ -183,28 +209,10 @@ __global__ void junction_entries_kernel(
   const int off = L - (m + 15) / 16;
   const int r = m % 16 == 0 ? 16 : m % 16;
   const bool folded = r < 16;
-  const int pad = L - bt::live_lanes<L>(lanes);  // zero lanes above the k-mer
-  uint32_t suf[L], pre[L], suf_rc[L], pre_rc[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    suf[j] = pre[j] = j < pad ? 0u : static_cast<uint32_t>(solid[(j - pad) * stride + i]);
-  }
-  bt::shr2<L>(pre);
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    if (j < off) suf[j] = pre[j] = 0u;
-    else if (j == off) suf[j] &= bt::top_mask(m);
-  }
-  bt::revcomp<L>(suf, m, suf_rc);
-  bt::revcomp<L>(pre, m, pre_rc);
-  bool sig = bt::less<L>(suf_rc, suf);
-  bool tau = bt::less<L>(pre_rc, pre);
-  bool suf_pal = (m % 2 == 0), pre_pal = (m % 2 == 0);
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    suf_pal &= suf[j] == suf_rc[j];
-    pre_pal &= pre[j] == pre_rc[j];
-  }
+  Sides<L> s;
+  load_sides<L>(solid, stride, i, m, lanes, s);
+  const bool sig = s.sig, tau = s.tau, suf_pal = s.suf_pal,
+             pre_pal = s.pre_pal;
   const bool valid = i < n_local;
   const long long g = gbase + i;
   // (side, strand, oid, role) of the four entries, as _local_succ_shard
@@ -214,6 +222,7 @@ __global__ void junction_entries_kernel(
                               pre_pal ? 0u : (tau ? 0u : 1u)};
   const long long oid[4] = {g, g + tot, g, g + tot};
   const long long role[4] = {0, 1, 1, 0};
+#pragma unroll
   for (int e = 0; e < 4; ++e) {
     const bool is_suf = e < 2;
     long long col = e * N + i;
@@ -228,7 +237,8 @@ __global__ void junction_entries_kernel(
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       if (j < off) continue;
-      uint32_t c = is_suf ? (sig ? suf_rc[j] : suf[j]) : (tau ? pre_rc[j] : pre[j]);
+      uint32_t c = is_suf ? (sig ? s.suf_rc[j] : s.suf[j])
+                          : (tau ? s.pre_rc[j] : s.pre[j]);
       if (folded && j == off) c |= strand[e] << (2 * r);
       uint32_t v = valid ? c : bt::kSentinel;
       keys[row * kstride + col] = v;

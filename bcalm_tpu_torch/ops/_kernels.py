@@ -53,9 +53,8 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "bt_extract_insert": [_P, _I64, _P, _P, _I32, _I32, _I32, _I32, _I32,
                           ctypes.c_uint, _P, _I64, _P, _P, _P],
-    "bt_count_flags": [_P, _I64, _I64, _I32, _P, _P],
-    "bt_count_scatter": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _I64, _P,
-                         _P, _P],
+    "bt_count_runs": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _I64, _P, _P,
+                      _P],
     "bt_junction_keys": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _I64, _P,
                          _P],
     "bt_junction_pairs": [_P, _I64, _I32, _P, _I64, _I64, _I32, _P, _P],
@@ -95,6 +94,7 @@ ROUTE_TILE = 1024  # entries per look-back tile of csrc/route.cu
 MAX_ROW_WORDS = 64  # csrc/superkmer.cu: rows of <= 1024 positions
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
 COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
+COUNT_TILE = 2048  # columns per tile of csrc/count.cu
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 
 _lib = None
@@ -262,32 +262,38 @@ def extract_insert(buf: torch.Tensor, words: torch.Tensor,
 
 def count_runs(s_lanes: torch.Tensor, weights, pos):
     """K2 on sorted (L, N) lanes: returns (unique, counts, minpos|None,
-    n_unique tensor)."""
+    n_unique 0-d tensor).  One launch, and one fill of its tile flags."""
     _check(s_lanes, "s_lanes", ndim=2)
+    L, N = s_lanes.shape
+    _lanes_ok(L, "count_runs")
     for t, name in ((weights, "weights"), (pos, "pos")):
         if t is not None:
             _check(t, name, ndim=1)
-    L, N = s_lanes.shape
+            if t.shape[0] != N:
+                raise ValueError(f"count_runs: {name} has {t.shape[0]} "
+                                 f"columns, the lanes {N}")
     dev = s_lanes.device
-    unique = torch.zeros((L, N), dtype=torch.int64, device=dev)
-    counts = torch.zeros((N,), dtype=torch.int64, device=dev)
-    minpos = (torch.full((N,), 0xFFFFFFFF, dtype=torch.int64, device=dev)
-              if pos is not None else None)
     if N == 0:
-        return unique, counts, minpos, torch.zeros((), dtype=torch.int64,
-                                                   device=dev)
-    flags = torch.empty((N,), dtype=torch.int64, device=dev)
-    _launch("bt_count_flags", s_lanes.data_ptr(),
-            s_lanes.stride(0), N, L, flags.data_ptr())
-    gid = torch.cumsum(flags, 0) - 1
-    _launch("bt_count_scatter", s_lanes.data_ptr(),
-            s_lanes.stride(0), N, L, flags.data_ptr(), gid.data_ptr(),
+        empty = s_lanes.new_zeros((0,))
+        return (s_lanes.new_zeros((L, 0)), empty,
+                None if pos is None else empty.clone(), s_lanes.new_zeros(()))
+    # the kernel writes every column: the runs, then the tail
+    unique = torch.empty((L, N), dtype=torch.int64, device=dev)
+    counts = torch.empty((N,), dtype=torch.int64, device=dev)
+    minpos = (torch.empty((N,), dtype=torch.int64, device=dev)
+              if pos is not None else None)
+    # [0] n_unique, [1] the tile ticket, then a status word per tile
+    # (zeroed), then 2 summary words per tile
+    tiles = -(-N // COUNT_TILE)
+    scratch = torch.empty((2 + 3 * tiles,), dtype=torch.int64, device=dev)
+    scratch[:2 + tiles].zero_()
+    _launch("bt_count_runs", s_lanes.data_ptr(), s_lanes.stride(0), N, L,
             None if weights is None else weights.data_ptr(),
-            None if pos is None else pos.data_ptr(), unique.data_ptr(),
-            unique.stride(0), counts.data_ptr(),
+            None if pos is None else pos.data_ptr(), scratch.data_ptr(),
+            unique.data_ptr(), unique.stride(0), counts.data_ptr(),
             None if minpos is None else minpos.data_ptr())
     LAUNCHES["count_runs"] += 1
-    return unique, counts, minpos, gid[-1] + 1
+    return unique, counts, minpos, scratch[0]
 
 
 def junction_keys(solid: torch.Tensor, n_solid: int, k: int, hashed: bool,

@@ -81,7 +81,8 @@ Phases (any failure raises, and the script exits non-zero):
    where one PyTorch call computes the same function, that call's time;
    K1 on phase 3's block, with per-row slot bases on phase 3f's received
    superkmers, in range mode on phase 3b's first range-mode block, and at
-   L = 10 and 16 on phase 3h's blocks; K5 on phase 3b's first chunk in
+   L = 10 and 16 on phase 3h's blocks; K2 also on phase 3b's first chunk
+   count, with 3b's launches (chunks and LSM merges); K5 on phase 3b's first chunk in
    range mode (that block extracted without the range, the chunk a column
    slice), the same chunk at an odd stride, and the first chunk 3b owed a
    fold, if any; each K1 and K5 row with its device time and operations
@@ -95,14 +96,14 @@ Phases (any failure raises, and the script exits non-zero):
    its library call) and its minimizer mode (partition ids with phase 3f's
    frequency rank and a 4-rank table; lexicographic minimizers).  Then one
    row per lane-dependent kernel at L = 10, on the inputs phase 3h's k = 151
-   build fed it (K1, K3a, K7, K9, K11), or made from them where that build
+   build fed it (K1, K2, K3a, K7, K9, K11), or made from them where that build
    does not run the kernel (K5 and K6 on its sorted chunk, K3's global mode
    and K20 on a 2^20-column slice of its solid table), and one for K9 in
    filter_abundance mode (no minpos row) on its counted table.  K6 also
-   runs at 256 quantile bounds of phase 3b's run; the K1, K5, K6, K9 and
-   filter_abundance rows also carry the device time per call
-   (torch.profiler) of the kernel and of its library call, beside their
-   CUDA-event times, which include the launch path.
+   runs at 256 quantile bounds of phase 3b's run; the K1, K2, K3a, K3
+   global, K5, K6, K9 and filter_abundance rows also carry the device time
+   per call (torch.profiler) of the kernel and of its library call, beside
+   their CUDA-event times, which include the launch path.
 
 The last line is {"ok": true, "device": {...}}.  Exits 1 without a result
 when no CUDA device is available.
@@ -121,7 +122,9 @@ example a parent commit, ``git archive``) and of this tree in turns on
 the phase 3 reads, resident and with ``-max-memory 2192``, after a
 warm-up run of each that builds its kernels and ingest library; before
 those runs, KERNEL_AB (below) times the L = 2 lane kernels, K1 at L = 10
-and in range mode, K6, K9, K13 and K15 of each tree in the same turns
+and in range mode, K2 at phase 3's shape (with pos, and weighted) beside
+torch.unique_consecutive, K3a at L = 10 and 16, K6, K9, K13 and K15 of
+each tree in the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
 runtime's launch), and DIST_AB
@@ -1259,7 +1262,11 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 
 # Run in a tree's root by phase_compare: the lane kernels that take 1-8
 # lanes (K1, K3a, K5, K6, K9) at L = 2 (k = 31), K1 also at L = 10 and in
-# range mode, K13 and K15, on inputs
+# range mode, K2 at phase 3's shape (2 x 2^25 sorted columns from 8,125,243
+# distinct keys, 5% sentinel; with pos, and with weights too) beside
+# torch.unique_consecutive on the packed keys (not the same function: no
+# weights, no min pos), K3a also at L = 10 and 16 (5,595,027 and
+# 1,175,295 random k-mers at k = 151 and 255), K13 and K15, on inputs
 # made from a seed, as one JSON line: {"ms": CUDA-event time per call,
 # "device_ms": device time per call, "ops": device operations per call
 # (kernels, fills and copies the profiler saw), "host_ms": host time per
@@ -1278,8 +1285,8 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 # owner) at 1, 4 and 8 destinations with slots, cap from
 # superkmer_capacity, and in its hash mode on 2^24 2-lane slots, ~80%
 # valid, at 1 and 4 ranks with cap = ceil(2 valid / n) (phase 3g's
-# sizing).  K13, K15 and K1 in range mode are held bitwise against their
-# plain versions.  It calls only wrappers whose signatures have not
+# sizing).  K2, K3a at L = 10 and 16, K13, K15 and K1 in range mode are
+# held bitwise against their plain versions.  It calls only wrappers whose signatures have not
 # changed since K20 was ported, and K1's range mode only where the
 # wrapper takes lo and hi, so an older tree runs it as well.
 KERNEL_AB = r"""
@@ -1453,6 +1460,31 @@ for n in (1, 4):
     name = f"route_buckets hash n={n}"
     fns[name] = (lambda rargs=rargs: _kernels.route_buckets(*rargs), 20)
     split[name] = True
+# K2 at phase 3's shape (2 x 2^25 sorted columns drawn from 8,125,243
+# distinct keys, the last 5% the sentinel), with pos, and with weights too
+# (an LSM merge's call); torch.unique_consecutive beside it is not the
+# same function (no weights, no min pos).  K3a at L = 10 and 16 (phase
+# 3h's solid table sizes at k = 151 and 255)
+r2 = np.random.RandomState(2)
+pool2 = r2.randint(0, 2**62, size=8125243, dtype=np.int64)
+packed = torch.sort(torch.from_numpy(pool2[r2.randint(0, pool2.size, size=1 << 25)]).to(dev))[0]
+k2_lanes = torch.stack([packed >> 32, packed & 0xFFFFFFFF]).contiguous()
+k2_lanes[:, -(1 << 25) // 20:] = 0xFFFFFFFF
+k2_pos = torch.from_numpy(r2.randint(0, 2**32 - 1, size=1 << 25, dtype=np.int64)).to(dev)
+k2_w = torch.from_numpy(r2.randint(1, 9, size=1 << 25).astype(np.int64)).to(dev)
+for name, args in (("count_runs", (k2_lanes, None, k2_pos)),
+                   ("count_runs weighted", (k2_lanes, k2_w, k2_pos))):
+    same(_kernels.count_runs(*args), count.count_runs_plain(*args), name)
+    fns[name] = (lambda args=args: _kernels.count_runs(*args), 20)
+fns["unique_consecutive (not the same function: no weights, no min pos)"] = (
+    lambda: torch.unique_consecutive(packed, return_counts=True), 20)
+for L, kk, C in ((10, 151, 5595027), (16, 255, 1175295)):
+    sl = torch.from_numpy(r2.randint(0, 2**32, size=(L, C), dtype=np.uint64).astype(np.int64)).to(dev)
+    sl[0] &= (1 << (2 * (kk % 16 or 16))) - 1
+    kargs = (sl, C, kk, junctions.use_hash_keys(kk), junctions.key_rows(kk))
+    same(_kernels.junction_keys(*kargs), junctions.junction_keys_plain(sl, C, kk),
+         f"junction_keys L={L}")
+    fns[f"junction_keys L={L}"] = (lambda kargs=kargs: _kernels.junction_keys(*kargs), 20)
 dms = {n: device_ms(f, r) for n, (f, r) in fns.items()}
 print(json.dumps({"ms": {n: time_ms(f, r) for n, (f, r) in fns.items()},
                   "device_ms": {n: d[0] for n, d in dms.items()},
@@ -2002,12 +2034,19 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     s_lanes, w, pos = inputs["count_runs"]
     check("count_runs", lambda: _kernels.count_runs(s_lanes, w, pos),
           lambda: count.count_runs_plain(s_lanes, w, pos),
-          reads=(s_lanes, w, pos))
+          reads=(s_lanes, w, pos), device=True)
+    # K2 at phase 3b's chunk shape (its first chunk count), with the
+    # launches of 3b's run (chunks and LSM merges)
+    c_lanes, c_w, c_pos = inputs["count_runs:3b"]
+    check("count_runs", lambda: _kernels.count_runs(c_lanes, c_w, c_pos),
+          lambda: count.count_runs_plain(c_lanes, c_w, c_pos),
+          reads=(c_lanes, c_w, c_pos), label="count_runs:3b",
+          launched=phases["3b"]["count_runs"], device=True)
     solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
     check("junction_keys",
           lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
           lambda: junctions.junction_keys_plain(solid, n_solid, k),
-          reads=solid)
+          reads=solid, device=True)
     s_keys, s_pay, C, hashed = inputs["junction_pairs"]
     check("junction_pairs", lambda: _kernels.junction_pairs(s_keys, s_pay, C, hashed),
           lambda: junctions.junction_pairs_plain(s_keys, s_pay, C, hashed),
@@ -2331,6 +2370,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
         say(f"[kernel] {what}: equal to plain, {r['ms']:.4f} ms{dev_ms} vs "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
+              "count_runs:3b": tuple(c_lanes.shape),
               "junction_keys": tuple(solid.shape), "junction_pairs": tuple(s_keys.shape),
               "jump_round": tuple(Q.shape), "range_fold": k5_shapes,
               "lower_bound": [tuple(run.shape), n, tuple(bounds.shape)],
@@ -2399,11 +2439,15 @@ def longk_rows(longk, phases, dev):
     solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
     row("junction_keys",
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
-        lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid)
+        lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid,
+        device=True)
+    s_lanes, w, pos = inputs["count_runs"]
+    row("count_runs", lambda: _kernels.count_runs(s_lanes, w, pos),
+        lambda: count.count_runs_plain(s_lanes, w, pos),
+        reads=(s_lanes, w, pos), device=True)
     # K5 and K6 (the multi-pass count's, not on this resident path) on the
     # build's first sorted chunk: the middle third of its keys, and 256
     # quantile bounds as the range split's pivots
-    s_lanes, _, pos = inputs["count_runs"]
     n_valid = int((s_lanes[0] != 0xFFFFFFFF).sum())
     body = torch.cat([s_lanes, pos[None]]).contiguous()
     lo = tuple(int(x) for x in s_lanes[:, n_valid // 3].tolist())
@@ -2451,7 +2495,7 @@ def longk_rows(longk, phases, dev):
     row("junction_keys", lambda: _kernels.junction_entries(*ge),
         lambda: junctions.junction_entries_plain(*ge[:6]), reads=sl,
         label="junction_entries", on_path=False,
-        replaces="bcalm_tpu/parallel/distcompact.py:53")
+        replaces="bcalm_tpu/parallel/distcompact.py:53", device=True)
     m20 = 10
     all20 = torch.ones((n20,), dtype=torch.bool, device=dev)
     mm_flat = minimizer.extract_mmers(sl, k, m20).reshape(-1)
@@ -2469,7 +2513,7 @@ def longk_rows(longk, phases, dev):
         "junction_keys", launches2,
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
         lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid,
-        label=f"junction_keys@L{solid.shape[0]}", reps=5))
+        label=f"junction_keys@L{solid.shape[0]}", reps=5, device=True))
     return rows
 
 
@@ -2564,6 +2608,7 @@ def main() -> int:
               "3h": {n: longk[LONG_K][1][n] + longk[LONG_K2][1][n]
                      for n in longk[LONG_K][1]}}
     inputs["lower_bound"] = ooc_inputs["lower_bound"]
+    inputs["count_runs:3b"] = ooc_inputs["count_runs"]
     inputs["extract_insert:ranged"] = ooc_inputs["extract_insert:ranged"]
     inputs["extract_insert:row_base"] = mesh_inputs["extract_insert"]
     if "range_fold" in ooc_inputs:

@@ -2,7 +2,10 @@
 
 Covers unweighted counting with first-occurrence keys, the weighted merge
 of counted runs whose pos values interleave (the per-group min must be a
-real segmented min), the solidity fold, the abundance histogram, and the
+real segmented min), the run shapes the kernel's tiles of 2048 columns
+meet (one run over every column, a run over several tiles among short
+ones, all sentinel, one column, a weighted run whose pos values
+interleave), the solidity fold, the abundance histogram, and the
 resident counting loop at chunk sizes that force many chunks and LSM
 merges.  All outputs are integer: exact equality.
 """
@@ -75,6 +78,53 @@ def test_weighted_merge_interleaved_pos():
     np.testing.assert_array_equal(convert.lanes_to_numpy(tu), np.asarray(ju))
     np.testing.assert_array_equal(convert.counts_to_numpy(tc), np.asarray(jc))
     np.testing.assert_array_equal(convert.pos_to_numpy(tp), np.asarray(jp))
+
+
+def run_case(case: str):
+    """(lanes (L, N) u32, valid, weights or None, pos) of one run shape."""
+    rng = np.random.RandomState(len(case))
+    L = 2
+    pool = rng.randint(0, 2**32, size=(L, 40), dtype=np.uint64).astype(np.uint32)
+    if case == "one_run":            # one k-mer in every column
+        idx = np.zeros(5000, np.int64)
+    elif case in ("long_run", "weighted_long_run"):
+        # a run of 4500 columns (past two tiles) among 40 short ones
+        idx = np.concatenate([rng.randint(1, 40, 700), np.zeros(4500, np.int64),
+                              rng.randint(1, 40, 900)])
+    elif case == "all_sentinel":
+        idx = rng.randint(0, 40, 3000)
+    else:                             # "single": N = 1
+        idx = np.zeros(1, np.int64)
+    N = idx.size
+    lanes = pool[:, idx]
+    valid = np.ones(N, bool) if case != "all_sentinel" else np.zeros(N, bool)
+    pos = rng.permutation(N).astype(np.uint32) * np.uint32(3) + np.uint32(5)
+    weights = (rng.randint(1, 1000, N).astype(np.int32)
+               if case == "weighted_long_run" else None)
+    return lanes, valid, weights, pos
+
+
+@pytest.mark.parametrize("case", ["one_run", "long_run", "all_sentinel",
+                                  "single", "weighted_long_run"])
+def test_count_canonical_run_shapes(case):
+    lanes, valid, weights, pos = run_case(case)
+    kw = {} if weights is None else {"weights": jnp.asarray(weights),
+                                     "weighted": True}
+    ju, jc, jn, jp = jcount.count_canonical(
+        jnp.asarray(lanes), jnp.asarray(valid), pos=jnp.asarray(pos),
+        with_pos=True, **kw)
+    folded = np.where(valid[None], lanes, np.uint32(SENT))
+    tu, tc, tp, tn = tcount.count_canonical(
+        t(folded), None if weights is None else convert.counts_from_numpy(
+            weights, "cpu"), t(pos))
+    assert int(tn) == int(jn) == {"one_run": 1, "single": 1,
+                                  "all_sentinel": 0}.get(case, int(jn))
+    np.testing.assert_array_equal(convert.lanes_to_numpy(tu), np.asarray(ju))
+    np.testing.assert_array_equal(convert.counts_to_numpy(tc), np.asarray(jc))
+    np.testing.assert_array_equal(convert.pos_to_numpy(tp), np.asarray(jp))
+    if case != "all_sentinel":
+        assert int(tc.sum()) == (len(valid) if weights is None
+                                 else int(weights.sum()))
 
 
 def test_filter_fold_and_histogram():

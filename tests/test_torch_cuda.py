@@ -1063,3 +1063,115 @@ def test_range_fold_columns(card, L):
             want = count.range_fold_plain(want_buf[:, start:start + N], lo, hi)
             assert torch.equal(got_buf.cpu(), want_buf)
             assert int(got[0]) == int(want[0])
+
+
+# -- K2's one-pass segmented reduce; K3's word-parallel reverse complement --
+
+def sorted_runs(L, lengths, n_sent, seed, device):
+    """Sorted (L, N) lanes: len(lengths) distinct random keys in order, key
+    r repeated lengths[r] times, then n_sent sentinel columns."""
+    rng = np.random.RandomState(seed)
+    P = len(lengths)
+    pool = rng.randint(0, 2**32 - 1, size=(L, P), dtype=np.uint64).astype(np.int64)
+    pool = pool[:, np.lexsort(tuple(pool[::-1]))]
+    idx = torch.repeat_interleave(torch.arange(P), torch.as_tensor(lengths))
+    lanes = torch.from_numpy(pool).to(device)[:, idx.to(device)]
+    sent = torch.full((L, n_sent), ln.SENTINEL, dtype=torch.int64, device=device)
+    return torch.cat([lanes, sent], dim=1).contiguous()
+
+
+def run_lengths(N, seed, long_runs=()):
+    """Geometric run lengths (mean 4) summing to N, with the given long
+    runs spliced in at random places."""
+    rng = np.random.RandomState(seed)
+    short = N - sum(long_runs)
+    lengths = rng.geometric(0.25, max(1, short))
+    cum = np.cumsum(lengths)
+    n = int(np.searchsorted(cum, short))
+    lengths = lengths[:n + 1] if short else lengths[:0]
+    if short:
+        lengths[-1] -= cum[n] - short
+    for r in long_runs:
+        lengths = np.insert(lengths, rng.randint(0, len(lengths) + 1), r)
+    return lengths.astype(np.int64)
+
+
+@pytest.mark.parametrize("L", [1, 2, 8, 10, 16, 32])
+def test_count_runs_segmented(card, L):
+    """K2 against its plain version, bitwise, at N = 0, 1, around one tile
+    and past 3 * 2^20 with runs crossing 1, 2 and ~300 tiles (2048
+    columns each); weighted (sums past 2^32) and not, with and without
+    pos; all-sentinel inputs; one launch a call, the same bytes twice."""
+    shapes = [(1, ()), (4095, ()), (4096, ()), (4097, (3000,)),
+              (3 * 2**20 + 5, (2100, 4200, 300 * 2048 + 17))]
+    rng = np.random.RandomState(L)
+    for N, long_runs in shapes:
+        n_sent = N // 10
+        lanes = sorted_runs(L, run_lengths(N - n_sent, N + L, long_runs),
+                            n_sent, N, card)
+        weights = torch.from_numpy(rng.randint(1, 2**31, N)).to(card)
+        pos = torch.from_numpy(rng.randint(0, 2**32, N, dtype=np.uint64)
+                               .astype(np.int64)).to(card)
+        for w in (None, weights):
+            for p in (None, pos):
+                before = _kernels.LAUNCHES["count_runs"]
+                got = _kernels.count_runs(lanes, w, p)
+                assert _kernels.LAUNCHES["count_runs"] == before + 1
+                again = _kernels.count_runs(lanes, w, p)
+                want = count.count_runs_plain(lanes, w, p)
+                for a, b, c in zip(got, again, want):
+                    assert (a is None) == (b is None) == (c is None)
+                    if a is not None:
+                        assert torch.equal(a, c) and torch.equal(a, b)
+        if long_runs:
+            g = count.count_runs_plain(lanes, weights, None)[1]
+            assert int(g.max()) > 2**32
+    for N in (0, 4097):   # empty, and every column the sentinel
+        lanes = torch.full((L, N), ln.SENTINEL, dtype=torch.int64, device=card)
+        pos = torch.arange(N, device=card)
+        got = _kernels.count_runs(lanes, None, pos)
+        want = count.count_runs_plain(lanes, None, pos)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+def kmer_set(k, n, seed):
+    """n random k-mers plus ones whose suffix, prefix or both are
+    palindromic (k - 1 even), all-A and all-T, as Python ints."""
+    rng = np.random.RandomState(seed)
+    rand = lambda b: "".join("ACGT"[c] for c in rng.randint(0, 4, b))
+    out = [brute.str2num(rand(k)) for _ in range(n)]
+    out += [0, 4**k - 1]
+    m = k - 1
+    if m % 2 == 0:
+        for _ in range(6):
+            half = rand(m // 2)
+            pal = half + brute.revcomp_str(half)
+            out += [brute.str2num(rand(1) + pal), brute.str2num(pal + rand(1))]
+    return out
+
+
+RESIDUE_L = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16, 17, 32]
+
+
+@pytest.mark.parametrize("L", RESIDUE_L)
+def test_junction_keys_residues(card, L):
+    """K3a and its global mode (junction_entries) at every residue of
+    (k-1) mod 16 for k-mers of L lanes (k = 16(L-1)+1 .. 16L), exact and
+    hashed keys, with palindromic sides and columns past n_solid."""
+    for k in range(16 * (L - 1) + 1, 16 * L + 1):
+        if k < 2:
+            continue
+        kmers = kmer_set(k, 300, k)
+        solid = solid_columns(kmers, L)
+        n = solid.shape[1]
+        hashed = junctions.use_hash_keys(k)
+        keys, pay = _kernels.junction_keys(solid.to(card), n - 5, k, hashed,
+                                           junctions.key_rows(k))
+        pkeys, ppay = junctions.junction_keys_plain(solid, n - 5, k)
+        assert torch.equal(keys.cpu(), pkeys) and torch.equal(pay.cpu(), ppay)
+        gbase, tot = 2 * n, 5 * n
+        got = junctions.junction_entries(solid.to(card), n - 5, k, gbase, tot, 3)
+        want = junctions.junction_entries_plain(solid, n - 5, k, gbase, tot, 3)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
