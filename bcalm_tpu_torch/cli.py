@@ -179,8 +179,9 @@ def _input_blocks(bank, cfg, verbose: int, nb_cores: int = 0,
         )
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(f"{what}: not yet ported (ROADMAP {item})", file=sys.stderr)
+def _not_ported(what: str) -> int:
+    print(f"{what}: not ported: the keep-alive server is on ROADMAP's "
+          f"do-not-port list", file=sys.stderr)
     return 1
 
 
@@ -382,7 +383,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     for flag in ("-server", "-connect"):
         if flag in argv:
-            return _not_ported(flag, "A12")
+            return _not_ported(flag)
     parser = build_parser()
     try:
         props = parser.parse(argv)

@@ -27,53 +27,12 @@
 // comes from the prefix, never from atomics on the output, so the
 // compaction is stable.  A second, grid-stride launch fills [n_solid, W),
 // reading n_solid on the device; at W = n_solid it writes nothing.
-#include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
 constexpr int kItems = 16;                        // columns per thread
-constexpr int kWarps = bt::kThreads / 32;         // 8
 constexpr long long kTile = bt::kThreads * kItems;  // 4096 columns
-constexpr unsigned long long kAggregate = 1, kPrefix = 2;
-static_assert(kItems * kWarps == 32 * 4, "warp 0 scans 4 counts a lane");
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             long long value,
-                                             unsigned long long flag) {
-  unsigned long long v = (static_cast<unsigned long long>(value) << 2) | flag;
-  asm volatile("st.relaxed.gpu.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
-}
-
-// Called by the 32 lanes of one warp: the sum of the solid counts of the
-// tiles before `tile`, read from their status words 32 at a time, nearest
-// first, up to and including the nearest one that holds its inclusive
-// prefix (tile 0 always does).
-__device__ long long look_back(const unsigned long long* status,
-                               long long tile, int lane) {
-  long long prefix = 0;
-  for (long long t = tile - 1 - lane;; t -= 32) {
-    unsigned long long s = kPrefix;  // before tile 0: an empty prefix
-    if (t >= 0) {
-      do {
-        s = load_status(status + t);
-      } while ((s & 3u) == 0);
-    }
-    const unsigned int found = __ballot_sync(0xFFFFFFFFu, (s & 3u) == kPrefix);
-    const int stop = found ? __ffs(found) - 1 : 31;
-    long long v = lane <= stop ? static_cast<long long>(s >> 2) : 0;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
-    prefix += v;
-    if (found) return prefix;
-  }
-}
 
 __global__ void __launch_bounds__(bt::kThreads)
 solid_compact_kernel(const int64_t* __restrict__ unique, long long ustride,
@@ -84,68 +43,24 @@ solid_compact_kernel(const int64_t* __restrict__ unique, long long ustride,
                      unsigned long long* __restrict__ status,
                      int64_t* __restrict__ out, long long ostride, long long W,
                      int64_t* __restrict__ n_solid) {
-  __shared__ long long s_tile, s_carry;
-  __shared__ int s_off[kItems * kWarps];  // (q, warp) -> rank of its first
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (threadIdx.x == 0) s_tile = static_cast<long long>(atomicAdd(next_tile, 1ULL));
-  __syncthreads();
-  const long long tile = s_tile;
+  const long long tile = take_tile(next_tile);
   const long long first = tile * kTile + threadIdx.x;
-  unsigned int ballot[kItems];
+  bool keep[kItems];
 #pragma unroll
   for (int q = 0; q < kItems; ++q) {
     const long long i = first + q * bt::kThreads;
-    bool keep = false;
+    keep[q] = false;
     if (i < N) {
       const long long c = counts[i];
-      keep = i < n_unique && c >= amin && c <= amax;
-    }
-    ballot[q] = __ballot_sync(0xFFFFFFFFu, keep);
-    if (lane == 0) s_off[q * kWarps + w] = __popc(ballot[q]);
-  }
-  __syncthreads();
-  if (w == 0) {
-    int v[4], sum = 0;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      v[r] = s_off[lane * 4 + r];
-      sum += v[r];
-    }
-    int inc = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-      if (lane >= d) inc += y;
-    }
-    int run = inc - sum;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      s_off[lane * 4 + r] = run;
-      run += v[r];
-    }
-    const long long count = __shfl_sync(0xFFFFFFFFu, inc, 31);
-    long long carry = 0;
-    if (tile == 0) {
-      if (lane == 0) store_status(status, count, kPrefix);
-    } else {
-      if (lane == 0) store_status(status + tile, count, kAggregate);
-      carry = look_back(status, tile, lane);
-      if (lane == 0) store_status(status + tile, carry + count, kPrefix);
-    }
-    if (lane == 0) {
-      s_carry = carry;
-      if (tile == (N - 1) / kTile) n_solid[0] = carry + count;
+      keep[q] = i < n_unique && c >= amin && c <= amax;
     }
   }
-  __syncthreads();
   // destination of each of this thread's columns, -1 where not solid
-  const unsigned int below = (1u << lane) - 1u;
   long long dest[kItems];
+  const long long total = select_ranks<kItems>(keep, tile, status, dest);
+  if (threadIdx.x == 0 && tile == (N - 1) / kTile) n_solid[0] = total;
 #pragma unroll
   for (int q = 0; q < kItems; ++q) {
-    dest[q] = (ballot[q] >> lane) & 1u
-                  ? s_carry + s_off[q * kWarps + w] + __popc(ballot[q] & below)
-                  : -1;
     if (dest[q] >= W) dest[q] = -1;
   }
   const int rows = L + 1 + (minpos != nullptr);

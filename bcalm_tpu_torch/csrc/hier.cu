@@ -17,16 +17,20 @@
 //   served identity row is always FIX alone.  hier_jump runs _R_A rounds
 //   with no changed flag (null) and no sync; given one, `changed` goes to
 //   1 when a row moved (_phase's converge=True).
-// K18 hier_contract: the level build.  A mark pass flags the targets of
-//   the unresolved rows (valid, neither SETTLED nor ROOTED); the selected
-//   rows (sampled or flagged, and valid) get dense ids `did` from the block
-//   scan of scan.cuh, in index order (JAX sorts the selected indices; the
-//   scan gives the same order), S1 for the others, and their index lands at
-//   `parent[did]`; a gather pass builds the level's S1 rows: ptr remapped
-//   through did (ROOTED rows keep their original-space ptr), SETTLED and
-//   FIX cleared, the absorbing filler (j, ROOTED, big, 0) past the
-//   selected count n_c; ok[0] goes to 0 when n_c > S1 (JAX's level
-//   overflow; the rows past S1 are dropped as JAX drops them).
+// K18 hier_contract: the level build, four device operations: a memset
+//   of tmask; a mark pass that flags the targets of the unresolved rows
+//   (valid, neither SETTLED nor ROOTED) and zeroes the selection's ticket
+//   and tile status words; one selection pass with decoupled look-back
+//   (lookback.cuh) that reads valid, tmask and gid once per row and gives
+//   the selected rows (sampled or flagged, and valid) dense ids `did` in
+//   index order (JAX sorts the selected indices; the stable ranks give the
+//   same order), S1 for the others, lands each selected index at
+//   `parent[did]` and has its last tile write the selected count n_c; and
+//   a gather pass that builds the level's S1 rows: ptr remapped through
+//   did (ROOTED rows keep their original-space ptr), SETTLED and FIX
+//   cleared, the absorbing filler (j, ROOTED, big, 0) and parent[j] = 0
+//   past n_c; ok[0] goes to 0 when n_c > S1 (JAX's level overflow; the
+//   rows past S1 are dropped as JAX drops them).
 // K19 hier_expand: the upward pass.  Each row of the level below composes
 //   its phase-A span with the converged row of its target one level up
 //   (did of its ptr), whose ptr is translated back through parent unless
@@ -34,12 +38,14 @@
 // The deepest level runs the plain doubling (K4, csrc/chains.cu).
 //
 // Bound: memory, and random rows.  K17 reads the row (32 bytes), the
-// target's row, gid and valid flag, writes 32; K18 reads the rows twice and
-// writes S1 rows; K19 reads a row, did, a row one level up and its parent,
-// writes 32.  Each kernel is one thread per row with the random reads
-// issued as early as the control flow allows; the selection is a scan, not
-// JAX's sort, and no (S, 4) table of served rows is materialised.
-#include "scan.cuh"
+// target's row, gid and valid flag, writes 32; K18 reads the rows twice
+// (the mark's flags and pointers, the gather's selected rows), valid,
+// tmask and gid once, and writes did and S1 rows; K19 reads a row, did, a
+// row one level up and its parent, writes 32.  Each kernel is one thread per row with the random reads
+// issued as early as the control flow allows; the selection is one
+// look-back pass, not JAX's sort, and no (S, 4) table of served rows is
+// materialised.
+#include "lookback.cuh"
 #include "compose.cuh"
 
 namespace {
@@ -85,10 +91,18 @@ __global__ void hier_round_kernel(const int64_t* __restrict__ Q,
   if (moved && changed != nullptr) *changed = 1;
 }
 
+// Rows per tile of the selection: kSelItems per thread.
+constexpr int kSelItems = 8;
+constexpr long long kSelTile = bt::kThreads * kSelItems;  // 2048 rows
+
+// zero: the selection's ticket and status words (n_zero of them).
 __global__ void hier_mark_kernel(const int64_t* __restrict__ Q,
                                  const uint8_t* __restrict__ valid, long long S,
-                                 uint8_t* __restrict__ tmask) {
+                                 uint8_t* __restrict__ tmask,
+                                 unsigned long long* __restrict__ zero,
+                                 long long n_zero) {
   long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v < n_zero) zero[v] = 0;
   if (v >= S) return;
   long long f = Q[4 * v + 1];
   if (valid[v] && !(f & (bt::kSettled | bt::kRooted))) {
@@ -97,30 +111,40 @@ __global__ void hier_mark_kernel(const int64_t* __restrict__ Q,
   }
 }
 
-struct Selected {
-  const int64_t* gid;
-  const uint8_t* valid;
-  const uint8_t* tmask;
-  uint32_t salt;
-  __device__ long long operator()(long long i) const {
-    return (valid[i] && (tmask[i] || level_sampled(gid[i], salt))) ? 1 : 0;
+__global__ void __launch_bounds__(bt::kThreads)
+hier_select_kernel(const int64_t* __restrict__ gid,
+                   const uint8_t* __restrict__ valid,
+                   const uint8_t* __restrict__ tmask, long long S,
+                   uint32_t salt, long long S1,
+                   unsigned long long* __restrict__ next_tile,
+                   unsigned long long* __restrict__ status,
+                   int64_t* __restrict__ did, int64_t* __restrict__ parent,
+                   int64_t* __restrict__ n_c) {
+  const long long tile = take_tile(next_tile);
+  const long long first = tile * kSelTile + threadIdx.x;
+  bool keep[kSelItems];
+#pragma unroll
+  for (int q = 0; q < kSelItems; ++q) {
+    const long long i = first + q * bt::kThreads;
+    keep[q] = i < S && valid[i] && (tmask[i] || level_sampled(gid[i], salt));
   }
-};
-
-struct DenseIds {
-  int64_t* did;
-  int64_t* parent;
-  long long S1;
-  __device__ void operator()(long long i, long long prefix, long long sel) const {
-    did[i] = sel ? prefix : S1;
-    if (sel && prefix < S1) parent[prefix] = i;
+  long long dest[kSelItems];
+  const long long total = select_ranks<kSelItems>(keep, tile, status, dest);
+  if (threadIdx.x == 0 && tile == (S - 1) / kSelTile) n_c[0] = total;
+#pragma unroll
+  for (int q = 0; q < kSelItems; ++q) {
+    const long long i = first + q * bt::kThreads;
+    if (i >= S) break;
+    did[i] = dest[q] >= 0 ? dest[q] : S1;
+    if (dest[q] >= 0 && dest[q] < S1) parent[dest[q]] = i;
   }
-};
+}
 
+// parent[j] for j >= n_c is written here (0), the rest by the selection.
 __global__ void hier_gather_kernel(const int64_t* __restrict__ Q,
                                    const int64_t* __restrict__ gid,
                                    const int64_t* __restrict__ did,
-                                   const int64_t* __restrict__ parent,
+                                   int64_t* __restrict__ parent,
                                    const int64_t* __restrict__ n_c, long long S,
                                    long long S1, long long big,
                                    int64_t* __restrict__ Q1,
@@ -147,6 +171,7 @@ __global__ void hier_gather_kernel(const int64_t* __restrict__ Q,
     out[0] = j; out[1] = bt::kRooted; out[2] = big; out[3] = 0;
     gid1[j] = big;
     valid1[j] = 0;
+    parent[j] = 0;
   }
 }
 
@@ -183,22 +208,31 @@ extern "C" int bt_hier_round(const int64_t* Q, int64_t* Qn, const int64_t* gid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// tmask: S zeroed bytes; scratch: scan_tiles(S) int64; parent: S1 zeroed
+// work: 1 + ceil(S / 2048) + ceil(S / 8) int64 words, needing no fill:
+// the selection's ticket and tile status words (zeroed by the mark pass),
+// then S bytes of tmask (zeroed by a memset).
 extern "C" int bt_hier_contract(const int64_t* Q, const int64_t* gid,
                                 const uint8_t* valid, long long S,
                                 unsigned int salt, long long S1, long long big,
-                                uint8_t* tmask, long long* scratch, int64_t* did,
-                                int64_t* parent, int64_t* n_c, int64_t* Q1,
-                                int64_t* gid1, uint8_t* valid1, int* ok,
-                                void* stream) {
+                                long long* work, int64_t* did, int64_t* parent,
+                                int64_t* n_c, int64_t* Q1, int64_t* gid1,
+                                uint8_t* valid1, int* ok, void* stream) {
   if (S == 0 || S1 == 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  hier_mark_kernel<<<bt::blocks_for(S), bt::kThreads, 0, s>>>(Q, valid, S, tmask);
-  cudaError_t err = cudaGetLastError();
+  const long long tiles = (S + kSelTile - 1) / kSelTile;
+  auto* words = reinterpret_cast<unsigned long long*>(work);
+  auto* tmask = reinterpret_cast<uint8_t*>(work + 1 + tiles);
+  cudaError_t err = cudaMemsetAsync(tmask, 0, S, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int rc = exclusive_sum(Selected{gid, valid, tmask, salt},
-                         DenseIds{did, parent, S1}, S, scratch, n_c, s);
-  if (rc != 0) return rc;
+  hier_mark_kernel<<<bt::blocks_for(S > tiles + 1 ? S : tiles + 1),
+                     bt::kThreads, 0, s>>>(Q, valid, S, tmask, words,
+                                           1 + tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hier_select_kernel<<<static_cast<unsigned int>(tiles), bt::kThreads, 0, s>>>(
+      gid, valid, tmask, S, salt, S1, words, words + 1, did, parent, n_c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   hier_gather_kernel<<<bt::blocks_for(S1), bt::kThreads, 0, s>>>(
       Q, gid, did, parent, n_c, S, S1, big, Q1, gid1, valid1, ok);
   return static_cast<int>(cudaGetLastError());

@@ -10,10 +10,18 @@
 // when k-1 > 48), sentinel-folded where invalid or palindromic, and the
 // payload oid | role << 30.
 //
-// junction_pairs, one thread per sorted entry: a group of exactly two
-// entries (one OUT, one IN, on distinct vertices) sets succ[src] = dst
-// and the mirror edge succ[mirror(dst)] = mirror(src).  Every oriented
-// node has one out-end, so no two threads write one slot.
+// junction_pairs, over the sort's own output: the top packed key word in
+// sorted order (the values torch.sort returns), the permutation, and the
+// payload (and, for a three-row key, the second packed word) in entry
+// order; no sorted copy of the keys or the payload exists.  Equal packed
+// words mean equal keys (the packing is a bijection on u32 pairs), and
+// the sentinel test is on the packed word too: an exact key's first row
+// is its top word's high half (or the word itself for one row), a hashed
+// key is a sentinel when every word is the all-sentinel packing.  A group
+// of exactly two entries (one OUT, one IN, on distinct vertices) sets
+// succ[src] = dst and the mirror edge succ[mirror(dst)] = mirror(src).
+// Every oriented node has one out-end, so no two threads write one slot;
+// succ starts as one memset to -1.
 //
 // The sharded glue of the -devices N build (global mode) replaces
 // bcalm_tpu/parallel/distcompact.py:_local_succ_shard (:53) around its
@@ -39,8 +47,14 @@
 // lane loop runs over the array's compile-time width with the live lanes
 // as a predicate, so the arrays stay in registers.  A thread's loads and
 // stores are consecutive columns of each row: coalesced per warp.
-// junction_pairs reads 3 neighbouring key columns (L1 reuse) and does at
-// most two random 8-byte stores per pair.
+// junction_pairs loads each sorted word once, into a shared tile of 1024
+// entries with a halo of one before and two after, and compares there
+// (for a three-row key it reads the second word through perm with the
+// same load: a random 32-byte sector per entry); only a pair head (about
+// half the valid entries) reads perm[i], perm[i+1] and the two payloads
+// (random sectors), and a pair makes two random 8-byte stores.  Its bytes
+// are the word (8 per entry), those sectors, the memset (16 per k-mer)
+// and the stores' sectors.
 #include "common.cuh"
 #include "hash.cuh"
 
@@ -166,35 +180,78 @@ __device__ __forceinline__ bool same_key(const int64_t* keys, long long kstride,
   return true;
 }
 
-__global__ void junction_pairs_kernel(const int64_t* __restrict__ keys,
-                                      long long kstride, int K,
-                                      const int64_t* __restrict__ pay,
-                                      long long E, long long C, int hashed,
-                                      int64_t* __restrict__ succ) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i + 1 >= E) return;  // a pair head has a partner at i+1
-  bool valid;
-  if (hashed) {
-    valid = false;
-    for (int r = 0; r < K; ++r) {
-      valid |= static_cast<uint32_t>(keys[r * kstride + i]) != bt::kSentinel;
+// Entries per junction_pairs block: kPairItems per thread, item q of
+// thread t being entry base + q * kThreads + t (coalesced per warp).
+constexpr int kPairItems = 4;
+constexpr int kPairTile = bt::kThreads * kPairItems;
+
+// The sorted words of a tile and its halo: slot j holds entry base - 1 + j,
+// for j in [0, kPairTile + 3).  kTwo: the key's second word, read through
+// perm in the same load.
+template <bool kTwo>
+__global__ void __launch_bounds__(bt::kThreads)
+junction_pairs_kernel(const int64_t* __restrict__ w0,
+                      const int64_t* __restrict__ w1,
+                      const int64_t* __restrict__ perm,
+                      const int64_t* __restrict__ pay, long long E,
+                      long long C, int hashed, long long sent0,
+                      long long sent1, int shift, int64_t* __restrict__ succ) {
+  __shared__ long long s0[kPairTile + 3];
+  __shared__ long long s1[kTwo ? kPairTile + 3 : 1];
+  const long long base = static_cast<long long>(blockIdx.x) * kPairTile;
+  for (int j = threadIdx.x; j < kPairTile + 3; j += bt::kThreads) {
+    const long long e = base - 1 + j;
+    if (e >= 0 && e < E) {
+      s0[j] = w0[e];
+      if constexpr (kTwo) s1[j] = w1[perm[e]];
     }
-  } else {
-    valid = static_cast<uint32_t>(keys[i]) != bt::kSentinel;
   }
-  if (!valid || !same_key(keys, kstride, K, i, i + 1)) return;
-  if (i > 0 && same_key(keys, kstride, K, i, i - 1)) return;
-  if (i + 2 < E && same_key(keys, kstride, K, i + 1, i + 2)) return;
-  long long pa = pay[i], pb = pay[i + 1];
-  long long role_a = pa >> kRoleShift, role_b = pb >> kRoleShift;
-  long long oid_a = pa & kOidMask, oid_b = pb & kOidMask;
-  long long vert_a = oid_a >= C ? oid_a - C : oid_a;
-  long long vert_b = oid_b >= C ? oid_b - C : oid_b;
-  if (role_a == role_b || vert_a == vert_b) return;
-  long long src = role_a == 0 ? oid_a : oid_b;
-  long long dst = role_a == 0 ? oid_b : oid_a;
-  succ[src] = dst;
-  succ[dst >= C ? dst - C : dst + C] = src >= C ? src - C : src + C;
+  __syncthreads();
+  auto same = [&](int a, int b) {
+    if constexpr (kTwo) return s0[a] == s0[b] && s1[a] == s1[b];
+    else return s0[a] == s0[b];
+  };
+  const long long sent_hi = sent0 >> shift;
+  bool head[kPairItems];
+  long long pa[kPairItems], pb[kPairItems];
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    const int j = q * bt::kThreads + threadIdx.x + 1;  // slot of entry i
+    const long long i = base + j - 1;
+    head[q] = false;
+    if (i + 1 >= E) continue;  // a pair head has a partner at i+1
+    const bool valid = hashed ? !(s0[j] == sent0 && s1[kTwo ? j : 0] == sent1)
+                              : (s0[j] >> shift) != sent_hi;
+    head[q] = valid && same(j, j + 1) && !(i > 0 && same(j - 1, j)) &&
+              !(i + 2 < E && same(j + 1, j + 2));
+  }
+  // only a pair head reads the permutation and the two payloads
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    if (!head[q]) continue;
+    const long long i = base + q * bt::kThreads + threadIdx.x;
+    pa[q] = perm[i];
+    pb[q] = perm[i + 1];
+  }
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    if (!head[q]) continue;
+    pa[q] = pay[pa[q]];
+    pb[q] = pay[pb[q]];
+  }
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    if (!head[q]) continue;
+    const long long role_a = pa[q] >> kRoleShift, role_b = pb[q] >> kRoleShift;
+    const long long oid_a = pa[q] & kOidMask, oid_b = pb[q] & kOidMask;
+    const long long vert_a = oid_a >= C ? oid_a - C : oid_a;
+    const long long vert_b = oid_b >= C ? oid_b - C : oid_b;
+    if (role_a == role_b || vert_a == vert_b) continue;
+    const long long src = role_a == 0 ? oid_a : oid_b;
+    const long long dst = role_a == 0 ? oid_b : oid_a;
+    succ[src] = dst;
+    succ[dst >= C ? dst - C : dst + C] = src >= C ? src - C : src + C;
+  }
 }
 
 template <int L>
@@ -297,14 +354,28 @@ extern "C" int bt_junction_keys(const int64_t* solid, long long stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bt_junction_pairs(const int64_t* keys, long long kstride,
-                                 int K, const int64_t* pay, long long E,
-                                 long long C, int hashed, int64_t* succ,
-                                 void* stream) {
+// succ: 2C slots, set to -1 here (one memset), then the pairs' edges.
+// w1: null unless the key packs into two words.
+extern "C" int bt_junction_pairs(const int64_t* w0, const int64_t* w1,
+                                 const int64_t* perm, const int64_t* pay,
+                                 long long E, long long C, int hashed,
+                                 long long sent0, long long sent1, int shift,
+                                 int64_t* succ, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C > 0) {
+    cudaError_t err = cudaMemsetAsync(succ, 0xFF, 2 * C * sizeof(int64_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (E < 2) return 0;
-  junction_pairs_kernel<<<bt::blocks_for(E), bt::kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      keys, kstride, K, pay, E, C, hashed, succ);
+  const unsigned int grid =
+      static_cast<unsigned int>((E + kPairTile - 1) / kPairTile);
+  if (w1 != nullptr) {
+    junction_pairs_kernel<true><<<grid, bt::kThreads, 0, s>>>(
+        w0, w1, perm, pay, E, C, hashed, sent0, sent1, shift, succ);
+  } else {
+    junction_pairs_kernel<false><<<grid, bt::kThreads, 0, s>>>(
+        w0, w1, perm, pay, E, C, hashed, sent0, sent1, shift, succ);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,135 @@
+// Decoupled look-back over per-tile status words, shared by the one-pass
+// selections (K9 solid_compact, K18 hier_contract).
+//
+// Each block takes its tile from an atomic ticket, so every tile it waits
+// on is already running.  A tile publishes its own count (kAggregate),
+// then, once it knows its carry, its inclusive prefix (kPrefix), in one
+// 64-bit word, value << 2 | flag; 0 means nothing published yet (the
+// words start zeroed).  Relaxed gpu-scope loads and stores: a word is
+// written whole, and a reader only needs the value it carries.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr unsigned long long kAggregate = 1, kPrefix = 2;
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             long long value,
+                                             unsigned long long flag) {
+  unsigned long long v = (static_cast<unsigned long long>(value) << 2) | flag;
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
+}
+
+// Called by the 32 lanes of one warp: the sum of the counts of the
+// tiles before `tile`, read from their status words 32 at a time, nearest
+// first, up to and including the nearest one that holds its inclusive
+// prefix (tile 0 always does).
+__device__ long long look_back(const unsigned long long* status,
+                               long long tile, int lane) {
+  long long prefix = 0;
+  for (long long t = tile - 1 - lane;; t -= 32) {
+    unsigned long long s = kPrefix;  // before tile 0: an empty prefix
+    if (t >= 0) {
+      do {
+        s = load_status(status + t);
+      } while ((s & 3u) == 0);
+    }
+    const unsigned int found = __ballot_sync(0xFFFFFFFFu, (s & 3u) == kPrefix);
+    const int stop = found ? __ffs(found) - 1 : 31;
+    long long v = lane <= stop ? static_cast<long long>(s >> 2) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+    prefix += v;
+    if (found) return prefix;
+  }
+}
+
+// Called by every thread of the block: the next tile from the ticket.
+__device__ __forceinline__ long long take_tile(unsigned long long* next_tile) {
+  __shared__ long long s_tile;
+  if (threadIdx.x == 0) s_tile = static_cast<long long>(atomicAdd(next_tile, 1ULL));
+  __syncthreads();
+  return s_tile;
+}
+
+// Called by every thread of the block with the keep flags of its kItems
+// items (item q of thread t: the tile's entry q * kThreads + t, so every
+// load is one contiguous run per warp): dest[q] = the item's rank among
+// the kept items of all tiles, in entry order (the carry from the tiles
+// before, then its rank in the tile), -1 where not kept; returns the kept
+// count of the tiles up to and including this one.  The flags are ranked
+// with __ballot_sync and __popc per warp and one pass of warp 0 over the
+// kItems x 8 warp counts; the tile publishes its count, looks back (warp
+// 0) and publishes its inclusive prefix.  The order comes from the
+// prefix, never from atomics, so a selection built on it is stable.
+template <int kItems>
+__device__ long long select_ranks(const bool (&keep)[kItems], long long tile,
+                                  unsigned long long* status,
+                                  long long (&dest)[kItems]) {
+  constexpr int kWarps = bt::kThreads / 32;
+  constexpr int kPer = kItems * kWarps / 32;  // warp counts per lane of warp 0
+  static_assert(kItems * kWarps % 32 == 0, "warp 0 scans whole lanes");
+  __shared__ long long s_carry, s_total;
+  __shared__ int s_off[kItems * kWarps];  // (q, warp) -> rank of its first
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned int ballot[kItems];
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    ballot[q] = __ballot_sync(0xFFFFFFFFu, keep[q]);
+    if (lane == 0) s_off[q * kWarps + w] = __popc(ballot[q]);
+  }
+  __syncthreads();
+  if (w == 0) {
+    int v[kPer], sum = 0;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      v[r] = s_off[lane * kPer + r];
+      sum += v[r];
+    }
+    int inc = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+      if (lane >= d) inc += y;
+    }
+    int run = inc - sum;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      s_off[lane * kPer + r] = run;
+      run += v[r];
+    }
+    const long long count = __shfl_sync(0xFFFFFFFFu, inc, 31);
+    long long carry = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, count, kPrefix);
+    } else {
+      if (lane == 0) store_status(status + tile, count, kAggregate);
+      carry = look_back(status, tile, lane);
+      if (lane == 0) store_status(status + tile, carry + count, kPrefix);
+    }
+    if (lane == 0) {
+      s_carry = carry;
+      s_total = carry + count;
+    }
+  }
+  __syncthreads();
+  const unsigned int below = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    dest[q] = (ballot[q] >> lane) & 1u
+                  ? s_carry + s_off[q * kWarps + w] + __popc(ballot[q] & below)
+                  : -1;
+  }
+  return s_total;
+}
+
+}  // namespace

@@ -57,7 +57,8 @@ _SIGNATURES = {
                       _P],
     "bt_junction_keys": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _I64, _P,
                          _P],
-    "bt_junction_pairs": [_P, _I64, _I32, _P, _I64, _I64, _I32, _P, _P],
+    "bt_junction_pairs": [_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
+                          _P, _P],
     "bt_jump_round": [_P, _P, _I64, _P, _P],
     "bt_range_fold": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P],
     "bt_lower_bound": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _P],
@@ -85,7 +86,7 @@ _SIGNATURES = {
     "bt_glue_compose": [_P, _P, _P, _I64, _P, _P, _P],
     "bt_hier_round": [_P, _P, _P, _P, _I64, ctypes.c_uint, _P, _P],
     "bt_hier_contract": [_P, _P, _P, _I64, ctypes.c_uint, _I64, _I64, _P, _P,
-                         _P, _P, _P, _P, _P, _P, _P, _P],
+                         _P, _P, _P, _P, _P, _P, _P],
     "bt_hier_expand": [_P, _P, _P, _P, _I64, _I64, _P, _P],
     "bt_kmer_minimizers": [_P, _I64, _I32, _I64, _I32, _I32, _P, _P, _I32, _P,
                            _P],
@@ -94,6 +95,7 @@ ROUTE_TILE = 1024  # entries per look-back tile of csrc/route.cu
 MAX_ROW_WORDS = 64  # csrc/superkmer.cu: rows of <= 1024 positions
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
 COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
+HIER_TILE = 2048  # rows per selection tile of csrc/hier.cu (K18)
 COUNT_TILE = 2048  # columns per tile of csrc/count.cu
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 
@@ -313,17 +315,35 @@ def junction_keys(solid: torch.Tensor, n_solid: int, k: int, hashed: bool,
     return keys, payload
 
 
-def junction_pairs(s_keys: torch.Tensor, s_pay: torch.Tensor, C: int,
-                   hashed: bool) -> torch.Tensor:
-    """K3b on sorted entries: the (2C,) successor array (-1 = none)."""
-    _check(s_keys, "s_keys", ndim=2)
-    _check(s_pay, "s_pay", ndim=1)
-    E = s_pay.shape[0]
-    succ = torch.full((2 * C,), -1, dtype=torch.int64, device=s_pay.device)
+def junction_pairs(s_word: torch.Tensor, perm: torch.Tensor,
+                   payload: torch.Tensor, C: int, K: int, hashed: bool,
+                   word2=None) -> torch.Tensor:
+    """K3b on the sort's output: the (2C,) successor array (-1 = none).
+    s_word: the top packed key word in sorted order; perm: the sort's
+    permutation; payload and word2 (the second word of a three-row key, or
+    None): in entry order.  One C call: a memset of succ and the kernel."""
+    from .junctions import sentinel_words
+
+    for t, name in ((s_word, "s_word"), (perm, "perm"), (payload, "payload")):
+        _check(t, name, ndim=1)
+    E = s_word.shape[0]
+    if perm.shape[0] != E or payload.shape[0] != E:
+        raise ValueError("junction_pairs: s_word, perm and payload differ in "
+                         "length")
+    if (word2 is not None) != (K == 3) or not 1 <= K <= 3 or (hashed and K != 3):
+        raise ValueError(f"junction_pairs: {K} key rows, hashed {hashed}, "
+                         f"second word {word2 is not None}")
+    if word2 is not None:
+        _check(word2, "word2", ndim=1)
+        if word2.shape[0] != E:
+            raise ValueError("junction_pairs: word2 differs in length")
+    succ = torch.empty((2 * C,), dtype=torch.int64, device=s_word.device)
+    sent0, sent1, shift = sentinel_words(K)
+    _launch("bt_junction_pairs", s_word.data_ptr(),
+            None if word2 is None else word2.data_ptr(), perm.data_ptr(),
+            payload.data_ptr(), E, C, int(hashed), sent0, sent1, shift,
+            succ.data_ptr())
     if E >= 2:
-        _launch("bt_junction_pairs", s_keys.data_ptr(), s_keys.stride(0),
-                s_keys.shape[0], s_pay.data_ptr(), E, C, int(hashed),
-                succ.data_ptr())
         LAUNCHES["junction_pairs"] += 1
     return succ
 
@@ -801,7 +821,9 @@ def hier_contract(Q: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
                   salt: int, S1: int, big: int, ok: torch.Tensor):
     """K18: the next level of the hierarchical jump.  Returns (Q1 (S1, 4),
     gid1 (S1,), valid1 (S1,) bool, did (S,), parent (S1,), n_c (1,)); ok
-    (1,) int32 is cleared in place when more than S1 rows were selected."""
+    (1,) int32 is cleared in place when more than S1 rows were selected.
+    One C call: a memset and three kernels, into the outputs and one
+    workspace."""
     S = _check_state(Q, "Q")
     _check(gid, "gid", ndim=1)
     _check(valid, "valid", dtype=torch.bool, ndim=1)
@@ -814,14 +836,15 @@ def hier_contract(Q: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
     gid1 = torch.empty((S1,), **i64)
     valid1 = torch.empty((S1,), dtype=torch.bool, device=dev)
     did = torch.empty((S,), **i64)
-    parent = torch.zeros((S1,), **i64)
-    n_c = torch.zeros((1,), **i64)
-    tmask = torch.zeros((S,), dtype=torch.uint8, device=dev)
+    parent = torch.empty((S1,), **i64)
+    n_c = torch.empty((1,), **i64)
+    # the selection's ticket and tile status words, then S bytes of tmask:
+    # the C call clears them itself
+    work = torch.empty((1 + -(-S // HIER_TILE) + -(-S // 8),), **i64)
     _launch("bt_hier_contract", Q.data_ptr(), gid.data_ptr(), valid.data_ptr(),
-            S, salt & 0xFFFFFFFF, S1, big, tmask.data_ptr(),
-            _scan_scratch(S, dev).data_ptr(), did.data_ptr(), parent.data_ptr(),
-            n_c.data_ptr(), Q1.data_ptr(), gid1.data_ptr(), valid1.data_ptr(),
-            ok.data_ptr())
+            S, salt & 0xFFFFFFFF, S1, big, work.data_ptr(), did.data_ptr(),
+            parent.data_ptr(), n_c.data_ptr(), Q1.data_ptr(), gid1.data_ptr(),
+            valid1.data_ptr(), ok.data_ptr())
     LAUNCHES["hier_contract"] += 1
     return Q1, gid1, valid1, did, parent, n_c
 

@@ -10,10 +10,14 @@ a unitig edge: ``succ[src] = dst`` and its mirror edge.
 
 :func:`junction_keys` and :func:`junction_pairs` launch the CUDA kernels
 (csrc/junctions.cu) for CUDA tensors and run their plain versions for
-CPU tensors; the sort between them is ``torch.sort``.
+CPU tensors; the sort between them is ``torch.sort`` (sort.lex_sort),
+whose sorted top word, permutation and the unsorted payload are what the
+pair step reads.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -104,19 +108,48 @@ def junction_keys(solid: torch.Tensor, n_solid: int, k: int):
                                   key_rows(k))
 
 
-def junction_pairs_plain(s_keys: torch.Tensor, s_pay: torch.Tensor, C: int,
-                         hashed: bool) -> torch.Tensor:
-    """Plain PyTorch version of the pair kernel over sorted entries."""
-    E = s_pay.shape[0]
-    dev = s_pay.device
+@functools.lru_cache(maxsize=None)
+def sentinel_words(K: int):
+    """(sent0, sent1, shift) of K key rows: the packed words of an
+    all-sentinel key (models.lanes.pack_keys; sent1 = 0 when the key packs
+    into one word) and the shift that takes the first word to its first
+    row.  An exact key is a sentinel when first_word >> shift equals
+    sent0 >> shift (its first row is the sentinel); a hashed key when
+    every packed word equals the all-sentinel packing."""
+    words = [int(w) for w in ln.pack_keys([torch.tensor(SENTINEL)] * K)]
+    return words[0], words[1] if len(words) > 1 else 0, 32 if K >= 2 else 0
+
+
+def pair_heads(s_word: torch.Tensor, s_word2, K: int, hashed: bool):
+    """Pair heads of the sorted entries: the first entry of each group of
+    exactly two equal keys, the key not a sentinel (bcalm_tpu
+    junctions.successor_arrays :207-216).  Equal packed words mean equal
+    keys: pack_keys is a bijection on u32 pairs."""
+    sent0, sent1, shift = sentinel_words(K)
     if hashed:
-        s_valid = ~torch.all(s_keys == SENTINEL, dim=0)
+        s_valid = ~((s_word == sent0) & (s_word2 == sent1))
     else:
-        s_valid = s_keys[0] != SENTINEL
-    f = torch.zeros((1,), dtype=torch.bool, device=dev)
-    eq_prev = torch.cat([f, torch.all(s_keys[:, 1:] == s_keys[:, :-1], dim=0)])
-    eq_next = torch.cat([eq_prev[1:], f])
-    pair_head = s_valid & ~eq_prev & eq_next & ~torch.cat([eq_next[1:], f])
+        s_valid = (s_word >> shift) != (sent0 >> shift)
+    f = torch.zeros((1,), dtype=torch.bool, device=s_word.device)
+    eq = s_word[1:] == s_word[:-1]
+    if s_word2 is not None:
+        eq &= s_word2[1:] == s_word2[:-1]
+    eq_prev = torch.cat([f, eq])
+    eq_next = torch.cat([eq, f])
+    return s_valid & ~eq_prev & eq_next & ~torch.cat([eq_next[1:], f])
+
+
+def junction_pairs_plain(s_word: torch.Tensor, perm: torch.Tensor,
+                         payload: torch.Tensor, C: int, K: int, hashed: bool,
+                         word2=None) -> torch.Tensor:
+    """Plain PyTorch version of the pair kernel: s_word is the most
+    significant packed key word in sorted order (sort.lex_sort), perm the
+    sort's permutation, payload (and word2, the second packed word of a
+    three-row key) in entry order."""
+    dev = s_word.device
+    s_word2 = None if word2 is None else word2[perm]
+    pair_head = pair_heads(s_word, s_word2, K, hashed)
+    s_pay = payload[perm]
     nxt_pay = torch.cat([s_pay[1:], torch.zeros((1,), dtype=torch.int64,
                                                 device=dev)])
     role_a, role_b = s_pay >> _ROLE_SHIFT, nxt_pay >> _ROLE_SHIFT
@@ -133,20 +166,25 @@ def junction_pairs_plain(s_keys: torch.Tensor, s_pay: torch.Tensor, C: int,
     return succ
 
 
-def junction_pairs(s_keys, s_pay, C: int, hashed: bool) -> torch.Tensor:
-    if s_pay.device.type == "cpu":
-        return junction_pairs_plain(s_keys, s_pay, C, hashed)
-    return _kernels.junction_pairs(s_keys, s_pay, C, hashed)
+def junction_pairs(s_word, perm, payload, C: int, K: int, hashed: bool,
+                   word2=None) -> torch.Tensor:
+    if s_word.device.type == "cpu":
+        return junction_pairs_plain(s_word, perm, payload, C, K, hashed, word2)
+    return _kernels.junction_pairs(s_word, perm, payload, C, K, hashed, word2)
 
 
 def successor_arrays(solid: torch.Tensor, n_solid: int, k: int) -> torch.Tensor:
     """(2C,) int64 unitig-successor oriented id per oriented node, -1 if
-    none (solid: (L, C), columns >= n_solid ignored)."""
+    none (solid: (L, C), columns >= n_solid ignored).  The pair step gets
+    the sort's own top word, its permutation and the unsorted payload (and
+    second word): no sorted copy of the keys or the payload is made."""
     C = solid.shape[1]
     keys, payload = junction_keys(solid, n_solid, k)
-    perm = sort_op.lex_argsort([keys[r] for r in range(keys.shape[0])])
-    return junction_pairs(keys[:, perm].contiguous(), payload[perm], C,
-                          use_hash_keys(k))
+    K = keys.shape[0]
+    perm, s_word = sort_op.lex_sort([keys[r] for r in range(K)])
+    # pack_keys keeps an odd third row as a word of its own
+    word2 = keys[2] if K == 3 else None
+    return junction_pairs(s_word, perm, payload, C, K, use_hash_keys(k), word2)
 
 
 # ---- global mode: the sharded junction matching of the -devices N build

@@ -16,13 +16,23 @@ import torch
 from bcalm_tpu_torch.models import lanes as ln
 
 
-def lex_argsort(cols: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Stable permutation sorting u32 key columns (most significant first)."""
+def lex_sort(cols: Sequence[torch.Tensor]):
+    """(perm, top): the stable permutation sorting u32 key columns (most
+    significant first), and the most significant packed key
+    (models.lanes.pack_keys) in sorted order, the values of the last
+    ``torch.sort``, so a caller that compares adjacent sorted keys needs
+    no gather of its own."""
     keys = ln.pack_keys(list(cols))
     perm = None
     for key in reversed(keys):
         if perm is None:
-            perm = torch.sort(key, stable=True).indices
+            top, perm = torch.sort(key, stable=True)
         else:
-            perm = perm[torch.sort(key[perm], stable=True).indices]
-    return perm
+            top, idx = torch.sort(key[perm], stable=True)
+            perm = perm[idx]
+    return perm, top
+
+
+def lex_argsort(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable permutation sorting u32 key columns (most significant first)."""
+    return lex_sort(cols)[0]

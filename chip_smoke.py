@@ -100,10 +100,13 @@ Phases (any failure raises, and the script exits non-zero):
    does not run the kernel (K5 and K6 on its sorted chunk, K3's global mode
    and K20 on a 2^20-column slice of its solid table), and one for K9 in
    filter_abundance mode (no minpos row) on its counted table.  K6 also
-   runs at 256 quantile bounds of phase 3b's run; the K1, K2, K3a, K3
-   global, K5, K6, K9 and filter_abundance rows also carry the device time
-   per call (torch.profiler) of the kernel and of its library call, beside
-   their CUDA-event times, which include the launch path.
+   runs at 256 quantile bounds of phase 3b's run.  Every row carries the
+   device time and device operations per call (torch.profiler) of the
+   kernel and the device time of its library call, beside their CUDA-event
+   times, which include the launch path.  K3b's
+   bound counts its own bytes: the sorted top word, the perm sectors and
+   random payload sectors its pair heads read, the memset of succ and
+   each edge's two random store sectors.
 
 The last line is {"ok": true, "device": {...}}.  Exits 1 without a result
 when no CUDA device is available.
@@ -123,11 +126,15 @@ the phase 3 reads, resident and with ``-max-memory 2192``, after a
 warm-up run of each that builds its kernels and ingest library; before
 those runs, KERNEL_AB (below) times the L = 2 lane kernels, K1 at L = 10
 and in range mode, K2 at phase 3's shape (with pos, and weighted) beside
-torch.unique_consecutive, K3a at L = 10 and 16, K6, K9, K13 and K15 of
-each tree in the same turns
+torch.unique_consecutive, K3a at L = 10 and 16, K6, K9, K13 and K15, the
+K3b step at phase 3's shape (a tree whose pair kernel takes the sort's own
+word: that kernel; else the gathers of the sorted keys and payload, then
+the kernel) and K18 at level 0 of phase 3's and the canonical order's
+jump, of each tree in the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
-runtime's launch), and DIST_AB
+runtime's launch; the K3b step's and K18's outputs must agree across the
+trees), and DIST_AB
 runs each tree's ``-devices`` build at world size 1 on the first 1/8 of
 the reads in the same turns, held against the single-device build.
 """
@@ -1289,6 +1296,170 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 # held bitwise against their plain versions.  It calls only wrappers whose signatures have not
 # changed since K20 was ported, and K1's range mode only where the
 # wrapper takes lo and hi, so an older tree runs it as well.
+# K3b's and K18's inputs at phase 3's shapes, seeded, for KERNEL_AB and
+# SPLIT (run in a tree's root, after `dev` is set): step_solid() is the
+# solid table of a random genome's first 5,075,200 31-mers (phase 3's
+# solid count), canonical, in genome order (reorder_by_pos keeps first
+# occurrences in read order), padded to C = 2^23 columns with the
+# sentinel; level0_inputs() is the input of K18 at level 0 of the
+# hierarchical jump over chains of geometric length: HIER_LEVELS gives
+# phase 3's run graph (2^19 nodes, 2 x 148,391 valid, 2 x 71,928 chains)
+# and the canonical order's (2^24 nodes, 2 x 5,075,200 valid, as many
+# chains).
+STEP_INPUTS = r"""
+import numpy as np
+import torch
+from bcalm_tpu_torch.ops import _kernels, chains, junctions
+from bcalm_tpu_torch.ops import sort as sort_op
+
+HIER_LEVELS = ((1 << 19, 296782, 296782 / 143856),
+               (1 << 24, 10150400, 10150400 / 143856))
+
+def step_solid(n=5075200, C=1 << 23, k=31):
+    r = np.random.RandomState(11)
+    codes = torch.from_numpy(r.randint(0, 4, n + k - 1).astype(np.int64)).to(dev)
+    fwd = torch.zeros((n,), dtype=torch.int64, device=dev)
+    rc = torch.zeros_like(fwd)
+    for j in range(k):
+        fwd = (fwd << 2) | codes[j:j + n]
+        rc = rc | ((codes[j:j + n] ^ 2) << (2 * j))
+    canon = torch.minimum(fwd, rc)
+    solid = torch.full((2, C), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    solid[0, :n] = canon >> 32
+    solid[1, :n] = canon & 0xFFFFFFFF
+    return solid, n, C
+
+def level0_inputs(M, n_valid, mean):
+    r = np.random.RandomState(M % 9973)
+    nodes = r.permutation(M)[:n_valid]
+    start = r.rand(n_valid) < 1.0 / mean
+    start[0] = True
+    pred = np.full(M, -1, np.int64)
+    pred[nodes] = np.where(start, -1, np.roll(nodes, 1))
+    valid = np.zeros(M, bool)
+    valid[nodes] = True
+    seen = []
+    real = chains.hier_contract
+    def record(*a):
+        if not seen:
+            seen.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                              for x in a[:6]))
+        return real(*a)
+    chains.hier_contract = record
+    try:
+        chains.hier_jump(torch.from_numpy(pred).to(dev),
+                         torch.from_numpy(valid).to(dev))
+    finally:
+        chains.hier_contract = real
+    return seen[0]
+"""
+
+
+# Run in a tree's root (`python3 -c "import chip_smoke;
+# exec(chip_smoke.SPLIT, {})"`): the split of the K3b step and of K18 by
+# device operation (torch.profiler: device ms and calls per step), with
+# each piece's CUDA-event ms and K18's host time per call (its enqueue,
+# no synchronisation); then a probe build of the tree's junctions.cu with
+# the two succ stores made conditional on an impossible value (the loads
+# and the pair rule stay), timed through the same wrapper, which gives
+# the scatter's share.  Prints one JSON line.
+SPLIT = r"""
+import ctypes, json, re, subprocess, sys, tempfile, time
+import torch
+sys.path.insert(0, ".")
+dev = torch.device("cuda", 0)
+""" + STEP_INPUTS + r"""
+def time_ms(fn, reps=20):
+    fn(); fn(); torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record(); torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+def breakdown(fn, reps=20):
+    fn(); torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            d = out.setdefault(e.name[:72], [0.0, 0.0])
+            d[0] += e.device_time_total / 1e3 / reps
+            d[1] += 1 / reps
+    return out
+
+def host_ms(fn, reps=50):
+    fn(); torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+solid, n, C = step_solid()
+keys, pay = junctions.junction_keys(solid, n, 31)
+rows = [keys[r] for r in range(keys.shape[0])]
+new = hasattr(sort_op, "lex_sort")
+if new:
+    perm, word = sort_op.lex_sort(rows)
+    pieces = {"sort": lambda: sort_op.lex_sort(rows),
+              "junction_pairs": lambda: _kernels.junction_pairs(word, perm, pay, C, 2, False)}
+else:
+    perm = sort_op.lex_argsort(rows)
+    s_keys, s_pay = keys[:, perm].contiguous(), pay[perm]
+    pieces = {"sort": lambda: sort_op.lex_argsort(rows),
+              "keys[:, perm]": lambda: keys[:, perm].contiguous(),
+              "payload[perm]": lambda: pay[perm],
+              "junction_pairs": lambda: _kernels.junction_pairs(s_keys, s_pay, C, False)}
+pieces["successor_arrays"] = lambda: junctions.successor_arrays(solid, n, 31)
+out = {"tree_has_lex_sort": new, "entries": 2 * C,
+       "heads_and_edges": None, "pieces": {}}
+for name, fn in pieces.items():
+    out["pieces"][name] = {"ms": time_ms(fn), "device": breakdown(fn)}
+succ = pieces["junction_pairs"]()
+out["heads_and_edges"] = [int((succ >= 0).sum())]
+# the probe: the same tree's pair kernel without its scatter stores
+src = open("bcalm_tpu_torch/csrc/junctions.cu").read()
+probe = re.sub(r"succ\[(.+?)\] = (.+);", r"if ((\1) == -7LL) succ[0] = (\2);", src)
+if probe.count("== -7LL") != 2:
+    raise AssertionError("the probe found %d succ stores" % probe.count("== -7LL"))
+work = tempfile.mkdtemp()
+with open(work + "/junctions_probe.cu", "w") as f:
+    f.write(probe)
+subprocess.run([_kernels._find_nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-I",
+                "bcalm_tpu_torch/csrc", "-o", work + "/probe.so",
+                work + "/junctions_probe.cu"], check=True)
+lib = ctypes.CDLL(work + "/probe.so")
+fn = lib.bt_junction_pairs
+fn.argtypes = _kernels._SIGNATURES["bt_junction_pairs"]
+fn.restype = ctypes.c_int
+saved = _kernels._FNS["bt_junction_pairs"]
+_kernels._FNS["bt_junction_pairs"] = fn
+try:
+    out["pieces"]["junction_pairs probe (no succ stores)"] = {
+        "ms": time_ms(pieces["junction_pairs"]),
+        "device": breakdown(pieces["junction_pairs"])}
+finally:
+    _kernels._FNS["bt_junction_pairs"] = saved
+del succ, keys, pay, rows, solid
+out["hier_contract"] = {}
+for M, n_valid, mean in HIER_LEVELS:
+    hargs = level0_inputs(M, n_valid, mean)
+    ok = torch.ones((1,), dtype=torch.int32, device=dev)
+    fn = lambda: _kernels.hier_contract(*hargs, ok)
+    n_c = int(fn()[5])
+    out["hier_contract"][str(M)] = {"S1": hargs[4], "n_c": n_c, "ms": time_ms(fn),
+                                    "host_ms": host_ms(fn), "device": breakdown(fn)}
+print(json.dumps(out))
+"""
+
+
 KERNEL_AB = r"""
 import inspect, json, sys, time
 import numpy as np
@@ -1485,11 +1656,45 @@ for L, kk, C in ((10, 151, 5595027), (16, 255, 1175295)):
     same(_kernels.junction_keys(*kargs), junctions.junction_keys_plain(sl, C, kk),
          f"junction_keys L={L}")
     fns[f"junction_keys L={L}"] = (lambda kargs=kargs: _kernels.junction_keys(*kargs), 20)
+""" + STEP_INPUTS + r"""
+# the K3b step at phase 3's shape: in a tree whose pair kernel takes the
+# sort's own output (sort.lex_sort), that kernel alone; else the two
+# gathers of the sorted keys and payload, then the kernel.  K18 at level 0
+# of phase 3's jump and of the canonical order's.  Each held against its
+# plain version; `digest` (sums of the outputs) must agree across trees
+solid_s, n_s, C_s = step_solid()
+keys_s, pay_s = junctions.junction_keys(solid_s, n_s, 31)
+rows_s = [keys_s[r] for r in range(keys_s.shape[0])]
+digest = {}
+if hasattr(sort_op, "lex_sort"):
+    perm_s, word_s = sort_op.lex_sort(rows_s)
+    step = lambda: _kernels.junction_pairs(word_s, perm_s, pay_s, C_s, 2, False)
+    plain_step = lambda: junctions.junction_pairs_plain(word_s, perm_s, pay_s, C_s, 2, False)
+else:
+    perm_s = sort_op.lex_argsort(rows_s)
+    step = lambda: _kernels.junction_pairs(keys_s[:, perm_s].contiguous(), pay_s[perm_s], C_s, False)
+    plain_step = lambda: junctions.junction_pairs_plain(keys_s[:, perm_s].contiguous(), pay_s[perm_s], C_s, False)
+succ_s = step()
+same([succ_s], [plain_step()], "junction_pairs step")
+digest["junction_pairs step"] = [int(succ_s.sum()), int((succ_s >= 0).sum())]
+fns["junction_pairs step"] = (step, 20)
+del succ_s
+for M, n_valid, mean in HIER_LEVELS:
+    hargs = level0_inputs(M, n_valid, mean)
+    ok_h = torch.ones((1,), dtype=torch.int32, device=dev)
+    got = _kernels.hier_contract(*hargs, ok_h)
+    ok_p = torch.ones((1,), dtype=torch.int32, device=dev)
+    same(got + (ok_h,), chains.hier_contract_plain(*hargs, ok_p) + (ok_p,), "hier_contract")
+    name = f"hier_contract S={M}"
+    digest[name] = [int(t.long().sum()) for t in got] + [int(ok_h)]
+    fns[name] = (lambda hargs=hargs, ok_h=ok_h: _kernels.hier_contract(*hargs, ok_h), 20)
+    del got
 dms = {n: device_ms(f, r) for n, (f, r) in fns.items()}
 print(json.dumps({"ms": {n: time_ms(f, r) for n, (f, r) in fns.items()},
                   "device_ms": {n: d[0] for n, d in dms.items()},
                   "ops": {n: d[1] for n, d in dms.items()},
-                  "host_ms": {n: host_ms(fns[n][0]) for n in split}}))
+                  "host_ms": {n: host_ms(fns[n][0]) for n in split},
+                  "digest": digest}))
 """
 
 
@@ -1574,13 +1779,20 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
         say(f"[compare] {name} ({root}) warm-up on 2000 reads: {wall:.2f}s "
             f"(builds included), ingest_parser "
             f"{st.get('ingest_parser', 'not printed')}")
+    digests = []
     for name in ("parent", "change", "change", "parent"):
         proc = subprocess.run([sys.executable, "-c", KERNEL_AB],
                               cwd=trees[name], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"{name} kernel timings failed:\n{proc.stderr}")
-        say(f"[compare] {name} " + kernel_ab_line(
-            json.loads(proc.stdout.strip().splitlines()[-1])))
+        times = json.loads(proc.stdout.strip().splitlines()[-1])
+        digests.append(times["digest"])
+        say(f"[compare] {name} " + kernel_ab_line(times))
+    if any(d != digests[0] for d in digests):
+        raise AssertionError(f"K3b's step or K18 gave other outputs in the "
+                             f"two trees: {digests}")
+    say(f"[compare] K3b's step and K18 give the same outputs in both trees "
+        f"(sums and counts): {json.dumps(digests[0])}")
     # the -devices build at world size 1 on the first 1/8 of the reads,
     # against the single-device build of the same reads
     part = os.path.join(tmp, "reads_eighth.fa")
@@ -1850,6 +2062,28 @@ def _fold_bytes(body: torch.Tensor, lo, hi) -> int:
     return 8 * int(seen.sum()) + 8 * (L + 1) * n_fold + 8
 
 
+def _pairs_bytes(s_word, perm, payload, C, K, hashed, word2) -> tuple:
+    """(read, written) bytes K3b must move: the sorted top word; for a
+    three-row key the permutation and the second word through it (random:
+    a 32-byte sector each); else the sectors of perm that the pair heads'
+    perm[i], perm[i+1] touch; the two payloads of each head (random
+    sectors); the memset of succ and the two stores of each edge (random
+    sectors)."""
+    from bcalm_tpu_torch.ops import junctions
+
+    E = s_word.shape[0]
+    s2 = None if word2 is None else word2[perm]
+    heads = torch.nonzero(junctions.pair_heads(s_word, s2, K, hashed)).flatten()
+    read = 8 * E + 2 * 32 * heads.numel()
+    if word2 is not None:
+        read += 8 * E + 32 * E
+    else:
+        read += 32 * torch.unique(torch.cat([heads, heads + 1]) // 4).numel()
+    succ = junctions.junction_pairs_plain(s_word, perm, payload, C, K, hashed,
+                                          word2)
+    return read, 16 * C + 32 * int((succ >= 0).sum())
+
+
 def _spell_bytes(solid, counts, uid, rank, length, start_oid, U, k,
                  n_members) -> int:
     """What K11 must read: the uid and rank of every oriented id, one lane
@@ -1869,7 +2103,7 @@ def _bound(moved: int, ops: int):
 def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
                  plain_timed=None, reads=(), read_bytes=0, written=None, ops=0,
                  library=None, label=None, replaces=None, launched=None,
-                 reps=20, device=False) -> dict:
+                 reps=20, device=True) -> dict:
     """Bitwise check of kernel_fn() vs plain_fn() and the kernel's row; the
     *_timed variants (default: the same calls) are what the CUDA events
     time.  The bound counts `reads` read once, `read_bytes` more (what a
@@ -1877,8 +2111,8 @@ def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
     (or `written` bytes) written once; `library` is one PyTorch call
     computing the same function, timed beside it.  label, replaces and launched
     override the row's name, JAX program and launch count (default:
-    launches[name]).  device: the row also gets the device time and
-    operations per call of the kernel (device_ms, device_ops) and the
+    launches[name]).  device (default): the row also gets the device time
+    and operations per call of the kernel (device_ms, device_ops) and the
     device time of the library call (library_device_ms), beside their
     CUDA-event times, which include the launch path."""
     got, want = kernel_fn(), plain_fn()
@@ -1938,7 +2172,7 @@ def k1_row(args, launches, label, counter, phases, reps=20) -> dict:
         lambda: extract.extract_insert_plain(scratch, *ext_args, **kw),
         reads=(words, lengths),
         written=buf.shape[0] * extract.block_slots(words.shape, k) * 8,
-        label=label, launched=launches[counter], reps=reps, device=True)
+        label=label, launched=launches[counter], reps=reps)
     r["phase_launches"] = _phase_launches(phases, counter)
     return r
 
@@ -1969,7 +2203,7 @@ def k5_row(body, lo, hi, launches, label, phases, launched=None,
                      lambda: _kernels.range_fold(body_scratch, lo, hi),
                      lambda: count.range_fold_plain(body_scratch, lo, hi),
                      written=_fold_bytes(body, lo, hi), label=label,
-                     launched=launched, reps=reps, device=True)
+                     launched=launched, reps=reps)
     r["phase_launches"] = _phase_launches(phases, "range_fold")
     return r
 
@@ -2034,23 +2268,24 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     s_lanes, w, pos = inputs["count_runs"]
     check("count_runs", lambda: _kernels.count_runs(s_lanes, w, pos),
           lambda: count.count_runs_plain(s_lanes, w, pos),
-          reads=(s_lanes, w, pos), device=True)
+          reads=(s_lanes, w, pos))
     # K2 at phase 3b's chunk shape (its first chunk count), with the
     # launches of 3b's run (chunks and LSM merges)
     c_lanes, c_w, c_pos = inputs["count_runs:3b"]
     check("count_runs", lambda: _kernels.count_runs(c_lanes, c_w, c_pos),
           lambda: count.count_runs_plain(c_lanes, c_w, c_pos),
           reads=(c_lanes, c_w, c_pos), label="count_runs:3b",
-          launched=phases["3b"]["count_runs"], device=True)
+          launched=phases["3b"]["count_runs"])
     solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
     check("junction_keys",
           lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
           lambda: junctions.junction_keys_plain(solid, n_solid, k),
-          reads=solid, device=True)
-    s_keys, s_pay, C, hashed = inputs["junction_pairs"]
-    check("junction_pairs", lambda: _kernels.junction_pairs(s_keys, s_pay, C, hashed),
-          lambda: junctions.junction_pairs_plain(s_keys, s_pay, C, hashed),
-          reads=(s_keys, s_pay))
+          reads=solid)
+    jp_args = inputs["junction_pairs"]
+    jp_read, jp_written = _pairs_bytes(*jp_args)
+    check("junction_pairs", lambda: _kernels.junction_pairs(*jp_args),
+          lambda: junctions.junction_pairs_plain(*jp_args),
+          read_bytes=jp_read, written=jp_written)
     Q = inputs["jump_round"][0]
     Qn = torch.empty_like(Q)
     changed = torch.zeros((1,), dtype=torch.int32, device=Q.device)
@@ -2093,7 +2328,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
               lambda b=bds: count.lower_bound_plain(run, n, b),
               read_bytes=_search_bytes(run, n, bds), library=library,
               label=None if P == bounds.shape[1] else f"lower_bound@P{P}",
-              launched=None if P == bounds.shape[1] else 0, device=True)
+              launched=None if P == bounds.shape[1] else 0)
     sf_args = inputs["solid_fold_histogram"]
     check("solid_fold_histogram", lambda: _kernels.solid_fold_histogram(*sf_args),
           lambda: count.solid_fold_histogram_plain(*sf_args), reads=sf_args)
@@ -2108,7 +2343,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     keep = (idx < nq) & (cq >= amin) & (cq <= amax)
     check("solid_compact", lambda: _kernels.solid_compact(*sc_args),
           lambda: count.solid_compact_plain(*sc_args), reads=sc_args,
-          library=lambda: stacked_in[:, keep], device=True)
+          library=lambda: stacked_in[:, keep])
     del stacked_in
     cf_args = inputs["chain_finish"]
     check("chain_finish", lambda: _finish_tuple(_kernels.chain_finish(*cf_args)),
@@ -2154,8 +2389,15 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
                 return fn(Qc, gid_c, valid_c, salt_c, S1, big, ok) + (ok,)
             return run
 
+        # timed with one `ok` made before, so the device operations counted
+        # are the call's own
+        ok_t = torch.ones((1,), dtype=torch.int32, device=dev)
         r18 = check("hier_contract", contract(_kernels.hier_contract),
                     contract(chains.hier_contract_plain),
+                    lambda: _kernels.hier_contract(Qc, gid_c, valid_c, salt_c,
+                                                   S1, big, ok_t),
+                    lambda: chains.hier_contract_plain(Qc, gid_c, valid_c,
+                                                       salt_c, S1, big, ok_t),
                     reads=(Qc, gid_c, valid_c), row=row)
         F, parent, Qd, did = hin["hier_expand"]
         r19 = check("hier_expand", lambda: _kernels.hier_expand(F, parent, Qd, did),
@@ -2214,8 +2456,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
                       sw, sl, sk, sm, table_, rank, max_span, rank is not None,
                       with_pos, pos_base),
                   reads=(sw, sl),
-                  written=_nbytes(got) + skm_gathers, ops=skm_ops, row=row,
-                  device=True)
+                  written=_nbytes(got) + skm_gathers, ops=skm_ops, row=row)
         return r, got[1][got[2]]
 
     _, owners = skm_check(table)
@@ -2277,7 +2518,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     check("route_buckets",
           lambda: _kernels.route_buckets(*inputs["route_buckets"]),
           lambda: pipeline.route_to_buckets_plain(*inputs["route_buckets"]),
-          reads=(stk, valid, owner), device=True)
+          reads=(stk, valid, owner))
     rng = torch.Generator(device="cpu").manual_seed(0)
     for nd in (4, 8):
         syn = torch.randint(0, nd, (stk.shape[1],), generator=rng).to(dev)
@@ -2286,7 +2527,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
                   lambda: _kernels.route_buckets(stk, valid, syn, nd, cap_nd, True),
                   lambda: pipeline.route_to_buckets_plain(stk, valid, syn, nd,
                                                           cap_nd, True),
-                  reads=(stk, valid, syn), row=False, device=True)
+                  reads=(stk, valid, syn), row=False)
         extra.append((f"route_buckets at {nd} destinations (synthetic owners, "
                       f"cap {cap_nd}, with slots)", r))
     # the hash mode (owner = hash_lanes(k-mer) % n_dev, computed in the
@@ -2300,7 +2541,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
                                                  slots_nd),
                   lambda: pipeline.route_to_buckets_plain(hl, hv, None, nd,
                                                           cap_nd, slots_nd),
-                  reads=(hl, hv), row=False, device=True)
+                  reads=(hl, hv), row=False)
         spread = torch.bincount(
             (hashing.hash_lanes(hl) % nd)[hv], minlength=nd).tolist()
         if min(spread) == 0:
@@ -2371,7 +2612,8 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
               "count_runs:3b": tuple(c_lanes.shape),
-              "junction_keys": tuple(solid.shape), "junction_pairs": tuple(s_keys.shape),
+              "junction_keys": tuple(solid.shape),
+              "junction_pairs": [tuple(jp_args[0].shape), jp_args[4]],
               "jump_round": tuple(Q.shape), "range_fold": k5_shapes,
               "lower_bound": [tuple(run.shape), n, tuple(bounds.shape)],
               "solid_fold_histogram": tuple(sf_args[0].shape),
@@ -2439,12 +2681,11 @@ def longk_rows(longk, phases, dev):
     solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
     row("junction_keys",
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
-        lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid,
-        device=True)
+        lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid)
     s_lanes, w, pos = inputs["count_runs"]
     row("count_runs", lambda: _kernels.count_runs(s_lanes, w, pos),
         lambda: count.count_runs_plain(s_lanes, w, pos),
-        reads=(s_lanes, w, pos), device=True)
+        reads=(s_lanes, w, pos))
     # K5 and K6 (the multi-pass count's, not on this resident path) on the
     # build's first sorted chunk: the middle third of its keys, and 256
     # quantile bounds as the range split's pivots
@@ -2459,8 +2700,7 @@ def longk_rows(longk, phases, dev):
     bounds = s_lanes[:, qi].contiguous()
     row("lower_bound", lambda: _kernels.lower_bound(s_lanes, n_valid, bounds),
         lambda: count.lower_bound_plain(s_lanes, n_valid, bounds),
-        read_bytes=_search_bytes(s_lanes, n_valid, bounds), on_path=False,
-        device=True)
+        read_bytes=_search_bytes(s_lanes, n_valid, bounds), on_path=False)
     sf_args = inputs["solid_fold_histogram"]
     row("solid_fold_histogram", lambda: _kernels.solid_fold_histogram(*sf_args),
         lambda: count.solid_fold_histogram_plain(*sf_args), reads=sf_args)
@@ -2473,7 +2713,7 @@ def longk_rows(longk, phases, dev):
     stacked_in = torch.cat([uq, cq[None], pq[None]])
     row("solid_compact", lambda: _kernels.solid_compact(*sc_args),
         lambda: count.solid_compact_plain(*sc_args), reads=sc_args,
-        library=lambda: stacked_in[:, keep], device=True)
+        library=lambda: stacked_in[:, keep])
     stacked_in = stacked_in[:-1]
     fa_args = (uq, cq, nq, amin, amax)
     # filter_abundance: K9 without its minpos row, through its entry point
@@ -2481,7 +2721,7 @@ def longk_rows(longk, phases, dev):
         "solid_compact", launches, lambda: count.filter_abundance(*fa_args),
         lambda: count.filter_abundance_plain(*fa_args), reads=(uq, cq),
         label=f"filter_abundance{tag}", replaces="bcalm_tpu/ops/count.py:158",
-        launched=0, reps=5, library=lambda: stacked_in[:, keep], device=True))
+        launched=0, reps=5, library=lambda: stacked_in[:, keep]))
     del stacked_in, keep
     su_args = inputs["spell_unitigs"]
     row("spell_unitigs", lambda: _kernels.spell_unitigs(*su_args),
@@ -2495,7 +2735,7 @@ def longk_rows(longk, phases, dev):
     row("junction_keys", lambda: _kernels.junction_entries(*ge),
         lambda: junctions.junction_entries_plain(*ge[:6]), reads=sl,
         label="junction_entries", on_path=False,
-        replaces="bcalm_tpu/parallel/distcompact.py:53", device=True)
+        replaces="bcalm_tpu/parallel/distcompact.py:53")
     m20 = 10
     all20 = torch.ones((n20,), dtype=torch.bool, device=dev)
     mm_flat = minimizer.extract_mmers(sl, k, m20).reshape(-1)
@@ -2513,7 +2753,7 @@ def longk_rows(longk, phases, dev):
         "junction_keys", launches2,
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
         lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid,
-        label=f"junction_keys@L{solid.shape[0]}", reps=5, device=True))
+        label=f"junction_keys@L{solid.shape[0]}", reps=5))
     return rows
 
 

@@ -74,8 +74,18 @@ def test_count_runs(card, L, weighted):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("k", [13, 31, 32, 63])
+def sorted_pairs_inputs(keys, pay):
+    """K3b's inputs from the key rows and payload: (s_word, perm, payload,
+    K, word2), the sort's own top word and permutation."""
+    K = keys.shape[0]
+    perm, s_word = sort_op.lex_sort(list(keys))
+    return s_word, perm, pay, K, keys[2] if K == 3 else None
+
+
+@pytest.mark.parametrize("k", [13, 31, 32, 49, 63])
 def test_junctions(card, k):
+    """K3a, then K3b on the sort's word and permutation: 1, 2 and 3 exact
+    key rows (k = 13, 31-32, 49) and hashed keys (63)."""
     L = ln.num_lanes(k)
     kmers = sorted(brute.count_kmers(reads(k, k=k), k))
     cols = [[(x >> (32 * (L - 1 - j))) & 0xFFFFFFFF for x in kmers]
@@ -87,11 +97,70 @@ def test_junctions(card, k):
                                        junctions.key_rows(k))
     pkeys, ppay = junctions.junction_keys_plain(solid, n - 3, k)
     assert torch.equal(keys, pkeys) and torch.equal(pay, ppay)
-    perm = sort_op.lex_argsort(list(keys))
-    s_keys, s_pay = keys[:, perm].contiguous(), pay[perm]
-    succ = _kernels.junction_pairs(s_keys, s_pay, n, hashed)
-    assert torch.equal(succ, junctions.junction_pairs_plain(s_keys, s_pay, n, hashed))
+    s_word, perm, pay, K, word2 = sorted_pairs_inputs(keys, pay)
+    succ = _kernels.junction_pairs(s_word, perm, pay, n, K, hashed, word2)
+    assert torch.equal(succ, junctions.junction_pairs_plain(
+        s_word, perm, pay, n, K, hashed, word2))
+    assert torch.equal(succ.cpu(), junctions.successor_arrays(
+        solid.cpu(), n - 3, k))
     assert int((succ >= 0).sum()) > 0
+
+
+def pair_groups(K: int, hashed: bool, C: int, seed: int):
+    """Key rows (K, 2C) and payload (2C,) of 2C junction entries (entry i
+    < C the suffix of vertex i, C + i its prefix, payloads by K3a's rule
+    with random strands) in groups of 1-4 equal keys, most of two, in a
+    random entry order; a fifth of the keys share all but the last row
+    with the key before; 5% are sentinels (exact: the first row; a hashed
+    key: every row, and as many keys with only the first two rows
+    sentinel, which are valid).  The groups are laid out in key order, a
+    group of two at entry 1023 of every 1024-entry tile."""
+    rng = np.random.RandomState(seed)
+    E = 2 * C
+    sig, tau = rng.randint(0, 2, C), rng.randint(0, 2, C)
+    ids = np.arange(C)
+    pay = np.concatenate([(ids + C * sig) | (sig << 30),
+                          (ids + C * tau) | ((1 - tau) << 30)])
+    pool = rng.randint(0, 2**32, size=(K, E), dtype=np.uint64).astype(np.int64)
+    share = np.flatnonzero(rng.rand(E) < 0.2)[1:]
+    pool[:K - 1, share] = pool[:K - 1, share - 1]
+    r = rng.rand(E)
+    pool[:K if hashed else 1, r < 0.05] = ln.SENTINEL
+    if hashed:
+        pool[:2, (r >= 0.05) & (r < 0.1)] = ln.SENTINEL
+    pool = pool[:, np.lexsort(tuple(pool[::-1]))]
+    keys = np.empty((K, E), np.int64)
+    order = rng.permutation(E)
+    a = g = 0
+    while a < E:
+        size, pos = rng.choice([1, 2, 2, 2, 3, 4]), a % 1024
+        size = 2 if pos == 1023 else min(size, 1023 - pos)
+        keys[:, order[a:a + size]] = pool[:, g, None]
+        a += size
+        g += 1
+    return torch.from_numpy(keys), torch.from_numpy(pay)
+
+
+@pytest.mark.parametrize("K,hashed", [(1, False), (2, False), (3, False),
+                                      (3, True)])
+@pytest.mark.parametrize("C", [5000, 2048])
+def test_junction_pairs_tiles(card, K, hashed, C):
+    """K3b against its plain version on groups of 1-4 equal keys, pair
+    heads at the last entry of a 1024-entry tile (the partner in the next
+    tile), E = 2C not (C = 5000) and exactly (2048) a multiple of the
+    tile; run twice for equal bytes."""
+    keys, pay = pair_groups(K, hashed, C, seed=K + 7 * hashed + C)
+    s_word, perm, pay, K, word2 = sorted_pairs_inputs(keys, pay)
+    s2 = None if word2 is None else word2[perm]
+    heads = junctions.pair_heads(s_word, s2, K, hashed)
+    assert bool(heads[1023::1024].any()) and int(heads.sum()) > C // 4
+    want = junctions.junction_pairs_plain(s_word, perm, pay, C, K, hashed, word2)
+    args = [t if t is None else t.to(card) for t in (s_word, perm, pay)]
+    w2 = None if word2 is None else word2.to(card)
+    for _ in range(2):
+        got = _kernels.junction_pairs(*args, C, K, hashed, w2)
+        assert torch.equal(got.cpu(), want)
+    assert int((want >= 0).sum()) > C // 4
 
 
 def test_jump_round(card):
@@ -534,7 +603,8 @@ def hier_level0(M: int):
 
 def test_hier_kernels(card):
     """K17-K19 on level 0 of M = 2**19 against their plain versions, with
-    and without K17's changed flag; K18 with a level too small (ok 0)."""
+    and without K17's changed flag; K18 with a level too small (ok 0), and
+    on M = 2**19 + 1554 rows (not a multiple of its tile)."""
     M = 1 << 19
     Q, gid, valid, salt = hier_level0(M)
     g, v = gid.to(card), valid.to(card)
@@ -547,18 +617,34 @@ def test_hier_kernels(card):
         if r:
             assert bool(changed.item()) == (not torch.equal(want, Q))
         Q = want
-    for S1 in (1 << 12, M // 4):
-        ok_cpu = torch.ones(1, dtype=torch.int32)
-        ok_card = ok_cpu.to(card)
-        got = _kernels.hier_contract(Q.to(card), g, v, salt, S1, M, ok_card)
-        want = chains.hier_contract_plain(Q, gid, valid, salt, S1, M, ok_cpu)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
-        assert int(ok_card.item()) == int(ok_cpu.item()) == int(S1 == M // 4)
+    want = hier_contract_both(card, Q, gid, valid, salt, M)
     Q1, _, _, did, parent, _ = want
     F = chains._phase(Q1, None, None, None, chains.max_rounds(M // 4) + 1)
     got = _kernels.hier_expand(F.to(card), parent.to(card), Q.to(card), did.to(card))
     assert torch.equal(got.cpu(), chains.hier_expand_plain(F, parent, Q, did))
+    # K18 where the rows are not a multiple of its 2048-row selection tile
+    M2 = M + 2 * 777
+    Q, gid, valid, salt = hier_level0(M2)
+    Q = chains._phase(Q, gid, valid, salt, chains._R_A, converge=False)
+    hier_contract_both(card, Q, gid, valid, salt, M2)
+
+
+def hier_contract_both(card, Q, gid, valid, salt, M):
+    """K18 against its plain version at S1 = 2**12 (overflow: ok 0) and
+    S1 = M / 4 (ok 1), the kernel run twice for equal bytes; returns the
+    plain outputs at M / 4."""
+    g, v = gid.to(card), valid.to(card)
+    for S1 in (1 << 12, M // 4):
+        ok_cpu = torch.ones(1, dtype=torch.int32)
+        want = chains.hier_contract_plain(Q, gid, valid, salt, S1, M, ok_cpu)
+        assert int(want[5]) > 1 << 12
+        for _ in range(2):
+            ok_card = torch.ones(1, dtype=torch.int32, device=card)
+            got = _kernels.hier_contract(Q.to(card), g, v, salt, S1, M, ok_card)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+            assert int(ok_card.item()) == int(ok_cpu.item()) == int(S1 == M // 4)
+    return want
 
 
 @pytest.mark.parametrize("variant", ["auto", "plain", "hier"])
@@ -663,10 +749,12 @@ def test_junctions_long_k(card, k):
                                        junctions.key_rows(k))
     pkeys, ppay = junctions.junction_keys_plain(solid, n - 3, k)
     assert torch.equal(keys.cpu(), pkeys) and torch.equal(pay.cpu(), ppay)
-    perm = sort_op.lex_argsort(list(pkeys))
-    s_keys, s_pay = pkeys[:, perm].contiguous(), ppay[perm]
-    succ = _kernels.junction_pairs(s_keys.to(card), s_pay.to(card), n, hashed)
-    want = junctions.junction_pairs_plain(s_keys, s_pay, n, hashed)
+    s_word, perm, ppay, K, word2 = sorted_pairs_inputs(pkeys, ppay)
+    succ = _kernels.junction_pairs(
+        s_word.to(card), perm.to(card), ppay.to(card), n, K, hashed,
+        None if word2 is None else word2.to(card))
+    want = junctions.junction_pairs_plain(s_word, perm, ppay, n, K, hashed,
+                                          word2)
     assert torch.equal(succ.cpu(), want) and int((want >= 0).sum()) > 0
     gbase, tot = 3 * n, 8 * n
     got = junctions.junction_entries(solid.to(card), n - 3, k, gbase, tot, 4)

@@ -71,6 +71,55 @@ def test_hier_level_overflow(monkeypatch):
     np.testing.assert_array_equal(ts, js)
 
 
+def exact_level_inputs(M: int, S1: int, extra: int):
+    """pred, valid and dist0 of M nodes whose level 0 selects exactly
+    S1 + extra rows: S1 + extra of the level's sampled fixpoints are valid
+    (half of them roots, the rest pointing at an earlier one), every other
+    sampled node invalid, and every other node valid, pointing at a valid
+    fixpoint (so phase A settles it and marks no target) or a root."""
+    rng = np.random.RandomState(S1 + extra)
+    salt = (0x85EBCA6B * 1) & 0xFFFFFFFF
+    sampled = tchains._sampled(torch.arange(M), salt).numpy()
+    fix = np.flatnonzero(sampled)
+    assert fix.size > S1 + extra
+    sel = fix[:S1 + extra]
+    valid = ~sampled
+    valid[sel] = True
+    pred = np.full(M, -1, np.int64)
+    rest = np.flatnonzero(~sampled)
+    pred[rest] = np.where(rng.rand(rest.size) < 0.75,
+                          sel[rng.randint(0, sel.size, rest.size)], -1)
+    odd = np.arange(1, sel.size, 2)
+    pred[sel[odd]] = sel[(rng.rand(odd.size) * odd).astype(np.int64)]
+    w = rng.randint(1, 30, M).astype(np.int64)
+    return pred, valid, w[np.clip(pred, 0, M - 1)]
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_hier_contract_selects_exactly_the_level(extra, monkeypatch):
+    """K18's plain version at its capacity: a level 0 that selects exactly
+    S1 rows (n_c = S1, ok) and one more (n_c > S1, the overflow), on M =
+    2**14 with the level cut to S1 = M / 16 (_LEVEL_SHRINK and _FINAL_CAP
+    patched in both packages); the state and ok equal bcalm_tpu's
+    hier_jump's, and n_c and ok come from hier_contract_plain."""
+    M, S1 = 1 << 14, 1 << 10
+    for mod in (jchains, tchains):
+        monkeypatch.setattr(mod, "_LEVEL_SHRINK", 16)
+        monkeypatch.setattr(mod, "_FINAL_CAP", S1)
+    assert tchains.level_sizes(M) == [M, S1]
+    pred, valid, dist0 = exact_level_inputs(M, S1, extra)
+    calls = []
+    real = tchains.hier_contract
+    monkeypatch.setattr(tchains, "hier_contract",
+                        lambda *a: calls.append(real(*a)) or calls[-1])
+    (js, jok), (ts, tok) = both_hier(pred, valid, dist0)
+    np.testing.assert_array_equal(ts, js)
+    assert jok == tok == (extra == 0)
+    n_c = int(calls[0][5])
+    assert n_c == S1 + extra
+    assert bool(calls[0][2].all())            # every row of the level valid
+
+
 def assert_info_equal(tinfo, jinfo):
     n = int(jinfo["n_unitigs"])
     assert int(tinfo["n_unitigs"]) == n and n > 0

@@ -4,20 +4,27 @@ The solid sets come from reads over a repeat-seeded genome plus reads
 holding palindromic (k-1)-mers and hairpins (a sequence followed by its
 reverse complement); k-1 > 48 takes the 96-bit hashed key path.  The
 table is shuffled and padded with sentinel columns past n_solid, as the
-engine hands it over.  The long-k cases take (k-1) mod 16 to 0, 1 and 15
+engine hands it over.  The pair step reads the sort's own top word
+(sort.lex_sort, held against JAX's stable sort); the edge cases put groups
+of exactly two and three equal keys at both ends of the sorted entries, a
+hairpin (one k-mer's two sides in one group) and sentinel columns.  The long-k cases take (k-1) mod 16 to 0, 1 and 15
 and the lane counts 2-32, where the kernel's word-parallel reverse
 complement shifts whole words and bits.  Exact equality.
 """
 
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from bcalm_tpu.models import lanes as jln
 from bcalm_tpu.ops import junctions as jjunc
+from bcalm_tpu.ops import sort_tpu
 from bcalm_tpu.oracle import brute
 from bcalm_tpu_torch import convert
+from bcalm_tpu_torch.models import lanes as tln
 from bcalm_tpu_torch.ops import junctions as tjunc
+from bcalm_tpu_torch.ops import sort as tsort
 from bcalm_tpu_torch.ops.runchains import round_capacity
 
 _RC = str.maketrans("ACGT", "TGCA")
@@ -102,3 +109,114 @@ def test_junction_keys_plain_match(k):
     np.testing.assert_array_equal(convert.lanes_to_numpy(keys), want_keys)
     np.testing.assert_array_equal(payload.numpy(), want_payload)
     assert (want_keys[0] == 0xFFFFFFFF).sum() >= 4  # the two cut columns' sides
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_lex_sort_word_and_perm(K):
+    """sort.lex_sort: its permutation is JAX's stable sort's (the entry
+    index sorted along as a payload) and lex_argsort's, and its word is the
+    top packed key (pack_keys) gathered through it; ties, the sentinel and
+    a top-bit lane value included."""
+    rng = np.random.RandomState(K)
+    pool = rng.randint(0, 2**32, size=(K, 40), dtype=np.uint64).astype(np.uint32)
+    pool[:, 0] = 0xFFFFFFFF
+    pool[0, 1] = 0x80000000
+    x = pool[:, rng.randint(0, 40, 500)]
+    cols = [torch.from_numpy(x[j].astype(np.int64)) for j in range(K)]
+    perm, top = tsort.lex_sort(cols)
+    out = sort_tpu.sort_ops([jnp.asarray(x[j]) for j in range(K)]
+                            + [jnp.arange(500, dtype=jnp.uint32)], num_keys=K)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(out[K]))
+    assert torch.equal(perm, tsort.lex_argsort(cols))
+    assert torch.equal(top, tln.pack_keys(cols)[0][perm])
+
+
+def test_sentinel_words_follow_pack_keys():
+    """An all-sentinel key's packed words, and the first row read back from
+    the top word by the shift."""
+    S = 0xFFFFFFFF
+    assert tjunc.sentinel_words(1) == (S, 0, 0)
+    hi = (S - 2**31) << 32
+    assert tjunc.sentinel_words(2) == (hi | S, 0, 32)
+    assert tjunc.sentinel_words(3) == (hi | S, S, 32)
+    for K in (1, 2, 3):
+        sent0, _, shift = tjunc.sentinel_words(K)
+        word = tln.pack_keys([torch.tensor([S, 7, 9][j]) for j in range(K)])[0]
+        assert int(word) >> shift == sent0 >> shift
+        word = tln.pack_keys([torch.tensor([S - 1, S, S][j]) for j in range(K)])[0]
+        assert int(word) >> shift != sent0 >> shift
+
+
+def _canonical(seq: str, k: int) -> int:
+    return brute.canonical_num(brute.str2num(seq), k)
+
+
+def edge_table(k: int, case: str):
+    """Solid k-mers (numpy lanes) of a random genome plus a few chosen ones,
+    and the group sizes the sorted entries must show: a group of `two` or
+    `three` equal keys at each end (the least key, A^(k-1), and the largest
+    canonical odd-length (k-1)-mer, G^h C^(h+1)), each pair an edge; or
+    `hairpin`: A^k, whose two sides form one group on one vertex; then
+    sentinel columns past n_solid."""
+    m = k - 1
+    h = (m - 1) // 2
+    first, last = "A" * m, "G" * h + "C" * (h + 1)
+    rng = np.random.RandomState(k)
+    genome = "".join("ACGT"[c] for c in rng.randint(0, 4, 300))
+    kmers = set(brute.count_kmers([genome], k))
+    if case == "hairpin":
+        chosen = ["A" * k]
+    else:
+        chosen = ["C" + first, first + "C", "A" + last, last + "A"]
+        if case == "three":
+            chosen += ["T" + first, "C" + last]
+    kmers |= {_canonical(x, k) for x in chosen}
+    lanes = jln.ints_to_lanes(sorted(kmers), k)[:, rng.permutation(len(kmers))]
+    n = lanes.shape[1]
+    pad = np.full((lanes.shape[0], 5 if case == "hairpin" else 0), 0xFFFFFFFF,
+                  np.uint32)
+    return np.concatenate([lanes, pad], axis=1), n
+
+
+def sorted_groups(solid: np.ndarray, n: int, k: int):
+    """Sizes of the runs of equal sorted keys (the port's plain key build
+    and lex_sort), and the number of sentinel entries."""
+    keys, _ = tjunc.junction_keys_plain(convert.lanes_from_numpy(solid, "cpu"),
+                                        n, k)
+    K = keys.shape[0]
+    perm, top = tsort.lex_sort(list(keys))
+    s_keys = keys[:, perm]
+    sent = torch.all(s_keys == tjunc.SENTINEL, dim=0) if tjunc.use_hash_keys(k) \
+        else s_keys[0] == tjunc.SENTINEL
+    valid = s_keys[:, ~sent]
+    change = torch.any(valid[:, 1:] != valid[:, :-1], dim=0)
+    bounds = [0] + (torch.nonzero(change).flatten() + 1).tolist() + [valid.shape[1]]
+    return np.diff(bounds).tolist(), int(sent.sum()), K
+
+
+@pytest.mark.parametrize("k,case", [(16, "two"), (16, "three"), (32, "two"),
+                                    (32, "three"), (34, "two"), (34, "three"),
+                                    (32, "hairpin"), (50, "hairpin")])
+def test_successor_arrays_edge_groups(k, case):
+    """Groups of exactly two and three equal keys at both ends of the
+    sorted entries (1, 2 and 3 key rows: one and two packed words), a
+    hairpin (rejected: equal vertices) and sentinel columns (never paired),
+    against bcalm_tpu's successor_arrays."""
+    solid, n = edge_table(k, case)
+    sizes, n_sent, K = sorted_groups(solid, n, k)
+    assert K == {16: 1, 32: 2, 34: 3, 50: 3}[k]
+    want = {"two": 2, "three": 3}.get(case)
+    if want:
+        assert sizes[0] == sizes[-1] == want and n_sent == 0
+    else:
+        assert 2 in sizes and n_sent == 2 * (solid.shape[1] - n)
+    js, _ = jjunc.successor_arrays(jnp.asarray(solid), jnp.asarray(n, jnp.int32), k)
+    ts = tjunc.successor_arrays(convert.lanes_from_numpy(solid, "cpu"), n, k)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    C = solid.shape[1]
+    if case == "hairpin":
+        hp = int(np.flatnonzero(np.all(solid == jln.ints_to_lanes(
+            [_canonical("A" * k, k)], k), axis=0))[0])
+        assert int(ts[hp]) == int(ts[hp + C]) == -1
+    elif case == "two":
+        assert int((ts >= 0).sum()) > 4
