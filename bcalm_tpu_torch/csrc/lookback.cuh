@@ -1,5 +1,5 @@
 // Decoupled look-back over per-tile status words, shared by the one-pass
-// selections (K9 solid_compact, K18 hier_contract).
+// selections (K9 solid_compact, K18 hier_contract) and K8 run_scans.
 //
 // Each block takes its tile from an atomic ticket, so every tile it waits
 // on is already running.  A tile publishes its own count (kAggregate),
@@ -29,6 +29,19 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
   asm volatile("st.relaxed.gpu.u64 [%0], %1;" :: "l"(p), "l"(v) : "memory");
 }
 
+// Tile t's status word once it has published one; before tile 0, an
+// empty prefix.
+__device__ __forceinline__ unsigned long long wait_status(
+    const unsigned long long* status, long long t) {
+  unsigned long long s = kPrefix;
+  if (t >= 0) {
+    do {
+      s = load_status(status + t);
+    } while ((s & 3u) == 0);
+  }
+  return s;
+}
+
 // Called by the 32 lanes of one warp: the sum of the counts of the
 // tiles before `tile`, read from their status words 32 at a time, nearest
 // first, up to and including the nearest one that holds its inclusive
@@ -37,12 +50,7 @@ __device__ long long look_back(const unsigned long long* status,
                                long long tile, int lane) {
   long long prefix = 0;
   for (long long t = tile - 1 - lane;; t -= 32) {
-    unsigned long long s = kPrefix;  // before tile 0: an empty prefix
-    if (t >= 0) {
-      do {
-        s = load_status(status + t);
-      } while ((s & 3u) == 0);
-    }
+    const unsigned long long s = wait_status(status, t);
     const unsigned int found = __ballot_sync(0xFFFFFFFFu, (s & 3u) == kPrefix);
     const int stop = found ? __ffs(found) - 1 : 31;
     long long v = lane <= stop ? static_cast<long long>(s >> 2) : 0;
@@ -50,6 +58,38 @@ __device__ long long look_back(const unsigned long long* status,
     for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
     prefix += v;
     if (found) return prefix;
+  }
+}
+
+// The two-value form (K8 run_scans): a tile's head count and its last
+// head + 1 (0: none), 31 bits each, in one status word, (count << 31 |
+// last + 1) << 2 | flag; the caller keeps both below 2^31.  Called by the
+// 32 lanes of one warp: the carry of the tiles before `tile`, their
+// summed counts and the largest last head + 1, read as look_back does.
+__device__ __forceinline__ long long pack_pair(long long count, long long last1) {
+  return (count << 31) | last1;
+}
+
+__device__ void look_back_pair(const unsigned long long* status, long long tile,
+                               int lane, long long& count, long long& last1) {
+  count = 0;
+  last1 = 0;
+  for (long long t = tile - 1 - lane;; t -= 32) {
+    const unsigned long long s = wait_status(status, t);
+    const unsigned int found = __ballot_sync(0xFFFFFFFFu, (s & 3u) == kPrefix);
+    const int stop = found ? __ffs(found) - 1 : 31;
+    const unsigned long long v = lane <= stop ? s >> 2 : 0;
+    long long c = static_cast<long long>(v >> 31);
+    long long l = static_cast<long long>(v & 0x7FFFFFFFull);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      c += __shfl_xor_sync(0xFFFFFFFFu, c, d);
+      const long long o = __shfl_xor_sync(0xFFFFFFFFu, l, d);
+      l = o > l ? o : l;
+    }
+    count += c;
+    last1 = l > last1 ? l : last1;
+    if (found) return;
   }
 }
 

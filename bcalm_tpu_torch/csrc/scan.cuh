@@ -1,8 +1,7 @@
-// Block and tile scans shared by the kernels (K8-K12).
+// Block and tile scans shared by K10 chain_finish and K11 spell_unitigs.
 //
-// block_exclusive: an exclusive scan over the threads of one block, forward
-// or backward, with any associative operator (warp shuffles, then one warp
-// over the per-warp totals).
+// block_exclusive: an exclusive sum over the threads of one block (warp
+// shuffles, then one warp over the per-warp totals).
 //
 // exclusive_sum: the three-launch tile scan of an int64 value per index
 // over [0, n) (tiles of 1024 entries, 256 threads with 4 entries each):
@@ -23,52 +22,33 @@ constexpr int kScanItems = 4;
 constexpr int kScanTile = bt::kThreads * kScanItems;
 constexpr int kCarryThreads = 1024;
 
-struct Sum {
-  __device__ long long operator()(long long a, long long b) const { return a + b; }
-};
-struct Max {
-  __device__ long long operator()(long long a, long long b) const { return a > b ? a : b; }
-};
-struct Min {
-  __device__ long long operator()(long long a, long long b) const { return a < b ? a : b; }
-};
-
-// Exclusive scan of v over the threads of the block, in thread order
-// (forward) or in reverse thread order; returns this thread's exclusive
-// value and sets total.  sh holds one slot per warp; every thread of the
-// block must call it.
-template <bool kForward, class Op>
-__device__ long long block_exclusive(long long v, Op op, long long ident,
-                                     long long* sh, long long& total) {
+// Exclusive sum of v over the threads of the block, in thread order;
+// returns this thread's exclusive value and sets total.  sh holds one slot
+// per warp; every thread of the block must call it.
+__device__ long long block_exclusive(long long v, long long* sh,
+                                     long long& total) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   long long inc = v;
   for (int d = 1; d < 32; d <<= 1) {
-    long long y = kForward ? __shfl_up_sync(0xFFFFFFFFu, inc, d)
-                           : __shfl_down_sync(0xFFFFFFFFu, inc, d);
-    if (kForward ? lane >= d : lane + d < 32) inc = op(inc, y);
+    long long y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+    if (lane >= d) inc += y;
   }
-  long long exc = kForward ? __shfl_up_sync(0xFFFFFFFFu, inc, 1)
-                           : __shfl_down_sync(0xFFFFFFFFu, inc, 1);
-  if (kForward ? lane == 0 : lane == 31) exc = ident;
-  if (kForward ? lane == 31 : lane == 0) sh[w] = inc;
+  if (lane == 31) sh[w] = inc;
   __syncthreads();
   if (w == 0) {
-    long long s = lane < nw ? sh[lane] : ident;
+    long long s = lane < nw ? sh[lane] : 0;
     for (int d = 1; d < 32; d <<= 1) {
-      long long y = kForward ? __shfl_up_sync(0xFFFFFFFFu, s, d)
-                             : __shfl_down_sync(0xFFFFFFFFu, s, d);
-      if (kForward ? lane >= d : lane + d < 32) s = op(s, y);
+      long long y = __shfl_up_sync(0xFFFFFFFFu, s, d);
+      if (lane >= d) s += y;
     }
-    if (lane < nw) sh[lane] = s;  // inclusive over warps, in scan order
+    if (lane < nw) sh[lane] = s;  // inclusive over warps
   }
   __syncthreads();
-  long long before = ident;
-  if (kForward && w > 0) before = sh[w - 1];
-  if (!kForward && w < nw - 1) before = sh[w + 1];
-  total = kForward ? sh[nw - 1] : sh[0];
+  const long long before = w > 0 ? sh[w - 1] : 0;
+  total = sh[nw - 1];
   __syncthreads();  // sh is reused by the next call
-  return op(before, exc);
+  return before + inc - v;
 }
 
 inline long long scan_tiles(long long n) { return (n + kScanTile - 1) / kScanTile; }
@@ -83,7 +63,7 @@ __global__ void tile_sum_reduce(Value value, long long n,
     if (base + q < n) s += value(base + q);
   }
   long long tot;
-  block_exclusive<true>(s, Sum(), 0, sh, tot);
+  block_exclusive(s, sh, tot);
   if (threadIdx.x == 0) agg[blockIdx.x] = tot;
 }
 
@@ -96,7 +76,7 @@ __global__ void tile_sum_carry(long long nb, long long* __restrict__ agg,
     long long b = t0 + threadIdx.x;
     long long c = b < nb ? agg[b] : 0;
     long long tc;
-    long long ec = block_exclusive<true>(c, Sum(), 0, sh, tc);
+    long long ec = block_exclusive(c, sh, tc);
     if (b < nb) agg[b] = run + ec;
     run += tc;
   }
@@ -115,7 +95,7 @@ __global__ void tile_sum_apply(Value value, Apply apply, long long n,
     s += v[q];
   }
   long long tot;
-  long long run = carry[blockIdx.x] + block_exclusive<true>(s, Sum(), 0, sh, tot);
+  long long run = carry[blockIdx.x] + block_exclusive(s, sh, tot);
   for (int q = 0; q < kScanItems; ++q) {
     if (base + q >= n) break;
     apply(base + q, run, v[q]);

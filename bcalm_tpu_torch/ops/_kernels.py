@@ -96,6 +96,7 @@ MAX_ROW_WORDS = 64  # csrc/superkmer.cu: rows of <= 1024 positions
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
 COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
 HIER_TILE = 2048  # rows per selection tile of csrc/hier.cu (K18)
+RUNSCAN_TILE = 2048  # entries per look-back tile of csrc/runscan.cu (K8)
 COUNT_TILE = 2048  # columns per tile of csrc/count.cu
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 
@@ -461,22 +462,28 @@ def run_scans(succ: torch.Tensor, n_solid: int, C: int, gbase: int = 0):
     _check(succ, "succ", ndim=1)
     if succ.shape[0] < C or not 0 <= n_solid <= C:
         raise ValueError("run_scans: succ shorter than C or n_solid > C")
+    if C >= 2**31:
+        raise ValueError("run_scans: C >= 2^31 (the look-back packs two "
+                         "31-bit values per status word)")
     dev = succ.device
     is_head = torch.empty((C,), dtype=torch.bool, device=dev)
     is_tail = torch.empty((C,), dtype=torch.bool, device=dev)
     rid = torch.empty((C,), dtype=torch.int64, device=dev)
     head_pos = torch.empty((C,), dtype=torch.int64, device=dev)
     end_pos = torch.empty((C,), dtype=torch.int64, device=dev)
-    R = torch.zeros((1,), dtype=torch.int64, device=dev)
-    if C:
-        tiles = -(-C // 1024)
-        scratch = torch.empty((3 * tiles,), dtype=torch.int64, device=dev)
-        _launch("bt_run_scans", succ.data_ptr(), C, n_solid, gbase,
-                scratch.data_ptr(), is_head.data_ptr(), is_tail.data_ptr(),
-                rid.data_ptr(), head_pos.data_ptr(), end_pos.data_ptr(),
-                R.data_ptr())
-        LAUNCHES["run_scans"] += 1
-    return is_head, is_tail, rid, head_pos, end_pos, R
+    if not C:
+        return (is_head, is_tail, rid, head_pos, end_pos,
+                torch.zeros((1,), dtype=torch.int64, device=dev))
+    # [0] R (written by the last tile), [1] the ticket, [2:] one status word
+    # per tile (the ticket and status words are zeroed in the C call)
+    scratch = torch.empty((2 + -(-C // RUNSCAN_TILE),), dtype=torch.int64,
+                          device=dev)
+    _launch("bt_run_scans", succ.data_ptr(), C, n_solid, gbase,
+            scratch.data_ptr() + 8, is_head.data_ptr(), is_tail.data_ptr(),
+            rid.data_ptr(), head_pos.data_ptr(), end_pos.data_ptr(),
+            scratch.data_ptr())
+    LAUNCHES["run_scans"] += 1
+    return is_head, is_tail, rid, head_pos, end_pos, scratch[:1]
 
 
 def _scan_scratch(n: int, dev) -> torch.Tensor:

@@ -8,8 +8,8 @@ weighted by run length) runs on the contracted run graph, and unitig
 ids/ranks are broadcast back over the runs.
 
 The JAX package writes its scans as log-doubling shifts for the TPU
-compiler; here :func:`run_scans` launches the K8 block scan
-(csrc/runscan.cu) for CUDA tensors and runs :func:`run_scans_plain`
+compiler; here :func:`run_scans` launches K8, one pass with decoupled
+look-back (csrc/runscan.cu), for CUDA tensors and runs :func:`run_scans_plain`
 (``torch.cumsum``/``cummax``/``cummin``) for CPU tensors.  run_decompose's
 contraction and broadcast are :func:`run_contract` and
 :func:`run_broadcast` (K12, csrc/runcontract.cu), which read the same

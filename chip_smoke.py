@@ -1309,13 +1309,13 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 STEP_INPUTS = r"""
 import numpy as np
 import torch
-from bcalm_tpu_torch.ops import _kernels, chains, junctions
+from bcalm_tpu_torch.ops import _kernels, chains, junctions, runchains
 from bcalm_tpu_torch.ops import sort as sort_op
 
 HIER_LEVELS = ((1 << 19, 296782, 296782 / 143856),
                (1 << 24, 10150400, 10150400 / 143856))
 
-def step_solid(n=5075200, C=1 << 23, k=31):
+def step_kmers(n, k):
     r = np.random.RandomState(11)
     codes = torch.from_numpy(r.randint(0, 4, n + k - 1).astype(np.int64)).to(dev)
     fwd = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -1323,11 +1323,55 @@ def step_solid(n=5075200, C=1 << 23, k=31):
     for j in range(k):
         fwd = (fwd << 2) | codes[j:j + n]
         rc = rc | ((codes[j:j + n] ^ 2) << (2 * j))
-    canon = torch.minimum(fwd, rc)
+    return fwd, torch.minimum(fwd, rc)
+
+def step_solid(n=5075200, C=1 << 23, k=31):
+    canon = step_kmers(n, k)[1]
     solid = torch.full((2, C), 0xFFFFFFFF, dtype=torch.int64, device=dev)
     solid[0, :n] = canon >> 32
     solid[1, :n] = canon & 0xFFFFFFFF
     return solid, n, C
+
+def step_pos(n=5075200, C=1 << 23, k=31, R=148391):
+    # counts and first-occurrence keys for step_solid(): the genome cut at
+    # random into R pieces, first seen in a random order of the pieces,
+    # each read forward (the key's low bit: the canonical k-mer is the
+    # reverse complement), so compact_solid_pos finds about R runs
+    r = np.random.RandomState(13)
+    fwd, canon = step_kmers(n, k)
+    cut = np.zeros(n, np.int64)
+    cut[1 + r.choice(n - 1, R - 1, replace=False)] = 1
+    piece = np.cumsum(cut)
+    start = np.flatnonzero(np.concatenate([[1], cut[1:]]))
+    length = np.diff(np.concatenate([start, [n]]))
+    order = r.permutation(R)
+    first = np.zeros(R, np.int64)
+    first[order] = np.concatenate([[0], np.cumsum(length[order])[:-1]])
+    seen = torch.from_numpy(first[piece] + np.arange(n) - start[piece]).to(dev)
+    minpos = torch.full((C,), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    minpos[:n] = 2 * seen + (canon != fwd).long()
+    counts = torch.zeros((C,), dtype=torch.int64, device=dev)
+    counts[:n] = 2
+    return counts, minpos
+
+def run_succ(n=5075200, C=1 << 23, R=148391):
+    # a successor array with phase 3's run structure: R runs over n solid
+    # entries, cut at random; each run's tail links to a random run's head,
+    # or reversed to its tail, or to nothing, and so does its head on the
+    # minus strand
+    r = np.random.RandomState(12)
+    heads = np.sort(np.concatenate([[0], 1 + r.choice(n - 1, R - 1, replace=False)]))
+    tails = np.concatenate([heads[1:] - 1, [n - 1]])
+    def ends(own):
+        pick, kind = r.randint(0, R, R), r.randint(0, 3, R)
+        out = np.where(kind == 0, heads[pick], np.where(kind == 1, C + tails[pick], -1))
+        return np.where(out == own + 1, -1, out)
+    succ = np.full(2 * C, -1, np.int64)
+    succ[:n] = np.arange(1, n + 1)
+    succ[tails] = ends(tails)
+    succ[C + 1:C + n] = C + np.arange(n - 1)
+    succ[C + heads] = ends(C + heads)
+    return torch.from_numpy(succ).to(dev), n, C
 
 def level0_inputs(M, n_valid, mean):
     r = np.random.RandomState(M % 9973)
@@ -1362,7 +1406,12 @@ def level0_inputs(M, n_valid, mean):
 # no synchronisation); then a probe build of the tree's junctions.cu with
 # the two succ stores made conditional on an impossible value (the loads
 # and the pair rule stay), timed through the same wrapper, which gives
-# the scatter's share.  Prints one JSON line.
+# the scatter's share; then K8 and K12a on the successor arrays of
+# step_solid() and run_succ() (device ms per operation, with R and
+# R_cap) and, where
+# the tree's sources have the lines, probes of the three-launch K8
+# without its five output stores and of the per-entry K12a launched over
+# R_cap threads rather than C.  Prints one JSON line.
 SPLIT = r"""
 import ctypes, json, re, subprocess, sys, tempfile, time
 import torch
@@ -1424,29 +1473,61 @@ for name, fn in pieces.items():
     out["pieces"][name] = {"ms": time_ms(fn), "device": breakdown(fn)}
 succ = pieces["junction_pairs"]()
 out["heads_and_edges"] = [int((succ >= 0).sum())]
-# the probe: the same tree's pair kernel without its scatter stores
-src = open("bcalm_tpu_torch/csrc/junctions.cu").read()
-probe = re.sub(r"succ\[(.+?)\] = (.+);", r"if ((\1) == -7LL) succ[0] = (\2);", src)
-if probe.count("== -7LL") != 2:
-    raise AssertionError("the probe found %d succ stores" % probe.count("== -7LL"))
-work = tempfile.mkdtemp()
-with open(work + "/junctions_probe.cu", "w") as f:
-    f.write(probe)
-subprocess.run([_kernels._find_nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-I",
-                "bcalm_tpu_torch/csrc", "-o", work + "/probe.so",
-                work + "/junctions_probe.cu"], check=True)
-lib = ctypes.CDLL(work + "/probe.so")
-fn = lib.bt_junction_pairs
-fn.argtypes = _kernels._SIGNATURES["bt_junction_pairs"]
-fn.restype = ctypes.c_int
-saved = _kernels._FNS["bt_junction_pairs"]
-_kernels._FNS["bt_junction_pairs"] = fn
-try:
-    out["pieces"]["junction_pairs probe (no succ stores)"] = {
-        "ms": time_ms(pieces["junction_pairs"]),
-        "device": breakdown(pieces["junction_pairs"])}
-finally:
-    _kernels._FNS["bt_junction_pairs"] = saved
+# the probes: a copy of one source with some lines rewritten, built alone
+# and swapped in for the wrapper's C function; None where this tree's
+# source has not those lines (count: how many the pattern must match, in
+# a source that holds `kernel`)
+def probe(source, c_fn, kernel, pattern, repl, count, fn):
+    src = open("bcalm_tpu_torch/csrc/" + source).read()
+    text, n_sub = re.subn(pattern, repl, src)
+    if kernel not in src or n_sub != count:
+        return None
+    with tempfile.TemporaryDirectory() as work:
+        with open(work + "/probe_" + source, "w") as f:
+            f.write(text)
+        subprocess.run([_kernels._find_nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+                        "-I", "bcalm_tpu_torch/csrc", "-o", work + "/probe.so",
+                        work + "/probe_" + source], check=True)
+        lib = ctypes.CDLL(work + "/probe.so")
+    cfn = getattr(lib, c_fn)
+    cfn.argtypes = _kernels._SIGNATURES[c_fn]
+    cfn.restype = ctypes.c_int
+    saved = _kernels._FNS[c_fn]
+    _kernels._FNS[c_fn] = cfn
+    try:
+        return {"ms": time_ms(fn), "device": breakdown(fn)}
+    finally:
+        _kernels._FNS[c_fn] = saved
+
+# the same tree's pair kernel without its scatter stores
+got = probe("junctions.cu", "bt_junction_pairs", "junction_pairs", r"succ\[(.+?)\] = (.+);",
+            r"if ((\1) == -7LL) succ[0] = (\2);", 2, pieces["junction_pairs"])
+if got is None:
+    raise AssertionError("the probe did not find the two succ stores")
+out["pieces"]["junction_pairs probe (no succ stores)"] = got
+# K8 and K12a at phase 3's shape on the random genome's own successor
+# array; probes of the three-launch K8 without its five output stores and
+# of the per-entry K12a launched over R_cap threads rather than C
+for label, (succ_r, n_r, C_r) in (
+        ("step", (junctions.successor_arrays(solid, n, 31), n, C)),
+        ("phase-3 runs", run_succ())):
+    scan = _kernels.run_scans(succ_r, n_r, C_r)
+    R = int(scan[5])
+    R_cap = runchains.round_capacity(R)
+    k8 = lambda: _kernels.run_scans(succ_r, n_r, C_r)
+    k12 = lambda: _kernels.run_contract(succ_r, scan[0], scan[2], scan[4], R, R_cap)
+    row = out["run_scans " + label] = {
+        "n_solid": n_r, "C": C_r, "R": R, "R_cap": R_cap, "ms": time_ms(k8),
+        "device": breakdown(k8)}
+    row["probe (no output stores)"] = probe(
+        "runscan.cu", "bt_run_scans", "run_scan_apply",
+        r"\b(is_head|is_tail|rid|head_pos|end_pos)\[i\] = (.+);",
+        r"if ((\2) == -7LL) \1[0] = (\2);", 5, k8)
+    row = out["run_contract " + label] = {"ms": time_ms(k12), "device": breakdown(k12)}
+    row["probe (R_cap threads)"] = probe(
+        "runcontract.cu", "bt_run_contract", "run_contract_kernel",
+        r"long long n = C > R_cap \? C : R_cap;", "long long n = R_cap;", 1, k12)
+    del succ_r, scan
 del succ, keys, pay, rows, solid
 out["hier_contract"] = {}
 for M, n_valid, mean in HIER_LEVELS:
@@ -1465,6 +1546,7 @@ import inspect, json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ".")
+from bcalm_tpu_torch import engine
 from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import _kernels, count, extract, junctions, superkmer
 from bcalm_tpu_torch.parallel import pipeline
@@ -1679,6 +1761,32 @@ same([succ_s], [plain_step()], "junction_pairs step")
 digest["junction_pairs step"] = [int(succ_s.sum()), int((succ_s >= 0).sum())]
 fns["junction_pairs step"] = (step, 20)
 del succ_s
+# compact_solid_pos (reorder, successor arrays, K8, K12a, the jump, K10,
+# K12b) on step_solid() with step_pos()'s first-occurrence keys
+counts_s, minpos_s = step_pos()
+got = engine.compact_solid_pos(solid_s, counts_s, minpos_s, n_s, 31)[2]
+digest["compact_solid_pos"] = [int(got["n_unitigs"]), int(got["uid"].sum()),
+                               int(got["rank"].sum())]
+fns["compact_solid_pos"] = (lambda: engine.compact_solid_pos(solid_s, counts_s, minpos_s, n_s, 31), 5)
+del got
+# K8 and K12a at phase 3's shape: on step_solid()'s successor array (its
+# canonical k-mers link only where both strands agree, so its runs are
+# short) and on run_succ()'s, phase 3's run structure
+for label, (succ_k, n_k, C_k) in (
+        ("step", (junctions.successor_arrays(solid_s, n_s, 31), n_s, C_s)),
+        ("phase-3 runs", run_succ())):
+    scan = _kernels.run_scans(succ_k, n_k, C_k)
+    same(scan, runchains.run_scans_plain(succ_k, n_k, C_k), "run_scans")
+    R = int(scan[5])
+    R_cap = runchains.round_capacity(R)
+    cargs = (succ_k, scan[0], scan[2], scan[4], R, R_cap)
+    got = _kernels.run_contract(*cargs)
+    same(got, runchains.run_contract_plain(*cargs), "run_contract")
+    digest["run_scans " + label] = [int(t.long().sum()) for t in scan]
+    digest["run_contract " + label] = [int(t.long().sum()) for t in got]
+    fns["run_scans " + label] = (lambda a=(succ_k, n_k, C_k): _kernels.run_scans(*a), 20)
+    fns["run_contract " + label] = (lambda a=cargs: _kernels.run_contract(*a), 20)
+    del got
 for M, n_valid, mean in HIER_LEVELS:
     hargs = level0_inputs(M, n_valid, mean)
     ok_h = torch.ones((1,), dtype=torch.int32, device=dev)
@@ -1789,9 +1897,9 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
         digests.append(times["digest"])
         say(f"[compare] {name} " + kernel_ab_line(times))
     if any(d != digests[0] for d in digests):
-        raise AssertionError(f"K3b's step or K18 gave other outputs in the "
-                             f"two trees: {digests}")
-    say(f"[compare] K3b's step and K18 give the same outputs in both trees "
+        raise AssertionError(f"K3b's step, K8, K12a or K18 gave other outputs "
+                             f"in the two trees: {digests}")
+    say(f"[compare] K3b's step, K8, K12a and K18 give the same outputs in both trees "
         f"(sums and counts): {json.dumps(digests[0])}")
     # the -devices build at world size 1 on the first 1/8 of the reads,
     # against the single-device build of the same reads
@@ -2245,6 +2353,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     inputs = {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                           for a in args) for name, args in inputs.items()}
     rows = []
+    extra = []
 
     def check(name, *fns, row=True, **kw):
         r = check_kernel(name, launches, *fns, **kw)
@@ -2336,6 +2445,17 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     check("run_scans", lambda: _kernels.run_scans(succ, n_solid, C, gbase),
           lambda: runchains.run_scans_plain(succ, n_solid, C, gbase),
           reads=succ[:n_solid])      # links are read for the solid entries
+    # K8 with a nonzero global base (a rank of the sharded glue): the same
+    # links, every successor shifted by it
+    g8 = 3 * C
+    succ_g = torch.where(succ >= 0, succ + g8, succ)
+    r = check("run_scans", lambda: _kernels.run_scans(succ_g, n_solid, C, g8),
+              lambda: runchains.run_scans_plain(succ_g, n_solid, C, g8),
+              reads=succ_g[:n_solid], label="run_scans@gbase", launched=0,
+              row=False)
+    extra.append((f"run_scans with a global base of {g8} (phase 3's links, "
+                  f"shifted)", r))
+    del succ_g
     sc_args = inputs["solid_compact"]
     uq, cq, pq, nq, amin, amax = sc_args[:6]
     stacked_in = torch.cat([uq, cq[None], pq[None]])
@@ -2366,7 +2486,6 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
           lambda: runchains.run_broadcast_plain(*rb_args),
           reads=rb_args[:3] + tuple(a[:n_members] for a in rb_args[3:6])
           + rb_args[6:8])
-    extra = []
 
     # K17-K19 at level 0 of the resident run's hierarchical jump (the
     # rows) and of the canonical-order one (phase 3d, M = 2C)

@@ -124,3 +124,54 @@ def test_devices_missing_input_exits_1(tmp_path, monkeypatch, capsys):
     assert tcli.main(args) == 1
     assert capsys.readouterr().err == jerr
     assert "input not found" in jerr
+
+
+def write_album(tmp_path, seed=9):
+    """An album of one FASTA file and one gzipped FASTQ file drawn from one
+    genome, with lowercase reads and N bases."""
+    import gzip
+
+    rng = np.random.RandomState(seed)
+    genome = bench.make_genome(6000, rng, repeat_frac=0.05)
+    seqs = ["".join("ACTG"[c] for c in r) for r in bench.sample_reads(
+        genome, 360, 120, rng, err_rate=0.003, dup_frac=0.2)]
+    seqs = [s.lower() if i % 7 == 0 else s for i, s in enumerate(seqs)]
+    seqs = [s[:50] + "N" + s[51:] if i % 11 == 0 else s
+            for i, s in enumerate(seqs)]
+    fa, fq = tmp_path / "a.fa", tmp_path / "b.fastq.gz"
+    fa.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs[:180])))
+    with gzip.open(fq, "wt") as f:
+        for i, s in enumerate(seqs[180:]):
+            f.write(f"@q{i}\n{s}\n+\n{'I' * len(s)}\n")
+    album = tmp_path / "album.txt"
+    album.write_text(f"{fa}\n{fq}\n")
+    return album
+
+
+def test_cli_album_fastq_gz_counts_byte_identical(tmp_path, monkeypatch):
+    """A FASTA + FASTQ.gz album under -all-abundance-counts with an
+    abundance cap and a short histogram: the same unitigs bytes."""
+    album = write_album(tmp_path)
+    args = ["-in", str(album), "-kmer-size", "27", "-abundance-min", "2",
+            "-abundance-max", "5", "-histo-max", "20", "-all-abundance-counts",
+            "-nb-cores", "1", "-verbose", "0"]
+    assert jcli.main(args + ["-out", str(tmp_path / "jax")]) == 0
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    assert tcli.main(args + ["-out", str(tmp_path / "torch")]) == 0
+    want = (tmp_path / "jax.unitigs.fa").read_bytes()
+    assert (tmp_path / "torch.unitigs.fa").read_bytes() == want
+    assert want.count(b">") > 10
+
+
+def test_cli_devices_k63_byte_identical(tmp_path, monkeypatch):
+    """-devices 2 at k = 63 (hashed junction keys): the same unitigs bytes."""
+    fa = tmp_path / "reads.fa"
+    write_reads(fa, seed=63, n=200)
+    args = ["-in", str(fa), "-kmer-size", "63", "-abundance-min", "2",
+            "-verbose", "0", "-devices", "2"]
+    assert jcli.main(args + ["-out", str(tmp_path / "jax")]) == 0
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    assert tcli.main(args + ["-out", str(tmp_path / "torch")]) == 0
+    want = (tmp_path / "jax.unitigs.fa").read_bytes()
+    assert (tmp_path / "torch.unitigs.fa").read_bytes() == want
+    assert want.count(b">") > 10

@@ -253,18 +253,98 @@ def test_solid_fold_histogram(card, histo_max):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("C,n_solid", [(16, 16), (1024, 1000), (1 << 20, 900_000),
-                                       (4096, 0)])
-def test_run_scans(card, C, n_solid):
-    rng = np.random.RandomState(C)
-    idx = np.arange(2 * C)
+RUN_TILE = _kernels.RUNSCAN_TILE
+
+
+def succ_with_heads(C, n_solid, heads, gbase=0, seed=0, last_links=False):
+    """A (2C,) successor array whose runs over [0, n_solid) start exactly
+    at `heads` (0 among them): entry i links to i+1 unless i+1 is a head;
+    a run's last entry links nowhere (or, for the last run when
+    last_links, on to n_solid), the minus half is random."""
+    rng = np.random.RandomState(seed)
     succ = np.where(rng.rand(2 * C) < 0.3, -1, rng.randint(0, 2 * C, 2 * C))
-    succ[:C] = np.where(rng.rand(C) < 0.9, idx[:C] + 1, succ[:C])
-    succ = torch.from_numpy(succ)
-    got = _kernels.run_scans(succ.to(card), n_solid, C)
-    want = runchains.run_scans_plain(succ, n_solid, C)
+    idx = np.arange(C)
+    succ[:C] = gbase + idx + 1
+    cut = np.zeros(C + 1, bool)
+    cut[np.asarray(heads, np.int64)] = True
+    ends = cut[1:C + 1] | (idx >= n_solid - 1)
+    succ[:C] = np.where(ends, -1, succ[:C])
+    if last_links and 0 < n_solid < C:
+        succ[n_solid - 1] = gbase + n_solid
+    return torch.from_numpy(succ)
+
+
+def check_runs(card, succ, n_solid, C, gbase=0):
+    """K8 and then K12a on its output, bitwise against the plain versions."""
+    got = _kernels.run_scans(succ.to(card), n_solid, C, gbase)
+    want = runchains.run_scans_plain(succ, n_solid, C, gbase)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+    is_head, _, rid, _, end_pos, R = want
+    R = int(R[0])
+    R_cap = runchains.round_capacity(R)
+    cargs = (is_head, rid, end_pos, R, R_cap)
+    got = _kernels.run_contract(succ.to(card), *[a.to(card) for a in cargs[:3]],
+                                R, R_cap)
+    for a, b in zip(got, runchains.run_contract_plain(succ, *cargs)):
+        assert torch.equal(a.cpu(), b)
+    return R
+
+
+def run_case(case, C, n_solid):
+    """The run structures of test_run_scans beside its random links."""
+    T = RUN_TILE
+    if case == "one_run":                       # R = 1 over many tiles
+        return succ_with_heads(C, n_solid, [0])
+    if case == "tile_heads":                    # heads on tile boundaries,
+        heads = [0, T - 1, T, 2 * T, 2 * T + 1, 5 * T, 9 * T - 1]
+        return succ_with_heads(C, n_solid, heads)   # runs over several tiles
+    if case == "tile_tails":                    # runs end on a tile's last
+        heads = [0] + [j * T for j in range(1, C // T)]  # entry, n_solid-1 too
+        return succ_with_heads(C, n_solid, heads)
+    if case == "open_end":                      # the last run links on past
+        return succ_with_heads(C, n_solid, [0, 5000], last_links=True)
+    if case == "no_links":                      # every entry a run
+        return succ_with_heads(C, n_solid, np.arange(C))
+    if case == "r_eq_cap":                      # R = 64 = R_cap
+        heads = np.sort(np.random.RandomState(64).choice(
+            np.arange(1, n_solid), 63, replace=False))
+        return succ_with_heads(C, n_solid, np.concatenate([[0], heads]))
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("C,n_solid,case", [
+    pytest.param(16, 16, None, id="16-16"),
+    pytest.param(1024, 1000, None, id="1024-1000"),
+    pytest.param(1 << 20, 900_000, None, id="1048576-900000"),
+    pytest.param(4096, 0, None, id="4096-0"),
+    pytest.param(5 * RUN_TILE + 7, 5 * RUN_TILE + 7, None, id="n_eq_C"),
+    pytest.param(3 * RUN_TILE + 1, 0, None, id="n_zero"),
+    pytest.param(3 << 20, 3 << 20, "one_run", id="one_run_n_eq_C"),
+    pytest.param((1 << 20) + 5, (1 << 20) - 3, "one_run", id="one_run"),
+    pytest.param(12 * RUN_TILE, 11 * RUN_TILE - 40, "tile_heads", id="tile_heads"),
+    pytest.param(16 * RUN_TILE, 12 * RUN_TILE, "tile_tails", id="tile_tails"),
+    pytest.param(8 * RUN_TILE, 9000, "open_end", id="open_end"),
+    pytest.param(3 * RUN_TILE + 9, 3 * RUN_TILE + 2, "no_links", id="no_links"),
+    pytest.param(40_000, 37_000, "r_eq_cap", id="r_eq_cap"),
+])
+def test_run_scans(card, C, n_solid, case):
+    """K8 against its plain version on random links (about one entry in
+    ten a run head) and on run structures at the look-back tiles' edges;
+    K12a on each result."""
+    if case is None:
+        rng = np.random.RandomState(C)
+        idx = np.arange(2 * C)
+        succ = np.where(rng.rand(2 * C) < 0.3, -1, rng.randint(0, 2 * C, 2 * C))
+        succ[:C] = np.where(rng.rand(C) < 0.9, idx[:C] + 1, succ[:C])
+        succ = torch.from_numpy(succ)
+    else:
+        succ = run_case(case, C, n_solid)
+    R = check_runs(card, succ, n_solid, C)
+    if case == "one_run":
+        assert R == 1
+    if case == "r_eq_cap":
+        assert R == runchains.round_capacity(R) == 64
 
 
 @pytest.mark.parametrize("k", [21, 31])
@@ -454,9 +534,19 @@ def test_extract_insert_row_base(card, k):
         assert torch.equal(bufs[0].cpu(), bufs[1])
 
 
-@pytest.mark.parametrize("C,n_solid,gbase", [(1024, 1000, 5 << 20),
-                                             (1 << 20, 900_000, 3 << 20)])
-def test_run_scans_global_base(card, C, n_solid, gbase):
+@pytest.mark.parametrize("C,n_solid,gbase,long_runs", [
+    pytest.param(1024, 1000, 5 << 20, False, id="1024-1000-5242880"),
+    pytest.param(1 << 20, 900_000, 3 << 20, False, id="1048576-900000-3145728"),
+    pytest.param(20 * RUN_TILE, 19 * RUN_TILE + 3, 7 << 20, True,
+                 id="long_runs")])
+def test_run_scans_global_base(card, C, n_solid, gbase, long_runs):
+    """K8 with a rank's global base: random links, or runs longer than a
+    look-back tile (and K12a on them)."""
+    if long_runs:
+        heads = [0, 3 * RUN_TILE + 5, 4 * RUN_TILE, 11 * RUN_TILE - 1]
+        succ = succ_with_heads(C, n_solid, heads, gbase=gbase, last_links=True)
+        check_runs(card, succ, n_solid, C, gbase)
+        return
     rng = np.random.RandomState(C)
     idx = np.arange(2 * C)
     succ = np.where(rng.rand(2 * C) < 0.3, -1, rng.randint(0, 8 * C, 2 * C))

@@ -28,7 +28,10 @@ def solid_table(k: int, seed: int):
     genome = bench.make_genome(6000, rng, repeat_frac=0.1)
     reads = bench.sample_reads(genome, 300, 100, rng, err_rate=0.003,
                                dup_frac=0.2)
-    seqs = ["".join("ACTG"[c] for c in r) for r in reads]
+    return count_solid(["".join("ACTG"[c] for c in r) for r in reads], k)
+
+
+def count_solid(seqs, k: int):
     cfg = jengine.EngineConfig(k=k, abundance_min=2, block_reads=64,
                                max_len=112)
     u, c, p, n, _ = jengine.count_blocks(
@@ -96,3 +99,18 @@ def test_constant_pos_worst_case_runs():
     order = np.argsort(folded, kind="stable")
     R = assert_runs_equal(solid[:, order], n_solid, k)
     assert R > n_solid // 2
+
+
+def test_one_genome_long_runs():
+    """A repeat-free genome read twice over in order, without errors: the
+    first-occurrence order is the genome's, so one run spans nearly every
+    solid entry (the long runs of the kernels' look-back)."""
+    k = 31
+    rng = np.random.RandomState(17)
+    genome = "".join("ACTG"[c] for c in bench.make_genome(3000, rng))
+    seqs = [genome[i:i + 100] for i in range(0, 2901, 20) for _ in range(2)]
+    solid, counts, pos, n_solid = count_solid(seqs, k)
+    js, _ = jrun.reorder_by_pos(jnp.asarray(solid), jnp.asarray(counts),
+                                jnp.asarray(pos), k)
+    R = assert_runs_equal(np.asarray(js), n_solid, k)
+    assert n_solid > 2900 and R <= 2
