@@ -14,9 +14,14 @@
 //   T is never written.  JAX's identity row carries ROOTED when the row
 //   was ROOTED when the phase began, but a row that was ROOTED then is
 //   ROOTED now (ROOTED absorbs) and is then served as itself: the flag of a
-//   served identity row is always FIX alone.  hier_jump runs _R_A rounds
-//   with no changed flag (null) and no sync; given one, `changed` goes to
-//   1 when a row moved (_phase's converge=True).
+//   served identity row is always FIX alone.  The level's fixpoints are a
+//   bitmap, one bit per row (valid && sampled), built once per level in
+//   one coalesced pass (bt_fixpoint_bits; 2 MiB at 2^24 rows: it stays in
+//   L2 across the level's rounds); a query reads its target's bit and its
+//   target's row, and gid[p] only when the target is served (at level 0,
+//   gid is the identity: no gid array is passed).  hier_jump
+//   runs _R_A rounds with no changed flag (null) and no sync; given one,
+//   `changed` goes to 1 when a row moved (_phase's converge=True).
 // K18 hier_contract: the level build, four device operations: a memset
 //   of tmask; a mark pass that flags the targets of the unresolved rows
 //   (valid, neither SETTLED nor ROOTED) and zeroes the selection's ticket
@@ -37,8 +42,11 @@
 //   ROOTED.
 // The deepest level runs the plain doubling (K4, csrc/chains.cu).
 //
-// Bound: memory, and random rows.  K17 reads the row (32 bytes), the
-// target's row, gid and valid flag, writes 32; K18 reads the rows twice
+// Bound: memory, and random rows.  K17 reads its row (32 bytes, two
+// 16-byte loads through the read-only path), the target's row (one random
+// 32-byte sector, beyond L2 at 2^24 rows), the target's bit (L2) and, for
+// a served target above level 0, gid[p] (a sector), and writes 32 bytes
+// (two 16-byte streaming stores); K18 reads the rows twice
 // (the mark's flags and pointers, the gather's selected rows), valid,
 // tmask and gid once, and writes did and S1 rows; K19 reads a row, did, a
 // row one level up and its parent, writes 32.  Each kernel is one thread per row with the random reads
@@ -64,31 +72,68 @@ __device__ __forceinline__ long long clampi(long long x, long long hi) {
   return x < 0 ? 0 : (x > hi ? hi : x);
 }
 
-__global__ void hier_round_kernel(const int64_t* __restrict__ Q,
-                                  int64_t* __restrict__ Qn,
-                                  const int64_t* __restrict__ gid,
-                                  const uint8_t* __restrict__ valid,
-                                  long long S, uint32_t salt,
-                                  int* __restrict__ changed) {
-  long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (v >= S) return;
-  const int64_t* q = Q + 4 * v;
-  int64_t* out = Qn + 4 * v;
-  if (q[1] & bt::kRooted) {
-    out[0] = q[0]; out[1] = q[1]; out[2] = q[2]; out[3] = q[3];
-    return;
+// The level's fixpoint bitmap: bit v & 31 of word v >> 5 is valid[v] &&
+// level_sampled(gid[v]) (gid null: v).  A block covers kBitRows rows, a
+// thread kBitItems of them, one per 256-row slice, its loads all issued
+// before the first is used; a warp's ballot over a slice is one word.
+constexpr int kBitItems = 8;
+constexpr long long kBitRows = bt::kThreads * kBitItems;
+
+__global__ void __launch_bounds__(bt::kThreads)
+hier_fixbits_kernel(const int64_t* __restrict__ gid,
+                    const uint8_t* __restrict__ valid, long long S,
+                    uint32_t salt, uint32_t* __restrict__ bits) {
+  const long long base = static_cast<long long>(blockIdx.x) * kBitRows + threadIdx.x;
+  bool live[kBitItems];
+  long long g[kBitItems];
+#pragma unroll
+  for (int k = 0; k < kBitItems; ++k) {
+    const long long v = base + k * bt::kThreads;
+    live[k] = v < S && valid[v];
+    g[k] = v < S && gid != nullptr ? gid[v] : v;
   }
-  long long p = clampi(q[0], S - 1);
-  const int64_t* t = Q + 4 * p;
-  long long g = gid[p];
-  bool moved;
-  if (!(t[1] & bt::kRooted) && valid[p] && level_sampled(g, salt)) {
-    const int64_t ident[4] = {p, bt::kFix, g, 0};
-    moved = bt::compose_row(q, ident, out);
-  } else {
-    moved = bt::compose_row(q, t, out);
+#pragma unroll
+  for (int k = 0; k < kBitItems; ++k) {
+    const long long v = base + k * bt::kThreads;
+    const uint32_t word = __ballot_sync(0xFFFFFFFFu, live[k] && level_sampled(g[k], salt));
+    if ((threadIdx.x & 31) == 0 && v < S) bits[v >> 5] = word;
   }
-  if (moved && changed != nullptr) *changed = 1;
+}
+
+__global__ void __launch_bounds__(bt::kThreads)
+hier_round_kernel(const longlong2* __restrict__ Q, longlong2* __restrict__ Qn,
+                  const int64_t* __restrict__ gid,
+                  const uint32_t* __restrict__ bits, long long S,
+                  int* __restrict__ changed) {
+  const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  bool moved = false;
+  if (v < S) {
+    const longlong2 a = __ldg(Q + 2 * v), b = __ldg(Q + 2 * v + 1);
+    const int64_t q[4] = {a.x, a.y, b.x, b.y};
+    int64_t out[4] = {a.x, a.y, b.x, b.y};
+    if (!(a.y & bt::kRooted)) {
+      const long long p = clampi(a.x, S - 1);
+      // the target's bit (L2) and both halves of its row (one sector)
+      // issued together; gid[p] only once the bit says served
+      const bool fix = (__ldg(bits + (p >> 5)) >> (p & 31)) & 1u;
+      const longlong2 ta = __ldg(Q + 2 * p), tb = __ldg(Q + 2 * p + 1);
+      const long long g =
+          fix && gid != nullptr ? __ldg(reinterpret_cast<const long long*>(gid) + p) : p;
+      if (fix && !(ta.y & bt::kRooted)) {
+        const int64_t ident[4] = {p, bt::kFix, g, 0};
+        moved = bt::compose_row(q, ident, out);
+      } else {
+        const int64_t t[4] = {ta.x, ta.y, tb.x, tb.y};
+        moved = bt::compose_row(q, t, out);
+      }
+    }
+    __stcs(Qn + 2 * v, make_longlong2(out[0], out[1]));
+    __stcs(Qn + 2 * v + 1, make_longlong2(out[2], out[3]));
+  }
+  if (changed != nullptr && __any_sync(0xFFFFFFFFu, moved) &&
+      (threadIdx.x & 31) == 0) {
+    *changed = 1;
+  }
 }
 
 // Rows per tile of the selection: kSelItems per thread.
@@ -198,13 +243,26 @@ __global__ void hier_expand_kernel(const int64_t* __restrict__ F,
 
 }  // namespace
 
+// bits: ceil(S / 32) words, every one written.  gid null: level 0.
+extern "C" int bt_fixpoint_bits(const int64_t* gid, const uint8_t* valid,
+                                long long S, unsigned int salt, uint32_t* bits,
+                                void* stream) {
+  if (S == 0) return 0;
+  hier_fixbits_kernel<<<static_cast<unsigned int>((S + kBitRows - 1) / kBitRows),
+                        bt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      gid, valid, S, salt, bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bits: the level's bitmap (bt_fixpoint_bits).  gid null: level 0.
 extern "C" int bt_hier_round(const int64_t* Q, int64_t* Qn, const int64_t* gid,
-                             const uint8_t* valid, long long S,
-                             unsigned int salt, int* changed, void* stream) {
+                             const uint32_t* bits, long long S, int* changed,
+                             void* stream) {
   if (S == 0) return 0;
   hier_round_kernel<<<bt::blocks_for(S), bt::kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(Q, Qn, gid, valid, S,
-                                                           salt, changed);
+                      static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const longlong2*>(Q), reinterpret_cast<longlong2*>(Qn),
+      gid, bits, S, changed);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-// Block and tile scans shared by K10 chain_finish and K11 spell_unitigs.
+// Block and tile scans of K11 spell_unitigs.
 //
 // block_exclusive: an exclusive sum over the threads of one block (warp
 // shuffles, then one warp over the per-warp totals).

@@ -44,7 +44,8 @@ LAUNCHES = {"extract_insert": 0, "extract_insert_ranged": 0,
             "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
             "run_contract": 0, "run_broadcast": 0, "form_superkmers": 0,
             "mmer_histograms": 0, "route_buckets": 0, "glue_compose": 0,
-            "hier_round": 0, "hier_contract": 0, "hier_expand": 0,
+            "fixpoint_bits": 0, "hier_round": 0, "hier_contract": 0,
+            "hier_expand": 0,
             "kmer_minimizers": 0}
 
 _P = ctypes.c_void_p
@@ -68,7 +69,7 @@ _SIGNATURES = {
     "bt_solid_compact": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _P,
                          _P, _I64, _I64, _P, _P],
     "bt_chain_finish": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P],
+                        _P],
     "bt_spell_unitigs": [_P, _I64, _I32, _I64, _P, _P, _P, _P, _P, _I64, _I32,
                          _P, _P, _P, _I64, _P, _I64, _P],
     "bt_run_contract": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
@@ -84,7 +85,8 @@ _SIGNATURES = {
     "bt_route_buckets": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P,
                          _P, _P, _P],
     "bt_glue_compose": [_P, _P, _P, _I64, _P, _P, _P],
-    "bt_hier_round": [_P, _P, _P, _P, _I64, ctypes.c_uint, _P, _P],
+    "bt_fixpoint_bits": [_P, _P, _I64, ctypes.c_uint, _P, _P],
+    "bt_hier_round": [_P, _P, _P, _P, _I64, _P, _P],
     "bt_hier_contract": [_P, _P, _P, _I64, ctypes.c_uint, _I64, _I64, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P],
     "bt_hier_expand": [_P, _P, _P, _P, _I64, _I64, _P, _P],
@@ -96,6 +98,7 @@ MAX_ROW_WORDS = 64  # csrc/superkmer.cu: rows of <= 1024 positions
 SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
 COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
 HIER_TILE = 2048  # rows per selection tile of csrc/hier.cu (K18)
+FINISH_TILE = 1024  # nodes per selection tile of csrc/finish.cu (K10)
 RUNSCAN_TILE = 2048  # entries per look-back tile of csrc/runscan.cu (K8)
 COUNT_TILE = 2048  # columns per tile of csrc/count.cu
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
@@ -205,6 +208,12 @@ def _check(t: torch.Tensor, name: str, dtype=torch.int64, ndim=None,
         return
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _aligned16(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected 16-byte alignment (the kernel "
+                         f"moves rows as 16-byte vectors)")
 
 
 def _launch(fn_name: str, *args) -> None:
@@ -532,7 +541,8 @@ def solid_compact(unique: torch.Tensor, counts: torch.Tensor,
 def chain_finish(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
                  state: torch.Tensor, wlen=None):
     """K10: the finish_fast dict (uid, rank, n_unitigs (1,), start_oid,
-    length, circular) of a converged (M, 4) state."""
+    length, circular) of a converged (M, 4) state.  One C call: a memset
+    and three kernels, into the outputs and one workspace."""
     for t, name in ((succ, "succ"), (pred, "pred"), (wlen, "wlen")):
         if t is not None:
             _check(t, name, ndim=1)
@@ -543,24 +553,26 @@ def chain_finish(succ: torch.Tensor, pred: torch.Tensor, valid: torch.Tensor,
             or (wlen is not None and wlen.shape[0] != M) or M % 2):
         raise ValueError("chain_finish: expected (M,) arrays and an (M, 4) "
                          "state, M even")
+    _aligned16(state, "state")
     dev = succ.device
-    end_of = torch.full((M,), -1, dtype=torch.int64, device=dev)
-    len_at_start = torch.full((M,), -1, dtype=torch.int64, device=dev)
-    ks = torch.empty((M,), dtype=torch.int64, device=dev)
-    uid = torch.empty((M,), dtype=torch.int64, device=dev)
-    rank = torch.empty((M,), dtype=torch.int64, device=dev)
-    start_oid = torch.zeros((M,), dtype=torch.int64, device=dev)
-    length = torch.zeros((M,), dtype=torch.int64, device=dev)
-    circular = torch.zeros((M,), dtype=torch.bool, device=dev)
-    n_unitigs = torch.zeros((1,), dtype=torch.int64, device=dev)
-    if M:
+    i64 = dict(dtype=torch.int64, device=dev)
+    # uid, rank, start_oid, length and n_unitigs in one allocation; the
+    # kernels write every entry
+    out = torch.empty((4 * M + 1,), **i64)
+    uid, rank, start_oid, length = out[:4 * M].view(4, M)
+    n_unitigs = out[4 * M:]
+    circular = torch.empty((M,), dtype=torch.bool, device=dev)
+    if not M:
+        n_unitigs.zero_()
+    else:
+        # end_of, len_at_start, ks, the ticket and status words: the C call
+        # sets what it reads
+        work = torch.empty((3 * M + 1 + -(-M // FINISH_TILE),), **i64)
         _launch("bt_chain_finish", succ.data_ptr(), pred.data_ptr(),
                 valid.data_ptr(), state.data_ptr(),
-                None if wlen is None else wlen.data_ptr(), M, end_of.data_ptr(),
-                len_at_start.data_ptr(), ks.data_ptr(),
-                _scan_scratch(M, dev).data_ptr(), uid.data_ptr(),
-                rank.data_ptr(), start_oid.data_ptr(), length.data_ptr(),
-                circular.data_ptr(), n_unitigs.data_ptr())
+                None if wlen is None else wlen.data_ptr(), M, work.data_ptr(),
+                uid.data_ptr(), rank.data_ptr(), start_oid.data_ptr(),
+                length.data_ptr(), circular.data_ptr(), n_unitigs.data_ptr())
         LAUNCHES["chain_finish"] += 1
     return {"uid": uid, "rank": rank, "n_unitigs": n_unitigs,
             "start_oid": start_oid, "length": length, "circular": circular}
@@ -804,22 +816,45 @@ def _check_state(Q: torch.Tensor, name: str) -> int:
     return Q.shape[0]
 
 
-def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid: torch.Tensor,
-               valid: torch.Tensor, salt: int, changed=None) -> None:
+def fixpoint_bits(gid, valid: torch.Tensor, salt: int) -> torch.Tensor:
+    """K17's per-level bitmap: bit v % 32 of int32 word v // 32 is
+    valid[v] && _sampled(gid[v], salt), rows past S zero; gid None: level
+    0, where gid is the row index.  Built once per level."""
+    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    S = valid.shape[0]
+    if gid is not None:
+        _check(gid, "gid", ndim=1)
+        if gid.shape[0] != S:
+            raise ValueError("fixpoint_bits: shapes do not match")
+    bits = torch.empty((-(-S // 32),), dtype=torch.int32, device=valid.device)
+    if S:
+        _launch("bt_fixpoint_bits", None if gid is None else gid.data_ptr(),
+                valid.data_ptr(), S, salt & 0xFFFFFFFF, bits.data_ptr())
+        LAUNCHES["fixpoint_bits"] += 1
+    return bits
+
+
+def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid, bits: torch.Tensor,
+               changed=None) -> None:
     """K17: one phase-A round Q -> Qn of the hierarchical jump, the level's
-    sampled fixpoints (valid, _sampled(gid, salt)) served as identity rows;
-    changed (optional (1,) int32) is set to 1 when a row moved."""
+    fixpoints (bits, from fixpoint_bits) served as identity rows; gid None:
+    level 0, where gid is the row index; changed (optional (1,) int32) is
+    set to 1 when a row moved."""
     S = _check_state(Q, "Q")
     _check_state(Qn, "Qn")
-    _check(gid, "gid", ndim=1)
-    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    if gid is not None:
+        _check(gid, "gid", ndim=1)
+    _check(bits, "bits", dtype=torch.int32, ndim=1)
     if changed is not None:
         _check(changed, "changed", dtype=torch.int32, ndim=1)
-    if Qn.shape[0] != S or gid.shape[0] != S or valid.shape[0] != S:
+    if (Qn.shape[0] != S or bits.shape[0] != -(-S // 32)
+            or (gid is not None and gid.shape[0] != S)):
         raise ValueError("hier_round: shapes do not match")
+    _aligned16(Q, "Q")
+    _aligned16(Qn, "Qn")
     if S:
-        _launch("bt_hier_round", Q.data_ptr(), Qn.data_ptr(), gid.data_ptr(),
-                valid.data_ptr(), S, salt & 0xFFFFFFFF,
+        _launch("bt_hier_round", Q.data_ptr(), Qn.data_ptr(),
+                None if gid is None else gid.data_ptr(), bits.data_ptr(), S,
                 None if changed is None else changed.data_ptr())
         LAUNCHES["hier_round"] += 1
 

@@ -142,49 +142,78 @@ def _absorbing_filler(S: int, big: int, device) -> torch.Tensor:
                         torch.full_like(idx, big), torch.zeros_like(idx)], dim=1)
 
 
-def hier_round_plain(Q: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
-                     salt: int) -> torch.Tensor:
-    """Plain version of K17: one round of _phase with the level's sampled
-    fixpoints served as identity rows.  JAX flags an identity row ROOTED
-    when the row was ROOTED at the phase's start; such a row is ROOTED now
-    and served as itself, so the current flag gives the same table."""
+def _level_gid(gid, S: int, device) -> torch.Tensor:
+    """gid None stands for level 0, whose gid is the row index."""
+    return torch.arange(S, device=device) if gid is None else gid
+
+
+def fixpoint_bits_plain(gid, valid: torch.Tensor, salt: int) -> torch.Tensor:
+    """Plain version of K17's bitmap: bit v % 32 of word v // 32 is
+    valid[v] & _sampled(gid[v], salt) (gid None: level 0), as
+    (ceil(S / 32),) int32 words, rows past S zero."""
+    S = valid.shape[0]
+    fix = _sampled(_level_gid(gid, S, valid.device), salt) & valid
+    pad = torch.zeros((-(-S // 32) * 32,), dtype=torch.int64,
+                      device=valid.device)
+    pad[:S] = fix.to(torch.int64)
+    shift = torch.arange(32, device=valid.device)
+    words = (pad.reshape(-1, 32) << shift).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def fixpoint_bits(gid, valid: torch.Tensor, salt: int) -> torch.Tensor:
+    """The level's fixpoint bitmap (K17's, built once per level)."""
+    if valid.device.type == "cpu":
+        return fixpoint_bits_plain(gid, valid, salt)
+    return _kernels.fixpoint_bits(gid, valid, salt)
+
+
+def hier_round_plain(Q: torch.Tensor, gid, bits: torch.Tensor) -> torch.Tensor:
+    """Plain version of K17: one round of _phase with the level's fixpoints
+    (bits, from fixpoint_bits_plain) served as identity rows; gid None:
+    level 0 (gid is the row index).  JAX flags an identity row ROOTED when
+    the row was ROOTED at the phase's start; such a row is ROOTED now and
+    served as itself, so the current flag gives the same table."""
     S = Q.shape[0]
-    fix = _sampled(gid, salt) & valid
+    idx = torch.arange(S, device=Q.device)
+    fix = ((bits.to(torch.int64)[idx >> 5] >> (idx & 31)) & 1) != 0
     rooted = (Q[:, _DSF] & _F_ROOTED) != 0
-    ident = _identity_rows(torch.arange(S, device=Q.device), gid, rooted)
+    ident = _identity_rows(idx, _level_gid(gid, S, Q.device), rooted)
     T = torch.where((fix & ~rooted)[:, None], ident, Q)
     return compose_plain(Q, T[torch.clamp(Q[:, _PTR], 0, S - 1)])
 
 
-def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid: torch.Tensor,
-               valid: torch.Tensor, salt: int, changed=None) -> None:
+def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid, bits: torch.Tensor,
+               changed=None) -> None:
     """One phase-A round Q -> Qn; changed[0] (optional) is set to 1 when any
-    row moved."""
+    row moved.  gid None: level 0; bits: the level's fixpoint_bits."""
     if Q.device.type == "cpu":
-        Qn.copy_(hier_round_plain(Q, gid, valid, salt))
+        Qn.copy_(hier_round_plain(Q, gid, bits))
         if changed is not None and not torch.equal(Qn, Q):
             changed.fill_(1)
     else:
-        _kernels.hier_round(Q, Qn, gid, valid, salt, changed)
+        _kernels.hier_round(Q, Qn, gid, bits, changed)
 
 
 def _phase(Q0: torch.Tensor, gid, valid, salt, rounds: int,
            converge: bool = True) -> torch.Tensor:
     """Doubling rounds from Q0 (whose buffer is reused): with the sampled
-    fixpoints of (gid, valid, salt) (K17), or none when salt is None (K4).
+    fixpoints of (gid, valid, salt) (K17; gid None at level 0), or none
+    when salt is None (K4).
     converge=False runs exactly `rounds` rounds with no changed flag and no
     host sync; converge=True stops after a round that moved no row (one
     sync per round) or at the cap."""
     Q = Q0
     Qn = torch.empty_like(Q)
     changed = torch.zeros((1,), dtype=torch.int32, device=Q.device)
+    bits = None if salt is None else fixpoint_bits(gid, valid, salt)
     for _ in range(rounds):
         if converge:
             changed.zero_()
         if salt is None:
             jump_round(Q, Qn, changed)
         else:
-            hier_round(Q, Qn, gid, valid, salt, changed if converge else None)
+            hier_round(Q, Qn, gid, bits, changed if converge else None)
         Q, Qn = Qn, Q
         if converge and not int(changed.item()):
             break
@@ -291,7 +320,9 @@ def hier_jump(pred: torch.Tensor, valid: torch.Tensor,
     stack = []
     for li in range(len(sizes) - 1):
         salt = (0x85EBCA6B * (li + 1)) & ln.U32
-        Q = _phase(Q, gid, lvl_valid, salt, _R_A, converge=False)
+        # level 0's gid is the row index: K17 is told so, not given it
+        Q = _phase(Q, gid if li else None, lvl_valid, salt, _R_A,
+                   converge=False)
         Q1, gid1, valid1, did, parent, _ = hier_contract(
             Q, gid, lvl_valid, salt, sizes[li + 1], M, ok)
         stack.append((Q, did, parent))

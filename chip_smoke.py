@@ -91,7 +91,11 @@ Phases (any failure raises, and the script exits non-zero):
    junction entries) also with 4 ranks as owners, since at world size 1
    every owner is 0; K15 also at 4 and 8 destinations (synthetic owners)
    and in its hash mode on phase 3g's k-mers at world size 1 and 4;
-   K17-K19 at level 0 of phase 3's and of phase 3d's hierarchical jump;
+   K17-K19 at level 0 of phase 3's and of phase 3d's hierarchical jump,
+   K17 also at level 1 of phase 3d's (each K17 row the mean per launch of
+   a level's first call, which builds the fixpoint bitmap, and its later
+   ones, both beside it; its bound counts the target row's 32-byte sector
+   of every query) and K10 also at phase 3d's M;
    K20 on phase 3's solid k-mers in its histogram mode (torch.bincount is
    its library call) and its minimizer mode (partition ids with phase 3f's
    frequency rank and a 4-rank table; lexicographic minimizers).  Then one
@@ -129,12 +133,15 @@ and in range mode, K2 at phase 3's shape (with pos, and weighted) beside
 torch.unique_consecutive, K3a at L = 10 and 16, K6, K9, K13 and K15, the
 K3b step at phase 3's shape (a tree whose pair kernel takes the sort's own
 word: that kernel; else the gathers of the sorted keys and payload, then
-the kernel) and K18 at level 0 of phase 3's and the canonical order's
-jump, of each tree in the same turns
+the kernel), K18 at level 0 of phase 3's and the canonical order's
+jump, K17 at the first round of its levels 0 and 1 and of phase 3's level
+0 (in a tree with the fixpoint bitmap, the round given it, and the
+bitmap's own build), and
+K10 at phase 3's M and at 2^24, of each tree in the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
-runtime's launch; the K3b step's and K18's outputs must agree across the
-trees), and DIST_AB
+runtime's launch; the K3b step's, K8's, K12a's, K17's, K18's and K10's
+outputs must agree across the trees), and DIST_AB
 runs each tree's ``-devices`` build at world size 1 on the first 1/8 of
 the reads in the same turns, held against the single-device build.
 """
@@ -196,6 +203,8 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
                       "bcalm_tpu/parallel/pipeline.py:59"),
     "glue_compose": ("bcalm_tpu_torch/csrc/glue.cu",
                      "bcalm_tpu/parallel/distcompact.py:303"),
+    "fixpoint_bits": ("bcalm_tpu_torch/csrc/hier.cu",
+                      "bcalm_tpu/ops/chains.py:336"),
     "hier_round": ("bcalm_tpu_torch/csrc/hier.cu",
                    "bcalm_tpu/ops/chains.py:298"),
     "hier_contract": ("bcalm_tpu_torch/csrc/hier.cu",
@@ -205,7 +214,7 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
     "kmer_minimizers": ("bcalm_tpu_torch/csrc/minimizer.cu",
                         "bcalm_tpu/models/minimizer.py:59"),
 }
-HIER = ("hier_round", "hier_contract", "hier_expand")
+HIER = ("fixpoint_bits", "hier_round", "hier_contract", "hier_expand")
 # kernels whose last call is recorded: the upward pass of the hierarchical
 # jump ends at level 0
 RECORD_LAST = ("hier_expand",)
@@ -217,6 +226,9 @@ GLOBAL_K3 = ("junction_entries", "junction_edges")
 # rate that is at least the real one)
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
+# H100's L2: a table that fits is read from HBM once however often its
+# rows are gathered
+L2_BYTES = 50 * 2**20
 # the kernels each main path must launch: the resident build (with its
 # store), the multi-pass build (whose solidity filter and store run in
 # numpy on the host; K1 folds in range mode after the first split, and K5
@@ -435,9 +447,15 @@ def _record_key(name: str, args) -> str:
     minimizer (or partition id) and the histogram (its last argument),
     route_buckets in two, given owners and hashed ones (no owner array),
     and extract_insert in two, with and without a key range (lo, hi):
-    each mode is recorded apart."""
+    each mode is recorded apart; fixpoint_bits' and hier_round's first
+    call with a gid array (level 1) apart from their first call (level 0,
+    which passes no gid)."""
     if name == "route_buckets" and args[2] is None:
         return "route_buckets:hash"
+    if name == "fixpoint_bits" and args[0] is not None:
+        return "fixpoint_bits:upper"
+    if name == "hier_round" and args[2] is not None:
+        return "hier_round:upper"
     if name == "extract_insert" and len(args) > 7 and args[7] is not None:
         return "extract_insert:ranged"
     if name == "mmer_histograms":
@@ -1292,20 +1310,23 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 # owner) at 1, 4 and 8 destinations with slots, cap from
 # superkmer_capacity, and in its hash mode on 2^24 2-lane slots, ~80%
 # valid, at 1 and 4 ranks with cap = ceil(2 valid / n) (phase 3g's
-# sizing).  K2, K3a at L = 10 and 16, K13, K15 and K1 in range mode are
-# held bitwise against their plain versions.  It calls only wrappers whose signatures have not
-# changed since K20 was ported, and K1's range mode only where the
-# wrapper takes lo and hi, so an older tree runs it as well.
-# K3b's and K18's inputs at phase 3's shapes, seeded, for KERNEL_AB and
+# sizing).  K2, K3a at L = 10 and 16, K13, K15, K1 in range mode and the
+# kernels of STEP_INPUTS are held bitwise against their plain versions.
+# It calls only wrappers whose signatures have not changed since K20 was
+# ported, K1's range mode only where the wrapper takes lo and hi and K17's
+# bitmap only where it takes bits, so an older tree runs it as well.
+# K3b's, K8's, K12a's, K17's, K18's and K10's inputs at the main paths'
+# shapes, seeded, for KERNEL_AB and
 # SPLIT (run in a tree's root, after `dev` is set): step_solid() is the
 # solid table of a random genome's first 5,075,200 31-mers (phase 3's
 # solid count), canonical, in genome order (reorder_by_pos keeps first
 # occurrences in read order), padded to C = 2^23 columns with the
-# sentinel; level0_inputs() is the input of K18 at level 0 of the
-# hierarchical jump over chains of geometric length: HIER_LEVELS gives
-# phase 3's run graph (2^19 nodes, 2 x 148,391 valid, 2 x 71,928 chains)
-# and the canonical order's (2^24 nodes, 2 x 5,075,200 valid, as many
-# chains).
+# sentinel; level_inputs() gives the input of K18 at level 0 of the
+# hierarchical jump over chains of geometric length and K17's at the first
+# round of each level: HIER_LEVELS gives phase 3's run graph (2^19 nodes,
+# 2 x 148,391 valid, 2 x 71,928 chains) and the canonical order's (2^24
+# nodes, 2 x 5,075,200 valid, as many chains); finish_inputs() K10's at
+# FINISH_SHAPES.
 STEP_INPUTS = r"""
 import numpy as np
 import torch
@@ -1373,7 +1394,9 @@ def run_succ(n=5075200, C=1 << 23, R=148391):
     succ[C + heads] = ends(C + heads)
     return torch.from_numpy(succ).to(dev), n, C
 
-def level0_inputs(M, n_valid, mean):
+def level_inputs(M, n_valid, mean):
+    # (K18's input at level 0, [K17's input at the first round of each
+    # level: (Q, gid, valid, salt), gid as the tree passes it])
     r = np.random.RandomState(M % 9973)
     nodes = r.permutation(M)[:n_valid]
     start = r.rand(n_valid) < 1.0 / mean
@@ -1382,20 +1405,60 @@ def level0_inputs(M, n_valid, mean):
     pred[nodes] = np.where(start, -1, np.roll(nodes, 1))
     valid = np.zeros(M, bool)
     valid[nodes] = True
-    seen = []
-    real = chains.hier_contract
+    seen, rounds = [], []
+    real, real_phase = chains.hier_contract, chains._phase
+    keep = lambda a: tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
     def record(*a):
         if not seen:
-            seen.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
-                              for x in a[:6]))
+            seen.append(keep(a[:6]))
         return real(*a)
-    chains.hier_contract = record
+    def record_phase(Q, gid, valid, salt, *a, **kw):
+        if salt is not None:
+            rounds.append(keep((Q, gid, valid, salt)))
+        return real_phase(Q, gid, valid, salt, *a, **kw)
+    chains.hier_contract, chains._phase = record, record_phase
     try:
         chains.hier_jump(torch.from_numpy(pred).to(dev),
                          torch.from_numpy(valid).to(dev))
     finally:
-        chains.hier_contract = real
-    return seen[0]
+        chains.hier_contract, chains._phase = real, real_phase
+    return seen[0], rounds
+
+# K10's inputs at M oriented nodes: n_valid / 2 vertices in chains of
+# geometric length (mean), each vertex in a random orientation, a fifth of
+# the chains of two or more closed into cycles, every edge with its mirror
+# edge; weighted (wlen, dist0) as the run graph's jump feeds it; the state
+# converged by the plain doubling.  FINISH_SHAPES: phase 3's run graph
+# (weighted) and the canonical order's (not)
+FINISH_SHAPES = ((1 << 19, 296782, 296782 / 143856, True),
+                 (1 << 24, 10150400, 10150400 / 143856, False))
+
+def finish_inputs(M, n_valid, mean, weighted):
+    r = np.random.RandomState(M % 9973 + 1)
+    N, nv = M // 2, n_valid // 2
+    order = r.permutation(N)[:nv]
+    oid = order + N * r.randint(0, 2, nv)
+    start = r.rand(nv) < 1.0 / mean
+    start[0] = True
+    first = np.flatnonzero(start)
+    last = np.concatenate([first[1:] - 1, [nv - 1]])
+    ring = (last > first) & (r.rand(first.size) < 0.2)
+    link = ~start[1:]
+    a = np.concatenate([oid[:-1][link], oid[last[ring]]])
+    b = np.concatenate([oid[1:][link], oid[first[ring]]])
+    succ = np.full(M, -1, np.int64)
+    succ[a] = b
+    succ[(b + N) % M] = (a + N) % M
+    valid = np.zeros(M, bool)
+    valid[order] = True
+    valid[order + N] = True
+    succ, valid = torch.from_numpy(succ).to(dev), torch.from_numpy(valid).to(dev)
+    pred = chains.build_pred(succ, valid)
+    wlen = dist0 = None
+    if weighted:
+        wlen = torch.from_numpy(np.tile(r.randint(1, 60, N), 2)).to(dev)
+        dist0 = wlen[torch.clamp(pred, 0, M - 1)]
+    return succ, pred, valid, chains.plain_jumpF(pred, valid, dist0), wlen
 """
 
 
@@ -1408,10 +1471,9 @@ def level0_inputs(M, n_valid, mean):
 # and the pair rule stay), timed through the same wrapper, which gives
 # the scatter's share; then K8 and K12a on the successor arrays of
 # step_solid() and run_succ() (device ms per operation, with R and
-# R_cap) and, where
-# the tree's sources have the lines, probes of the three-launch K8
-# without its five output stores and of the per-entry K12a launched over
-# R_cap threads rather than C.  Prints one JSON line.
+# R_cap); K17 at canonical levels 0 and 1 and phase 3's level 0 (the
+# level's fixpoint bitmap and a round given it) and K10 at phase 3's M
+# and at 2^24, by device operation.  Prints one JSON line.
 SPLIT = r"""
 import ctypes, json, re, subprocess, sys, tempfile, time
 import torch
@@ -1451,37 +1513,15 @@ def host_ms(fn, reps=50):
     torch.cuda.synchronize()
     return t
 
-solid, n, C = step_solid()
-keys, pay = junctions.junction_keys(solid, n, 31)
-rows = [keys[r] for r in range(keys.shape[0])]
-new = hasattr(sort_op, "lex_sort")
-if new:
-    perm, word = sort_op.lex_sort(rows)
-    pieces = {"sort": lambda: sort_op.lex_sort(rows),
-              "junction_pairs": lambda: _kernels.junction_pairs(word, perm, pay, C, 2, False)}
-else:
-    perm = sort_op.lex_argsort(rows)
-    s_keys, s_pay = keys[:, perm].contiguous(), pay[perm]
-    pieces = {"sort": lambda: sort_op.lex_argsort(rows),
-              "keys[:, perm]": lambda: keys[:, perm].contiguous(),
-              "payload[perm]": lambda: pay[perm],
-              "junction_pairs": lambda: _kernels.junction_pairs(s_keys, s_pay, C, False)}
-pieces["successor_arrays"] = lambda: junctions.successor_arrays(solid, n, 31)
-out = {"tree_has_lex_sort": new, "entries": 2 * C,
-       "heads_and_edges": None, "pieces": {}}
-for name, fn in pieces.items():
-    out["pieces"][name] = {"ms": time_ms(fn), "device": breakdown(fn)}
-succ = pieces["junction_pairs"]()
-out["heads_and_edges"] = [int((succ >= 0).sum())]
-# the probes: a copy of one source with some lines rewritten, built alone
-# and swapped in for the wrapper's C function; None where this tree's
-# source has not those lines (count: how many the pattern must match, in
-# a source that holds `kernel`)
-def probe(source, c_fn, kernel, pattern, repl, count, fn):
+out = {}
+# a probe: a copy of one source with some lines rewritten (count: how many
+# the pattern must match), built alone and swapped in for the wrapper's C
+# function
+def probe(source, c_fn, pattern, repl, count, fn):
     src = open("bcalm_tpu_torch/csrc/" + source).read()
     text, n_sub = re.subn(pattern, repl, src)
-    if kernel not in src or n_sub != count:
-        return None
+    if n_sub != count:
+        raise AssertionError(f"the probe of {source} matched {n_sub} lines, not {count}")
     with tempfile.TemporaryDirectory() as work:
         with open(work + "/probe_" + source, "w") as f:
             f.write(text)
@@ -1499,15 +1539,24 @@ def probe(source, c_fn, kernel, pattern, repl, count, fn):
     finally:
         _kernels._FNS[c_fn] = saved
 
-# the same tree's pair kernel without its scatter stores
-got = probe("junctions.cu", "bt_junction_pairs", "junction_pairs", r"succ\[(.+?)\] = (.+);",
-            r"if ((\1) == -7LL) succ[0] = (\2);", 2, pieces["junction_pairs"])
-if got is None:
-    raise AssertionError("the probe did not find the two succ stores")
-out["pieces"]["junction_pairs probe (no succ stores)"] = got
+solid, n, C = step_solid()
+keys, pay = junctions.junction_keys(solid, n, 31)
+rows = [keys[r] for r in range(keys.shape[0])]
+perm, word = sort_op.lex_sort(rows)
+pieces = {"sort": lambda: sort_op.lex_sort(rows),
+          "junction_pairs": lambda: _kernels.junction_pairs(word, perm, pay, C, 2, False),
+          "successor_arrays": lambda: junctions.successor_arrays(solid, n, 31)}
+out.update({"entries": 2 * C, "heads_and_edges": None, "pieces": {}})
+for name, fn in pieces.items():
+    out["pieces"][name] = {"ms": time_ms(fn), "device": breakdown(fn)}
+succ = pieces["junction_pairs"]()
+out["heads_and_edges"] = [int((succ >= 0).sum())]
+# the pair kernel without its scatter stores
+out["pieces"]["junction_pairs probe (no succ stores)"] = probe(
+    "junctions.cu", "bt_junction_pairs", r"succ\[(.+?)\] = (.+);",
+    r"if ((\1) == -7LL) succ[0] = (\2);", 2, pieces["junction_pairs"])
 # K8 and K12a at phase 3's shape on the random genome's own successor
-# array; probes of the three-launch K8 without its five output stores and
-# of the per-entry K12a launched over R_cap threads rather than C
+# array and on phase 3's run structure
 for label, (succ_r, n_r, C_r) in (
         ("step", (junctions.successor_arrays(solid, n, 31), n, C)),
         ("phase-3 runs", run_succ())):
@@ -1516,27 +1565,46 @@ for label, (succ_r, n_r, C_r) in (
     R_cap = runchains.round_capacity(R)
     k8 = lambda: _kernels.run_scans(succ_r, n_r, C_r)
     k12 = lambda: _kernels.run_contract(succ_r, scan[0], scan[2], scan[4], R, R_cap)
-    row = out["run_scans " + label] = {
-        "n_solid": n_r, "C": C_r, "R": R, "R_cap": R_cap, "ms": time_ms(k8),
-        "device": breakdown(k8)}
-    row["probe (no output stores)"] = probe(
-        "runscan.cu", "bt_run_scans", "run_scan_apply",
-        r"\b(is_head|is_tail|rid|head_pos|end_pos)\[i\] = (.+);",
-        r"if ((\2) == -7LL) \1[0] = (\2);", 5, k8)
-    row = out["run_contract " + label] = {"ms": time_ms(k12), "device": breakdown(k12)}
-    row["probe (R_cap threads)"] = probe(
-        "runcontract.cu", "bt_run_contract", "run_contract_kernel",
-        r"long long n = C > R_cap \? C : R_cap;", "long long n = R_cap;", 1, k12)
+    out["run_scans " + label] = {"n_solid": n_r, "C": C_r, "R": R, "R_cap": R_cap,
+                                 "ms": time_ms(k8), "device": breakdown(k8)}
+    out["run_contract " + label] = {"ms": time_ms(k12), "device": breakdown(k12)}
     del succ_r, scan
 del succ, keys, pay, rows, solid
 out["hier_contract"] = {}
 for M, n_valid, mean in HIER_LEVELS:
-    hargs = level0_inputs(M, n_valid, mean)
+    hargs = level_inputs(M, n_valid, mean)[0]
     ok = torch.ones((1,), dtype=torch.int32, device=dev)
     fn = lambda: _kernels.hier_contract(*hargs, ok)
     n_c = int(fn()[5])
     out["hier_contract"][str(M)] = {"S1": hargs[4], "n_c": n_c, "ms": time_ms(fn),
                                     "host_ms": host_ms(fn), "device": breakdown(fn)}
+# K17 at the first round of canonical levels 0 and 1 (2^24 and 2^22
+# rows) and of level 0 of phase 3's run graph (2^19): the level's bitmap
+# and a round given it
+out["hier_round"] = {}
+for M, n_valid, mean in HIER_LEVELS:
+    rounds = level_inputs(M, n_valid, mean)[1]
+    for li, (Q, gid, valid, salt) in enumerate(rounds[:2 if M > 1 << 19 else 1]):
+        Qn = torch.empty_like(Q)
+        bits_fn = lambda: _kernels.fixpoint_bits(gid, valid, salt)
+        bits = bits_fn()
+        round_fn = lambda: _kernels.hier_round(Q, Qn, gid, bits)
+        out["hier_round"][f"{M} level {li}"] = {
+            "S": Q.shape[0], "rooted": int(((Q[:, 1] >> 30) & 1).sum()),
+            "fixpoint_bits": {"ms": time_ms(bits_fn), "device": breakdown(bits_fn)},
+            "round": {"ms": time_ms(round_fn), "device": breakdown(round_fn)}}
+        del Q, Qn, gid, valid, bits
+    del rounds
+# K10 at phase 3's M (weighted) and the canonical order's, by device
+# operation, with its host time per call
+out["chain_finish"] = {}
+for M, n_valid, mean, weighted in FINISH_SHAPES:
+    cf = finish_inputs(M, n_valid, mean, weighted)
+    fn = lambda: _kernels.chain_finish(*cf)
+    out["chain_finish"][str(M)] = {
+        "weighted": weighted, "n_unitigs": int(fn()["n_unitigs"]),
+        "ms": time_ms(fn), "host_ms": host_ms(fn), "device": breakdown(fn)}
+    del cf
 print(json.dumps(out))
 """
 
@@ -1787,8 +1855,14 @@ for label, (succ_k, n_k, C_k) in (
     fns["run_scans " + label] = (lambda a=(succ_k, n_k, C_k): _kernels.run_scans(*a), 20)
     fns["run_contract " + label] = (lambda a=cargs: _kernels.run_contract(*a), 20)
     del got
+# K17 at the first round of canonical levels 0 and 1 and of phase 3's
+# level 0 (one round; a tree with the fixpoint bitmap also times the
+# bitmap, built once per level, and is given it for the round), K18 at
+# level 0 of both jumps, K10 at phase 3's M (weighted) and at the
+# canonical order's M = 2^24 on finish_inputs()
+has_bits = hasattr(_kernels, "fixpoint_bits")
 for M, n_valid, mean in HIER_LEVELS:
-    hargs = level0_inputs(M, n_valid, mean)
+    hargs, rounds = level_inputs(M, n_valid, mean)
     ok_h = torch.ones((1,), dtype=torch.int32, device=dev)
     got = _kernels.hier_contract(*hargs, ok_h)
     ok_p = torch.ones((1,), dtype=torch.int32, device=dev)
@@ -1797,6 +1871,34 @@ for M, n_valid, mean in HIER_LEVELS:
     digest[name] = [int(t.long().sum()) for t in got] + [int(ok_h)]
     fns[name] = (lambda hargs=hargs, ok_h=ok_h: _kernels.hier_contract(*hargs, ok_h), 20)
     del got
+    for li, (Q, gid, valid, salt) in enumerate(rounds[:2 if M > 1 << 19 else 1]):
+        Qn = torch.empty_like(Q)
+        name = f"hier_round S={Q.shape[0]} (level {li} of {M})"
+        if has_bits:
+            make = lambda a=(gid, valid, salt): _kernels.fixpoint_bits(*a)
+            bits = make()
+            same([bits], [chains.fixpoint_bits_plain(gid, valid, salt)], "fixpoint_bits")
+            fns[f"fixpoint_bits S={Q.shape[0]} (level {li} of {M})"] = (make, 20)
+            step = lambda a=(Q, Qn, gid, bits): _kernels.hier_round(*a)
+            want = chains.hier_round_plain(Q, gid, bits)
+        else:
+            step = lambda a=(Q, Qn, gid, valid, salt): _kernels.hier_round(*a)
+            want = chains.hier_round_plain(Q, gid, valid, salt)
+        step()
+        same([Qn], [want], "hier_round")
+        digest[name] = [int(Qn.sum()), int(Qn[:, 1].sum())]
+        fns[name] = (step, 20)
+    del rounds, Q, Qn, gid, valid, want
+for M, n_valid, mean, weighted in FINISH_SHAPES:
+    cf = finish_inputs(M, n_valid, mean, weighted)
+    keys = ("uid", "rank", "n_unitigs", "start_oid", "length", "circular")
+    got = _kernels.chain_finish(*cf)
+    want = chains.finish_fast_plain(*cf)
+    same([got[k] for k in keys], [want[k] for k in keys], "chain_finish")
+    name = f"chain_finish M={M}"
+    digest[name] = [int(got[k].long().sum()) for k in keys]
+    fns[name] = (lambda cf=cf: _kernels.chain_finish(*cf), 20)
+    del got, want
 dms = {n: device_ms(f, r) for n, (f, r) in fns.items()}
 print(json.dumps({"ms": {n: time_ms(f, r) for n, (f, r) in fns.items()},
                   "device_ms": {n: d[0] for n, d in dms.items()},
@@ -1897,10 +1999,10 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
         digests.append(times["digest"])
         say(f"[compare] {name} " + kernel_ab_line(times))
     if any(d != digests[0] for d in digests):
-        raise AssertionError(f"K3b's step, K8, K12a or K18 gave other outputs "
-                             f"in the two trees: {digests}")
-    say(f"[compare] K3b's step, K8, K12a and K18 give the same outputs in both trees "
-        f"(sums and counts): {json.dumps(digests[0])}")
+        raise AssertionError(f"K3b's step, K8, K12a, K17, K18 or K10 gave other "
+                             f"outputs in the two trees: {digests}")
+    say(f"[compare] K3b's step, K8, K12a, K17, K18 and K10 give the same outputs "
+        f"in both trees (sums and counts): {json.dumps(digests[0])}")
     # the -devices build at world size 1 on the first 1/8 of the reads,
     # against the single-device build of the same reads
     part = os.path.join(tmp, "reads_eighth.fa")
@@ -2341,8 +2443,8 @@ def k5_chunks(ranged_args, owed_args):
     return out
 
 
-def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
-                  dev):
+def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
+                  longk, phases, dev):
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.models import lanes as ln
     from bcalm_tpu_torch.models import minimizer
@@ -2487,19 +2589,49 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
           reads=rb_args[:3] + tuple(a[:n_members] for a in rb_args[3:6])
           + rb_args[6:8])
 
+    def k17(args, bits_args, row, where=None, counts=None):
+        """K17 on a level's first-round input and the level's fixpoint
+        bitmap (built once per level), each bitwise against its plain
+        version.  The round's bound counts Q, the bitmap and gid (none at
+        level 0) read once and Qn written once, and where the table
+        exceeds L2 the target row's 32-byte sector of every query (each
+        row not ROOTED): only then must a gathered row come from HBM again;
+        bound_old_ms is PR 11's count (Q, valid and gid, at level 0 too,
+        read once, Qn written once).  The bitmap's counts gid and valid
+        read once and the bitmap written once.  where: the rows' label
+        after the kernel's name; counts: the launches of the run the inputs
+        come from (None: the resident run's)."""
+        Q, Qn, gid, bits = args[:4]
+        S = Q.shape[0]
+        queries = int(((Q[:, 1] & chains._F_ROOTED) == 0).sum())
+
+        def run():
+            _kernels.hier_round(Q, Qn, gid, bits)
+            return Qn
+
+        r = check("hier_round", run,
+                  lambda: chains.hier_round_plain(Q, gid, bits),
+                  reads=(Q, bits) if gid is None else (Q, bits, gid),
+                  read_bytes=32 * queries if 32 * S > L2_BYTES else 0,
+                  written=_nbytes(Q), row=row,
+                  label=None if where is None else "hier_round" + where,
+                  launched=None if counts is None else counts["hier_round"])
+        r["bound_old_ms"] = _bound(2 * _nbytes(Q) + 9 * S, 0)[0]
+        b_gid, b_valid, b_salt = bits_args[:3]
+        rb = check("fixpoint_bits",
+                   lambda: _kernels.fixpoint_bits(b_gid, b_valid, b_salt),
+                   lambda: chains.fixpoint_bits_plain(b_gid, b_valid, b_salt),
+                   reads=(b_valid,) if b_gid is None else (b_valid, b_gid),
+                   row=row,
+                   label=None if where is None else "fixpoint_bits" + where,
+                   launched=None if counts is None else counts["fixpoint_bits"])
+        return r, rb
+
     # K17-K19 at level 0 of the resident run's hierarchical jump (the
     # rows) and of the canonical-order one (phase 3d, M = 2C)
     def hier_checks(hin, row):
-        Qh, Qn_h, gid_h, valid_h, salt, _ = hin["hier_round"]
-
-        def round_kernel():
-            _kernels.hier_round(Qh, Qn_h, gid_h, valid_h, salt)
-            return Qn_h.clone()
-
-        r17 = check("hier_round", round_kernel,
-                    lambda: chains.hier_round_plain(Qh, gid_h, valid_h, salt),
-                    lambda: _kernels.hier_round(Qh, Qn_h, gid_h, valid_h, salt),
-                    reads=(Qh, gid_h, valid_h), written=_nbytes(Qh), row=row)
+        r17, r17b = k17(hin["hier_round"], hin["fixpoint_bits"], row)
+        Qh = hin["hier_round"][0]
         Qc, gid_c, valid_c, salt_c, S1, big, _ = hin["hier_contract"]
 
         def contract(fn):
@@ -2522,7 +2654,7 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
         r19 = check("hier_expand", lambda: _kernels.hier_expand(F, parent, Qd, did),
                     lambda: chains.hier_expand_plain(F, parent, Qd, did),
                     reads=(F, parent, Qd, did), row=row)
-        return (Qh.shape[0], S1), (r17, r18, r19)
+        return (Qh.shape[0], S1), (r17b, r17, r18, r19)
 
     res_shape, _ = hier_checks({n: inputs[n] for n in HIER}, True)
     canon = {n: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
@@ -2531,7 +2663,18 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     for name, r in zip(HIER, rs):
         extra.append((f"{name} at level 0 of the canonical-order compaction "
                       f"(phase 3d: {S_c} -> {S1_c} rows)", r))
-    del canon
+    # K17 at level 1 of the canonical-order compaction and K10 at its M
+    # (phase 3d), with that run's launches (K17: all its levels')
+    up = canon["hier_round:upper"]
+    k17(up, canon["fixpoint_bits:upper"], True,
+        where=f"@canonical level 1 ({up[0].shape[0]} rows)",
+        counts=canon_launches)
+    cf_c = canon["chain_finish"]
+    check("chain_finish", lambda: _finish_tuple(_kernels.chain_finish(*cf_c)),
+          lambda: _finish_tuple(chains.finish_fast_plain(*cf_c)), reads=cf_c,
+          label=f"chain_finish@M={cf_c[0].shape[0]}",
+          launched=canon_launches["chain_finish"])
+    del canon, up, cf_c
 
     # the -devices path (phase 3f): K13-K16 and K3's global mode
 
@@ -2716,6 +2859,9 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
             lib += (f"; device time {_fmt_ms(r['device_ms'])} ms "
                     f"[{r['device_ops']:g} device operations per call], "
                     f"library call's {_fmt_ms(r['library_device_ms'])} ms")
+        if "bound_old_ms" in r:
+            lib += (f"; PR 11's bound (Q, gid and valid once, no target "
+                    f"sectors) {r['bound_old_ms']:.4f} ms")
         by_phase = ""
         if "phase_launches" in r:
             by_phase = " (by phase: " + ", ".join(
@@ -2727,6 +2873,8 @@ def phase_kernels(inputs, launches, canon_hier, solid_table, longk, phases,
     for what, r in extra:
         dev_ms = (f" / device {_fmt_ms(r['device_ms'])} ms" if "device_ms" in r
                   else "")
+        if "bound_old_ms" in r:
+            dev_ms += f" (PR 11's bound {r['bound_old_ms']:.4f} ms)"
         say(f"[kernel] {what}: equal to plain, {r['ms']:.4f} ms{dev_ms} vs "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
@@ -2880,7 +3028,8 @@ def phase_canonical_times(M: int, launches, inputs, peak_mb, dev):
     """Phase 3d's last step: the canonical-order compaction at full width
     (M = 2C oriented nodes) on the inputs that run fed it: the
     hierarchical vs the plain jump, and K10 against its plain version.
-    Returns the K17-K19 inputs of its level 0 (for phase 5)."""
+    Returns the K17-K19 inputs of its level 0, K17's of level 1 and K10's
+    (for phase 5)."""
     from bcalm_tpu_torch.ops import _kernels, chains
 
     cf_args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
@@ -2897,10 +3046,12 @@ def phase_canonical_times(M: int, launches, inputs, peak_mb, dev):
     k10 = _time_ms(lambda: _kernels.chain_finish(*cf_args), reps=5)
     k10_plain = _time_ms(lambda: chains.finish_fast_plain(*cf_args), reps=5)
     say(f"[multi] canonical-order compaction: M = {M} oriented nodes, "
-        f"{launches['hier_round']} K17, {launches['jump_round']} K4 rounds in "
+        f"{launches['hier_round']} K17 rounds ({launches['fixpoint_bits']} "
+        f"fixpoint bitmaps), {launches['jump_round']} K4 rounds in "
         f"its run; K10 {k10:.4f} ms (plain {k10_plain:.4f} ms), equal to its "
         f"plain version at M; device_peak_mb of the run {peak_mb}")
-    return {name: inputs[name] for name in HIER}
+    return {name: inputs[name] for name in HIER + (
+        "fixpoint_bits:upper", "hier_round:upper", "chain_finish")}
 
 
 def main() -> int:
@@ -2984,8 +3135,8 @@ def main() -> int:
     launches["kmer_minimizers"] = entry_launches["kmer_minimizers"]
     launches["route_buckets:hash"] = entry_launches["route_buckets"]
     del mesh_inputs
-    rows = phase_kernels(inputs, launches, canon_hier, table, longk, phases,
-                         dev)
+    rows = phase_kernels(inputs, launches, canon_hier, ms_launches, table, longk,
+                         phases, dev)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

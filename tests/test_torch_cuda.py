@@ -429,6 +429,61 @@ def test_chain_finish(card, N, weighted):
     assert int(want["n_unitigs"][0]) > 0
 
 
+def cycles_graph(N: int, seed: int):
+    """(2N,) succ and valid of a mirror-symmetric graph whose every chain is
+    a cycle: all N vertices, in random orientations, cut into rings of
+    2-100 vertices."""
+    rng = np.random.RandomState(seed)
+    oids = rng.permutation(N) + N * rng.randint(0, 2, N)
+    succ = np.full(2 * N, -1, np.int64)
+    i = 0
+    while i < N:
+        m = min(N - i, int(rng.randint(2, 101)))
+        if N - i - m == 1:
+            m += 1
+        ring = oids[i:i + m]
+        nxt = np.roll(ring, -1)
+        succ[ring] = nxt
+        succ[(nxt + N) % (2 * N)] = (ring + N) % (2 * N)
+        i += m
+    return succ, np.ones(2 * N, bool)
+
+
+@pytest.mark.parametrize("case,N,weighted", [
+    ("empty", 4096, False), ("cycles", 4096, False), ("cycles", 3000, True),
+    ("chains", 3000, False), ("chains", (1 << 18) + 777, True)])
+def test_chain_finish_lookback(card, case, N, weighted):
+    """K10's one-pass selection against its plain version: no valid node
+    (n_unitigs 0), every chain a cycle, M = 2N not a multiple of the
+    1024-node tile (FINISH_TILE: the N = 3000 and N = 2**18 + 777 cases;
+    the N = 4096 ones are multiples of it), weighted and not; run twice for
+    equal bytes, the second call on the workspace the first one left."""
+    if case == "cycles":
+        succ, valid = cycles_graph(N, N)
+    else:
+        succ, valid = mirror_graph(N, N + 1)
+        if case == "empty":
+            valid[:] = False
+    succ, valid = torch.from_numpy(succ), torch.from_numpy(valid)
+    pred = chains.build_pred(succ, valid)
+    wlen = dist0 = None
+    if weighted:
+        w = torch.from_numpy(np.random.RandomState(N).randint(1, 6, N))
+        wlen = torch.cat([w, w])
+        dist0 = wlen[torch.clamp(pred, 0, 2 * N - 1)]
+    state = chains.plain_jumpF(pred, valid, dist0)
+    want = chains.finish_fast_plain(succ, pred, valid, state, wlen)
+    n = int(want["n_unitigs"][0])
+    assert (n == 0) == (case == "empty")
+    if case == "cycles":
+        assert bool(want["circular"][:n].all())
+    args = [None if a is None else a.to(card)
+            for a in (succ, pred, valid, state, wlen)]
+    keys = ("uid", "rank", "n_unitigs", "start_oid", "length", "circular")
+    twice_equal(lambda: [_kernels.chain_finish(*args)[k] for k in keys],
+                [want[k] for k in keys])
+
+
 def compacted(k, seed=5, max_len=128):
     """The port's locality-ordered compaction (CPU) of a read set: the
     reordered table, its counts, the run structure and the chain dict."""
@@ -701,8 +756,10 @@ def test_hier_kernels(card):
     for r in range(chains._R_A):
         Qn = torch.empty_like(Q).to(card)
         changed = torch.zeros(1, dtype=torch.int32, device=card)
-        _kernels.hier_round(Q.to(card), Qn, g, v, salt, changed if r else None)
-        want = chains.hier_round_plain(Q, gid, valid, salt)
+        bits = chains.fixpoint_bits_plain(gid, valid, salt)
+        _kernels.hier_round(Q.to(card), Qn, g, bits.to(card),
+                            changed if r else None)
+        want = chains.hier_round_plain(Q, gid, bits)
         assert torch.equal(Qn.cpu(), want)
         if r:
             assert bool(changed.item()) == (not torch.equal(want, Q))
@@ -735,6 +792,66 @@ def hier_contract_both(card, Q, gid, valid, salt, M):
                 assert torch.equal(a.cpu(), b)
             assert int(ok_card.item()) == int(ok_cpu.item()) == int(S1 == M // 4)
     return want
+
+
+def hier_round_both(card, Q, gid, valid, salt):
+    """K17 against its plain version for _R_A rounds from Q: the level's
+    fixpoint bitmap built once (equal to fixpoint_bits_plain, twice for
+    equal bytes), then each round given it and run twice, without and with
+    `changed`, for equal bytes."""
+    g = None if gid is None else gid.to(card)
+    want_bits = chains.fixpoint_bits_plain(gid, valid, salt)
+    bits = _kernels.fixpoint_bits(g, valid.to(card), salt)
+    assert torch.equal(bits.cpu(), want_bits)
+    assert torch.equal(_kernels.fixpoint_bits(g, valid.to(card), salt), bits)
+    for r in range(chains._R_A):
+        want = chains.hier_round_plain(Q, gid, want_bits)
+        Qc = Q.to(card)
+        outs = []
+        for with_changed in (False, True):
+            Qn = torch.empty_like(Qc)
+            changed = (torch.zeros(1, dtype=torch.int32, device=card)
+                       if with_changed else None)
+            _kernels.hier_round(Qc, Qn, g, bits, changed)
+            assert torch.equal(Qn.cpu(), want)
+            if changed is not None:
+                assert bool(changed.item()) == (not torch.equal(want, Q))
+            outs.append(Qn)
+        assert torch.equal(outs[0], outs[1])
+        Q = want
+    return Q
+
+
+@pytest.mark.parametrize("case", ["level1", "odd", "rooted", "clamp"])
+def test_hier_round_bitmap(card, case):
+    """K17 with its per-level fixpoint bitmap: at level 1 (gid not the row
+    index; the plain level build of 2**19 rows), at level 0 of 2**19 +
+    1554 rows (not a multiple of a block or of a bitmap word), with every
+    row ROOTED, and with 5% of the targets out of range (the clamp)."""
+    if case == "level1":
+        M = 1 << 19
+        Q, gid, valid, salt = hier_level0(M)
+        Q = chains._phase(Q, None, valid, salt, chains._R_A, converge=False)
+        ok = torch.ones(1, dtype=torch.int32)
+        Q, gid, valid, _, _, _ = chains.hier_contract_plain(Q, gid, valid, salt,
+                                                            M // 4, M, ok)
+        assert int(ok) == 1 and not torch.equal(gid, torch.arange(M // 4))
+        salt = (0x85EBCA6B * 2) & 0xFFFFFFFF
+    else:
+        M = (1 << 19) + 2 * 777 if case == "odd" else 1 << 19
+        Q, _, valid, salt = hier_level0(M)
+        gid = None
+        if case == "rooted":
+            Q[:, 1] |= chains._F_ROOTED
+        if case == "clamp":
+            rng = np.random.RandomState(7)
+            out = torch.from_numpy(rng.rand(M) < 0.05)
+            far = torch.from_numpy(np.where(rng.rand(M) < 0.5,
+                                            -rng.randint(1, 100, M),
+                                            M + rng.randint(0, 100, M)))
+            Q[:, 0] = torch.where(out, far, Q[:, 0])
+    got = hier_round_both(card, Q, gid, valid, salt)
+    assert torch.equal(got, Q) == (case == "rooted")
 
 
 @pytest.mark.parametrize("variant", ["auto", "plain", "hier"])

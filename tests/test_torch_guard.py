@@ -163,12 +163,14 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.glue_compose(t((8, 4)), t((8, 4)),
                                     torch.ones(8, dtype=torch.bool)),
     lambda t: _kernels.hier_round(t((8, 4)), t((8, 4)), t((8,)),
-                                  torch.ones(8, dtype=torch.bool), 1),
+                                  torch.zeros(1, dtype=torch.int32)),
     lambda t: _kernels.hier_contract(t((8, 4)), t((8,)),
                                      torch.ones(8, dtype=torch.bool), 1, 2, 8,
                                      torch.ones(1, dtype=torch.int32)),
     lambda t: _kernels.hier_expand(t((2, 4)), t((2,)), t((8, 4)), t((8,))),
     lambda t: _kernels.kmer_minimizers(t((2, 16)), 31, 10),
+    lambda t: _kernels.fixpoint_bits(t((8,)), torch.ones(8, dtype=torch.bool),
+                                     1),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     def cpu(shape):

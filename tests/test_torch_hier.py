@@ -71,6 +71,56 @@ def test_hier_level_overflow(monkeypatch):
     np.testing.assert_array_equal(ts, js)
 
 
+@pytest.fixture(scope="module")
+def level_rounds():
+    """K17's input at the first round of each level of hier_jump on M =
+    2**19 with _FINAL_CAP cut to 2**11 (five levels): {level: (Q, gid,
+    valid, salt)}; level 0's gid is None (the row index)."""
+    mp = pytest.MonkeyPatch()
+    seen = {}
+    real = tchains._phase
+
+    def record(Q, gid, valid, salt, rounds, converge=True):
+        if salt is not None:
+            seen[len(seen)] = (Q.clone(), gid, valid, salt)
+        return real(Q, gid, valid, salt, rounds, converge)
+
+    mp.setattr(tchains, "_FINAL_CAP", 1 << 11)
+    mp.setattr(tchains, "_phase", record)
+    try:
+        pred, valid, dist0 = jump_inputs(1 << 19)
+        tchains.hier_jump(torch.from_numpy(pred.astype(np.int64)),
+                          torch.from_numpy(valid),
+                          torch.from_numpy(dist0.astype(np.int64)))
+    finally:
+        mp.undo()
+    return seen
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_fixpoint_bitmap_matches_jax(level_rounds, level):
+    """K17's plain bitmap against JAX's `_sampled(gid, salt) & valid` at
+    levels 0 (gid None: the row index) and 2, and one round of
+    hier_round_plain given the bitmap against one round of JAX's _phase
+    with those fixpoints."""
+    Q, gid, valid, salt = level_rounds[level]
+    assert (gid is None) == (level == 0)
+    S = Q.shape[0]
+    jgid = np.arange(S, dtype=np.int32) if gid is None else gid.numpy().astype(np.int32)
+    fix = np.asarray(jchains._sampled(jnp.asarray(jgid), salt) & jnp.asarray(valid.numpy()))
+    bits = tchains.fixpoint_bits(gid, valid, salt)
+    assert bits.dtype == torch.int32 and bits.shape == (-(-S // 32),)
+    words = bits.numpy().astype(np.uint32)
+    unpacked = ((words[:, None] >> np.arange(32, dtype=np.uint32)) & 1).ravel()
+    np.testing.assert_array_equal(unpacked[:S].astype(bool), fix)
+    assert not unpacked[S:].any()
+    got = tchains.hier_round_plain(Q, gid, bits)
+    want = jchains._phase(jnp.asarray(Q.numpy().astype(np.int32)),
+                          jnp.asarray(fix), jnp.asarray(jgid), 1,
+                          converge=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def exact_level_inputs(M: int, S1: int, extra: int):
     """pred, valid and dist0 of M nodes whose level 0 selects exactly
     S1 + extra rows: S1 + extra of the level's sampled fixpoints are valid
