@@ -39,7 +39,13 @@
 // K19 hier_expand: the upward pass.  Each row of the level below composes
 //   its phase-A span with the converged row of its target one level up
 //   (did of its ptr), whose ptr is translated back through parent unless
-//   ROOTED.
+//   ROOTED.  It runs in place, over Qd: a thread reads its row as two
+//   16-byte loads, issues the did load as soon as the ptr is in, and
+//   writes two 16-byte streaming stores over that row; a ROOTED row comes
+//   back unchanged, makes no random read and is not written.  The chain of
+//   a row that is not ROOTED is did, then the F row, then parent: parent
+//   (S1 x 8 bytes) stays in L2, so translating F through it first (JAX's
+//   order) would save no time (measured on an H100 at 2^24 rows).
 // The deepest level runs the plain doubling (K4, csrc/chains.cu).
 //
 // Bound: memory, and random rows.  K17 reads its row (32 bytes, two
@@ -48,11 +54,12 @@
 // a served target above level 0, gid[p] (a sector), and writes 32 bytes
 // (two 16-byte streaming stores); K18 reads the rows twice
 // (the mark's flags and pointers, the gather's selected rows), valid,
-// tmask and gid once, and writes did and S1 rows; K19 reads a row, did, a
-// row one level up and its parent, writes 32.  Each kernel is one thread per row with the random reads
-// issued as early as the control flow allows; the selection is one
-// look-back pass, not JAX's sort, and no (S, 4) table of served rows is
-// materialised.
+// tmask and gid once, and writes did and S1 rows; K19 reads its row and,
+// unless ROOTED, a sector of did and of F (each beyond L2 at 2^24 rows)
+// and parent (L2), and writes 32 bytes unless ROOTED.  Each kernel is one
+// thread per row with the random reads issued as early as the control flow
+// allows; the selection is one look-back pass, not JAX's sort, and no (S, 4) table
+// of served rows is materialised.
 #include "lookback.cuh"
 #include "compose.cuh"
 
@@ -73,11 +80,45 @@ __device__ __forceinline__ long long clampi(long long x, long long hi) {
 }
 
 // The level's fixpoint bitmap: bit v & 31 of word v >> 5 is valid[v] &&
-// level_sampled(gid[v]) (gid null: v).  A block covers kBitRows rows, a
+// level_sampled(gid[v]).  Level 0 (no gid: gid[v] = v) reads valid alone:
+// a thread takes 16 rows, their valid bytes as one 16-byte load (valid is
+// 16-byte aligned; the rows where S cuts a group a byte at a time), and
+// the two threads of a pair join their 16-bit halves into one word, which
+// the even one writes.  Above level 0 a block covers kBitRows rows, a
 // thread kBitItems of them, one per 256-row slice, its loads all issued
 // before the first is used; a warp's ballot over a slice is one word.
+// That kernel keeps its test for a null gid although it is never given
+// one: without it nvcc issues each slice's loads just before its ballot,
+// and the kernel is slower (measured on an H100 at 2^22 and 2^24 rows).
+constexpr int kBitSpan = 16;
 constexpr int kBitItems = 8;
 constexpr long long kBitRows = bt::kThreads * kBitItems;
+
+__global__ void __launch_bounds__(bt::kThreads)
+hier_fixbits0_kernel(const uint8_t* __restrict__ valid, long long S,
+                     uint32_t salt, uint32_t* __restrict__ bits) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long v0 = t * kBitSpan;
+  uint32_t half = 0;
+  if (v0 < S) {
+    union {
+      uint4 word;
+      uint8_t b[kBitSpan];
+    } live;
+    if (v0 + kBitSpan <= S) {
+      live.word = __ldg(reinterpret_cast<const uint4*>(valid + v0));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBitSpan; ++i) live.b[i] = v0 + i < S ? valid[v0 + i] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < kBitSpan; ++i) {
+      half |= static_cast<uint32_t>(live.b[i] != 0 && level_sampled(v0 + i, salt)) << i;
+    }
+  }
+  const uint32_t high = __shfl_down_sync(0xFFFFFFFFu, half, 1);
+  if ((t & 1) == 0 && v0 < S) bits[t >> 1] = half | (high << kBitSpan);
+}
 
 __global__ void __launch_bounds__(bt::kThreads)
 hier_fixbits_kernel(const int64_t* __restrict__ gid,
@@ -220,37 +261,51 @@ __global__ void hier_gather_kernel(const int64_t* __restrict__ Q,
   }
 }
 
-__global__ void hier_expand_kernel(const int64_t* __restrict__ F,
-                                   const int64_t* __restrict__ parent,
-                                   const int64_t* __restrict__ Qd,
-                                   const int64_t* __restrict__ did, long long S,
-                                   long long S1, int64_t* __restrict__ out) {
-  long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+// In place: a thread reads its own row of Qd, and only it, before it
+// writes that row (plain loads: Qd is written in this launch, so not
+// through the read-only path); a ROOTED row comes back unchanged and is
+// not written.
+__global__ void __launch_bounds__(bt::kThreads)
+hier_expand_kernel(const longlong2* __restrict__ F,
+                   const int64_t* __restrict__ parent, longlong2* __restrict__ Qd,
+                   const int64_t* __restrict__ did, long long S, long long S1) {
+  const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (v >= S) return;
-  const int64_t* q = Qd + 4 * v;
-  int64_t* o = out + 4 * v;
-  if (q[1] & bt::kRooted) {
-    o[0] = q[0]; o[1] = q[1]; o[2] = q[2]; o[3] = q[3];
-    return;
-  }
-  long long tgt = clampi(did[clampi(q[0], S - 1)], S1 - 1);
-  const int64_t* f = F + 4 * tgt;
-  long long fd = f[1];
-  const int64_t anc[4] = {(fd & bt::kRooted) ? f[0] : parent[clampi(f[0], S1 - 1)],
-                          fd, f[2], f[3]};
+  // both halves of the own row (one sector), then did as soon as the ptr
+  // is in
+  const longlong2 a = Qd[2 * v], b = Qd[2 * v + 1];
+  if (a.y & bt::kRooted) return;
+  const long long t = __ldg(did + clampi(a.x, S - 1));
+  const long long tgt = clampi(t, S1 - 1);
+  const longlong2 fa = __ldg(F + 2 * tgt), fb = __ldg(F + 2 * tgt + 1);
+  // parent (S1 x 8 bytes) is read where the row above is not ROOTED
+  const int64_t q[4] = {a.x, a.y, b.x, b.y};
+  const int64_t anc[4] = {
+      (fa.y & bt::kRooted) ? fa.x : __ldg(parent + clampi(fa.x, S1 - 1)), fa.y,
+      fb.x, fb.y};
+  int64_t o[4];
   bt::compose_row(q, anc, o);
+  __stcs(Qd + 2 * v, make_longlong2(o[0], o[1]));
+  __stcs(Qd + 2 * v + 1, make_longlong2(o[2], o[3]));
 }
 
 }  // namespace
 
-// bits: ceil(S / 32) words, every one written.  gid null: level 0.
+// bits: ceil(S / 32) words, every one written.  gid null: level 0, and
+// valid 16-byte aligned.
 extern "C" int bt_fixpoint_bits(const int64_t* gid, const uint8_t* valid,
                                 long long S, unsigned int salt, uint32_t* bits,
                                 void* stream) {
   if (S == 0) return 0;
-  hier_fixbits_kernel<<<static_cast<unsigned int>((S + kBitRows - 1) / kBitRows),
-                        bt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      gid, valid, S, salt, bits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gid == nullptr) {
+    const long long threads = 2 * ((S + 31) / 32);  // two a word
+    hier_fixbits0_kernel<<<bt::blocks_for(threads), bt::kThreads, 0, s>>>(
+        valid, S, salt, bits);
+  } else {
+    hier_fixbits_kernel<<<static_cast<unsigned int>((S + kBitRows - 1) / kBitRows),
+                          bt::kThreads, 0, s>>>(gid, valid, S, salt, bits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -296,12 +351,14 @@ extern "C" int bt_hier_contract(const int64_t* Q, const int64_t* gid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Over Qd, in place.
 extern "C" int bt_hier_expand(const int64_t* F, const int64_t* parent,
-                              const int64_t* Qd, const int64_t* did, long long S,
-                              long long S1, int64_t* out, void* stream) {
+                              int64_t* Qd, const int64_t* did, long long S,
+                              long long S1, void* stream) {
   if (S == 0) return 0;
   hier_expand_kernel<<<bt::blocks_for(S), bt::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(F, parent, Qd, did,
-                                                            S, S1, out);
+                       static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const longlong2*>(F), parent,
+      reinterpret_cast<longlong2*>(Qd), did, S, S1);
   return static_cast<int>(cudaGetLastError());
 }

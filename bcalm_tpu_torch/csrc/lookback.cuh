@@ -1,6 +1,6 @@
 // Decoupled look-back over per-tile status words, shared by the one-pass
-// selections (K9 solid_compact, K18 hier_contract, K10 chain_finish) and
-// K8 run_scans.
+// selections (K9 solid_compact, K18 hier_contract, K10 chain_finish), K8
+// run_scans and K11 spell_unitigs' scan of the unitig lengths.
 //
 // Each block takes its tile from an atomic ticket, so every tile it waits
 // on is already running.  A tile publishes its own count (kAggregate),

@@ -995,6 +995,9 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     statistics (bcalm_tpu's glue debug flags)."""
     device = torch.device(device)
     if device.type == "cuda":
+        # the allocator's statistics exist once CUDA is initialised; a
+        # build that is the process's first CUDA call initialises it here
+        torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
     unique, counts, minpos, stats = count_blocks(blocks, cfg, device, reread)

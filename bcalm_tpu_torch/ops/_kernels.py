@@ -89,13 +89,13 @@ _SIGNATURES = {
     "bt_hier_round": [_P, _P, _P, _P, _I64, _P, _P],
     "bt_hier_contract": [_P, _P, _P, _I64, ctypes.c_uint, _I64, _I64, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P],
-    "bt_hier_expand": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    "bt_hier_expand": [_P, _P, _P, _P, _I64, _I64, _P],
     "bt_kmer_minimizers": [_P, _I64, _I32, _I64, _I32, _I32, _P, _P, _I32, _P,
                            _P],
 }
 ROUTE_TILE = 1024  # entries per look-back tile of csrc/route.cu
 MAX_ROW_WORDS = 64  # csrc/superkmer.cu: rows of <= 1024 positions
-SCAN_TILE = 1024   # entries per tile of csrc/scan.cuh
+SPELL_TILE = 1024  # unitigs per look-back tile of csrc/spell.cu (K11)
 COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
 HIER_TILE = 2048  # rows per selection tile of csrc/hier.cu (K18)
 FINISH_TILE = 1024  # nodes per selection tile of csrc/finish.cu (K10)
@@ -495,12 +495,6 @@ def run_scans(succ: torch.Tensor, n_solid: int, C: int, gbase: int = 0):
     return is_head, is_tail, rid, head_pos, end_pos, scratch[:1]
 
 
-def _scan_scratch(n: int, dev) -> torch.Tensor:
-    """Tile carries of csrc/scan.cuh's exclusive_sum over n entries."""
-    return torch.empty((max(1, -(-n // SCAN_TILE)),), dtype=torch.int64,
-                       device=dev)
-
-
 def solid_compact(unique: torch.Tensor, counts: torch.Tensor,
                   minpos, n_unique: int, abundance_min: int,
                   abundance_max: int, width=None):
@@ -583,7 +577,10 @@ def spell_unitigs(solid: torch.Tensor, counts: torch.Tensor, uid: torch.Tensor,
                   start_oid: torch.Tensor, n_unitigs: int, k: int,
                   n_members: int):
     """K11: (codes u8 (n_members + (k-1) U,), member-ordered counts
-    (n_members,)) of the first U = n_unitigs unitigs."""
+    (n_members,)) of the first U = n_unitigs unitigs, whose members have
+    the ranks 0 .. length-1, each once (chain_finish's outputs).  One C
+    call: a memset of the scan's words and two kernels, which write every
+    element of both outputs."""
     _check(solid, "solid", ndim=2, rows_strided=True)
     for t, name in ((counts, "counts"), (uid, "uid"), (rank, "rank"),
                     (length, "length"), (start_oid, "start_oid")):
@@ -596,16 +593,20 @@ def spell_unitigs(solid: torch.Tensor, counts: torch.Tensor, uid: torch.Tensor,
         raise ValueError("spell_unitigs: shapes do not match")
     dev = solid.device
     total = n_members + (k - 1) * U
-    codes = torch.zeros((total,), dtype=torch.uint8, device=dev)
-    mcounts = torch.zeros((n_members,), dtype=torch.int64, device=dev)
-    if U and C:
-        run_start = torch.empty((U,), dtype=torch.int64, device=dev)
-        _launch("bt_spell_unitigs", solid.data_ptr(), solid.stride(0), L, C,
-                counts.data_ptr(), uid.data_ptr(), rank.data_ptr(),
-                length.data_ptr(), start_oid.data_ptr(), U, k,
-                _scan_scratch(U, dev).data_ptr(), run_start.data_ptr(),
-                codes.data_ptr(), total, mcounts.data_ptr(), n_members)
-        LAUNCHES["spell_unitigs"] += 1
+    if not (U and C):
+        return (torch.zeros((total,), dtype=torch.uint8, device=dev),
+                torch.zeros((n_members,), dtype=torch.int64, device=dev))
+    codes = torch.empty((total,), dtype=torch.uint8, device=dev)
+    mcounts = torch.empty((n_members,), dtype=torch.int64, device=dev)
+    # run_start, then the scan's ticket and tile status words
+    work = torch.empty((U + 1 + -(-U // SPELL_TILE),), dtype=torch.int64,
+                       device=dev)
+    _launch("bt_spell_unitigs", solid.data_ptr(), solid.stride(0), L, C,
+            counts.data_ptr(), uid.data_ptr(), rank.data_ptr(),
+            length.data_ptr(), start_oid.data_ptr(), U, k,
+            work.data_ptr() + 8 * U, work.data_ptr(), codes.data_ptr(), total,
+            mcounts.data_ptr(), n_members)
+    LAUNCHES["spell_unitigs"] += 1
     return codes, mcounts
 
 
@@ -819,13 +820,16 @@ def _check_state(Q: torch.Tensor, name: str) -> int:
 def fixpoint_bits(gid, valid: torch.Tensor, salt: int) -> torch.Tensor:
     """K17's per-level bitmap: bit v % 32 of int32 word v // 32 is
     valid[v] && _sampled(gid[v], salt), rows past S zero; gid None: level
-    0, where gid is the row index.  Built once per level."""
+    0, where gid is the row index and valid must be 16-byte aligned.  Built
+    once per level."""
     _check(valid, "valid", dtype=torch.bool, ndim=1)
     S = valid.shape[0]
     if gid is not None:
         _check(gid, "gid", ndim=1)
         if gid.shape[0] != S:
             raise ValueError("fixpoint_bits: shapes do not match")
+    else:
+        _aligned16(valid, "valid")
     bits = torch.empty((-(-S // 32),), dtype=torch.int32, device=valid.device)
     if S:
         _launch("bt_fixpoint_bits", None if gid is None else gid.data_ptr(),
@@ -894,19 +898,21 @@ def hier_contract(Q: torch.Tensor, gid: torch.Tensor, valid: torch.Tensor,
 def hier_expand(F: torch.Tensor, parent: torch.Tensor, Qd: torch.Tensor,
                 did: torch.Tensor) -> torch.Tensor:
     """K19: the converged (S, 4) state of a level from its phase-A state Qd
-    and the converged (S1, 4) state F of the level above."""
+    and the converged (S1, 4) state F of the level above, written over Qd,
+    which is returned."""
     S1 = _check_state(F, "F")
     S = _check_state(Qd, "Qd")
     _check(parent, "parent", ndim=1)
     _check(did, "did", ndim=1)
     if parent.shape[0] != S1 or did.shape[0] != S or not 1 <= S1:
         raise ValueError("hier_expand: shapes do not match")
-    out = torch.empty_like(Qd)
+    _aligned16(F, "F")
+    _aligned16(Qd, "Qd")
     if S:
         _launch("bt_hier_expand", F.data_ptr(), parent.data_ptr(), Qd.data_ptr(),
-                did.data_ptr(), S, S1, out.data_ptr())
+                did.data_ptr(), S, S1)
         LAUNCHES["hier_expand"] += 1
-    return out
+    return Qd
 
 
 def kmer_minimizers(lanes: torch.Tensor, k: int, m: int, rank=None,

@@ -290,9 +290,10 @@ def hier_expand_plain(F: torch.Tensor, parent: torch.Tensor, Qd: torch.Tensor,
 
 
 def hier_expand(F, parent, Qd, did) -> torch.Tensor:
-    """K19 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    """K19 entry: kernel for CUDA tensors, plain version for CPU tensors;
+    the result is written over Qd, which is returned."""
     if F.device.type == "cpu":
-        return hier_expand_plain(F, parent, Qd, did)
+        return Qd.copy_(hier_expand_plain(F, parent, Qd, did))
     return _kernels.hier_expand(F, parent, Qd, did)
 
 
@@ -329,6 +330,7 @@ def hier_jump(pred: torch.Tensor, valid: torch.Tensor,
         Q, gid, lvl_valid = Q1, gid1, valid1
     # deepest level: plain doubling to convergence, the cap covering cycles
     F = _phase(Q, None, None, None, max_rounds(sizes[-1]) + 1)
+    # each level's phase-A state is read only here: K19 writes over it
     for Qd, did, parent in reversed(stack):
         F = hier_expand(F, parent, Qd, did)
     return F, ok.bool()

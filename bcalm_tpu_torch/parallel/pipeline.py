@@ -420,6 +420,7 @@ def distributed_build(mesh, seqs, cfg, mcfg: Optional[MinimizerConfig] = None,
     n_dev = mesh.n_dev
     dev = mesh.device
     if dev.type == "cuda":
+        torch.cuda.init()  # as engine.build_from_blocks
         torch.cuda.reset_peak_memory_stats(dev)
     k = cfg.k
     m = effective_m(k, mcfg.m)

@@ -92,10 +92,14 @@ Phases (any failure raises, and the script exits non-zero):
    every owner is 0; K15 also at 4 and 8 destinations (synthetic owners)
    and in its hash mode on phase 3g's k-mers at world size 1 and 4;
    K17-K19 at level 0 of phase 3's and of phase 3d's hierarchical jump,
-   K17 also at level 1 of phase 3d's (each K17 row the mean per launch of
-   a level's first call, which builds the fixpoint bitmap, and its later
-   ones, both beside it; its bound counts the target row's 32-byte sector
-   of every query) and K10 also at phase 3d's M;
+   K17 also at level 1 of phase 3d's (K17's round and K19's bounds count
+   a random row's 32-byte sector per row not ROOTED only where its array
+   exceeds the L2, each beside the earlier count; K19, which runs over
+   Qd, writes no ROOTED row, and is timed on a fresh copy of Qd each call
+   with the copy taken out) and K10 also at phase
+   3d's M; K4's plain variant on the first round of phase 3's and phase
+   3d's plain runs (compare_jumps), with those runs' launches and those of
+   phase 3h's k = 255 build, which jumps below _HIER_MIN;
    K20 on phase 3's solid k-mers in its histogram mode (torch.bincount is
    its library call) and its minimizer mode (partition ids with phase 3f's
    frequency rank and a 4-rank table; lexicographic minimizers).  Then one
@@ -136,12 +140,15 @@ word: that kernel; else the gathers of the sorted keys and payload, then
 the kernel), K18 at level 0 of phase 3's and the canonical order's
 jump, K17 at the first round of its levels 0 and 1 and of phase 3's level
 0 (in a tree with the fixpoint bitmap, the round given it, and the
-bitmap's own build), and
-K10 at phase 3's M and at 2^24, of each tree in the same turns
+bitmap's own build),
+K10 at phase 3's M and at 2^24, K19 at the same three levels as K17 (on
+a fresh copy of Qd each call, the copy taken out) and
+K11 at phase 3's and phase 3h's shapes (k = 31, 151, 255), of each tree
+in the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
-runtime's launch; the K3b step's, K8's, K12a's, K17's, K18's and K10's
-outputs must agree across the trees), and DIST_AB
+runtime's launch; the K3b step's, K8's, K12a's, K17's, K18's, K10's,
+K19's and K11's outputs must agree across the trees), and DIST_AB
 runs each tree's ``-devices`` build at world size 1 on the first 1/8 of
 the reads in the same turns, held against the single-device build.
 """
@@ -625,7 +632,9 @@ def compare_jumps(what: str, run, q0, q_deep):
     the card (run(variant) -> finish outputs): equal outputs, the level
     sizes, the rounds per level, each variant's stage time (CUDA events,
     the deepest level's host syncs included), and K4's time per round on
-    the plain variant's state q0 and on the deepest level's q_deep."""
+    the plain variant's state q0 and on the deepest level's q_deep.
+    Returns the stage times and, for phase 5's row of K4's plain variant,
+    q0 (on the host) and the plain run's K4 launches."""
     from bcalm_tpu_torch.ops import _kernels, chains
 
     out, launched, ms, peak = {}, {}, {}, {}
@@ -671,12 +680,13 @@ def compare_jumps(what: str, run, q0, q_deep):
         f"{k4['M']:.4f} ms at M (bound {_bound(2 * _nbytes(q0), 0)[0]:.4f} "
         f"ms, plain version {k4_plain:.4f} ms), {k4['deepest']:.4f} ms at the "
         f"deepest level")
-    return ms
+    return ms, (q0.cpu(), lp["jump_round"])
 
 
 def phase_hier_resident(inputs, dev):
     """Phase 3's hierarchical vs plain jump on the contracted run graph it
-    recorded (run_contract's inputs give csucc, cvalid, wlen2)."""
+    recorded (run_contract's inputs give csucc, cvalid, wlen2).  Returns the
+    plain variant's first K4 input and its K4 launches (compare_jumps)."""
     from bcalm_tpu_torch.ops import chains, runchains
 
     rc = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
@@ -685,9 +695,10 @@ def phase_hier_resident(inputs, dev):
     cpred = chains.build_pred(csucc, cvalid)
     R2 = csucc.shape[0]
     q0 = chains.init_state(cpred, cvalid, wlen2[torch.clamp(cpred, 0, R2 - 1)])
-    compare_jumps("resident run (phase 3), contracted run graph",
-                  lambda v: runchains.contracted_jump(csucc, cvalid, wlen2, v),
-                  q0, inputs["jump_round"][0].to(dev))
+    return compare_jumps("resident run (phase 3), contracted run graph",
+                         lambda v: runchains.contracted_jump(csucc, cvalid,
+                                                             wlen2, v),
+                         q0, inputs["jump_round"][0].to(dev))[1]
 
 
 def pick_max_memory(distinct: int, dev):
@@ -1315,8 +1326,8 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 # It calls only wrappers whose signatures have not changed since K20 was
 # ported, K1's range mode only where the wrapper takes lo and hi and K17's
 # bitmap only where it takes bits, so an older tree runs it as well.
-# K3b's, K8's, K12a's, K17's, K18's and K10's inputs at the main paths'
-# shapes, seeded, for KERNEL_AB and
+# K3b's, K8's, K12a's, K17's, K18's, K10's, K19's and K11's inputs at the
+# main paths' shapes, seeded, for KERNEL_AB and
 # SPLIT (run in a tree's root, after `dev` is set): step_solid() is the
 # solid table of a random genome's first 5,075,200 31-mers (phase 3's
 # solid count), canonical, in genome order (reorder_by_pos keeps first
@@ -1326,7 +1337,8 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 # round of each level: HIER_LEVELS gives phase 3's run graph (2^19 nodes,
 # 2 x 148,391 valid, 2 x 71,928 chains) and the canonical order's (2^24
 # nodes, 2 x 5,075,200 valid, as many chains); finish_inputs() K10's at
-# FINISH_SHAPES.
+# FINISH_SHAPES; expand_inputs() K19's at every level of the same
+# jumps (jump_graph()); spell_inputs() K11's at SPELL_SHAPES.
 STEP_INPUTS = r"""
 import numpy as np
 import torch
@@ -1394,9 +1406,9 @@ def run_succ(n=5075200, C=1 << 23, R=148391):
     succ[C + heads] = ends(C + heads)
     return torch.from_numpy(succ).to(dev), n, C
 
-def level_inputs(M, n_valid, mean):
-    # (K18's input at level 0, [K17's input at the first round of each
-    # level: (Q, gid, valid, salt), gid as the tree passes it])
+def jump_graph(M, n_valid, mean):
+    # (pred, valid) of M nodes, n_valid of them in chains of geometric
+    # length (mean), in a random order
     r = np.random.RandomState(M % 9973)
     nodes = r.permutation(M)[:n_valid]
     start = r.rand(n_valid) < 1.0 / mean
@@ -1405,6 +1417,11 @@ def level_inputs(M, n_valid, mean):
     pred[nodes] = np.where(start, -1, np.roll(nodes, 1))
     valid = np.zeros(M, bool)
     valid[nodes] = True
+    return torch.from_numpy(pred).to(dev), torch.from_numpy(valid).to(dev)
+
+def level_inputs(M, n_valid, mean):
+    # (K18's input at level 0, [K17's input at the first round of each
+    # level: (Q, gid, valid, salt), gid as the tree passes it])
     seen, rounds = [], []
     real, real_phase = chains.hier_contract, chains._phase
     keep = lambda a: tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
@@ -1418,11 +1435,64 @@ def level_inputs(M, n_valid, mean):
         return real_phase(Q, gid, valid, salt, *a, **kw)
     chains.hier_contract, chains._phase = record, record_phase
     try:
-        chains.hier_jump(torch.from_numpy(pred).to(dev),
-                         torch.from_numpy(valid).to(dev))
+        chains.hier_jump(*jump_graph(M, n_valid, mean))
     finally:
         chains.hier_contract, chains._phase = real, real_phase
     return seen[0], rounds
+
+def expand_inputs(M, n_valid, mean):
+    # K19's inputs (F, parent, Qd, did) at each level of the hierarchical
+    # jump over jump_graph(), level 0 first, recorded through
+    # chains.hier_expand (so a tree of either K19 interface runs it)
+    seen, real = [], chains.hier_expand
+    def record(*a, **kw):
+        seen.append(tuple(x.clone() for x in a[:4]))
+        return real(*a, **kw)
+    chains.hier_expand = record
+    try:
+        chains.hier_jump(*jump_graph(M, n_valid, mean))
+    finally:
+        chains.hier_expand = real
+    return seen[::-1]
+
+# K11's inputs: n solid k-mers (random lanes, C columns) cut at random into
+# U unitigs, each walking its columns forward or backward, each k-mer a
+# member on a random strand (its canonical form's, as in the locality
+# order), ranks 0 .. length-1 along the walk, uid in the order of the
+# start ids as chain_finish numbers them.
+# SPELL_SHAPES: phase 3's (k = 31) and phase 3h's (k = 151 and 255)
+SPELL_SHAPES = ((31, 5075200, 1 << 23, 71928), (151, 5595027, 1 << 23, 31018),
+                (255, 1175295, 1 << 21, 33707))
+
+def spell_inputs(k, n, C, U):
+    r = np.random.RandomState(k)
+    L = (k + 15) // 16
+    solid = np.full((L, C), 0xFFFFFFFF, np.int64)
+    solid[:, :n] = r.randint(0, 1 << 32, (L, n), dtype=np.uint64).astype(np.int64)
+    solid[0, :n] &= (1 << (2 * (k % 16 or 16))) - 1
+    cut = np.sort(1 + r.choice(n - 1, U - 1, replace=False))
+    s, e = np.concatenate([[0], cut]), np.concatenate([cut, [n]])
+    # each unitig walks its columns forward or backward; each k-mer is a
+    # member on a random strand (its canonical form's)
+    back = r.rand(U) < 0.5
+    piece = np.repeat(np.arange(U), e - s)
+    col = np.arange(n)
+    rk = np.where(back[piece], e[piece] - 1 - col, col - s[piece])
+    o = col + C * (r.rand(n) < 0.5)
+    so = np.zeros(U, np.int64)
+    so[piece[rk == 0]] = o[rk == 0]
+    uid_of = np.empty(U, np.int64)
+    uid_of[np.argsort(so, kind="stable")] = np.arange(U)
+    uid, rank = np.full(2 * C, -1, np.int64), np.zeros(2 * C, np.int64)
+    uid[o] = uid_of[piece]
+    rank[o] = rk
+    length, start_oid = np.zeros(2 * C, np.int64), np.zeros(2 * C, np.int64)
+    length[uid_of], start_oid[uid_of] = e - s, so
+    counts = np.zeros(C, np.int64)
+    counts[:n] = r.randint(2, 60, n)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(solid), t(counts), t(uid), t(rank), t(length), t(start_oid), U,
+            k, n)
 
 # K10's inputs at M oriented nodes: n_valid / 2 vertices in chains of
 # geometric length (mean), each vertex in a random orientation, a fifth of
@@ -1472,8 +1542,9 @@ def finish_inputs(M, n_valid, mean, weighted):
 # the scatter's share; then K8 and K12a on the successor arrays of
 # step_solid() and run_succ() (device ms per operation, with R and
 # R_cap); K17 at canonical levels 0 and 1 and phase 3's level 0 (the
-# level's fixpoint bitmap and a round given it) and K10 at phase 3's M
-# and at 2^24, by device operation.  Prints one JSON line.
+# level's fixpoint bitmap and a round given it), K10 at phase 3's M
+# and at 2^24, K19 at the same levels as K17 and K11 at SPELL_SHAPES, by
+# device operation.  Prints one JSON line.
 SPLIT = r"""
 import ctypes, json, re, subprocess, sys, tempfile, time
 import torch
@@ -1605,6 +1676,28 @@ for M, n_valid, mean, weighted in FINISH_SHAPES:
         "weighted": weighted, "n_unitigs": int(fn()["n_unitigs"]),
         "ms": time_ms(fn), "host_ms": host_ms(fn), "device": breakdown(fn)}
     del cf
+# K19 at canonical levels 0 and 1 and phase 3's level 0 (with the share of
+# rows not ROOTED), K11 at SPELL_SHAPES, by device operation
+out["hier_expand"], out["spell_unitigs"] = {}, {}
+for M, n_valid, mean in HIER_LEVELS:
+    for li, eargs in enumerate(expand_inputs(M, n_valid, mean)[:2 if M > 1 << 19 else 1]):
+        Qd = eargs[2]
+        scratch = torch.empty_like(Qd)
+        # a copy of Qd, then the kernel over it (a tree whose K19 writes a
+        # new output leaves the copy as it is)
+        fn = lambda: _kernels.hier_expand(eargs[0], eargs[1], scratch.copy_(Qd),
+                                          eargs[3])
+        out["hier_expand"][f"{M} level {li}"] = {
+            "S": Qd.shape[0], "S1": eargs[0].shape[0],
+            "not_rooted": int((((Qd[:, 1] >> 30) & 1) == 0).sum()),
+            "ms (the copy included)": time_ms(fn), "device": breakdown(fn)}
+        del eargs, Qd, scratch
+for kk, n_k, C_k, U_k in SPELL_SHAPES:
+    sargs = spell_inputs(kk, n_k, C_k, U_k)
+    fn = lambda: _kernels.spell_unitigs(*sargs)
+    out["spell_unitigs"][f"k={kk}"] = {"n": n_k, "C": C_k, "U": U_k,
+                                       "ms": time_ms(fn), "device": breakdown(fn)}
+    del sargs
 print(json.dumps(out))
 """
 
@@ -1628,17 +1721,18 @@ def time_ms(fn, reps=50):
     b.record(); torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, only=""):
     # (device time per call, device operations per call): every kernel,
-    # fill and copy the profiler saw over reps calls; (None, 0) where it
-    # saw none
+    # fill and copy the profiler saw over reps calls whose name holds
+    # `only`; (None, 0) where it saw none
     fn(); torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and only in e.name]
     us = sum(e.device_time_total for e in evs)
     return (us / 1e3 / reps if us else None), len(evs) / reps
 
@@ -1899,8 +1993,36 @@ for M, n_valid, mean, weighted in FINISH_SHAPES:
     digest[name] = [int(got[k].long().sum()) for k in keys]
     fns[name] = (lambda cf=cf: _kernels.chain_finish(*cf), 20)
     del got, want
-dms = {n: device_ms(f, r) for n, (f, r) in fns.items()}
-print(json.dumps({"ms": {n: time_ms(f, r) for n, (f, r) in fns.items()},
+# K19 at canonical levels 0 and 1 and at phase 3's level 0, each call on
+# a fresh copy of Qd (a tree whose K19 writes over Qd needs one; the other
+# leaves it as it is): its time is the kernel's alone, the copy's event
+# time taken out (copies) and its device operation not counted (only).
+# K11 at SPELL_SHAPES
+copies, only = {}, {}
+for M, n_valid, mean in HIER_LEVELS:
+    for li, eargs in enumerate(expand_inputs(M, n_valid, mean)[:2 if M > 1 << 19 else 1]):
+        F_e, parent_e, Qd_e, did_e = eargs
+        got = _kernels.hier_expand(F_e, parent_e, Qd_e.clone(), did_e)
+        same([got], [chains.hier_expand_plain(*eargs)], "hier_expand")
+        name = f"hier_expand S={Qd_e.shape[0]} (level {li} of {M})"
+        digest[name] = [int(got.sum()), int(got[:, 1].sum())]
+        scratch = torch.empty_like(Qd_e)
+        copies[name] = lambda scratch=scratch, Qd_e=Qd_e: scratch.copy_(Qd_e)
+        only[name] = "hier_expand"
+        fns[name] = (lambda eargs=eargs, copy=copies[name]:
+                     _kernels.hier_expand(eargs[0], eargs[1], copy(), eargs[3]), 20)
+        del got, F_e, parent_e, Qd_e, did_e, scratch
+for kk, n_k, C_k, U_k in SPELL_SHAPES:
+    sargs = spell_inputs(kk, n_k, C_k, U_k)
+    got = _kernels.spell_unitigs(*sargs)
+    same(got, engine.spell_unitigs_plain(*sargs), "spell_unitigs")
+    name = f"spell_unitigs k={kk}"
+    digest[name] = [int(t.long().sum()) for t in got]
+    fns[name] = (lambda sargs=sargs: _kernels.spell_unitigs(*sargs), 20)
+    del got
+dms = {n: device_ms(f, r, only.get(n, "")) for n, (f, r) in fns.items()}
+print(json.dumps({"ms": {n: time_ms(f, r) - (time_ms(copies[n], r) if n in copies else 0)
+                         for n, (f, r) in fns.items()},
                   "device_ms": {n: d[0] for n, d in dms.items()},
                   "ops": {n: d[1] for n, d in dms.items()},
                   "host_ms": {n: host_ms(fns[n][0]) for n in split},
@@ -2193,10 +2315,10 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int = 20):
+def _device_ms(fn, reps: int = 20, only: str = ""):
     """(device time per call, device operations per call) of fn over `reps`
-    calls: every kernel, fill and copy that torch.profiler saw (None where
-    it saw none)."""
+    calls: every kernel, fill and copy that torch.profiler saw whose name
+    holds `only` (None where it saw none)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2206,7 +2328,7 @@ def _device_ms(fn, reps: int = 20):
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA and only in e.name]
     us = sum(e.device_time_total for e in evs)
     return (us / 1e3 / reps if us else None), len(evs) / reps
 
@@ -2301,6 +2423,13 @@ def _spell_bytes(solid, counts, uid, rank, length, start_oid, U, k,
     and every lane of each unitig's first k-mer."""
     L, C = solid.shape
     return 2 * C * 16 + n_members * 16 + U * (L + 2) * 8
+
+
+def _gathered(t: torch.Tensor, queries: int) -> int:
+    """Bytes that `queries` reads of random rows of t must move: a 32-byte
+    sector each where t exceeds the L2, else at most all of t once."""
+    n = _nbytes(t)
+    return 32 * queries if n > L2_BYTES else min(n, 32 * queries)
 
 
 def _bound(moved: int, ops: int):
@@ -2617,6 +2746,7 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                   label=None if where is None else "hier_round" + where,
                   launched=None if counts is None else counts["hier_round"])
         r["bound_old_ms"] = _bound(2 * _nbytes(Q) + 9 * S, 0)[0]
+        r["bound_old_what"] = "Q, gid and valid once, no target sectors"
         b_gid, b_valid, b_salt = bits_args[:3]
         rb = check("fixpoint_bits",
                    lambda: _kernels.fixpoint_bits(b_gid, b_valid, b_salt),
@@ -2650,10 +2780,32 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                     lambda: chains.hier_contract_plain(Qc, gid_c, valid_c,
                                                        salt_c, S1, big, ok_t),
                     reads=(Qc, gid_c, valid_c), row=row)
-        F, parent, Qd, did = hin["hier_expand"]
-        r19 = check("hier_expand", lambda: _kernels.hier_expand(F, parent, Qd, did),
+        F, parent, Qd, did = hin["hier_expand"][:4]
+        queries = int(((Qd[:, 1] & chains._F_ROOTED) == 0).sum())
+        scratch = torch.empty_like(Qd)
+
+        def over_copy():
+            # as hier_jump runs it: over a level's phase-A state, here a
+            # fresh copy of it each call
+            return _kernels.hier_expand(F, parent, scratch.copy_(Qd), did)
+
+        # Qd read once, 32 bytes written for each row not ROOTED (a ROOTED
+        # row is not written), and of did, F and parent what the rows not
+        # ROOTED gather (_gathered); ms and the device time are the
+        # kernel's own: the copy's event time taken out, its device
+        # operation not counted
+        r19 = check("hier_expand", over_copy,
                     lambda: chains.hier_expand_plain(F, parent, Qd, did),
-                    reads=(F, parent, Qd, did), row=row)
+                    reads=Qd, read_bytes=sum(_gathered(t, queries)
+                                             for t in (did, F, parent)),
+                    written=32 * queries, row=row, device=False)
+        r19["ms"] -= _time_ms(lambda: scratch.copy_(Qd), 20)
+        r19["device_ms"], r19["device_ops"] = _device_ms(over_copy,
+                                                         only="hier_expand")
+        r19["library_device_ms"] = None
+        r19["bound_old_ms"] = _bound(_nbytes((F, parent, Qd, did, Qd)), 0)[0]
+        r19["bound_old_what"] = "F, parent, Qd and did read once, every row written"
+        del scratch
         return (Qh.shape[0], S1), (r17b, r17, r18, r19)
 
     res_shape, _ = hier_checks({n: inputs[n] for n in HIER}, True)
@@ -2674,6 +2826,41 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
           lambda: _finish_tuple(chains.finish_fast_plain(*cf_c)), reads=cf_c,
           label=f"chain_finish@M={cf_c[0].shape[0]}",
           launched=canon_launches["chain_finish"])
+
+    def k4_plain(q0, rounds, where):
+        """K4 on the first round of a plain run (chains.plain_jumpF) at its
+        M (launches 0: phase 3's path jumps hierarchically; the plain
+        run's own launches beside them); its bound counts the state read
+        and written once and, where the state exceeds L2, the target row's
+        sector of every row not ROOTED.  Below _HIER_MIN the CLI runs
+        this variant: the launches of phase 3h's k = 255 build, whose
+        jump did not go hierarchical, are its CLI launches."""
+        qn = torch.empty_like(q0)
+        changed = torch.zeros((1,), dtype=torch.int32, device=dev)
+        queries = int(((q0[:, 1] & chains._F_ROOTED) == 0).sum())
+
+        def run():
+            changed.zero_()
+            _kernels.jump_round(q0, qn, changed)
+            return qn.clone(), changed.bool()
+
+        def plain():
+            new = chains.jump_round_plain(q0)
+            return new, torch.tensor([not torch.equal(new, q0)], device=dev)
+
+        r = check("jump_round", run, plain,
+                  lambda: _kernels.jump_round(q0, qn, changed),
+                  lambda: chains.jump_round_plain(q0), reads=q0,
+                  read_bytes=32 * queries if _nbytes(q0) > L2_BYTES else 0,
+                  written=_nbytes(q0), launched=0,
+                  label=f"jump_round:plain@{where} (M={q0.shape[0]})")
+        k255 = longk[LONG_K2][1]
+        r["cli_launches_below_hier_min"] = {
+            f"{where}'s plain run": rounds,
+            f"3h k={LONG_K2}": k255["jump_round"] if not k255["hier_round"] else 0}
+
+    k4_plain(*inputs["jump_round:plain"], "phase 3")
+    k4_plain(*canon["jump_round:plain"], "phase 3d")
     del canon, up, cf_c
 
     # the -devices path (phase 3f): K13-K16 and K3's global mode
@@ -2860,12 +3047,16 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                     f"[{r['device_ops']:g} device operations per call], "
                     f"library call's {_fmt_ms(r['library_device_ms'])} ms")
         if "bound_old_ms" in r:
-            lib += (f"; PR 11's bound (Q, gid and valid once, no target "
-                    f"sectors) {r['bound_old_ms']:.4f} ms")
+            lib += (f"; the earlier bound ({r['bound_old_what']}) "
+                    f"{r['bound_old_ms']:.4f} ms")
         by_phase = ""
         if "phase_launches" in r:
             by_phase = " (by phase: " + ", ".join(
                 f"{ph} {n}" for ph, n in r["phase_launches"].items()) + ")"
+        if "cli_launches_below_hier_min" in r:
+            by_phase = " (the plain variant's runs: " + ", ".join(
+                f"{ph} {n}" for ph, n in
+                r["cli_launches_below_hier_min"].items()) + ")"
         say(f"[kernel] {r['name']}: equal to plain (bitwise), {r['ms']:.4f} ms "
             f"vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}, {r['launches']} launches in the "
@@ -2874,7 +3065,8 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
         dev_ms = (f" / device {_fmt_ms(r['device_ms'])} ms" if "device_ms" in r
                   else "")
         if "bound_old_ms" in r:
-            dev_ms += f" (PR 11's bound {r['bound_old_ms']:.4f} ms)"
+            dev_ms += (f" (the earlier bound, {r['bound_old_what']}: "
+                       f"{r['bound_old_ms']:.4f} ms)")
         say(f"[kernel] {what}: equal to plain, {r['ms']:.4f} ms{dev_ms} vs "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
@@ -3028,16 +3220,17 @@ def phase_canonical_times(M: int, launches, inputs, peak_mb, dev):
     """Phase 3d's last step: the canonical-order compaction at full width
     (M = 2C oriented nodes) on the inputs that run fed it: the
     hierarchical vs the plain jump, and K10 against its plain version.
-    Returns the K17-K19 inputs of its level 0, K17's of level 1 and K10's
-    (for phase 5)."""
+    Returns the K17-K19 inputs of its level 0, K17's of level 1, K10's and
+    the plain variant's first K4 input with its launches (for phase 5)."""
     from bcalm_tpu_torch.ops import _kernels, chains
 
     cf_args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                     for a in inputs["chain_finish"])
     succ, pred, valid = cf_args[:3]
-    compare_jumps("canonical-order compaction (phase 3d)",
-                  lambda v: chains.chain_decompose(succ, valid, v),
-                  chains.init_state(pred, valid), inputs["jump_round"][0].to(dev))
+    _, plain = compare_jumps("canonical-order compaction (phase 3d)",
+                             lambda v: chains.chain_decompose(succ, valid, v),
+                             chains.init_state(pred, valid),
+                             inputs["jump_round"][0].to(dev))
     got = _finish_tuple(_kernels.chain_finish(*cf_args))
     want = _finish_tuple(chains.finish_fast_plain(*cf_args))
     if _max_err(got, want) != 0:
@@ -3051,7 +3244,8 @@ def phase_canonical_times(M: int, launches, inputs, peak_mb, dev):
         f"its run; K10 {k10:.4f} ms (plain {k10_plain:.4f} ms), equal to its "
         f"plain version at M; device_peak_mb of the run {peak_mb}")
     return {name: inputs[name] for name in HIER + (
-        "fixpoint_bits:upper", "hier_round:upper", "chain_finish")}
+        "fixpoint_bits:upper", "hier_round:upper", "chain_finish")} | {
+        "jump_round:plain": plain}
 
 
 def main() -> int:
@@ -3097,7 +3291,7 @@ def main() -> int:
                                                        args.seed)
         ooc_launches, ooc_inputs = phase_ooc(tmp, fa, path, stats, dev)
         phase_resume(tmp, fa, path, stats)
-        phase_hier_resident(inputs, dev)
+        inputs["jump_round:plain"] = phase_hier_resident(inputs, dev)
         M, ms_launches, ms_inputs, table, peak_mb = phase_multi(
             tmp, fa, path, args.coverage, args.seed, dev)
         canon_hier = phase_canonical_times(M, ms_launches, ms_inputs, peak_mb,

@@ -8,7 +8,10 @@ Every kernel does integer work: exact equality.
 """
 
 import io
+import os
 import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -189,6 +192,28 @@ def test_build_card_equals_cpu(card, k):
         fasta_writer.write_fasta(engine.build_from_seqs(seqs, cfg, dev), buf)
         outs.append(buf.getvalue())
     assert outs[0] == outs[1] and outs[0]
+
+
+_FIRST_CUDA_CALL = """
+from bcalm_tpu_torch import engine
+reads = ["ACTGATGCAGATGACACTGATGCAGATGACTTGACCA"] * 3 + ["GGTACCATGACACTGATGCAG"]
+us = engine.build_from_seqs(reads, engine.EngineConfig(k=15, abundance_min=2),
+                            "cuda")
+assert us.seqs and us.stats["device_peak_mb"] >= 0
+print("OK")
+"""
+
+
+def test_build_as_first_cuda_call(card):
+    """engine.build_from_seqs as the first CUDA call of a process (a fresh
+    interpreter): it resets the peak-memory statistics, which exist only
+    once CUDA is initialised."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _FIRST_CUDA_CALL], cwd=repo,
+                          env=dict(os.environ, PYTHONPATH=repo),
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("OK")
 
 
 def random_body(L, n, seed):
@@ -1470,3 +1495,150 @@ def test_junction_keys_residues(card, L):
         want = junctions.junction_entries_plain(solid, n - 5, k, gbase, tot, 3)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+def poisoned(card, nbytes):
+    """Fill nbytes of the caching allocator's memory with 0xAB and free it,
+    so that a kernel's outputs allocated next start as garbage, not as
+    zeros or an earlier run's bytes: an element the kernel fails to write
+    then shows."""
+    torch.full((nbytes,), 0xAB, dtype=torch.uint8, device=card)
+
+
+def expand_case(S, S1, rooted, seed):
+    """K19's inputs (F, parent, Qd, did) with random rows: a share `rooted`
+    of Qd's rows ROOTED, 30% of F's, the other flags random, Qd's and F's
+    pointers up to 3 past either end (the clamps) and did up to S1 (a row
+    not selected: clamped)."""
+    rng = np.random.RandomState(seed)
+
+    def rows(n, hi, share):
+        dsf = rng.randint(0, 1 << 28, n)
+        dsf |= (rng.rand(n) < 0.3) * chains._F_SETTLED
+        dsf |= (rng.rand(n) < 0.2) * chains._F_FIX
+        dsf |= (rng.rand(n) < share) * chains._F_ROOTED
+        return torch.from_numpy(np.stack([rng.randint(-3, hi + 3, n), dsf,
+                                          rng.randint(0, 1 << 40, n),
+                                          rng.randint(0, 1 << 20, n)], 1))
+
+    F = rows(S1, S1, 0.3)
+    Qd = rows(S, S, rooted)
+    parent = torch.from_numpy(rng.randint(0, S, S1))
+    did = torch.from_numpy(rng.randint(0, S1 + 1, S))
+    return F, parent, Qd, did
+
+
+@pytest.mark.parametrize("case,S,rooted", [
+    ("mostly_rooted", 1 << 19, 0.95), ("none_rooted", 1 << 19, 0.0),
+    ("odd", (1 << 19) + 1554, 0.5), ("level_2_22", 1 << 22, 0.46),
+    ("twice", (1 << 19) + 3, 0.5)])
+def test_hier_expand_rows(card, case, S, rooted):
+    """K19 against its plain version: most rows ROOTED, none, S not a
+    multiple of the 256-row block, a level of 2^22 rows, and (twice) the
+    kernel again over its own output; each written over a fresh copy of
+    Qd, which is returned, and run twice."""
+    S1 = S // 4
+    args = expand_case(S, S1, rooted, S % 9973)
+    want = chains.hier_expand_plain(*args)
+    F, parent, Qd, did = [a.to(card) for a in args]
+    for _ in range(2):
+        Qc = Qd.clone()
+        got = _kernels.hier_expand(F, parent, Qc, did)
+        assert got.data_ptr() == Qc.data_ptr()
+        assert torch.equal(got.cpu(), want)
+    if case == "twice":
+        again = chains.hier_expand_plain(F.cpu(), parent.cpu(), Qc.cpu(), did.cpu())
+        assert torch.equal(_kernels.hier_expand(F, parent, Qc, did).cpu(), again)
+    assert torch.equal(Qd.cpu(), args[2])
+
+
+def spell_case(k, n, C, U, seed, one_member=False, unassigned=0):
+    """K11's inputs: n random k-mers of k bases (C columns, the rest the
+    sentinel) cut at random into U unitigs (one_member: U = n unitigs of
+    one member), each walking its columns forward or backward, each k-mer
+    a member on a random strand (so starts and members on the minus
+    strand), ranks 0 .. length-1 along the walk, uid in start order as
+    chain_finish numbers them; the last `unassigned` k-mers belong to no
+    unitig."""
+    rng = np.random.RandomState(seed)
+    L = (k + 15) // 16
+    solid = np.full((L, C), 0xFFFFFFFF, np.int64)
+    solid[:, :n] = rng.randint(0, 1 << 32, (L, n), dtype=np.uint64).astype(np.int64)
+    solid[0, :n] &= (1 << (2 * (k % 16 or 16))) - 1
+    m = n - unassigned
+    if one_member:
+        U = m
+    cut = np.sort(1 + rng.choice(m - 1, U - 1, replace=False))
+    s, e = np.concatenate([[0], cut]), np.concatenate([cut, [m]])
+    # each unitig walks its columns forward or backward; each k-mer is a
+    # member on a random strand (its canonical form's)
+    back = rng.rand(U) < 0.5
+    piece = np.repeat(np.arange(U), e - s)
+    col = np.arange(m)
+    rk = np.where(back[piece], e[piece] - 1 - col, col - s[piece])
+    o = col + C * (rng.rand(m) < 0.5)
+    so = np.zeros(U, np.int64)
+    so[piece[rk == 0]] = o[rk == 0]
+    uid_of = np.empty(U, np.int64)
+    uid_of[np.argsort(so, kind="stable")] = np.arange(U)
+    uid, rank = np.full(2 * C, -1, np.int64), np.zeros(2 * C, np.int64)
+    uid[o] = uid_of[piece]
+    rank[o] = rk
+    length, start_oid = np.zeros(2 * C, np.int64), np.zeros(2 * C, np.int64)
+    length[uid_of], start_oid[uid_of] = e - s, so
+    counts = np.zeros(C, np.int64)
+    counts[:n] = rng.randint(2, 60, n)
+    return ([torch.from_numpy(a) for a in (solid, counts, uid, rank, length,
+                                           start_oid)], U)
+
+
+@pytest.mark.parametrize("case,k", [
+    ("k16", 16), ("k32", 32), ("k512", 512), ("k151", 151), ("k255", 255),
+    ("one_member", 31), ("one_member", 255), ("drop", 31), ("drop", 151),
+    ("tail", 31), ("tail", 63)])
+def test_spell_unitigs_shapes(card, case, k):
+    """K11 against its plain version at k = 16, 32, 512 (whole top lanes),
+    151 and 255; with unitigs of one member, half of them starting on the
+    minus strand; with n_members below the members' count (writes past
+    both outputs dropped); and with k-mers in no unitig (zero tails past
+    the unitigs).  Each run twice on poisoned memory (no output is filled
+    before the kernels write it)."""
+    n, C = 3000, 4096 + 37
+    tensors, U = spell_case(k, n, C, 211, k, one_member=case == "one_member",
+                            unassigned=100 if case == "tail" else 0)
+    n_members = n - 333 if case == "drop" else n
+    want = engine.spell_unitigs_plain(*tensors, U, k, n_members)
+    args = [t.to(card) for t in tensors]
+    for _ in range(2):
+        poisoned(card, 16 * (n + k * U) + (1 << 20))
+        got = _kernels.spell_unitigs(*args, U, k, n_members)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    if case == "tail":
+        assert int((want[1] == 0).sum()) == 100
+    if case == "drop":
+        assert want[0].shape[0] == n_members + (k - 1) * U
+
+
+@pytest.mark.parametrize("offset,S", [(0, (1 << 19) + 1554), (1, 1 << 19),
+                                      (2, 1 << 19), (3, 4100)])
+def test_fixpoint_bits_vector_loads(card, offset, S):
+    """K17's bitmap where valid and gid are 16-byte aligned and S cuts a
+    16-row group, and where they are views that start `offset` entries in:
+    above level 0 (a row a thread) the bitmap is still right, at level 0
+    (16 valid bytes a load) such a valid is refused."""
+    rng = np.random.RandomState(S + offset)
+    vfull = torch.from_numpy(rng.rand(S + offset) < 0.7)
+    gfull = torch.from_numpy(rng.randint(0, 1 << 40, S + offset))
+    salt = (0x85EBCA6B * 3) & 0xFFFFFFFF
+    valid, gid = vfull[offset:], gfull[offset:]
+    vc, gc = vfull.to(card)[offset:], gfull.to(card)[offset:]
+    assert (vc.data_ptr() % 16 == 0) == (offset == 0)
+    for g, gcard in ((None, None), (gid, gc)):
+        if g is None and offset:
+            with pytest.raises(ValueError, match="16-byte alignment"):
+                _kernels.fixpoint_bits(None, vc, salt)
+            continue
+        want = chains.fixpoint_bits_plain(g, valid, salt)
+        poisoned(card, 4 * S)
+        assert torch.equal(_kernels.fixpoint_bits(gcard, vc, salt).cpu(), want)

@@ -28,7 +28,7 @@ from bcalm_tpu_torch.io import fasta_writer as tfw
 from bcalm_tpu_torch.io import packing as tpacking
 from bcalm_tpu_torch.ops import chains as tchains
 from bcalm_tpu_torch.ops import runchains as trun
-from tests.test_torch_cuda import mirror_graph
+from tests.test_torch_cuda import expand_case, mirror_graph
 
 
 def jump_inputs(M: int):
@@ -348,3 +348,14 @@ def test_extract_fold_matches_jax(k, slot_base):
     assert int(tn) == int(jn) > 0
     if slot_base == (1 << 31) - 5:
         assert int(tf[-1, 4]) == 0xFFFFFFFE
+
+
+@pytest.mark.parametrize("rooted", [0.0, 0.5])
+def test_hier_expand_entry_writes_over_qd(rooted):
+    """K19's entry writes the plain upward pass over Qd and returns Qd, as
+    the kernel does on the card (hier_jump reads no level's Qd after it)."""
+    S = 4096 + 3
+    F, parent, Qd, did = expand_case(S, S // 4, rooted, 5)
+    want = tchains.hier_expand_plain(F, parent, Qd, did)
+    got = tchains.hier_expand(F, parent, Qd, did)
+    assert got.data_ptr() == Qd.data_ptr() and torch.equal(Qd, want)
