@@ -34,62 +34,24 @@
 // is an extra block's sum over the row lengths: no fill beforehand,
 // one launch.
 //
-// K14 reads the row in a block of one thread per position (base q at q
-// mod P, the window minimum a loop over its k - m + 1 keys) and adds one
-// to its histogram bin per valid position (integer atomics: the sum is
-// exact and deterministic).  It reads the words, the rank for its load
-// mode, and does one global atomic per position, spread over 4^m bins.
+// K14 runs on the same row machinery: a warp a row, up to 8 rows a block,
+// the row and its wrapped copy staged in shared memory, each position's
+// canonical m-mer from one pack16 and canonical_of.  Its m-mer mode adds
+// one to the bin of every position with a whole m-mer; its minimizer-load
+// mode takes the window minima as K13 does and adds each run of equal
+// minima (a superkmer's k-mers, ~(k - m + 1) / 2 of them) within a warp's
+// 32 positions with one atomic of the run's length.  It adds into the
+// caller's histogram (integer atomics: the sum is exact and does not
+// depend on the order), so the sampling zeroes one histogram per mode and
+// launches once per mode over all its rounds' rows.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxRowWords = 64;  // P <= 1024 positions per row
 
-// K14's helpers: base q of a row read at q mod P.
-
-__device__ __forceinline__ uint32_t base_at(const uint32_t* w, int P, int q) {
-  q %= P;
-  return (w[q >> 4] >> (2 * (15 - (q & 15)))) & 3u;
-}
-
-__device__ __forceinline__ uint32_t canonical_mmer(const uint32_t* w, int P,
-                                                   int p, int m) {
-  uint32_t fwd = 0, rc = 0;
-  for (int i = 0; i < m; ++i) {
-    uint32_t b = base_at(w, P, p + i);
-    fwd = (fwd << 2) | b;
-    rc |= (b ^ 2u) << (2 * i);
-  }
-  return fwd < rc ? fwd : rc;
-}
-
-// Loads the row's words and every position's key into shared memory.
-// Returns this thread's window-min key (only for threads p < P).
-__device__ uint32_t window_key(const int64_t* words, int W, int P, int m,
-                               int w_len, const int64_t* rank,
-                               uint32_t* s_words, uint32_t* s_key) {
-  const int p = threadIdx.x;
-  for (int i = p; i < W; i += blockDim.x) {
-    s_words[i] = static_cast<uint32_t>(words[static_cast<long long>(blockIdx.x) * W + i]);
-  }
-  __syncthreads();
-  if (p < P) {
-    uint32_t cm = canonical_mmer(s_words, P, p, m);
-    s_key[p] = rank ? static_cast<uint32_t>(rank[cm]) : cm;
-  }
-  __syncthreads();
-  uint32_t wmin = 0xFFFFFFFFu;
-  if (p < P) {
-    for (int j = 0; j < w_len; ++j) {
-      uint32_t v = s_key[(p + j) % P];
-      wmin = v < wmin ? v : wmin;
-    }
-  }
-  return wmin;
-}
-
-constexpr int kRowWarps = 8;          // rows (warps) per K13 block
-constexpr int kRowSmem = 40 * 1024;   // shared bytes K13 gives its rows
+constexpr int kRowWarps = 8;          // rows (warps) per K13 or K14 block
+constexpr int kRowSmem = 40 * 1024;   // shared bytes a block gives its rows
 
 // 16 bases starting at base q of a row staged with its wrapped copy.
 __device__ __forceinline__ uint32_t pack16(const uint32_t* ext, int q) {
@@ -114,6 +76,61 @@ __host__ __device__ __forceinline__ int row_ext_words(int W, int Wn, int w) {
   return W + past + 1;
 }
 
+// Stages a row's W words in ext[0, ew), followed by the wrapped copy of
+// its first words that the rolled packs read past the row's end.
+__device__ __forceinline__ void stage_row(const int64_t* __restrict__ row,
+                                          int W, int ew, uint32_t* ext,
+                                          int lane) {
+  for (int j = lane; j < ew; j += 32) {
+    int jj = j;
+    while (jj >= W) jj -= W;
+    ext[j] = static_cast<uint32_t>(row[jj]);
+  }
+  __syncwarp();
+}
+
+// The key of every position q < Lx (rank[canonical m-mer], or the m-mer)
+// into suf, then van Herk / Gil-Werman: pre holds the prefix minima and
+// suf the suffix minima inside each segment of w_len positions, so the
+// minimum of the window [p, p + w_len) is min(suf[p], pre[p + w_len - 1]).
+__device__ __forceinline__ void window_minima(const uint32_t* ext, int Lx,
+                                              int w_len, int m,
+                                              const int64_t* __restrict__ rank,
+                                              uint32_t* pre, uint32_t* suf,
+                                              int lane) {
+#pragma unroll 8
+  for (int q = lane; q < Lx; q += 32) {
+    const uint32_t cm = canonical_of(pack16(ext, q), m);
+    suf[q] = rank ? static_cast<uint32_t>(__ldg(rank + cm)) : cm;
+  }
+  __syncwarp();
+  for (int a = lane * w_len; a < Lx; a += 32 * w_len) {
+    const int e = a + w_len < Lx ? a + w_len : Lx;
+    // four keys loaded before each four stores: the loads need not wait
+    uint32_t run = 0xFFFFFFFFu, kv[4];
+    for (int x = a; x < e; x += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) kv[u] = x + u < e ? suf[x + u] : run;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        run = min(run, kv[u]);
+        if (x + u < e) pre[x + u] = run;
+      }
+    }
+    run = 0xFFFFFFFFu;
+    for (int x = e - 1; x >= a; x -= 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) kv[u] = x - u >= a ? suf[x - u] : run;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        run = min(run, kv[u]);
+        if (x - u >= a) suf[x - u] = run;
+      }
+    }
+  }
+  __syncwarp();
+}
+
 __global__ void __launch_bounds__(32 * kRowWarps)
 form_superkmers_kernel(
     const int64_t* __restrict__ words, const int64_t* __restrict__ lengths,
@@ -132,44 +149,8 @@ form_superkmers_kernel(
   uint32_t* pre = ext + ew;   // prefix minima inside each segment
   uint32_t* suf = pre + Lx;   // keys, then suffix minima inside each segment
   if (b < B) {
-    const int64_t* row = words + static_cast<long long>(b) * W;
-    for (int j = lane; j < ew; j += 32) {
-      int jj = j;
-      while (jj >= W) jj -= W;
-      ext[j] = static_cast<uint32_t>(row[jj]);
-    }
-    __syncwarp();
-#pragma unroll 8
-    for (int q = lane; q < Lx; q += 32) {
-      const uint32_t cm = canonical_of(pack16(ext, q), m);
-      suf[q] = rank ? static_cast<uint32_t>(__ldg(rank + cm)) : cm;
-    }
-    __syncwarp();
-    for (int a = lane * w_len; a < Lx; a += 32 * w_len) {
-      const int e = a + w_len < Lx ? a + w_len : Lx;
-      // four keys loaded before each four stores: the loads need not wait
-      uint32_t run = 0xFFFFFFFFu, kv[4];
-      for (int x = a; x < e; x += 4) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) kv[u] = x + u < e ? suf[x + u] : run;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          run = min(run, kv[u]);
-          if (x + u < e) pre[x + u] = run;
-        }
-      }
-      run = 0xFFFFFFFFu;
-      for (int x = e - 1; x >= a; x -= 4) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) kv[u] = x - u >= a ? suf[x - u] : run;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          run = min(run, kv[u]);
-          if (x - u >= a) suf[x - u] = run;
-        }
-      }
-    }
-    __syncwarp();
+    stage_row(words + static_cast<long long>(b) * W, W, ew, ext, lane);
+    window_minima(ext, Lx, w_len, m, rank, pre, suf, lane);
     const int last = static_cast<int>(lengths[b]) - k;  // valid: p <= last
     auto wmin = [&](int p) { return min(suf[p], pre[p + w_len - 1]); };
     auto change_at = [&](int p, uint32_t wm) {
@@ -250,36 +231,51 @@ form_superkmers_kernel(
   }
 }
 
-__global__ void mmer_histograms_kernel(const int64_t* __restrict__ words,
-                                       const int64_t* __restrict__ lengths,
-                                       int W, int k, int m,
-                                       const int64_t* __restrict__ rank,
-                                       int load, int64_t* __restrict__ histo) {
+// K14: a warp a row, as K13.  LOAD false: every position p <= len - m
+// adds one to the bin of its canonical m-mer; true: every position p <=
+// len - k adds one to the bin of its window's minimum key, one atomic per
+// run of equal minima among the warp's 32 positions.
+template <bool LOAD>
+__global__ void __launch_bounds__(32 * kRowWarps)
+mmer_histograms_kernel(const int64_t* __restrict__ words,
+                       const int64_t* __restrict__ lengths, int B, int W,
+                       int k, int m, const int64_t* __restrict__ rank,
+                       int row_words, int64_t* __restrict__ histo) {
   extern __shared__ uint32_t sh[];
-  const int P = 16 * W;
-  uint32_t* s_words = sh;
-  uint32_t* s_key = s_words + W;
-  const int p = threadIdx.x;
-  const int len = static_cast<int>(lengths[blockIdx.x]);
-  if (!load) {
-    // canonical m-mer histogram: every position with a whole m-mer
-    for (int i = p; i < W; i += blockDim.x) {
-      s_words[i] = static_cast<uint32_t>(words[static_cast<long long>(blockIdx.x) * W + i]);
-    }
-    __syncthreads();
-    if (p < P && p <= len - m) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(histo) +
-                    canonical_mmer(s_words, P, p, m), 1ull);
-    }
+  const int P = 16 * W, w_len = k - m + 1, Lx = P + w_len - 1;
+  const int ew = row_ext_words(W, 1, w_len);
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + r;
+  if (b >= B) return;
+  uint32_t* ext = sh + r * row_words;
+  stage_row(words + static_cast<long long>(b) * W, W, ew, ext, lane);
+  const long long len = lengths[b];
+  unsigned long long* bins = reinterpret_cast<unsigned long long*>(histo);
+  if (!LOAD) {
+    const int end = static_cast<int>(min(static_cast<long long>(P), len - m + 1));
+    for (int p = lane; p < end; p += 32)
+      atomicAdd(bins + canonical_of(pack16(ext, p), m), 1ull);
     return;
   }
-  uint32_t wmin = window_key(words, W, P, m, k - m + 1, rank, s_words, s_key);
-  if (p < P && p <= len - k) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(histo) + wmin, 1ull);
+  uint32_t* pre = ext + ew;
+  uint32_t* suf = pre + Lx;
+  window_minima(ext, Lx, w_len, m, rank, pre, suf, lane);
+  const int end = static_cast<int>(min(static_cast<long long>(P), len - k + 1));
+  for (int p0 = 0; p0 < end; p0 += 32) {  // the valid positions: [0, end)
+    const int p = p0 + lane;
+    const bool in = p < end;
+    const uint32_t wm = in ? min(suf[p], pre[p + w_len - 1]) : 0u;
+    const uint32_t prev = __shfl_up_sync(0xFFFFFFFFu, wm, 1);
+    const bool head = in && (lane == 0 || prev != wm);
+    const unsigned heads = __ballot_sync(0xFFFFFFFFu, head);
+    if (head) {
+      // the run ends at the next head, or at the last valid position
+      const unsigned later = lane == 31 ? 0u : heads >> (lane + 1);
+      const int stop = later ? lane + __ffs(later) : min(32, end - p0);
+      atomicAdd(bins + wm, static_cast<unsigned long long>(stop - lane));
+    }
   }
 }
-
-int threads_for(int P) { return (P + 31) / 32 * 32; }
 
 }  // namespace
 
@@ -309,16 +305,28 @@ extern "C" int bt_form_superkmers(const int64_t* words, const int64_t* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K14 adds into histo (4^m,); it zeroes nothing.
 extern "C" int bt_mmer_histograms(const int64_t* words, const int64_t* lengths,
                                   int B, int W, int k, int m,
                                   const int64_t* rank, int load,
                                   int64_t* histo, void* stream) {
   if (B == 0) return 0;
-  if (W > kMaxRowWords) return static_cast<int>(cudaErrorInvalidValue);
-  const int P = 16 * W;
-  size_t smem = W * 4 + P * 4;
-  mmer_histograms_kernel<<<B, threads_for(P), smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      words, lengths, W, k, m, rank, load, histo);
+  if (W < 1 || W > kMaxRowWords || m < 1 || m > 16 || k <= m || k > 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int P = 16 * W, w_len = k - m + 1;
+  // the staged words, then (minimizer load) the prefix and suffix minima
+  const int row_words =
+      row_ext_words(W, 1, w_len) + (load ? 2 * (P + w_len - 1) : 0);
+  int rows = static_cast<int>(kRowSmem / (4 * row_words));
+  rows = rows < 1 ? 1 : rows > kRowWarps ? kRowWarps : rows;
+  const unsigned int blocks = static_cast<unsigned int>((B + rows - 1) / rows);
+  const size_t smem = static_cast<size_t>(rows) * row_words * 4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (load)
+    mmer_histograms_kernel<true><<<blocks, 32 * rows, smem, s>>>(
+        words, lengths, B, W, k, m, rank, row_words, histo);
+  else
+    mmer_histograms_kernel<false><<<blocks, 32 * rows, smem, s>>>(
+        words, lengths, B, W, k, m, rank, row_words, histo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -737,18 +737,21 @@ def form_superkmers(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
 
 
 def mmer_histograms(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
-                    rank, load: bool) -> torch.Tensor:
-    """K14: the (4^m,) canonical m-mer histogram (load False) or the
-    window-min-key load (load True; rank None = the m-mer is the key)."""
+                    rank, load: bool, histo: torch.Tensor) -> torch.Tensor:
+    """K14: add a (B, W) block's canonical m-mer histogram (load False) or
+    window-min-key load (load True; rank None = the m-mer is the key) into
+    histo (4^m,), in place; returns histo."""
     _check(words, "words", ndim=2)
     _check(lengths, "lengths", ndim=1)
+    _check(histo, "histo", ndim=1)
     if rank is not None:
         _check(rank, "rank", ndim=1)
     B, W = words.shape
-    if W > MAX_ROW_WORDS or not 1 <= m <= 16 or m >= k:
+    if (W > MAX_ROW_WORDS or not 1 <= m <= 16 or m >= k
+            or lengths.shape[0] != B or histo.shape[0] != 4 ** m):
         raise ValueError(f"mmer_histograms: W={W} (max {MAX_ROW_WORDS}), "
-                         f"m={m}, k={k}")
-    histo = torch.zeros((4 ** m,), dtype=torch.int64, device=words.device)
+                         f"m={m}, k={k}, {lengths.shape[0]} lengths, "
+                         f"histo {tuple(histo.shape)}")
     if B:
         _launch("bt_mmer_histograms", words.data_ptr(), lengths.data_ptr(), B,
                 W, k, m, None if rank is None else rank.data_ptr(), int(load),
@@ -920,7 +923,7 @@ def kmer_minimizers(lanes: torch.Tensor, k: int, m: int, rank=None,
     """K20 on the (L, N) k-mer lanes: each column's minimizer (rank None:
     least m-mer value; else least rank[m-mer], first wins), mapped through
     table when given: (N,); or, histogram=True, the (4^m,) count of every
-    m-mer of the valid columns."""
+    m-mer of the valid columns (zeroed by the C call itself)."""
     _check(lanes, "lanes", ndim=2, rows_strided=True)
     for t, name in ((rank, "rank"), (table, "table")):
         if t is not None:
@@ -932,13 +935,14 @@ def kmer_minimizers(lanes: torch.Tensor, k: int, m: int, rank=None,
     if not 1 <= m <= 16 or m > k or L != (k + 15) // 16 \
             or (valid is not None and valid.shape[0] != N):
         raise ValueError(f"kmer_minimizers: k={k}, m={m}, lanes {tuple(lanes.shape)}")
-    dev = lanes.device
-    out = (torch.zeros((4 ** m,), dtype=torch.int64, device=dev) if histogram
-           else torch.empty((N,), dtype=torch.int64, device=dev))
+    out = torch.empty((4 ** m,) if histogram else (N,), dtype=torch.int64,
+                      device=lanes.device)
     if N:
         _launch("bt_kmer_minimizers", lanes.data_ptr(), lanes.stride(0), L, N,
                 k, m, None if rank is None else rank.data_ptr(),
                 None if table is None else table.data_ptr(), int(histogram),
                 None if valid is None else valid.data_ptr(), out.data_ptr())
         LAUNCHES["kmer_minimizers"] += 1
+    elif histogram:
+        out.zero_()
     return out

@@ -17,8 +17,9 @@ columns a caller ignores match.
 :func:`form_superkmers` launches K13 (csrc/superkmer.cu) for CUDA tensors
 and runs :func:`form_superkmers_plain` for CPU tensors;
 :func:`sample_cmmer_histogram` and :func:`sample_minimizer_load` launch
-K14 (same source) or run their plain versions.  Lane values are u32 held
-in int64 tensors, as everywhere in the port.
+K14 (same source), which adds into a histogram they zero, or run their
+plain versions.  Lane values are u32 held in int64 tensors, as everywhere
+in the port.
 """
 
 from __future__ import annotations
@@ -206,7 +207,8 @@ def sample_cmmer_histogram(words: torch.Tensor, lengths: torch.Tensor, k: int,
     positions (the repartition sampling pass)."""
     if words.device.type == "cpu":
         return sample_cmmer_histogram_plain(words, lengths, k, m)
-    return _kernels.mmer_histograms(words, lengths, k, m, None, False)
+    histo = torch.zeros((4 ** m,), dtype=torch.int64, device=words.device)
+    return _kernels.mmer_histograms(words, lengths, k, m, None, False, histo)
 
 
 def sample_minimizer_load(words: torch.Tensor, lengths: torch.Tensor, k: int,
@@ -216,5 +218,6 @@ def sample_minimizer_load(words: torch.Tensor, lengths: torch.Tensor, k: int,
     balanced repartition)."""
     if words.device.type == "cpu":
         return sample_minimizer_load_plain(words, lengths, k, m, rank, use_rank)
+    load = torch.zeros((4 ** m,), dtype=torch.int64, device=words.device)
     return _kernels.mmer_histograms(words, lengths, k, m,
-                                    rank if use_rank else None, True)
+                                    rank if use_rank else None, True, load)

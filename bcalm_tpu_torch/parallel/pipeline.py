@@ -245,13 +245,18 @@ def effective_m(k: int, m: int) -> int:
     return max(1, min(m, k - 1, 16))
 
 
-def _my_rows(mesh, words: np.ndarray, lengths: np.ndarray):
-    """This rank's rows of a global round, as int64 tensors on its device."""
+def _my_rows_np(mesh, words: np.ndarray, lengths: np.ndarray):
+    """This rank's rows of a global round (numpy views)."""
     B = words.shape[0] // mesh.n_dev
     rows = slice(mesh.rank * B, (mesh.rank + 1) * B)
-    w = torch.from_numpy(words[rows].astype(np.int64)).to(mesh.device)
-    l = torch.from_numpy(lengths[rows].astype(np.int64)).to(mesh.device)
-    return w, l
+    return words[rows], lengths[rows]
+
+
+def _my_rows(mesh, words: np.ndarray, lengths: np.ndarray):
+    """This rank's rows of a global round, as int64 tensors on its device."""
+    w, l = _my_rows_np(mesh, words, lengths)
+    return (torch.from_numpy(w.astype(np.int64)).to(mesh.device),
+            torch.from_numpy(l.astype(np.int64)).to(mesh.device))
 
 
 def sample_tables(mesh, words: np.ndarray, lengths: np.ndarray, k: int,
@@ -260,27 +265,38 @@ def sample_tables(mesh, words: np.ndarray, lengths: np.ndarray, k: int,
     return sample_tables_multi(mesh, [(words, lengths)], k, mcfg, n_parts)
 
 
+def _sample_rows(mesh, sample_rounds):
+    """This rank's rows of every buffered round, concatenated into one
+    block on its device (one upload; a narrower round's rows are padded
+    with zero words, which no position below its read's length reads)."""
+    parts = [_my_rows_np(mesh, words, lengths)
+             for words, lengths in sample_rounds]
+    W = max(w.shape[1] for w, _ in parts)
+    words = np.concatenate([np.pad(w, ((0, 0), (0, W - w.shape[1])))
+                            for w, _ in parts])
+    lengths = np.concatenate([l for _, l in parts])
+    return (torch.from_numpy(words.astype(np.int64)).to(mesh.device),
+            torch.from_numpy(lengths.astype(np.int64)).to(mesh.device))
+
+
 def sample_tables_multi(mesh, sample_rounds, k: int, mcfg: MinimizerConfig,
                         n_parts: int):
     """Frequency rank and repartition table from the buffered sample
     rounds (bcalm_tpu sample_tables_multi): each rank histograms its rows
-    (K14), the ranks' sums are added.  Returns (freq_rank or None, table,
+    of all the rounds at once (K14 adds them into one zeroed histogram per
+    mode), the ranks' sums are added.  Returns (freq_rank or None, table,
     load), numpy, the same on every rank."""
     m = effective_m(k, mcfg.m)
+    words, lengths = _sample_rows(mesh, sample_rounds)
     freq_rank = None
     rank_d = None
     if mcfg.minimizer_type == 1:
-        histo = torch.zeros((4 ** m,), dtype=torch.int64, device=mesh.device)
-        for words, lengths in sample_rounds:
-            histo += skm.sample_cmmer_histogram(*_my_rows(mesh, words, lengths),
-                                                k, m)
+        histo = skm.sample_cmmer_histogram(words, lengths, k, m)
         histo = mesh.psum(histo).cpu().numpy()
         freq_rank = mz.frequency_rank(np.minimum(histo, 2**31 - 1).astype(np.int32))
         rank_d = torch.from_numpy(freq_rank.astype(np.int64)).to(mesh.device)
-    load = torch.zeros((4 ** m,), dtype=torch.int64, device=mesh.device)
-    for words, lengths in sample_rounds:
-        load += skm.sample_minimizer_load(*_my_rows(mesh, words, lengths), k, m,
-                                          rank_d, use_rank=rank_d is not None)
+    load = skm.sample_minimizer_load(words, lengths, k, m, rank_d,
+                                     use_rank=rank_d is not None)
     load = np.minimum(mesh.psum(load).cpu().numpy(), 2**31 - 1).astype(np.int32)
     table = mz.build_repartition(load, n_parts, mcfg.repartition_type)
     return freq_rank, table, load

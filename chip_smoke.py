@@ -87,7 +87,10 @@ Phases (any failure raises, and the script exits non-zero):
    slice), the same chunk at an odd stride, and the first chunk 3b owed a
    fold, if any; each K1 and K5 row with its device time and operations
    and its launches in phases 3, 3b, 3f and 3h;
-   K14 in both its modes; K13 and K3's global mode (the sharded glue's
+   K14 in both its modes on phase 3f's sampling (every buffered round's
+   rows in one launch, timed adding into one histogram) and the whole
+   sampling of a 3f build (both modes, each into a histogram it zeroes),
+   with the L2 atomics K14 makes; K13 and K3's global mode (the sharded glue's
    junction entries) also with 4 ranks as owners, since at world size 1
    every owner is 0; K15 also at 4 and 8 destinations (synthetic owners)
    and in its hash mode on phase 3g's k-mers at world size 1 and 4;
@@ -100,13 +103,16 @@ Phases (any failure raises, and the script exits non-zero):
    3d's M; K4's plain variant on the first round of phase 3's and phase
    3d's plain runs (compare_jumps), with those runs' launches and those of
    phase 3h's k = 255 build, which jumps below _HIER_MIN;
-   K20 on phase 3's solid k-mers in its histogram mode (torch.bincount is
-   its library call) and its minimizer mode (partition ids with phase 3f's
-   frequency rank and a 4-rank table; lexicographic minimizers).  Then one
-   row per lane-dependent kernel at L = 10, on the inputs phase 3h's k = 151
-   build fed it (K1, K2, K3a, K7, K9, K11), or made from them where that build
-   does not run the kernel (K5 and K6 on its sorted chunk, K3's global mode
-   and K20 on a 2^20-column slice of its solid table), and one for K9 in
+   K20's three modes on phase 3's solid k-mers (its launches are phase
+   3g's, on 3g's own solid set): the histogram (torch.bincount is its
+   library call), partition ids with phase 3f's frequency rank and a 4-rank
+   table, lexicographic minimizers, each with the L2 operations that set
+   its pace (N(k-m+1) atomics or random rank sectors) and their rate.  Then
+   one row per lane-dependent kernel at L = 10, on the inputs phase 3h's
+   k = 151 build fed it (K1, K2, K3a, K7, K9, K11), or made from them where
+   that build does not run the kernel (K5 and K6 on its sorted chunk, K3's
+   global mode and K20's three modes on a 2^20-column slice of its solid
+   table, K20 also at L = 16 on the k = 255 build's), and one for K9 in
    filter_abundance mode (no minpos row) on its counted table.  K6 also
    runs at 256 quantile bounds of phase 3b's run.  Every row carries the
    device time and device operations per call (torch.profiler) of the
@@ -148,9 +154,13 @@ in the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
 runtime's launch; the K3b step's, K8's, K12a's, K17's, K18's, K10's,
-K19's and K11's outputs must agree across the trees), and DIST_AB
-runs each tree's ``-devices`` build at world size 1 on the first 1/8 of
-the reads in the same turns, held against the single-device build.
+K19's and K11's outputs must agree across the trees), K20's three modes
+at phase 3's and 3h's shapes and K14's sampling of 8 rounds in both modes
+(one launch per mode in a tree whose K14 adds into the caller's
+histogram, else one per round and the sums; outputs must agree); then
+SPLIT once in each tree (device time per operation); and DIST_AB runs
+each tree's ``-devices`` build at world size 1 on the first 1/8 of the
+reads in the same turns, held against the single-device build.
 """
 
 from __future__ import annotations
@@ -450,7 +460,7 @@ def write_reads(path: str, coverage: float, seed: int,
 
 def _record_key(name: str, args) -> str:
     """mmer_histograms runs in two modes, the m-mer histogram and the
-    minimizer load (its last argument), kmer_minimizers in two, the
+    minimizer load (its sixth argument), kmer_minimizers in two, the
     minimizer (or partition id) and the histogram (its last argument),
     route_buckets in two, given owners and hashed ones (no owner array),
     and extract_insert in two, with and without a key range (lo, hi):
@@ -466,7 +476,7 @@ def _record_key(name: str, args) -> str:
     if name == "extract_insert" and len(args) > 7 and args[7] is not None:
         return "extract_insert:ranged"
     if name == "mmer_histograms":
-        return f"{name}:{'load' if args[-1] else 'mmer'}"
+        return f"{name}:{'load' if args[5] else 'mmer'}"
     if name == "kmer_minimizers":
         return f"{name}:{'histogram' if args[-1] else 'minimizer'}"
     return name
@@ -1005,12 +1015,13 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
             launches = dict(_kernels.LAUNCHES)
         check_mesh(tmp, ref_path, table, us, wall, timing, launches)
         ranged_launches = phase_mesh_ranged(tmp, fa, mesh, dev)
-        entry_launches, entry_route = phase_entry_points(tmp, fa, mesh, dev)
+        entry_launches, entry_route, entry_solid = phase_entry_points(
+            tmp, fa, mesh, dev)
     finally:
         dist.destroy_process_group()
     check_too_many_devices(tmp, fa)
     return launches, dict(rec.inputs, **{"route_buckets:hash": entry_route}), \
-        entry_launches, ranged_launches
+        entry_launches, entry_solid, ranged_launches
 
 
 def check_mesh(tmp, ref_path, table, us, wall, timing, launches):
@@ -1156,7 +1167,8 @@ def phase_entry_points(tmp: str, fa: str, mesh, dev):
     distributed_compact_pos with the first-occurrence keys of the
     single-device count of the same reads, and distributed_compact.  Both
     must give the single-device CLI's unitigs, KC, km and links, with
-    nothing dropped.  Returns the launches."""
+    nothing dropped.  Returns the launches, K15's hash-mode inputs and the
+    number of solid k-mers K20 ran on."""
     from bcalm_tpu_torch import cli, engine
     from bcalm_tpu_torch.io import bank as bank_mod
     from bcalm_tpu_torch.io import fasta_writer
@@ -1243,7 +1255,7 @@ def phase_entry_points(tmp: str, fa: str, mesh, dev):
         f"km and {_links(ref + '.unitigs.fa')} links; walls (s) "
         f"{json.dumps({key: round(v, 3) for key, v in walls.items()})}")
     say(f"[launches] {json.dumps(launches)}")
-    return launches, rec.inputs["route_buckets:hash"]
+    return launches, rec.inputs["route_buckets:hash"], n
 
 
 def check_too_many_devices(tmp: str, fa: str) -> None:
@@ -1324,8 +1336,9 @@ def phase_cards(tmp: str, n_dev: int, coverage: float, seed: int) -> None:
 # sizing).  K2, K3a at L = 10 and 16, K13, K15, K1 in range mode and the
 # kernels of STEP_INPUTS are held bitwise against their plain versions.
 # It calls only wrappers whose signatures have not changed since K20 was
-# ported, K1's range mode only where the wrapper takes lo and hi and K17's
-# bitmap only where it takes bits, so an older tree runs it as well.
+# ported, K1's range mode only where the wrapper takes lo and hi, K17's
+# bitmap only where it takes bits and K14 with the histogram it adds into
+# only where it takes histo, so an older tree runs it as well.
 # K3b's, K8's, K12a's, K17's, K18's, K10's, K19's and K11's inputs at the
 # main paths' shapes, seeded, for KERNEL_AB and
 # SPLIT (run in a tree's root, after `dev` is set): step_solid() is the
@@ -1529,6 +1542,85 @@ def finish_inputs(M, n_valid, mean, weighted):
         wlen = torch.from_numpy(np.tile(r.randint(1, 60, N), 2)).to(dev)
         dist0 = wlen[torch.clamp(pred, 0, M - 1)]
     return succ, pred, valid, chains.plain_jumpF(pred, valid, dist0), wlen
+
+# K20's inputs: phase 3's solid k-mers (step_kmers()' canonical 31-mers,
+# sorted as a count table holds them) and 2^20 sorted random 151-mers
+# (phase 5's L = 10 slice), m = 10, each with the frequency rank of its
+# m-mer histogram and the 4-way table of its minimizer load (phase 3g's
+# chain); k20_calls() gives each mode's kernel and plain calls
+def k20_inputs():
+    from bcalm_tpu_torch.models import minimizer as mz
+    canon = torch.sort(step_kmers(5075200, 31)[1])[0]
+    r = np.random.RandomState(10)
+    l10 = r.randint(0, 2**32, size=(10, 1 << 20), dtype=np.uint64)
+    l10[0] &= (1 << 14) - 1
+    l10 = np.ascontiguousarray(l10[:, np.lexsort(l10[::-1])])
+    out = []
+    for lanes, k in ((torch.stack([canon >> 32, canon & 0xFFFFFFFF]).contiguous(), 31),
+                     (torch.from_numpy(l10.astype(np.int64)).to(dev), 151)):
+        allv = torch.ones(lanes.shape[1], dtype=torch.bool, device=dev)
+        rank = mz.frequency_rank(mz.mmer_histogram_plain(lanes, allv, k, 10).cpu().numpy())
+        rank = torch.from_numpy(rank.astype(np.int64)).to(dev)
+        load = torch.bincount(mz.minimizers_plain(lanes, k, 10, rank), minlength=4 ** 10)
+        table = mz.build_repartition(load.cpu().numpy().astype(np.int32), 4)
+        out.append((lanes, k, 10, rank, torch.from_numpy(table.astype(np.int64)).to(dev)))
+    return out
+
+def k20_calls(lanes, k, m, rank, table):
+    from bcalm_tpu_torch.models import minimizer as mz
+    allv = torch.ones(lanes.shape[1], dtype=torch.bool, device=dev)
+    return {"histogram": (lambda: _kernels.kmer_minimizers(lanes, k, m, valid=allv, histogram=True),
+                          lambda: mz.mmer_histogram_plain(lanes, allv, k, m)),
+            "partition": (lambda: _kernels.kmer_minimizers(lanes, k, m, rank=rank, table=table),
+                          lambda: mz.partition_of_plain(lanes, k, m, table, rank)),
+            "lexicographic": (lambda: _kernels.kmer_minimizers(lanes, k, m),
+                              lambda: mz.minimizers_plain(lanes, k, m))}
+
+# K14's inputs: the 8 sample rounds of a -devices build at world size 1
+# (1024 reads of 150 bp each, W = 10) of a random genome, and the
+# frequency rank of their m-mer histogram (k = 31, m = 10); k14_sampling()
+# gives each mode's sampling as the tree's pipeline runs it: a tree whose
+# K14 adds into the caller's histogram launches once over every round's
+# rows; else once per round, each into its own zeroed histogram, added up
+def k14_rounds():
+    from bcalm_tpu_torch.io import packing
+    from bcalm_tpu_torch.models import minimizer as mz
+    from bcalm_tpu_torch.ops import superkmer
+    r = np.random.RandomState(3)
+    genome = r.randint(0, 4, 1_000_000)
+    starts = r.randint(0, genome.size - 150, 8 * 1024)
+    seqs = ["".join("ACGT"[c] for c in genome[s:s + 150]) for s in starts]
+    rounds = [(torch.from_numpy(b.words.astype(np.int64)).to(dev),
+               torch.from_numpy(b.lengths.astype(np.int64)).to(dev))
+              for b in packing.iter_blocks(seqs, 31, block_reads=1024, max_len=160)]
+    h = sum(superkmer.sample_cmmer_histogram_plain(w, l, 31, 10) for w, l in rounds)
+    rank = mz.frequency_rank(h.cpu().numpy())
+    return rounds, torch.from_numpy(rank.astype(np.int64)).to(dev)
+
+def k14_sampling(rounds, rank):
+    import inspect
+    from bcalm_tpu_torch.ops import superkmer
+    cat_w = torch.cat([w for w, _ in rounds])
+    cat_l = torch.cat([l for _, l in rounds])
+    adds_into = "histo" in inspect.signature(_kernels.mmer_histograms).parameters
+    calls = {}
+    for mode, load, rk in (("mmer", False, None), ("load", True, rank)):
+        def sampling(load=load, rk=rk):
+            h = torch.zeros((4 ** 10,), dtype=torch.int64, device=dev)
+            if adds_into:
+                return _kernels.mmer_histograms(cat_w, cat_l, 31, 10, rk, load, h)
+            for w, l in rounds:
+                h += _kernels.mmer_histograms(w, l, 31, 10, rk, load)
+            return h
+        plain = (lambda rk=rk: superkmer.sample_minimizer_load_plain(cat_w, cat_l, 31, 10, rk, True)
+                 if rk is not None else
+                 superkmer.sample_cmmer_histogram_plain(cat_w, cat_l, 31, 10))
+        calls[mode] = (sampling, plain)
+    return calls
+
+def digest_of(t):
+    w = torch.arange(t.numel(), device=t.device) % 997
+    return [int(t.sum()), int((t * w).sum())]
 """
 
 
@@ -1698,6 +1790,20 @@ for kk, n_k, C_k, U_k in SPELL_SHAPES:
     out["spell_unitigs"][f"k={kk}"] = {"n": n_k, "C": C_k, "U": U_k,
                                        "ms": time_ms(fn), "device": breakdown(fn)}
     del sargs
+# K20's three modes (k20_inputs()) and K14's sampling of 8 rounds
+# (k14_sampling()), by device operation, K14 with its host time per call
+out["kmer_minimizers"], out["mmer_histograms"] = {}, {}
+for lanes, kk, mk, rank_k, table_k in k20_inputs():
+    for mode, (fn, _) in k20_calls(lanes, kk, mk, rank_k, table_k).items():
+        out["kmer_minimizers"][f"{mode} L={lanes.shape[0]}"] = {
+            "n": lanes.shape[1], "k": kk, "m": mk, "ms": time_ms(fn),
+            "device": breakdown(fn)}
+    del lanes, rank_k, table_k
+rounds14, rank14 = k14_rounds()
+for mode, (fn, _) in k14_sampling(rounds14, rank14).items():
+    out["mmer_histograms"][f"sampling {mode}"] = {
+        "rounds": len(rounds14), "rows": sum(w.shape[0] for w, _ in rounds14),
+        "ms": time_ms(fn), "host_ms": host_ms(fn), "device": breakdown(fn)}
 print(json.dumps(out))
 """
 
@@ -1739,7 +1845,7 @@ def device_ms(fn, reps=20, only=""):
 # the argument of each C function that makes it return before it launches
 # (bt_route_count and bt_route_place: the two launches of the earlier K15)
 EARLY = {"bt_route_count": 6, "bt_route_place": 6, "bt_route_buckets": 6,
-         "bt_form_superkmers": 2}
+         "bt_form_superkmers": 2, "bt_mmer_histograms": 2}
 
 def host_ms(fn, reps=20):
     calls, saved = [], dict(_kernels._FNS)
@@ -2020,6 +2126,26 @@ for kk, n_k, C_k, U_k in SPELL_SHAPES:
     digest[name] = [int(t.long().sum()) for t in got]
     fns[name] = (lambda sargs=sargs: _kernels.spell_unitigs(*sargs), 20)
     del got
+# K20's three modes at phase 3's and 3h's shapes (k20_inputs()) and K14's
+# sampling of 8 rounds in both modes (k14_sampling(): one launch per mode
+# in a tree whose K14 adds into the caller's histogram, else one per
+# round), each held against its plain version, with digests
+for lanes, kk, mk, rank_k, table_k in k20_inputs():
+    for mode, (fn, plain) in k20_calls(lanes, kk, mk, rank_k, table_k).items():
+        got = fn()
+        same([got], [plain()], "kmer_minimizers " + mode)
+        name = f"kmer_minimizers {mode} L={lanes.shape[0]}"
+        digest[name] = digest_of(got)
+        fns[name] = (fn, 20)
+    del lanes, rank_k, table_k, got
+rounds14, rank14 = k14_rounds()
+for mode, (fn, plain) in k14_sampling(rounds14, rank14).items():
+    got = fn()
+    same([got], [plain()], "mmer_histograms " + mode)
+    name = f"mmer_histograms sampling {mode} (8 rounds)"
+    digest[name] = digest_of(got)
+    fns[name] = (fn, 20)
+    split[name] = True
 dms = {n: device_ms(f, r, only.get(n, "")) for n, (f, r) in fns.items()}
 print(json.dumps({"ms": {n: time_ms(f, r) - (time_ms(copies[n], r) if n in copies else 0)
                          for n, (f, r) in fns.items()},
@@ -2121,10 +2247,18 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
         digests.append(times["digest"])
         say(f"[compare] {name} " + kernel_ab_line(times))
     if any(d != digests[0] for d in digests):
-        raise AssertionError(f"K3b's step, K8, K12a, K17, K18 or K10 gave other "
+        raise AssertionError(f"a kernel of KERNEL_AB's digests gave other "
                              f"outputs in the two trees: {digests}")
-    say(f"[compare] K3b's step, K8, K12a, K17, K18 and K10 give the same outputs "
-        f"in both trees (sums and counts): {json.dumps(digests[0])}")
+    say(f"[compare] the K3b step, K8, K12a, K17-K19, K10, K11, K20 and K14 give "
+        f"the same outputs in both trees (sums and counts): "
+        f"{json.dumps(digests[0])}")
+    # SPLIT once in each tree: device time per operation
+    for name in ("parent", "change"):
+        proc = subprocess.run([sys.executable, "-c", SPLIT], cwd=trees[name],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name} SPLIT failed:\n{proc.stderr}")
+        say(f"[compare] {name} split {proc.stdout.strip().splitlines()[-1]}")
     # the -devices build at world size 1 on the first 1/8 of the reads,
     # against the single-device build of the same reads
     part = os.path.join(tmp, "reads_eighth.fa")
@@ -2439,6 +2573,100 @@ def _bound(moved: int, ops: int):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _lookup_bytes(table, n: int) -> int:
+    """Bytes of a (4^m,) table that n lookups must read: each lookup's 8
+    bytes, or the whole table where that is less (0: no table)."""
+    return 0 if table is None else min(_nbytes(table), 8 * n)
+
+
+def _l2(row: dict, count: int, what: str) -> None:
+    """Add to a row the L2 operations that set its pace (K14's and K20's
+    atomics, K20's random rank sectors) and their rate on the device in
+    this run."""
+    row["l2_ops"], row["l2_what"] = count, what
+    ms = row.get("device_ms")
+    row["l2_g_per_s"] = count / (ms * 1e6) if ms else None
+
+
+def _k14_plain(words, lengths, k, m, rank, load):
+    from bcalm_tpu_torch.ops import superkmer
+
+    if load:
+        return superkmer.sample_minimizer_load_plain(words, lengths, k, m, rank,
+                                                     rank is not None)
+    return superkmer.sample_cmmer_histogram_plain(words, lengths, k, m)
+
+
+def _k14_atomics(words, lengths, k, m, rank, load) -> int:
+    """The global atomics K14 makes on a block: one per position with a
+    whole m-mer (m-mer mode), or one per run of equal window minima within
+    each 32-position segment of a row (minimizer-load mode)."""
+    from bcalm_tpu_torch.ops import superkmer
+
+    P = 16 * words.shape[1]
+    pos = torch.arange(P, device=words.device)[None, :]
+    if not load:
+        return int((pos <= lengths[:, None] - m).sum())
+    key = superkmer._minimizer_keys(words, k, m, rank, rank is not None)[2]
+    wmin = superkmer.window_min_keys(key, k - m + 1)
+    head = (pos % 32 == 0) | (wmin != torch.roll(wmin, 1, dims=1))
+    return int((head & (pos <= lengths[:, None] - k)).sum())
+
+
+def _rank_and_table(lanes, k: int, m: int):
+    """Phase 3g's chain on a k-mer set: the frequency rank of its m-mer
+    histogram and the 4-way table of its minimizer load."""
+    from bcalm_tpu_torch.models import minimizer
+
+    allv = torch.ones((lanes.shape[1],), dtype=torch.bool, device=lanes.device)
+    rank = minimizer.frequency_rank(
+        minimizer.mmer_histogram(lanes, allv, k, m).cpu().numpy())
+    rank = torch.from_numpy(rank.astype(np.int64)).to(lanes.device)
+    load = np.bincount(minimizer.minimizers(lanes, k, m, rank).cpu().numpy(),
+                       minlength=4 ** m)
+    table = minimizer.build_repartition(load.astype(np.int32), 4)
+    return rank, torch.from_numpy(table.astype(np.int64)).to(lanes.device)
+
+
+def k20_rows(lanes, k: int, m: int, rank, table, launched: int, tag: str,
+             reps: int = 20) -> list:
+    """K20's three modes on the (L, N) k-mers, each bitwise against its
+    plain version: the histogram (its library call torch.bincount of the
+    m-mers), the partition ids through rank and table, the lexicographic
+    minimizers.  The histogram and partition rows also carry the L2
+    operations that set their pace, N(k-m+1) atomics or random rank
+    sectors, with their rate on the device in this run."""
+    from bcalm_tpu_torch.models import minimizer
+    from bcalm_tpu_torch.ops import _kernels
+
+    n, w = lanes.shape[1], k - m + 1
+    allv = torch.ones((n,), dtype=torch.bool, device=lanes.device)
+    mm_flat = minimizer.extract_mmers(lanes, k, m).reshape(-1)
+    launches = {"kmer_minimizers": launched}
+    rows = [check_kernel(
+        "kmer_minimizers", launches,
+        lambda: _kernels.kmer_minimizers(lanes, k, m, valid=allv,
+                                         histogram=True),
+        lambda: minimizer.mmer_histogram_plain(lanes, allv, k, m),
+        reads=(lanes, allv), ops=n * w * 4, label="kmer_minimizers" + tag,
+        library=lambda: torch.bincount(mm_flat, minlength=4 ** m), reps=reps)]
+    _l2(rows[-1], n * w, "L2 atomics")
+    del mm_flat
+    for mode, rk, tb in (("partition", rank, table),
+                         ("lexicographic", None, None)):
+        rows.append(check_kernel(
+            "kmer_minimizers", launches,
+            lambda: _kernels.kmer_minimizers(lanes, k, m, rank=rk, table=tb),
+            lambda: (minimizer.minimizers_plain(lanes, k, m, rk) if tb is None
+                     else minimizer.partition_of_plain(lanes, k, m, tb, rk)),
+            reads=lanes,
+            written=8 * n + _lookup_bytes(rk, n * w) + _lookup_bytes(tb, n),
+            ops=n * w * 4, label=f"kmer_minimizers:{mode}{tag}", reps=reps))
+        if rk is not None:
+            _l2(rows[-1], n * w, "random rank sectors")
+    return rows
+
+
 def check_kernel(name, launches, kernel_fn, plain_fn, kernel_timed=None,
                  plain_timed=None, reads=(), read_bytes=0, written=None, ops=0,
                  library=None, label=None, replaces=None, launched=None,
@@ -2573,7 +2801,7 @@ def k5_chunks(ranged_args, owed_args):
 
 
 def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
-                  longk, phases, dev):
+                  longk, phases, entry_solid, dev):
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.models import lanes as ln
     from bcalm_tpu_torch.models import minimizer
@@ -2865,26 +3093,39 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
 
     # the -devices path (phase 3f): K13-K16 and K3's global mode
 
-    def gathered(table_, n_pos_):
-        """Bytes of a (4^m,) table that n_pos_ lookups must read: each
-        lookup's 8 bytes, or the whole table where that is less."""
-        return 0 if table_ is None else min(_nbytes(table_), 8 * n_pos_)
 
-    # K14 in both modes, on the first sampling block of each
-    for mode, row in (("mmer", True), ("load", False)):
-        hw, hl, hk, hm, hrank, hload = inputs[f"mmer_histograms:{mode}"]
+    # K14 in both modes on phase 3f's sampling (the first call of each:
+    # every buffered round's rows in one launch), a row each, timed adding
+    # into one histogram; then the whole sampling as the pipeline runs it,
+    # both modes, each into a histogram it zeroes first
+    k14_in = {}
+    for mode in ("mmer", "load"):
+        hw, hl, hk, hm, hrank, hload, _ = inputs[f"mmer_histograms:{mode}"]
+        k14_in[mode] = (hw, hl, hk, hm, hrank, hload)
         n_pos = hw.shape[0] * 16 * hw.shape[1]
+        acc = torch.zeros((4 ** hm,), dtype=torch.int64, device=dev)
         r = check("mmer_histograms",
-                  lambda: _kernels.mmer_histograms(hw, hl, hk, hm, hrank, hload),
-                  lambda: (superkmer.sample_minimizer_load_plain(
-                      hw, hl, hk, hm, hrank, hrank is not None) if hload else
-                      superkmer.sample_cmmer_histogram_plain(hw, hl, hk, hm)),
-                  reads=(hw, hl), written=gathered(hrank, n_pos) + 8 * 4 ** hm,
-                  ops=n_pos * (6 * hm + (2 * (hk - hm + 1) if hload else 0)),
-                  row=row)
-        if not row:
-            extra.append((f"mmer_histograms, minimizer-load mode "
-                          f"({tuple(hw.shape)}, rank {hrank is not None})", r))
+                  lambda: _kernels.mmer_histograms(hw, hl, hk, hm, hrank, hload,
+                                                   torch.zeros_like(acc)),
+                  lambda: _k14_plain(hw, hl, hk, hm, hrank, hload),
+                  kernel_timed=lambda: _kernels.mmer_histograms(
+                      hw, hl, hk, hm, hrank, hload, acc),
+                  reads=(hw, hl), written=_lookup_bytes(hrank, n_pos) + 8 * 4 ** hm,
+                  ops=n_pos * (12 + (4 if hload else 0)),
+                  label=None if mode == "mmer" else "mmer_histograms:load")
+        _l2(r, _k14_atomics(hw, hl, hk, hm, hrank, hload), "L2 atomics")
+    mw, ml, mk, mm_ = k14_in["mmer"][:4]
+    lw, ll, lk, lm, lrank = k14_in["load"][:5]
+    n_pos = mw.shape[0] * 16 * mw.shape[1]
+    r = check("mmer_histograms",
+              lambda: (superkmer.sample_cmmer_histogram(mw, ml, mk, mm_),
+                       superkmer.sample_minimizer_load(lw, ll, lk, lm, lrank,
+                                                       lrank is not None)),
+              lambda: (_k14_plain(mw, ml, mk, mm_, None, False),
+                       _k14_plain(lw, ll, lk, lm, lrank, True)),
+              reads=(mw, ml), written=_lookup_bytes(lrank, n_pos) + 16 * 4 ** mm_,
+              ops=n_pos * 28, label="mmer_histograms:sampling")
+    _l2(r, sum(_k14_atomics(*k14_in[md]) for md in k14_in), "L2 atomics")
     (sw, sl, sk, sm, table, rank, max_span, Wn, bits, with_pos,
      pos_base) = inputs["form_superkmers"]
     P = 16 * sw.shape[1]
@@ -2894,7 +3135,7 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
     # scans (5 shuffle steps each, ~20), Wn 16-base packs (~3 each); its
     # rank and owner are one 8-byte lookup each
     skm_ops = n_pos * (36 + 3 * Wn)
-    skm_gathers = gathered(table, n_pos) + gathered(rank, n_pos)
+    skm_gathers = _lookup_bytes(table, n_pos) + _lookup_bytes(rank, n_pos)
 
     def skm_check(table_, row=True):
         args = (sw, sl, sk, sm, table_, rank, max_span, Wn, bits, with_pos,
@@ -2911,7 +3152,6 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
     _, owners = skm_check(table)
     # at world size 1 every owner is 0: hold the owner lookup at 4 ranks
     # too, with the table the sampled load of phase 3f gives for 4 ranks
-    lw, ll, lk, lm, lrank, _ = inputs["mmer_histograms:load"]
     load = superkmer.sample_minimizer_load_plain(lw, ll, lk, lm, lrank,
                                                  lrank is not None)
     table4 = torch.from_numpy(minimizer.build_repartition(
@@ -2925,44 +3165,20 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
     extra.append((f"form_superkmers with a 4-rank table (build_repartition "
                   f"of the sampled load; starts per owner {spread})", r))
 
-    # K20 on phase 3's solid k-mers (phase 3d's count table of the same
-    # reads, counts >= 2) with phase 3f's frequency rank and the 4-rank
-    # table: the histogram mode (the row; torch.bincount of the m-mers is
-    # its library call), the partition and the lexicographic minimizer
+    # K20's three modes on phase 3's solid k-mers (phase 3d's count table
+    # of the same reads, counts >= 2) with phase 3f's frequency rank and
+    # the 4-rank table; their launches are phase 3g's, on its own solid set
     values, kcounts = solid_table
     v = values[kcounts >= 2]
     lanes20 = torch.from_numpy(np.stack([v >> np.uint64(32),
                                          v & np.uint64(0xFFFFFFFF)])
                                .astype(np.int64)).to(dev)
     n20, m20 = lanes20.shape[1], sm
-    w20 = K - m20 + 1             # m-mers per k-mer
-    all20 = torch.ones((n20,), dtype=torch.bool, device=dev)
-    mm_flat = minimizer.extract_mmers(lanes20, K, m20).reshape(-1)
-    hist = _kernels.kmer_minimizers(lanes20, K, m20, valid=all20, histogram=True)
-    if not torch.equal(hist, torch.bincount(mm_flat, minlength=4 ** m20)):
-        raise AssertionError("kmer_minimizers histogram differs from "
-                             "torch.bincount")
-    check("kmer_minimizers",
-          lambda: _kernels.kmer_minimizers(lanes20, K, m20, valid=all20,
-                                           histogram=True),
-          lambda: minimizer.mmer_histogram_plain(lanes20, all20, K, m20),
-          reads=(lanes20, all20), ops=n20 * w20 * 8,
-          library=lambda: torch.bincount(mm_flat, minlength=4 ** m20))
-    del mm_flat
-    for label, rk, tb in (("partition ids, frequency rank and 4-rank table",
-                           rank, table4),
-                          ("lexicographic minimizers", None, None)):
-        r = check("kmer_minimizers",
-                  lambda: _kernels.kmer_minimizers(lanes20, K, m20, rank=rk,
-                                                   table=tb),
-                  lambda: (minimizer.minimizers_plain(lanes20, K, m20, rk)
-                           if tb is None else
-                           minimizer.partition_of_plain(lanes20, K, m20, tb, rk)),
-                  reads=lanes20,
-                  written=8 * n20 + gathered(rk, n20 * w20) + gathered(tb, n20),
-                  ops=n20 * w20 * 8, row=False)
-        extra.append((f"kmer_minimizers, {label} ({n20} k-mers, m = {m20})", r))
-    del lanes20, all20
+    for r in k20_rows(lanes20, K, m20, rank, table4,
+                      launches["kmer_minimizers"], ""):
+        r["launched_on"] = f"phase 3g's {entry_solid} solid k-mers"
+        rows.append(r)
+    del lanes20
     stk, valid, owner, n_dev, cap, with_slots = inputs["route_buckets"]
     check("route_buckets",
           lambda: _kernels.route_buckets(*inputs["route_buckets"]),
@@ -3049,6 +3265,11 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
         if "bound_old_ms" in r:
             lib += (f"; the earlier bound ({r['bound_old_what']}) "
                     f"{r['bound_old_ms']:.4f} ms")
+        if "l2_ops" in r:
+            rate = r["l2_g_per_s"]
+            lib += (f"; {r['l2_ops']} {r['l2_what']}, "
+                    f"{'not measured' if rate is None else f'{rate:.1f}'} G/s "
+                    f"on the device")
         by_phase = ""
         if "phase_launches" in r:
             by_phase = " (by phase: " + ", ".join(
@@ -3057,6 +3278,8 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
             by_phase = " (the plain variant's runs: " + ", ".join(
                 f"{ph} {n}" for ph, n in
                 r["cli_launches_below_hier_min"].items()) + ")"
+        if "launched_on" in r:
+            by_phase = f" ({r['launched_on']})"
         say(f"[kernel] {r['name']}: equal to plain (bitwise), {r['ms']:.4f} ms "
             f"vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}, {r['launches']} launches in the "
@@ -3083,7 +3306,7 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
               "run_contract": [tuple(rc_args[0].shape), rc_args[4], rc_args[5]],
               "run_broadcast": [tuple(rb_args[3].shape), tuple(rb_args[0].shape)],
               "form_superkmers": [tuple(sw.shape), tuple(table.shape)],
-              "mmer_histograms": [tuple(hw.shape), tuple(lw.shape)],
+              "mmer_histograms": [tuple(mw.shape), tuple(lw.shape)],
               "route_buckets": [tuple(stk.shape), n_dev, cap],
               "glue_compose": tuple(gQ.shape),
               "junction_entries": tuple(ge[0].shape),
@@ -3195,17 +3418,10 @@ def longk_rows(longk, phases, dev):
         lambda: junctions.junction_entries_plain(*ge[:6]), reads=sl,
         label="junction_entries", on_path=False,
         replaces="bcalm_tpu/parallel/distcompact.py:53")
-    m20 = 10
-    all20 = torch.ones((n20,), dtype=torch.bool, device=dev)
-    mm_flat = minimizer.extract_mmers(sl, k, m20).reshape(-1)
-    row("kmer_minimizers",
-        lambda: _kernels.kmer_minimizers(sl, k, m20, valid=all20,
-                                         histogram=True),
-        lambda: minimizer.mmer_histogram_plain(sl, all20, k, m20),
-        reads=(sl, all20), ops=n20 * (k - m20 + 1) * 8,
-        library=lambda: torch.bincount(mm_flat, minlength=4 ** m20),
-        on_path=False, replaces="bcalm_tpu/models/minimizer.py:72")
-    del sl, all20, mm_flat, inputs
+    # K20's three modes on that slice (phase 3g's chain gives it a rank
+    # and a table; not on 3h's path)
+    rows += k20_rows(sl, k, 10, *_rank_and_table(sl, k, 10), 0, tag, reps=5)
+    del sl, inputs
     solid, n_solid, k, hashed, rows_k = on_card(
         {"junction_keys": inputs2["junction_keys"]})["junction_keys"]
     rows.append(check_kernel(
@@ -3213,6 +3429,11 @@ def longk_rows(longk, phases, dev):
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
         lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid,
         label=f"junction_keys@L{solid.shape[0]}", reps=5))
+    # K20 at L = 16 on a 2^20-column slice of the k = 255 solid table
+    sl = solid[:, :min(n_solid, 1 << 20)].contiguous()
+    del solid
+    rows += k20_rows(sl, k, 10, *_rank_and_table(sl, k, 10), 0,
+                     f"@L{sl.shape[0]}", reps=5)
     return rows
 
 
@@ -3298,8 +3519,8 @@ def main() -> int:
                                            dev)
         del ms_inputs
         phase_auto(tmp, fa, path)
-        mesh_launches, mesh_inputs, entry_launches, mesh_ranged = phase_mesh(
-            tmp, fa, path, table, dev)
+        (mesh_launches, mesh_inputs, entry_launches, entry_solid,
+         mesh_ranged) = phase_mesh(tmp, fa, path, table, dev)
         phase_invariants(path, stats)
         longk = phase_longk(tmp, args.seed, dev)
     # each kernel is held against its plain version on the inputs of the
@@ -3330,7 +3551,7 @@ def main() -> int:
     launches["route_buckets:hash"] = entry_launches["route_buckets"]
     del mesh_inputs
     rows = phase_kernels(inputs, launches, canon_hier, ms_launches, table, longk,
-                         phases, dev)
+                         phases, entry_solid, dev)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

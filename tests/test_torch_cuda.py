@@ -708,6 +708,38 @@ def test_mmer_histograms(card, k, m):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("k,m", [(151, 10), (255, 12), (151, 13)])
+def test_mmer_histograms_rows(card, k, m):
+    """K14 on rows of W = 64 words (1024 positions) whose lengths are 0,
+    m - 1, m, k - 1, k, 1024 and random, one row of one base throughout,
+    adding into a histogram that is not zero (twice: the sums accumulate),
+    in its m-mer mode and its load mode keyed by the m-mer and by a rank
+    full of ties."""
+    rng = np.random.RandomState(k + m)
+    W, B = 64, 700
+    words = torch.from_numpy(rng.randint(0, 2**32, size=(B, W),
+                                         dtype=np.uint64).astype(np.int64))
+    words[5] = 0
+    lengths = rng.randint(0, 16 * W + 1, B)
+    lengths[:7] = [0, m - 1, m, k - 1, k, 16 * W, 16 * W]
+    lengths = torch.from_numpy(lengths.astype(np.int64))
+    rank = torch.from_numpy(rng.randint(0, 8, 4 ** m))
+    w, l = words.to(card), lengths.to(card)
+    for load, r in ((False, None), (True, None), (True, rank)):
+        start = torch.from_numpy(rng.randint(0, 1 << 40, 4 ** m))
+        histo = start.to(card)
+        want = superkmer.sample_minimizer_load_plain(
+            words, lengths, k, m, r, r is not None) if load else \
+            superkmer.sample_cmmer_histogram_plain(words, lengths, k, m)
+        for reps in (1, 2):
+            got = _kernels.mmer_histograms(w, l, k, m,
+                                           None if r is None else r.to(card),
+                                           load, histo)
+            assert got.data_ptr() == histo.data_ptr()
+            assert torch.equal(got.cpu(), start + reps * want)
+        assert int(want.sum()) > 0
+
+
 @pytest.mark.parametrize("n_dev", [1, 4, 8, 256])
 @pytest.mark.parametrize("with_slots", [False, True])
 def test_route_buckets(card, n_dev, with_slots):
@@ -891,6 +923,60 @@ def test_chain_decompose_card_equals_cpu(card, variant):
         assert torch.equal(got[key].cpu(), want[key])
     for key in ("start_oid", "length", "circular"):
         assert torch.equal(got[key].cpu()[:n], want[key][:n])
+
+
+@pytest.mark.parametrize("k", [151, 255, 511])
+@pytest.mark.parametrize("m", [11, 16])
+@pytest.mark.parametrize("order", ["random", "sorted_with_repeats"])
+def test_kmer_minimizers_long_k(card, k, m, order):
+    """K20 at 10, 16 and 32 lanes with m = 11 and 16, so that m-mers
+    straddle two lanes at every offset; N not a multiple of the block;
+    random columns, or sorted ones drawn from a small pool (equal m-mers
+    in neighbouring threads).  m = 11: minimizers with and without a rank
+    full of ties, partition ids, the histogram with and without valid, on
+    poisoned memory; m = 16: the lexicographic minimizers (a 4^16 rank,
+    table or histogram would not fit)."""
+    rng = np.random.RandomState(k * m)
+    L, N = ln.num_lanes(k), 100_003
+    lanes = rng.randint(0, 2**32, size=(L, N), dtype=np.uint64)
+    if order != "random":
+        lanes = lanes[:, rng.randint(0, 997, N)]
+        lanes = lanes[:, np.lexsort(lanes[::-1])]
+    lanes[0] &= (1 << (2 * (k - 16 * (L - 1)))) - 1
+    lanes = torch.from_numpy(np.ascontiguousarray(lanes).astype(np.int64))
+    lc = lanes.to(card)
+    assert torch.equal(mz.minimizers(lc, k, m).cpu(),
+                       mz.minimizers_plain(lanes, k, m))
+    if m == 16:
+        return
+    rank = torch.from_numpy(rng.randint(0, 8, 4 ** m))
+    table = torch.from_numpy(rng.randint(0, 16, 4 ** m))
+    rc, tc = rank.to(card), table.to(card)
+    assert torch.equal(mz.minimizers(lc, k, m, rc).cpu(),
+                       mz.minimizers_plain(lanes, k, m, rank))
+    for r in (None, rank):
+        assert torch.equal(
+            mz.partition_of(lc, k, m, tc, None if r is None else rc).cpu(),
+            mz.partition_of_plain(lanes, k, m, table, r))
+    valid = torch.from_numpy(rng.rand(N) < 0.7)
+    for v in (None, valid):
+        poisoned(card, 8 * 4 ** m + (1 << 20))
+        got = _kernels.kmer_minimizers(lc, k, m, valid=None if v is None
+                                       else v.to(card), histogram=True)
+        want = mz.mmer_histogram_plain(
+            lanes, torch.ones(N, dtype=torch.bool) if v is None else v, k, m)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_kmer_histogram_past_32_bits(card):
+    """K20's histogram where N(k - m + 1) >= 2^32: its 64-bit atomics.
+    8.5 M all-A 511-mers (32 lanes) at m = 1 put N * 511 > 2^32 in bin 0."""
+    k, m, N = 511, 1, 8_500_000
+    lanes = torch.zeros((32, N), dtype=torch.int64, device=card)
+    poisoned(card, 1 << 20)
+    got = _kernels.kmer_minimizers(lanes, k, m, histogram=True).cpu()
+    assert got.tolist() == [N * (k - m + 1), 0, 0, 0]
+    assert N * (k - m + 1) >= 1 << 32
 
 
 @pytest.mark.parametrize("k,m", [(31, 10), (41, 10), (13, 3), (63, 12)])

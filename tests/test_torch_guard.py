@@ -153,7 +153,7 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.form_superkmers(t((4, 10)), t((4,)), 31, 10,
                                        t((4 ** 10,)), None, 10, 5, 4, True, 0),
     lambda t: _kernels.mmer_histograms(t((4, 10)), t((4,)), 31, 10, None,
-                                       True),
+                                       True, t((4 ** 10,))),
     lambda t: _kernels.route_buckets(t((3, 64)),
                                      torch.ones(64, dtype=torch.bool),
                                      t((64,)), 2, 64),

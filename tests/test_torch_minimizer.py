@@ -3,8 +3,9 @@
 extract_mmers, minimizers (lexicographic and frequency-ranked),
 mmer_histogram and partition_of of bcalm_tpu_torch.models.minimizer
 against bcalm_tpu.models.minimizer on tests/test_minimizer.py's inputs,
-and on k = 31, m = 10 and k = 41 (three lanes) with and without a rank in
-which many m-mers tie (the first minimal index must win).  Exact equality.
+and on k = 31, m = 10, k = 41 (three lanes), k = 151 (10 lanes) and
+k = 255 (16 lanes), with and without a rank in which many m-mers tie (the
+first minimal index must win).  Exact equality.
 """
 
 import random
@@ -39,7 +40,9 @@ def test_extract_mmers(k, m):
 
 @pytest.mark.parametrize("k,m,n,ranked", [
     (21, 5, 50, False), (13, 3, 200, True), (31, 10, 500, False),
-    (31, 10, 500, True), (41, 10, 300, False), (41, 10, 300, True)])
+    (31, 10, 500, True), (41, 10, 300, False), (41, 10, 300, True),
+    (151, 10, 120, False), (151, 11, 120, True), (255, 12, 80, False),
+    (255, 11, 80, True)])
 def test_minimizers_and_partition(k, m, n, ranked):
     jl, tl = kmers(k, n, k + n)
     rank = tied_rank(m, k) if ranked else None
@@ -54,7 +57,17 @@ def test_minimizers_and_partition(k, m, n, ranked):
         np.asarray(jmz.partition_of(jl, k, m, jnp.asarray(table), jr)))
 
 
-@pytest.mark.parametrize("k,m", [(13, 3), (31, 10), (41, 10)])
+@pytest.mark.parametrize("k", [151, 255])
+def test_minimizers_whole_lane(k):
+    """m = 16: each m-mer a whole lane's width, at every offset into the
+    lanes (lexicographic: a 4^16 rank or table would not fit)."""
+    jl, tl = kmers(k, 100, k + 16)
+    np.testing.assert_array_equal(tmz.minimizers(tl, k, 16).numpy(),
+                                  np.asarray(jmz.minimizers(jl, k, 16)))
+
+
+@pytest.mark.parametrize("k,m", [(13, 3), (31, 10), (41, 10), (151, 10),
+                                 (255, 11)])
 def test_mmer_histogram(k, m):
     jl, tl = kmers(k, 400, k)
     valid = np.random.RandomState(k).rand(400) < 0.8

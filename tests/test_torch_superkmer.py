@@ -25,6 +25,7 @@ from bcalm_tpu_torch.ops import extract as textract
 from bcalm_tpu_torch.ops import hashing as thash
 from bcalm_tpu_torch.ops import superkmer as tskm
 from bcalm_tpu_torch.parallel import pipeline as tpl
+from bcalm_tpu_torch.parallel.mesh import Mesh
 
 
 def t64(a) -> torch.Tensor:
@@ -241,3 +242,35 @@ def test_form_superkmers_row_lengths():
                           tout):
         assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
     assert int(tout[3][0]) == 0 + 0 + 1 + 2 * (P - k + 1) + (77 - k + 1)
+
+
+class _OneRank(Mesh):
+    """A mesh of one rank: psum is the identity, no process group."""
+
+    def psum(self, x):
+        return x.clone()
+
+
+@pytest.mark.parametrize("k,m", [(31, 10), (21, 8), (63, 12)])
+@pytest.mark.parametrize("minimizer_type", [0, 1])
+def test_sample_tables_multi_rounds(k, m, minimizer_type):
+    """sample_tables_multi over four buffered rounds, one of them narrower
+    (its rows are padded to the widest round's words before the single
+    histogram pass), against bcalm_tpu's round-by-round sums: the
+    frequency rank, the repartition table and the load, exact."""
+    rounds = [block(k + 7 * i, k, n=30 + 9 * i, max_len=128 if i != 2 else 96)
+              for i in range(4)]
+    assert len({w.shape[1] for w, _ in rounds}) == 2
+    for rtype in (0, 1):
+        want = jpl.sample_tables_multi(
+            rounds, k, jpl.MinimizerConfig(m=m, minimizer_type=minimizer_type,
+                                           repartition_type=rtype), 4)
+        got = tpl.sample_tables_multi(
+            _OneRank(1, 0, torch.device("cpu")), rounds, k,
+            tpl.MinimizerConfig(m=m, minimizer_type=minimizer_type,
+                                repartition_type=rtype), 4)
+        assert (got[0] is None) == (want[0] is None) == (minimizer_type == 0)
+        if want[0] is not None:
+            assert same(want[0], got[0])
+        assert same(want[1], got[1]) and same(want[2], got[2])
+        assert int(got[2].sum()) > 0
