@@ -1,8 +1,10 @@
-// K17-K19: the hierarchical pointer jump over the packed chain state.
+// K4 and K17-K19: the pointer jump over the packed chain state.
 //
 // Replace bcalm_tpu/ops/chains.py:hier_jump (:381) and the pieces it runs
 // per level: _phase with fixpoints (:298), _sampled (:336), the level
-// build (:402-441) and the upward composition (:448-463).  Rows are
+// build (:402-441) and the upward composition (:448-463); and the plain
+// doubling, _phase with no fixpoints (:298, :467 plain_jumpF), with its
+// _composeF (:258).  Rows are
 // (ptr, dist|flags, mn, dmn), int64, flags in bits 28-30 of the dist
 // column as in compose.cuh.  A level of S rows contracts to S1 = S/4 rows:
 //
@@ -20,8 +22,13 @@
 //   L2 across the level's rounds); a query reads its target's bit and its
 //   target's row, and gid[p] only when the target is served (at level 0,
 //   gid is the identity: no gid array is passed).  hier_jump
-//   runs _R_A rounds with no changed flag (null) and no sync; given one,
-//   `changed` goes to 1 when a row moved (_phase's converge=True).
+//   runs _R_A rounds with no changed flag (null) and no sync.
+// K4 jump_round: K17's round with no fixpoints (one template, round_kernel),
+//   the plain doubling of plain_jumpF and of the deepest level.  A
+//   converging phase (_phase's converge=True, JAX's while_loop) gives each
+//   round a flag word, zeroed once: round r sets word r when a row moved
+//   (one store a block) and returns at once when word r - 1 is 0, so the
+//   host launches rounds in batches and syncs once a batch.
 // K18 hier_contract: the level build, four device operations: a memset
 //   of tmask; a mark pass that flags the targets of the unresolved rows
 //   (valid, neither SETTLED nor ROOTED) and zeroes the selection's ticket
@@ -46,13 +53,15 @@
 //   a row that is not ROOTED is did, then the F row, then parent: parent
 //   (S1 x 8 bytes) stays in L2, so translating F through it first (JAX's
 //   order) would save no time (measured on an H100 at 2^24 rows).
-// The deepest level runs the plain doubling (K4, csrc/chains.cu).
+// The deepest level runs the plain doubling (K4).
 //
-// Bound: memory, and random rows.  K17 reads its row (32 bytes, two
-// 16-byte loads through the read-only path), the target's row (one random
-// 32-byte sector, beyond L2 at 2^24 rows), the target's bit (L2) and, for
-// a served target above level 0, gid[p] (a sector), and writes 32 bytes
-// (two 16-byte streaming stores); K18 reads the rows twice
+// Bound: memory, and random rows.  K4 reads its row and, unless ROOTED,
+// its target's row (a random sector beyond L2 at 2^24 rows), and writes
+// 32 bytes; a round after convergence reads one word.  K17 reads its row
+// (32 bytes, two 16-byte loads through the read-only path), the target's
+// row (one random 32-byte sector, beyond L2 at 2^24 rows), the target's
+// bit (L2) and, for a served target above level 0, gid[p] (a sector), and
+// writes 32 bytes (two 16-byte streaming stores); K18 reads the rows twice
 // (the mark's flags and pointers, the gather's selected rows), valid,
 // tmask and gid once, and writes did and S1 rows; K19 reads its row and,
 // unless ROOTED, a sector of did and of F (each beyond L2 at 2^24 rows)
@@ -141,11 +150,24 @@ hier_fixbits_kernel(const int64_t* __restrict__ gid,
   }
 }
 
+// K17 hier_round (kFix) and K4 jump_round (no fixpoints): one doubling
+// round, a thread a row.  The row comes in as two 16-byte loads through
+// the read-only path; unless ROOTED, the ancestor's two halves are issued
+// together as soon as the ptr is in (one random sector); the new row goes
+// out as two 16-byte streaming stores; `changed` (optional) gets one store
+// a block, after a vote, when a row of the block moved (stores to one
+// word serialise in the L2: one a warp doubled K4's time at 2^19 rows,
+// measured on an H100).  prev (the flag mode of a converging phase): the
+// word the round before wrote; when it is 0 that round moved no row, so Q
+// and Qn hold the same state, JAX's fixed point, and the round returns at
+// once, reading and writing no row.
+template <bool kFix>
 __global__ void __launch_bounds__(bt::kThreads)
-hier_round_kernel(const longlong2* __restrict__ Q, longlong2* __restrict__ Qn,
-                  const int64_t* __restrict__ gid,
-                  const uint32_t* __restrict__ bits, long long S,
-                  int* __restrict__ changed) {
+round_kernel(const longlong2* __restrict__ Q, longlong2* __restrict__ Qn,
+             const int64_t* __restrict__ gid, const uint32_t* __restrict__ bits,
+             long long S, int* __restrict__ changed,
+             const int* __restrict__ prev) {
+  if (prev != nullptr && __ldg(prev) == 0) return;
   const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   bool moved = false;
   if (v < S) {
@@ -154,16 +176,22 @@ hier_round_kernel(const longlong2* __restrict__ Q, longlong2* __restrict__ Qn,
     int64_t out[4] = {a.x, a.y, b.x, b.y};
     if (!(a.y & bt::kRooted)) {
       const long long p = clampi(a.x, S - 1);
-      // the target's bit (L2) and both halves of its row (one sector)
-      // issued together; gid[p] only once the bit says served
-      const bool fix = (__ldg(bits + (p >> 5)) >> (p & 31)) & 1u;
-      const longlong2 ta = __ldg(Q + 2 * p), tb = __ldg(Q + 2 * p + 1);
-      const long long g =
-          fix && gid != nullptr ? __ldg(reinterpret_cast<const long long*>(gid) + p) : p;
-      if (fix && !(ta.y & bt::kRooted)) {
-        const int64_t ident[4] = {p, bt::kFix, g, 0};
-        moved = bt::compose_row(q, ident, out);
+      if constexpr (kFix) {
+        // the target's bit (L2) and both halves of its row (one sector)
+        // issued together; gid[p] only once the bit says served
+        const bool fix = (__ldg(bits + (p >> 5)) >> (p & 31)) & 1u;
+        const longlong2 ta = __ldg(Q + 2 * p), tb = __ldg(Q + 2 * p + 1);
+        const long long g =
+            fix && gid != nullptr ? __ldg(reinterpret_cast<const long long*>(gid) + p) : p;
+        if (fix && !(ta.y & bt::kRooted)) {
+          const int64_t ident[4] = {p, bt::kFix, g, 0};
+          moved = bt::compose_row(q, ident, out);
+        } else {
+          const int64_t t[4] = {ta.x, ta.y, tb.x, tb.y};
+          moved = bt::compose_row(q, t, out);
+        }
       } else {
+        const longlong2 ta = __ldg(Q + 2 * p), tb = __ldg(Q + 2 * p + 1);
         const int64_t t[4] = {ta.x, ta.y, tb.x, tb.y};
         moved = bt::compose_row(q, t, out);
       }
@@ -171,8 +199,7 @@ hier_round_kernel(const longlong2* __restrict__ Q, longlong2* __restrict__ Qn,
     __stcs(Qn + 2 * v, make_longlong2(out[0], out[1]));
     __stcs(Qn + 2 * v + 1, make_longlong2(out[2], out[3]));
   }
-  if (changed != nullptr && __any_sync(0xFFFFFFFFu, moved) &&
-      (threadIdx.x & 31) == 0) {
+  if (changed != nullptr && __syncthreads_or(moved) && threadIdx.x == 0) {
     *changed = 1;
   }
 }
@@ -310,14 +337,27 @@ extern "C" int bt_fixpoint_bits(const int64_t* gid, const uint8_t* valid,
 }
 
 // bits: the level's bitmap (bt_fixpoint_bits).  gid null: level 0.
+// changed: as in round_kernel (may be null); K17 has no flag mode.
 extern "C" int bt_hier_round(const int64_t* Q, int64_t* Qn, const int64_t* gid,
                              const uint32_t* bits, long long S, int* changed,
                              void* stream) {
   if (S == 0) return 0;
-  hier_round_kernel<<<bt::blocks_for(S), bt::kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  round_kernel<true><<<bt::blocks_for(S), bt::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const longlong2*>(Q), reinterpret_cast<longlong2*>(Qn),
-      gid, bits, S, changed);
+      gid, bits, S, changed, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: the round with no fixpoints; changed, prev: as in round_kernel
+// (each may be null).
+extern "C" int bt_jump_round(const int64_t* Q, int64_t* Qn, long long M,
+                             int* changed, const int* prev, void* stream) {
+  if (M == 0) return 0;
+  round_kernel<false><<<bt::blocks_for(M), bt::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const longlong2*>(Q), reinterpret_cast<longlong2*>(Qn),
+      nullptr, nullptr, M, changed, prev);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,7 +60,7 @@ _SIGNATURES = {
                          _P],
     "bt_junction_pairs": [_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
                           _P, _P],
-    "bt_jump_round": [_P, _P, _I64, _P, _P],
+    "bt_jump_round": [_P, _P, _I64, _P, _P, _P],
     "bt_range_fold": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P],
     "bt_lower_bound": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _P],
     "bt_solid_fold": [_P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
@@ -84,7 +84,7 @@ _SIGNATURES = {
     "bt_mmer_histograms": [_P, _P, _I32, _I32, _I32, _I32, _P, _I32, _P, _P],
     "bt_route_buckets": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P,
                          _P, _P, _P],
-    "bt_glue_compose": [_P, _P, _P, _I64, _P, _P, _P],
+    "bt_glue_compose": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P],
     "bt_fixpoint_bits": [_P, _P, _I64, ctypes.c_uint, _P, _P],
     "bt_hier_round": [_P, _P, _P, _P, _I64, _P, _P],
     "bt_hier_contract": [_P, _P, _P, _I64, ctypes.c_uint, _I64, _I64, _P, _P,
@@ -358,17 +358,37 @@ def junction_pairs(s_word: torch.Tensor, perm: torch.Tensor,
     return succ
 
 
-def jump_round(Q: torch.Tensor, Qn: torch.Tensor,
-               changed: torch.Tensor) -> None:
-    """K4: one doubling round Q -> Qn; sets changed[0] = 1 if a row moved."""
-    _check(Q, "Q", ndim=2)
-    _check(Qn, "Qn", ndim=2)
+def _round_flags(changed, at):
+    """The (changed, prev) pointers of a K4 round.  changed None: no flag.
+    at None: changed[0] is set when a row moved.  at = r, the flag mode of
+    a converging phase: changed holds a word a round; the round sets word
+    r and, for r > 0, returns at once when word r - 1 is 0."""
+    if changed is None:
+        if at is not None:
+            raise ValueError("a round's flag mode needs its flag words")
+        return None, None
     _check(changed, "changed", dtype=torch.int32, ndim=1)
-    if Q.shape != Qn.shape or Q.shape[1] != 4:
+    if at is None:
+        return changed.data_ptr(), None
+    if not 0 <= at < changed.shape[0]:
+        raise ValueError(f"round {at} of {changed.shape[0]} flag words")
+    base = changed.data_ptr()
+    return base + 4 * at, (base + 4 * (at - 1) if at else None)
+
+
+def jump_round(Q: torch.Tensor, Qn: torch.Tensor, changed=None, *,
+               at=None) -> None:
+    """K4: one doubling round Q -> Qn.  changed ((1,) int32, optional) is
+    set to 1 if a row moved; at = r: the flag mode (_round_flags)."""
+    M = _check_state(Q, "Q")
+    _check_state(Qn, "Qn")
+    if Qn.shape[0] != M:
         raise ValueError("jump_round: expected two (M, 4) states")
-    if Q.shape[0]:
-        _launch("bt_jump_round", Q.data_ptr(), Qn.data_ptr(), Q.shape[0],
-                changed.data_ptr())
+    flag, prev = _round_flags(changed, at)
+    _aligned16(Q, "Q")
+    _aligned16(Qn, "Qn")
+    if M:
+        _launch("bt_jump_round", Q.data_ptr(), Qn.data_ptr(), M, flag, prev)
         LAUNCHES["jump_round"] += 1
 
 
@@ -795,22 +815,31 @@ def route_buckets(stacked: torch.Tensor, valid: torch.Tensor,
     return out + (slots,) if with_slots else out
 
 
-def glue_compose(Q: torch.Tensor, anc: torch.Tensor, need: torch.Tensor):
-    """K16: (Qn (M, 4), changed (1,) int32): rows that need a step composed
-    with their fetched ancestor rows, the others copied."""
-    _check(Q, "Q", ndim=2)
-    _check(anc, "anc", ndim=2)
+def glue_compose(Q: torch.Tensor, back: torch.Tensor, slots: torch.Tensor,
+                 need: torch.Tensor, changed: torch.Tensor, route: torch.Tensor,
+                 run_cap: int, n_dev: int) -> None:
+    """K16, in place: each row v of Q with need[v] composed with its
+    ancestor row back[:, slots[v]] (the (4, W) response of the exchange,
+    the slot clamped to [0, W)); changed ((1,) int32) set to 1 when a row
+    moved; need, route[0] (ptr) and route[1] (owner of ptr among n_dev
+    ranks of run_cap runs, n_dev where no step is needed) written for the
+    next round where need was set, left as they are elsewhere."""
+    M = _check_state(Q, "Q")
+    _check(back, "back", ndim=2)
+    _check(slots, "slots", ndim=1)
     _check(need, "need", dtype=torch.bool, ndim=1)
-    M = Q.shape[0]
-    if Q.shape != (M, 4) or anc.shape != (M, 4) or need.shape[0] != M:
-        raise ValueError("glue_compose: expected two (M, 4) states and (M,) need")
-    Qn = torch.empty_like(Q)
-    changed = torch.zeros((1,), dtype=torch.int32, device=Q.device)
+    _check(changed, "changed", dtype=torch.int32, ndim=1)
+    _check(route, "route", ndim=2)
+    if (back.shape[0] != 4 or slots.shape[0] != M or need.shape[0] != M
+            or route.shape != (2, M) or (M and back.shape[1] == 0)
+            or run_cap < 1 or n_dev < 1):
+        raise ValueError("glue_compose: shapes do not match")
+    _aligned16(Q, "Q")
     if M:
-        _launch("bt_glue_compose", Q.data_ptr(), anc.data_ptr(), need.data_ptr(),
-                M, Qn.data_ptr(), changed.data_ptr())
+        _launch("bt_glue_compose", Q.data_ptr(), back.data_ptr(), back.shape[1],
+                slots.data_ptr(), need.data_ptr(), M, changed.data_ptr(),
+                route.data_ptr(), run_cap, n_dev)
         LAUNCHES["glue_compose"] += 1
-    return Qn, changed
 
 
 def _check_state(Q: torch.Tensor, name: str) -> int:

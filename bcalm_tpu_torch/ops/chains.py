@@ -14,10 +14,12 @@ rounds in which sampled fixpoint rows answer as identity rows (K17,
 :func:`hier_contract`), plain doubling at the deepest level (K4,
 :func:`jump_round`), and the upward composition (K19,
 :func:`hier_expand`).  Below it, for variant "plain", and for "auto" after
-a level overflowed, the plain doubling runs alone.  Each wrapper launches its kernel (csrc/hier.cu,
-csrc/chains.cu) for CUDA tensors and runs its ``*_plain`` version for CPU
-tensors; :func:`finish_fast` likewise launches K10 (csrc/finish.cu) or runs
-:func:`finish_fast_plain`.
+a level overflowed, the plain doubling runs alone; a converging phase
+syncs with the host after its first round, then once every ``_BATCH``
+rounds (:func:`_phase`).  Each
+wrapper launches its kernel (csrc/hier.cu) for CUDA tensors and runs its
+``*_plain`` version for CPU tensors; :func:`finish_fast` likewise
+launches K10 (csrc/finish.cu) or runs :func:`finish_fast_plain`.
 """
 
 from __future__ import annotations
@@ -42,7 +44,17 @@ _FINAL_CAP = 1 << 15    # deepest level size: plain doubling there
 _SAMPLE_DIV = 8         # fixpoint sampling rate 1/8
 _LEVEL_SHRINK = 4       # static capacity per level
 _R_A = 5                # phase-A rounds per level (gaps <= 32)
+_BATCH = 4              # rounds of a converging phase between host syncs
+                        # (its first batch is one round)
 VARIANTS = ("auto", "plain", "hier")
+# converging phases (_phase's converge=True) since reset_rounds(): the
+# rounds launched, the rounds that moved a row, the host syncs
+ROUNDS = {"launched": 0, "moved": 0, "syncs": 0}
+
+
+def reset_rounds() -> None:
+    for name in ROUNDS:
+        ROUNDS[name] = 0
 
 
 def _mirror(x: torch.Tensor, N: int) -> torch.Tensor:
@@ -105,15 +117,20 @@ def jump_round_plain(Q: torch.Tensor) -> torch.Tensor:
     return compose_plain(Q, Q[torch.clamp(Q[:, _PTR], 0, M - 1)])
 
 
-def jump_round(Q: torch.Tensor, Qn: torch.Tensor,
-               changed: torch.Tensor) -> None:
-    """One round Q -> Qn; changed[0] is set to 1 when any row moved."""
-    if Q.device.type == "cpu":
-        Qn.copy_(jump_round_plain(Q))
-        if not torch.equal(Qn, Q):
-            changed.fill_(1)
-    else:
-        _kernels.jump_round(Q, Qn, changed)
+def jump_round(Q: torch.Tensor, Qn: torch.Tensor, changed=None, *,
+               at=None) -> None:
+    """One round Q -> Qn; changed[0] (optional) is set to 1 when any row
+    moved; at = r, the flag mode of a converging phase: changed holds a
+    word a round, this round sets word r and, for r > 0, returns at once,
+    reading and writing no row, when word r - 1 is 0."""
+    if Q.device.type != "cpu":
+        _kernels.jump_round(Q, Qn, changed, at=at)
+        return
+    if at is not None and at > 0 and not int(changed[at - 1]):
+        return
+    Qn.copy_(jump_round_plain(Q))
+    if changed is not None and not torch.equal(Qn, Q):
+        changed[0 if at is None else at] = 1
 
 
 def _identity_rows(local_idx: torch.Tensor, gid: torch.Tensor,
@@ -183,16 +200,13 @@ def hier_round_plain(Q: torch.Tensor, gid, bits: torch.Tensor) -> torch.Tensor:
     return compose_plain(Q, T[torch.clamp(Q[:, _PTR], 0, S - 1)])
 
 
-def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid, bits: torch.Tensor,
-               changed=None) -> None:
-    """One phase-A round Q -> Qn; changed[0] (optional) is set to 1 when any
-    row moved.  gid None: level 0; bits: the level's fixpoint_bits."""
+def hier_round(Q: torch.Tensor, Qn: torch.Tensor, gid, bits: torch.Tensor) -> None:
+    """One phase-A round Q -> Qn.  gid None: level 0; bits: the level's
+    fixpoint_bits."""
     if Q.device.type == "cpu":
         Qn.copy_(hier_round_plain(Q, gid, bits))
-        if changed is not None and not torch.equal(Qn, Q):
-            changed.fill_(1)
     else:
-        _kernels.hier_round(Q, Qn, gid, bits, changed)
+        _kernels.hier_round(Q, Qn, gid, bits)
 
 
 def _phase(Q0: torch.Tensor, gid, valid, salt, rounds: int,
@@ -200,23 +214,41 @@ def _phase(Q0: torch.Tensor, gid, valid, salt, rounds: int,
     """Doubling rounds from Q0 (whose buffer is reused): with the sampled
     fixpoints of (gid, valid, salt) (K17; gid None at level 0), or none
     when salt is None (K4).
-    converge=False runs exactly `rounds` rounds with no changed flag and no
-    host sync; converge=True stops after a round that moved no row (one
-    sync per round) or at the cap."""
+    converge=False runs exactly `rounds` rounds with no flag and no host
+    sync.  converge=True (K4 only: plain_jumpF and the deepest level) is
+    JAX's while_loop: it stops after a round that moved no row, or at the
+    cap.  Its rounds take a flag word each, zeroed once (the flag mode of
+    jump_round): a round after one that moved no row returns at once, so
+    the state stays JAX's fixed point, and the host syncs after the first
+    round and then once every _BATCH rounds (the deepest level is mostly
+    converged from its first round, which then costs one launch and one
+    sync); ROUNDS counts the rounds launched, those that moved a row and
+    the syncs."""
+    assert salt is None or not converge, "only K4's phase converges"
     Q = Q0
     Qn = torch.empty_like(Q)
-    changed = torch.zeros((1,), dtype=torch.int32, device=Q.device)
     bits = None if salt is None else fixpoint_bits(gid, valid, salt)
-    for _ in range(rounds):
+    flags = (torch.zeros((rounds,), dtype=torch.int32, device=Q.device)
+             if converge else None)
+    seen, r = [], 0
+    while r < rounds:
+        end = min(rounds, r + (_BATCH if r else 1)) if converge else rounds
+        for t in range(r, end):
+            at = t if converge else None
+            if salt is None:
+                jump_round(Q, Qn, flags, at=at)
+            else:
+                hier_round(Q, Qn, gid, bits)
+            Q, Qn = Qn, Q
+        r = end
         if converge:
-            changed.zero_()
-        if salt is None:
-            jump_round(Q, Qn, changed)
-        else:
-            hier_round(Q, Qn, gid, bits, changed if converge else None)
-        Q, Qn = Qn, Q
-        if converge and not int(changed.item()):
-            break
+            seen = flags[:r].tolist()     # the batch's one host sync
+            ROUNDS["syncs"] += 1
+            if not seen[-1]:
+                break
+    if converge:
+        ROUNDS["launched"] += r
+        ROUNDS["moved"] += sum(seen)
     return Q
 
 

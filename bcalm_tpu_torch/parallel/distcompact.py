@@ -17,10 +17,11 @@ Counterpart of ``bcalm_tpu/parallel/distcompact.py``'s device path
    successor shard;
 3. glue_shard: consecutive runs of the shard (K8 with a global slot
    base), the contracted run graph through request/response lookups at
-   the owners, the sharded weighted doubling (per round: K15 + exchange of
-   the ancestor requests, the owners' rows back, K16, the changed flag
-   summed over the ranks), and the chain finish through three more
-   exchanges;
+   the owners, the sharded weighted doubling (glue_round: K15 + exchange
+   of the ancestor requests, the owners' rows back, K16 in place over the
+   state, reading the response where it lands and writing the next
+   round's routing; then the changed flag summed over the ranks), and the
+   chain finish through three more exchanges;
 4. rank 0 gathers the glue outputs and the re-sharded solid table and
    spells the unitigs on its device (K11) and links them (link_join).
 
@@ -167,32 +168,96 @@ def _respond(mesh, ans_rows: torch.Tensor, qcap: int) -> torch.Tensor:
     return mesh.all_to_all(ans_rows.reshape(C, mesh.n_dev, qcap)).reshape(C, -1)
 
 
-def glue_compose_plain(Q: torch.Tensor, anc: torch.Tensor,
-                       need: torch.Tensor):
-    """Plain PyTorch version of K16: (Qn, changed (1,) int32)."""
-    new = chains_op.compose_plain(Q, anc)
-    Qn = torch.where(need[:, None], new, Q)
-    return Qn, (Qn != Q).any().to(torch.int32).reshape(1)
+def _gq_owner(g: torch.Tensor, run_cap: int, c_tot: int) -> torch.Tensor:
+    """The rank owning contracted run node g (c_tot runs a strand, run_cap
+    a rank)."""
+    return torch.where(g >= c_tot, g - c_tot, g) // run_cap
 
 
-def glue_compose(Q: torch.Tensor, anc: torch.Tensor, need: torch.Tensor):
+def _gq_local(g: torch.Tensor, run_cap: int, c_tot: int) -> torch.Tensor:
+    """Node g's row at its owner: the plus strand's run_cap rows, then the
+    minus strand's."""
+    s = torch.where(g >= c_tot, g - c_tot, g)
+    return s % run_cap + torch.where(g >= c_tot, run_cap, 0)
+
+
+def glue_compose_plain(Q: torch.Tensor, back: torch.Tensor,
+                       slots: torch.Tensor, need: torch.Tensor,
+                       changed: torch.Tensor, route: torch.Tensor,
+                       run_cap: int, n_dev: int) -> None:
+    """Plain PyTorch version of K16, in place (the contract of
+    _kernels.glue_compose): where need, Q's row composed with
+    back[:, slots] (JAX's clipped take), changed set when a row moved, and
+    the next round's need and route (ptr, owner; n_dev where no step is
+    needed); the other rows and their need and route stay as they are."""
+    anc = back[:, torch.clamp(slots, 0, back.shape[1] - 1)].t()
+    new = torch.where(need[:, None], chains_op.compose_plain(Q, anc), Q)
+    if not torch.equal(new, Q):
+        changed.fill_(1)
+    Q.copy_(new)
+    ptr = Q[:, chains_op._PTR]
+    nxt = need & ((Q[:, chains_op._DSF] & chains_op._F_ROOTED) == 0)
+    owner = torch.where(nxt, _gq_owner(ptr, run_cap, n_dev * run_cap), n_dev)
+    route[0] = torch.where(need, ptr, route[0])
+    route[1] = torch.where(need, owner, route[1])
+    need.copy_(nxt)
+
+
+def glue_compose(Q: torch.Tensor, back: torch.Tensor, slots: torch.Tensor,
+                 need: torch.Tensor, changed: torch.Tensor, route: torch.Tensor,
+                 run_cap: int, n_dev: int) -> None:
     """K16 entry: kernel for CUDA tensors, plain version for CPU tensors."""
     if Q.device.type == "cpu":
-        return glue_compose_plain(Q, anc, need)
-    return _kernels.glue_compose(Q, anc, need)
+        glue_compose_plain(Q, back, slots, need, changed, route, run_cap, n_dev)
+    else:
+        _kernels.glue_compose(Q, back, slots, need, changed, route, run_cap,
+                              n_dev)
+
+
+def _request(mesh, q: torch.Tensor, ok: torch.Tensor, owner: torch.Tensor,
+             qcap: int, answer):
+    """Request/response round: each valid query value of q (1, n) goes to
+    its owner (K15 + exchange), answer(received values, received validity)
+    gives (C, n_dev*qcap) rows there, and they come back in the layout of
+    the routed queries.  Returns (back (C, n_dev*qcap), slots (n,): each
+    query's column of back (n_dev*qcap where it was dropped or not
+    valid), drops)."""
+    bl, bv, drop, slots = route_to_buckets(q, ok, owner, mesh.n_dev, qcap,
+                                           with_slots=True)
+    recv, rv = mesh.exchange(bl, bv)
+    back = _respond(mesh, answer(recv.reshape(-1), rv.reshape(-1)), qcap)
+    return back, slots, drop
 
 
 def _lookup(mesh, q: torch.Tensor, ok: torch.Tensor, owner: torch.Tensor,
             qcap: int, answer):
-    """Request/response round: each valid query value goes to its owner
-    (K15 + exchange), answer(received values, received validity) gives
-    (C, n_dev*qcap) rows there, and the rows come back to the querying
-    entries.  Returns ((C, n) rows per query entry, drops)."""
-    bl, bv, drop, slots = route_to_buckets(q.contiguous()[None], ok, owner,
-                                           mesh.n_dev, qcap, with_slots=True)
-    recv, rv = mesh.exchange(bl, bv)
-    back = _respond(mesh, answer(recv.reshape(-1), rv.reshape(-1)), qcap)
+    """_request for a query vector q (n,), its rows gathered per query
+    entry: ((C, n) rows, drops)."""
+    back, slots, drop = _request(mesh, q.contiguous()[None], ok, owner, qcap,
+                                 answer)
     return back[:, torch.clamp(slots, 0, mesh.n_dev * qcap - 1)], drop
+
+
+def glue_round(mesh, Q: torch.Tensor, need: torch.Tensor, route: torch.Tensor,
+               changed: torch.Tensor, qcap: int, run_cap: int) -> torch.Tensor:
+    """One round of the sharded weighted doubling (the loop body of
+    bcalm_tpu _glue_shard), in place: each row that needs a step (need)
+    sends its ptr to the owner (route: (2, M), the ptr column and each
+    row's owner, n_dev where no step is needed), the owners answer with
+    their rows of Q as they are before this round's compose, and K16
+    composes the row with its answer where the exchange left it, sets
+    changed[0] when a row moved and writes the next round's need and
+    route.  Returns this rank's dropped queries (1,)."""
+    c_tot = mesh.n_dev * run_cap
+
+    def rows_of(vals, ok):
+        local = _gq_local(vals, run_cap, c_tot)
+        return Q[torch.clamp(local, 0, 2 * run_cap - 1)].t()
+
+    back, slots, drop = _request(mesh, route[:1], need, route[1], qcap,
+                                 rows_of)
+    glue_compose(Q, back, slots, need, changed, route, run_cap, mesh.n_dev)
+    return drop
 
 
 def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
@@ -219,13 +284,6 @@ def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
     rvalid = torch.arange(run_cap, device=dev) < n_runs
     epos = end_pos_v[hpos]
     rlen = torch.where(rvalid, epos - hpos + 1, 0)
-
-    def gq_owner(g):
-        return torch.where(g >= C_tot, g - C_tot, g) // run_cap
-
-    def gq_local(g):
-        s = torch.where(g >= C_tot, g - C_tot, g)
-        return s % run_cap + torch.where(g >= C_tot, run_cap, 0)
 
     def mirror_g(g):
         return torch.where(g >= C_tot, g - C_tot, g + C_tot)
@@ -266,22 +324,20 @@ def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
         torch.where(cvalid, gidx2, 2 * C_tot),
         torch.zeros_like(gidx2)], dim=1).contiguous()
     R_rounds = chains_op.max_rounds(2 * C_tot)
+    ptr = Q[:, chains_op._PTR]
+    need = cvalid & ((Q[:, chains_op._DSF] & chains_op._F_ROOTED) == 0)
+    route = torch.stack([ptr, torch.where(need, _gq_owner(ptr, run_cap, C_tot),
+                                          n_dev)])
+    flags = torch.zeros((R_rounds,), dtype=torch.int32, device=dev)
     loop_drops = 0
     rounds = 0
     changed = True
     while changed and rounds < R_rounds:
-        need = cvalid & ((Q[:, chains_op._DSF] & chains_op._F_ROOTED) == 0)
-        qg = Q[:, chains_op._PTR]
-
-        def rows_of(vals, ok, Q=Q):
-            return Q[torch.clamp(gq_local(vals), 0, two_rc - 1)].t()
-
-        anc, dr = _lookup(mesh, qg, need, torch.where(need, gq_owner(qg), n_dev),
-                          qcap, rows_of)
-        Q, ch = glue_compose(Q, anc.t().contiguous(), need)
-        sums = mesh.psum(torch.cat([ch.to(torch.int64), dr]))
-        changed = int(sums[0]) > 0
-        loop_drops += int(sums[1])
+        flag = flags[rounds:rounds + 1]
+        dr = glue_round(mesh, Q, need, route, flag, qcap, run_cap)
+        moved, drops = mesh.psum(torch.cat([flag.to(torch.int64), dr])).tolist()
+        changed = moved > 0
+        loop_drops += drops
         rounds += 1
 
     # finish: chain starts, ends and unitig ids through three exchanges
@@ -299,11 +355,12 @@ def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
 
     ebl, ebv, drop2 = route_to_buckets(
         torch.stack([start_g, gidx2, rank + wlen2]), is_end,
-        torch.where(is_end, gq_owner(start_g), n_dev), n_dev, qcap)
+        torch.where(is_end, _gq_owner(start_g, run_cap, C_tot), n_dev), n_dev,
+        qcap)
     erl, erv = mesh.exchange(ebl, ebv)
     ent = erl.reshape(3, -1)
     ev = erv.reshape(-1)
-    erow = torch.clamp(gq_local(ent[0]), 0, two_rc - 1)[ev]
+    erow = torch.clamp(_gq_local(ent[0], run_cap, C_tot), 0, two_rc - 1)[ev]
     end_of = torch.full((two_rc,), -1, **i64)
     end_of[erow] = ent[1][ev]
     len_at = torch.zeros((two_rc,), **i64)
@@ -320,12 +377,13 @@ def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
     n_unitigs = int(kept_all.sum())
 
     def uid_of(vals, ok):
-        return torch.where(ok, uid_at[torch.clamp(gq_local(vals), 0,
-                                                  two_rc - 1)], -1)[None]
+        local = _gq_local(vals, run_cap, C_tot)
+        return torch.where(ok, uid_at[torch.clamp(local, 0, two_rc - 1)],
+                           -1)[None]
 
     uback, drop3 = _lookup(mesh, start_g, cvalid,
-                           torch.where(cvalid, gq_owner(start_g), n_dev), qcap,
-                           uid_of)
+                           torch.where(cvalid, _gq_owner(start_g, run_cap, C_tot),
+                                       n_dev), qcap, uid_of)
     uid2 = torch.where(cvalid, uback[0], -1)
     dropped = int(mesh.psum(drop1 + drop2 + drop3)[0]) + loop_drops
     outs = (torch.tensor([n_runs], **i64), hpos, epos, rlen, uid2,

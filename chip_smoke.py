@@ -101,8 +101,14 @@ Phases (any failure raises, and the script exits non-zero):
    Qd, writes no ROOTED row, and is timed on a fresh copy of Qd each call
    with the copy taken out) and K10 also at phase
    3d's M; K4's plain variant on the first round of phase 3's and phase
-   3d's plain runs (compare_jumps), with those runs' launches and those of
-   phase 3h's k = 255 build, which jumps below _HIER_MIN;
+   3d's plain runs (compare_jumps), with those runs' launches and rounds
+   that moved a row and those of phase 3h's k = 255 build, which jumps
+   below _HIER_MIN, and its converging phase (the flag mode, a host sync
+   a batch) held against plain rounds; K16 in place on the first round of
+   phase 3f's sharded doubling and, measured in phase 3f while its group
+   is up, that whole glue round (K15, the exchange, the owners' rows, the
+   response, K16) against the round with plain K15 and K16, each over
+   fresh copies of the state with the copies taken out;
    K20's three modes on phase 3's solid k-mers (its launches are phase
    3g's, on 3g's own solid set): the histogram (torch.bincount is its
    library call), partition ids with phase 3f's frequency rank and a 4-rank
@@ -149,15 +155,20 @@ jump, K17 at the first round of its levels 0 and 1 and of phase 3's level
 bitmap's own build),
 K10 at phase 3's M and at 2^24, K19 at the same three levels as K17 (on
 a fresh copy of Qd each call, the copy taken out) and
-K11 at phase 3's and phase 3h's shapes (k = 31, 151, 255), of each tree
-in the same turns
+K11 at phase 3's and phase 3h's shapes (k = 31, 151, 255), K4 at 2^19
+and 2^24 (a round, and plain_jumpF to convergence), K16's compose step
+at phase 3f's 2^22 rows (in a tree whose K16 works in place, the kernel
+over fresh copies of the state; else the response's gather and
+transpose, the kernel and the passes that make the next round's need,
+ptr column and owners), of each tree in the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
 runtime's launch; the K3b step's, K8's, K12a's, K17's, K18's, K10's,
-K19's and K11's outputs must agree across the trees), K20's three modes
-at phase 3's and 3h's shapes and K14's sampling of 8 rounds in both modes
-(one launch per mode in a tree whose K14 adds into the caller's
-histogram, else one per round and the sums; outputs must agree); then
+K19's, K11's, K4's and K16's outputs must agree across the trees),
+K20's three modes at phase 3's and 3h's shapes and K14's sampling of 8
+rounds in both modes (one launch per mode in a tree whose K14 adds into
+the caller's histogram, else one per round and the sums; outputs must
+agree); then
 SPLIT once in each tree (device time per operation); and DIST_AB runs
 each tree's ``-devices`` build at world size 1 on the first 1/8 of the
 reads in the same turns, held against the single-device build.
@@ -192,7 +203,7 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
                       "bcalm_tpu/ops/junctions.py:142"),
     "junction_pairs": ("bcalm_tpu_torch/csrc/junctions.cu",
                        "bcalm_tpu/ops/junctions.py:142"),
-    "jump_round": ("bcalm_tpu_torch/csrc/chains.cu",
+    "jump_round": ("bcalm_tpu_torch/csrc/hier.cu",
                    "bcalm_tpu/ops/chains.py:298"),
     "range_fold": ("bcalm_tpu_torch/csrc/ranges.cu",
                    "bcalm_tpu/engine.py:404"),
@@ -562,15 +573,17 @@ def _sub(args, what: str, repo: str = None):
 
 
 def _inproc(args, what: str, record=tuple(KERNELS)):
-    """cli.main in this process with the launch counters reset just before
-    it: (wall, stats, stdout, launches, the inputs of the kernels named in
-    record)."""
+    """cli.main in this process with the launch counters and the converging
+    phases' round counts reset just before it: (wall, stats (with the
+    round counts as `converge_rounds`), stdout, launches, the inputs of the
+    kernels named in record)."""
     from bcalm_tpu_torch import cli
-    from bcalm_tpu_torch.ops import _kernels
+    from bcalm_tpu_torch.ops import _kernels, chains
 
     buf = io.StringIO()
     with Recorder(_kernels, record) as rec:
         _kernels.reset_launches()
+        chains.reset_rounds()
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(args)
@@ -578,7 +591,9 @@ def _inproc(args, what: str, record=tuple(KERNELS)):
         launches = dict(_kernels.LAUNCHES)
     if rc != 0:
         raise RuntimeError(f"cli.main {what} exited {rc}:\n{buf.getvalue()}")
-    return wall, _stats(buf.getvalue()), buf.getvalue(), launches, rec.inputs
+    stats = _stats(buf.getvalue())
+    stats["converge_rounds"] = dict(chains.ROUNDS)
+    return wall, stats, buf.getvalue(), launches, rec.inputs
 
 
 def _read(path: str) -> bytes:
@@ -606,7 +621,9 @@ def _run_cli(tmp: str, args, what: str, out: str):
     for prefix in (out, out + "_sub"):
         if os.path.exists(os.path.join(tmp, prefix + "_btpu")):
             raise AssertionError(f"{prefix}_btpu/ was left after the run")
-    say(f"[launches] {json.dumps(launches)}")
+    say(f"[launches] {json.dumps(launches)}; converging phases (K4 rounds "
+        f"launched, rounds that moved a row, host syncs): "
+        f"{json.dumps(stats['converge_rounds'])}")
     return path, stats, sub_stats, launches, inputs
 
 
@@ -644,17 +661,20 @@ def compare_jumps(what: str, run, q0, q_deep):
     the deepest level's host syncs included), and K4's time per round on
     the plain variant's state q0 and on the deepest level's q_deep.
     Returns the stage times and, for phase 5's row of K4's plain variant,
-    q0 (on the host) and the plain run's K4 launches."""
+    q0 (on the host), the plain run's K4 launches and its converging
+    phase's round counts (chains.ROUNDS)."""
     from bcalm_tpu_torch.ops import _kernels, chains
 
-    out, launched, ms, peak = {}, {}, {}, {}
+    out, launched, ms, peak, rounds = {}, {}, {}, {}, {}
     for variant in ("hier", "plain"):
         before = dict(_kernels.LAUNCHES)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        chains.reset_rounds()
         out[variant] = run(variant)
         torch.cuda.synchronize()
+        rounds[variant] = dict(chains.ROUNDS)
         peak[variant] = (torch.cuda.max_memory_allocated() - base) >> 20
         launched[variant] = {n: _kernels.LAUNCHES[n] - before[n] for n in before}
         ms[variant] = _time_ms(lambda: run(variant), reps=5)
@@ -683,14 +703,17 @@ def compare_jumps(what: str, run, q0, q_deep):
         f"{chains._R_A} K17 rounds at each of the first {len(sizes) - 1} "
         f"levels ({lh['hier_round']} launches), {lh['hier_contract']} K18, "
         f"{lh['jump_round']} K4 rounds at the deepest level ({sizes[-1]} "
-        f"rows), {lh['hier_expand']} K19; plain: {lp['jump_round']} K4 rounds "
-        f"at M; stage time (pred, jump and finish) hier {ms['hier']:.4f} ms, "
+        f"rows; {rounds['hier']['moved']} moved a row, "
+        f"{rounds['hier']['syncs']} host syncs), {lh['hier_expand']} K19; "
+        f"plain: {lp['jump_round']} K4 rounds at M ({rounds['plain']['moved']} "
+        f"moved a row, {rounds['plain']['syncs']} host syncs); stage time "
+        f"(pred, jump and finish) hier {ms['hier']:.4f} ms, "
         f"plain {ms['plain']:.4f} ms; stage peak above its inputs hier "
         f"{peak['hier']} MiB, plain {peak['plain']} MiB; K4 per round "
         f"{k4['M']:.4f} ms at M (bound {_bound(2 * _nbytes(q0), 0)[0]:.4f} "
         f"ms, plain version {k4_plain:.4f} ms), {k4['deepest']:.4f} ms at the "
         f"deepest level")
-    return ms, (q0.cpu(), lp["jump_round"])
+    return ms, (q0.cpu(), lp["jump_round"], rounds["plain"])
 
 
 def phase_hier_resident(inputs, dev):
@@ -1014,6 +1037,15 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
             wall = time.time() - t0
             launches = dict(_kernels.LAUNCHES)
         check_mesh(tmp, ref_path, table, us, wall, timing, launches)
+        # K16's whole glue round needs the group (phase 5 prints its row)
+        _, glue_round_row = glue_rows(rec.inputs["glue_compose"], launches,
+                                      dev, mesh)
+        say(f"[mesh] K16's whole glue round on its first round's state "
+            f"({glue_round_row['rows']} rows, {glue_round_row['need_step']} "
+            f"need a step, {glue_round_row['moved']} move): equal to the "
+            f"round with plain K15 and K16; {glue_round_row['ms']:.4f} ms, "
+            f"plain {glue_round_row['plain_ms']:.4f} ms (CUDA events), bound "
+            f"{glue_round_row['bound_ms']:.4f} ms")
         ranged_launches = phase_mesh_ranged(tmp, fa, mesh, dev)
         entry_launches, entry_route, entry_solid = phase_entry_points(
             tmp, fa, mesh, dev)
@@ -1021,7 +1053,7 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
         dist.destroy_process_group()
     check_too_many_devices(tmp, fa)
     return launches, dict(rec.inputs, **{"route_buckets:hash": entry_route}), \
-        entry_launches, entry_solid, ranged_launches
+        entry_launches, entry_solid, ranged_launches, glue_round_row
 
 
 def check_mesh(tmp, ref_path, table, us, wall, timing, launches):
@@ -1468,6 +1500,29 @@ def expand_inputs(M, n_valid, mean):
         chains.hier_expand = real
     return seen[::-1]
 
+def glue_inputs(R=148391, rc=1 << 21, mean=296782 / 143856, qcap=1 << 24):
+    # phase 3f's sharded doubling at world size 1: 2 rc rows, the first R
+    # of each strand valid, in chains of geometric length (mean) in a
+    # random order, weights 1-40, and its first round's response as one
+    # owner gives it (a query's slot is its rank among the rows that need
+    # a step; the other columns zero): (Q, cvalid, need, back, slots)
+    r = np.random.RandomState(16)
+    M = 2 * rc
+    nodes = r.permutation(np.concatenate([np.arange(R), rc + np.arange(R)]))
+    start = r.rand(2 * R) < 1.0 / mean
+    start[0] = True
+    pred = np.full(M, -1, np.int64)
+    pred[nodes] = np.where(start, -1, np.roll(nodes, 1))
+    valid = np.zeros(M, bool)
+    valid[nodes] = True
+    pred, valid = torch.from_numpy(pred).to(dev), torch.from_numpy(valid).to(dev)
+    Q = chains.init_state(pred, valid, torch.from_numpy(r.randint(1, 41, M)).to(dev))
+    need = valid & ((Q[:, 1] & chains._F_ROOTED) == 0)
+    slots = torch.where(need, torch.cumsum(need.long(), 0) - 1, qcap)
+    back = torch.zeros((4, qcap), dtype=torch.int64, device=dev)
+    back[:, slots[need]] = Q[Q[need, 0]].t()
+    return Q, valid, need, back, slots
+
 # K11's inputs: n solid k-mers (random lanes, C columns) cut at random into
 # U unitigs, each walking its columns forward or backward, each k-mer a
 # member on a random strand (its canonical form's, as in the locality
@@ -1827,20 +1882,29 @@ def time_ms(fn, reps=50):
     b.record(); torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
+                "cudaMemset", "cuMemcpy", "cuMemset")
+
 def device_ms(fn, reps=20, only=""):
     # (device time per call, device operations per call): every kernel,
     # fill and copy the profiler saw over reps calls whose name holds
-    # `only`; (None, 0) where it saw none
+    # `only`; the time None where it saw none, or where the profile lost
+    # operations (not a whole number a call, or fewer than the launch
+    # calls seen on the host)
     fn(); torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA and only in e.name]
-    us = sum(e.device_time_total for e in evs)
-    return (us / 1e3 / reps if us else None), len(evs) / reps
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    calls = sum(1 for e in prof.events()
+                if e.device_type != cuda and e.name.startswith(LAUNCH_CALLS))
+    mine = [e for e in evs if only in e.name]
+    us = sum(e.device_time_total for e in mine)
+    whole = len(evs) % reps == 0 and len(evs) >= calls
+    return (us / 1e3 / reps if us and whole else None), len(mine) / reps
 
 # the argument of each C function that makes it return before it launches
 # (bt_route_count and bt_route_place: the two launches of the earlier K15)
@@ -2118,6 +2182,75 @@ for M, n_valid, mean in HIER_LEVELS:
         fns[name] = (lambda eargs=eargs, copy=copies[name]:
                      _kernels.hier_expand(eargs[0], eargs[1], copy(), eargs[3]), 20)
         del got, F_e, parent_e, Qd_e, did_e, scratch
+# K4 at 2^19 and 2^24 (HIER_LEVELS' graphs, unweighted): one round from
+# the initial state, and plain_jumpF to convergence (in a tree with the
+# flag mode one host sync after the first round and then every
+# chains._BATCH rounds, else one a round),
+# each held against plain rounds.  K16 at phase 3f's 2^22 rows
+# (glue_inputs()): a round's compose step, from the response to the next
+# round's routing (need, the ptr column, the owners); in a tree whose K16
+# works in place, the kernel alone over fresh copies of the state (the
+# copies' time taken out, their device operations not counted), in the
+# other the response gathered per row and transposed, the kernel, and the
+# passes that make the routing
+from bcalm_tpu_torch.parallel import distcompact
+
+def converge_plain(Q, cap):
+    for _ in range(cap):
+        new = chains.jump_round_plain(Q)
+        if torch.equal(new, Q):
+            break
+        Q = new
+    return Q
+
+for M, n_valid, mean in HIER_LEVELS:
+    pred_j, valid_j = jump_graph(M, n_valid, mean)
+    Q0 = chains.init_state(pred_j, valid_j)
+    Qn0 = torch.empty_like(Q0)
+    ch0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _kernels.jump_round(Q0, Qn0, ch0)
+    same([Qn0], [chains.jump_round_plain(Q0)], "jump_round")
+    name = f"jump_round S={M}"
+    digest[name] = digest_of(Qn0.reshape(-1))
+    fns[name] = (lambda a=(Q0, Qn0, ch0): _kernels.jump_round(*a), 20)
+    got = chains.plain_jumpF(pred_j, valid_j)
+    same([got], [converge_plain(Q0, chains.max_rounds(M) + 1)], "plain_jumpF")
+    name = f"plain_jumpF M={M}"
+    digest[name] = digest_of(got.reshape(-1))
+    fns[name] = (lambda a=(pred_j, valid_j): chains.plain_jumpF(*a), 5)
+    del got, Q0, Qn0
+gQ, g_cvalid, g_need, g_back, g_slots = glue_inputs()
+g_rc, g_nd = gQ.shape[0] // 2, 1
+g_owner = lambda q: torch.where(q >= g_rc, q - g_rc, q) // g_rc
+if "route" in inspect.signature(_kernels.glue_compose).parameters:
+    g_route = torch.stack([gQ[:, 0], torch.where(g_need, g_owner(gQ[:, 0]), g_nd)])
+    g_state = [torch.empty_like(t) for t in (gQ, g_need, g_route)]
+    g_ch = torch.zeros((1,), dtype=torch.int32, device=dev)
+    def g_copies():
+        for t, src in zip(g_state, (gQ, g_need, g_route)):
+            t.copy_(src)
+    def g_step(compose=_kernels.glue_compose):
+        g_copies()
+        compose(g_state[0], g_back, g_slots, g_state[1], g_ch, g_state[2], g_rc, g_nd)
+        return [t.clone() for t in (g_state[0], g_state[1], g_state[2][0], g_state[2][1])]
+    name = "glue_compose step S=4194304"
+    copies[name], only[name] = g_copies, "glue_compose"
+    g_timed = lambda: (g_copies(), _kernels.glue_compose(
+        g_state[0], g_back, g_slots, g_state[1], g_ch, g_state[2], g_rc, g_nd))
+else:
+    def g_step(compose=_kernels.glue_compose):
+        anc = g_back[:, torch.clamp(g_slots, 0, g_back.shape[1] - 1)]
+        Qn, _ = compose(gQ, anc.t().contiguous(), g_need)
+        need = g_cvalid & ((Qn[:, 1] & chains._F_ROOTED) == 0)
+        qg = Qn[:, 0].contiguous()
+        return [Qn, need, qg, torch.where(need, g_owner(qg), g_nd)]
+    name = "glue_compose step S=4194304"
+    g_timed = g_step
+got = g_step()
+same(got, g_step(distcompact.glue_compose_plain), "glue_compose step")
+digest[name] = [digest_of(t.reshape(-1).long()) for t in got]
+fns[name] = (g_timed, 20)
+del got
 for kk, n_k, C_k, U_k in SPELL_SHAPES:
     sargs = spell_inputs(kk, n_k, C_k, U_k)
     got = _kernels.spell_unitigs(*sargs)
@@ -2249,7 +2382,8 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
     if any(d != digests[0] for d in digests):
         raise AssertionError(f"a kernel of KERNEL_AB's digests gave other "
                              f"outputs in the two trees: {digests}")
-    say(f"[compare] the K3b step, K8, K12a, K17-K19, K10, K11, K20 and K14 give "
+    say(f"[compare] the K3b step, K8, K12a, K17-K19, K4, K16, K10, K11, K20 "
+        f"and K14 give "
         f"the same outputs in both trees (sums and counts): "
         f"{json.dumps(digests[0])}")
     # SPLIT once in each tree: device time per operation
@@ -2309,7 +2443,8 @@ def phase_longk(tmp: str, seed: int, dev):
     """Phase 3h: the k = 151 build of a 300 bp read set and the k = 255
     build of its first quarter, in this process.  Returns, per k, the
     build's recorded kernel inputs (k = 255: extract_insert's and
-    junction_keys' alone) and its launches (phase 5)."""
+    junction_keys' alone), its launches and its converging phases' round
+    counts (phase 5)."""
     fa = os.path.join(tmp, "reads300.fa")
     t0 = time.time()
     n_reads = write_reads(fa, LONG_COVERAGE, seed, sample_seed=seed + 2,
@@ -2342,8 +2477,10 @@ def phase_longk(tmp: str, seed: int, dev):
             f"solid_kmers {st['solid_kmers']}, unitigs {st['unitigs']}, links "
             f"{n_links}; device_peak_mb {st.get('device_peak_mb', 'not measured')}"
             f"; ingest_mbps {st.get('ingest_mbps', 'not printed')}")
-        say(f"[launches] k = {k}: {json.dumps(launches)}")
-        out[k] = inputs, launches
+        say(f"[launches] k = {k}: {json.dumps(launches)}; converging phases "
+            f"(K4 rounds launched, rounds that moved a row, host syncs): "
+            f"{json.dumps(st['converge_rounds'])}")
+        out[k] = inputs, launches, st["converge_rounds"]
     return out
 
 
@@ -2449,10 +2586,19 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+# the runtime and driver calls that put an operation on the device
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy",
+                "cudaMemset", "cuMemcpy", "cuMemset")
+
+
 def _device_ms(fn, reps: int = 20, only: str = ""):
     """(device time per call, device operations per call) of fn over `reps`
     calls: every kernel, fill and copy that torch.profiler saw whose name
-    holds `only` (None where it saw none)."""
+    holds `only`.  The time is None where it saw none, and where the
+    profile lost device operations: fn does the same work each call, so
+    a whole profile holds a whole number of operations a call, and no
+    fewer than the launch calls it saw on the host.  A time summed over
+    part of the launches would understate the kernel."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2461,10 +2607,14 @@ def _device_ms(fn, reps: int = 20, only: str = ""):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA and only in e.name]
-    us = sum(e.device_time_total for e in evs)
-    return (us / 1e3 / reps if us else None), len(evs) / reps
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    calls = sum(1 for e in prof.events()
+                if e.device_type != cuda and e.name.startswith(LAUNCH_CALLS))
+    mine = [e for e in evs if only in e.name]
+    us = sum(e.device_time_total for e in mine)
+    whole = len(evs) % reps == 0 and len(evs) >= calls
+    return (us / 1e3 / reps if us and whole else None), len(mine) / reps
 
 
 def _fmt_ms(ms) -> str:
@@ -2800,6 +2950,89 @@ def k5_chunks(ranged_args, owed_args):
     return out
 
 
+def glue_rows(recorded, launches, dev, mesh=None):
+    """K16 on the inputs of its first call in phase 3f (Q, back, slots,
+    need, changed, route, run_cap, n_dev), bitwise against its plain
+    version; with a mesh, K16's whole glue round (distcompact.glue_round:
+    K15, the exchange, the owners' rows, the response, K16) from the same
+    state, against the round with the plain K15 and K16.  Each call runs
+    over fresh copies of Q, need and route (the round and K16 write them
+    in place): the copies' event time is taken out of ms and plain_ms,
+    and K16's device time is its kernel's alone (by name).  The round's
+    row has no device time: that needs a profiler session while the NCCL
+    group is up, and on an H100 the later sessions of a smoke run that had
+    one lost device operations.  The bound counts need read for every
+    row; for each row that needs a step its row, its ancestor's
+    32 bytes and its slot (K16) or its ptr and owner (the round) read, and
+    need, ptr and owner written; and each row that moved written.
+    Returns (K16's row, the round's row or None)."""
+    from bcalm_tpu_torch.ops import _kernels
+    from bcalm_tpu_torch.parallel import distcompact, pipeline
+
+    Q, back, slots, need, _, route, run_cap, n_dev = (
+        a.to(dev) if isinstance(a, torch.Tensor) else a for a in recorded)
+    state = [torch.empty_like(t) for t in (Q, need, route)]
+    ch = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def copies():
+        for t, src in zip(state, (Q, need, route)):
+            t.copy_(src)
+        ch.zero_()
+
+    def k16(compose):
+        copies()
+        compose(state[0], back, slots, state[1], ch, state[2], run_cap, n_dev)
+
+    def glue_round(plain):
+        copies()
+        saved = distcompact.glue_compose, distcompact.route_to_buckets
+        if plain:
+            distcompact.glue_compose = distcompact.glue_compose_plain
+            distcompact.route_to_buckets = pipeline.route_to_buckets_plain
+        try:
+            return distcompact.glue_round(mesh, state[0], state[1], state[2],
+                                          ch, back.shape[1] // n_dev, run_cap)
+        finally:
+            distcompact.glue_compose, distcompact.route_to_buckets = saved
+
+    def outputs(fn):
+        def run():
+            extra = fn()
+            return tuple(t.clone() for t in state) + (ch.clone(), extra)
+        return run
+
+    plain = outputs(lambda: k16(distcompact.glue_compose_plain))()
+    n_need, n_moved = int(need.sum()), int((plain[0] != Q).any(dim=1).sum())
+    copy_ms = _time_ms(copies)
+    rows = []
+    for name, kernel_fn, plain_fn, per_need in (
+            ("glue_compose", lambda: k16(_kernels.glue_compose),
+             lambda: k16(distcompact.glue_compose_plain), 8 + 32 + 32),
+            ("glue_compose:round", lambda: glue_round(False),
+             lambda: glue_round(True), 16 + 32 + 32)):
+        if name == "glue_compose:round" and mesh is None:
+            rows.append(None)
+            continue
+        r = check_kernel("glue_compose", launches, outputs(kernel_fn),
+                         outputs(plain_fn), kernel_fn, plain_fn,
+                         read_bytes=need.numel() + per_need * n_need,
+                         written=17 * n_need + 32 * n_moved, label=name,
+                         device=False)
+        r["ms"] -= copy_ms
+        r["plain_ms"] -= copy_ms
+        if mesh is None:
+            r["device_ms"], r["device_ops"] = _device_ms(kernel_fn,
+                                                         only="glue_compose")
+            r["library_device_ms"] = None
+        r["rows"], r["need_step"], r["moved"] = Q.shape[0], n_need, n_moved
+        rows.append(r)
+    # the earlier K16's bound: Q, its ancestor rows and need read, every
+    # row written
+    rows[0]["bound_old_ms"] = _bound(3 * _nbytes(Q) + _nbytes(need), 0)[0]
+    rows[0]["bound_old_what"] = "Q, anc and need read once, every row written"
+    return rows[0], rows[1]
+
+
 def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                   longk, phases, entry_solid, dev):
     from bcalm_tpu_torch import engine
@@ -2867,9 +3100,21 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
         new = chains.jump_round_plain(Q)
         return new, torch.tensor([not torch.equal(new, Q)], device=Q.device)
 
-    check("jump_round", jr_kernel, jr_plain,
-          lambda: _kernels.jump_round(Q, Qn, changed),
-          lambda: chains.jump_round_plain(Q), reads=Q)
+    r4 = check("jump_round", jr_kernel, jr_plain,
+               lambda: _kernels.jump_round(Q, Qn, changed),
+               lambda: chains.jump_round_plain(Q), reads=Q)
+    # what a launch of the flag mode costs after convergence (word 0 is 0,
+    # so round 1 returns at once): a converging phase pays up to
+    # _BATCH - 1 of them in its last batch
+    idle = torch.zeros((2,), dtype=torch.int32, device=Q.device)
+    r4["idle_launch_ms"] = _time_ms(
+        lambda: _kernels.jump_round(Q, Qn, idle, at=1))
+    if int(idle[1]):
+        raise AssertionError("jump_round: a round after one that moved no "
+                             "row set its flag word")
+    say(f"[kernels] K4 at the deepest level ({Q.shape[0]} rows): a round "
+        f"{r4['ms']:.4f} ms, a launch after convergence "
+        f"{r4['idle_launch_ms']:.4f} ms (CUDA events)")
 
     k5_shapes = []
     for label, body, lo, hi, on_path in k5_chunks(
@@ -3055,14 +3300,17 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
           label=f"chain_finish@M={cf_c[0].shape[0]}",
           launched=canon_launches["chain_finish"])
 
-    def k4_plain(q0, rounds, where):
+    def k4_plain(q0, launched, rounds, where):
         """K4 on the first round of a plain run (chains.plain_jumpF) at its
         M (launches 0: phase 3's path jumps hierarchically; the plain
-        run's own launches beside them); its bound counts the state read
-        and written once and, where the state exceeds L2, the target row's
-        sector of every row not ROOTED.  Below _HIER_MIN the CLI runs
-        this variant: the launches of phase 3h's k = 255 build, whose
-        jump did not go hierarchical, are its CLI launches."""
+        run's own launches and round counts beside them); its bound counts
+        the state read and written once and, where the state exceeds L2,
+        the target row's sector of every row not ROOTED.  Below _HIER_MIN
+        the CLI runs this variant: the launches of phase 3h's k = 255
+        build, whose jump did not go hierarchical, are its CLI launches.
+        The converging phase (the flag mode: one round, then batches of
+        chains._BATCH rounds) is held against plain rounds on the card run
+        until a round moves no row."""
         qn = torch.empty_like(q0)
         changed = torch.zeros((1,), dtype=torch.int32, device=dev)
         queries = int(((q0[:, 1] & chains._F_ROOTED) == 0).sum())
@@ -3082,10 +3330,28 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                   read_bytes=32 * queries if _nbytes(q0) > L2_BYTES else 0,
                   written=_nbytes(q0), launched=0,
                   label=f"jump_round:plain@{where} (M={q0.shape[0]})")
-        k255 = longk[LONG_K2][1]
+        _, k255, k255_rounds = longk[LONG_K2]
+        plain_path = not k255["hier_round"]
         r["cli_launches_below_hier_min"] = {
+            f"{where}'s plain run": launched,
+            f"3h k={LONG_K2}": k255["jump_round"] if plain_path else 0}
+        r["cli_rounds_below_hier_min"] = {
             f"{where}'s plain run": rounds,
-            f"3h k={LONG_K2}": k255["jump_round"] if not k255["hier_round"] else 0}
+            f"3h k={LONG_K2}": k255_rounds if plain_path else None}
+        cap = chains.max_rounds(q0.shape[0]) + 1
+        chains.reset_rounds()
+        got = chains._phase(q0.clone(), None, None, None, cap)
+        r["converge"] = dict(chains.ROUNDS)
+        want, moved = q0, 0
+        while moved < cap:
+            new = chains.jump_round_plain(want)
+            if torch.equal(new, want):
+                break
+            want, moved = new, moved + 1
+        if not torch.equal(got, want) or r["converge"]["moved"] != moved:
+            raise AssertionError(f"jump_round's flag mode at {where}: the "
+                                 f"converged state or its {moved} moving "
+                                 f"rounds differ from plain rounds")
 
     k4_plain(*inputs["jump_round:plain"], "phase 3")
     k4_plain(*canon["jump_round:plain"], "phase 3d")
@@ -3217,10 +3483,10 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                       f"owner {spread}; {launches['route_buckets:hash']} "
                       f"launches in phase 3g)", r))
     del hl, hv
-    gQ, anc, need = inputs["glue_compose"]
-    check("glue_compose", lambda: _kernels.glue_compose(gQ, anc, need),
-          lambda: distcompact.glue_compose_plain(gQ, anc, need),
-          reads=(gQ, anc, need))
+    # K16 in place on the first round of phase 3f's sharded doubling
+    r16, _ = glue_rows(inputs["glue_compose"], launches, dev)
+    rows.append(r16)
+    gQ = inputs["glue_compose"][0]
     ge = inputs["junction_entries"]
     r = check("junction_keys", lambda: _kernels.junction_entries(*ge),
               lambda: junctions.junction_entries_plain(*ge[:6]), reads=ge[0],
@@ -3335,7 +3601,7 @@ def longk_rows(longk, phases, dev):
         return {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                             for a in args) for name, args in recorded.items()}
 
-    inputs, launches = longk[LONG_K]
+    inputs, launches, _ = longk[LONG_K]
     inputs = on_card(inputs)
     rows = []
     L = (LONG_K + 15) // 16
@@ -3354,7 +3620,7 @@ def longk_rows(longk, phases, dev):
                        "extract_insert" + tag, "extract_insert", phases,
                        reps=5))
     del buf, words, lengths
-    inputs2, launches2 = longk[LONG_K2]
+    inputs2, launches2, _ = longk[LONG_K2]
     k255 = on_card({"extract_insert": inputs2["extract_insert"]})
     rows.append(k1_row(k255["extract_insert"], launches2,
                        f"extract_insert@L{(LONG_K2 + 15) // 16}",
@@ -3520,7 +3786,7 @@ def main() -> int:
         del ms_inputs
         phase_auto(tmp, fa, path)
         (mesh_launches, mesh_inputs, entry_launches, entry_solid,
-         mesh_ranged) = phase_mesh(tmp, fa, path, table, dev)
+         mesh_ranged, glue_round_row) = phase_mesh(tmp, fa, path, table, dev)
         phase_invariants(path, stats)
         longk = phase_longk(tmp, args.seed, dev)
     # each kernel is held against its plain version on the inputs of the
@@ -3552,6 +3818,7 @@ def main() -> int:
     del mesh_inputs
     rows = phase_kernels(inputs, launches, canon_hier, ms_launches, table, longk,
                          phases, entry_solid, dev)
+    rows.append(glue_round_row)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -85,3 +85,65 @@ def test_jump_round_saturates_cycles():
     jstate = jchains.plain_jumpF(jnp.asarray(pred.numpy().astype(np.int32)),
                                  jnp.ones(M, bool))
     np.testing.assert_array_equal(state.numpy(), np.asarray(jstate))
+
+
+def converge_case(case: str):
+    """(pred, valid, dist0) of a chain forest with weights, of a graph that
+    is converged at the first round (every node a root), and of a cycle of
+    200 nodes, whose cap of 10 rounds (1, then batches of 4) ends the last
+    batch after one round."""
+    rng = np.random.RandomState(5)
+    if case == "forest":
+        M = 3000
+        order = rng.permutation(M)
+        pred = np.full(M, -1)
+        starts = rng.rand(M) < 0.02
+        starts[0] = True
+        pred[order] = np.where(starts, -1, np.roll(order, 1))
+        valid = rng.rand(M) < 0.97
+        dist0 = rng.randint(1, 40, M)
+    elif case == "converged":
+        M = 500
+        pred, valid, dist0 = np.full(M, -1), np.ones(M, bool), np.ones(M, int)
+    else:
+        M = 200
+        pred = (np.arange(M) - 1) % M
+        valid, dist0 = np.ones(M, bool), rng.randint(1, 9, M)
+    return pred, valid, dist0
+
+
+@pytest.mark.parametrize("case", ["forest", "converged", "cycle"])
+def test_converge_flags_match_jax(case):
+    """The converging phase in its plain form (a flag word a round, one
+    round and then batches of _BATCH, one host read a batch) against JAX's
+    plain_jumpF and against the deepest level's _phase on the same state;
+    the rounds launched, moved and the syncs as the flags say."""
+    pred, valid, dist0 = converge_case(case)
+    M = pred.shape[0]
+    tp, tv, td = (torch.from_numpy(pred.astype(np.int64)),
+                  torch.from_numpy(valid), torch.from_numpy(dist0.astype(np.int64)))
+    tchains.reset_rounds()
+    state = tchains.plain_jumpF(tp, tv, td)
+    jp, jv = jnp.asarray(pred.astype(np.int32)), jnp.asarray(valid)
+    jd = jnp.asarray(dist0.astype(np.int32))
+    np.testing.assert_array_equal(state.numpy(),
+                                  np.asarray(jchains.plain_jumpF(jp, jv, jd)))
+    cap = tchains.max_rounds(M) + 1
+    rounds = dict(tchains.ROUNDS)
+    batch = tchains._BATCH
+    assert rounds["syncs"] == 1 - (-(rounds["launched"] - 1) // batch)
+    if case == "converged":
+        assert rounds == {"launched": 1, "moved": 0, "syncs": 1}
+    elif case == "cycle":
+        assert (cap - 1) % batch == 1
+        assert rounds == {"launched": cap, "moved": cap,
+                          "syncs": 1 - (-(cap - 1) // batch)}
+    else:
+        assert 0 < rounds["moved"] < rounds["launched"] < cap
+    # the deepest level of hier_jump runs the same phase on its own state
+    Q0 = tchains.init_state(tp, tv, td[torch.clamp(tp, 0, M - 1)])
+    got = tchains._phase(Q0.clone(), None, None, None, cap)
+    want = jchains._phase(jnp.asarray(Q0.numpy().astype(np.int32)),
+                          jnp.zeros((M,), bool),
+                          jnp.arange(M, dtype=jnp.int32), cap)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -8,7 +8,9 @@
   member-ordered counts, on the locality-ordered and the canonical-order
   chains of a branching input and of circular fixtures;
 - K12 (run_decompose) on circular fixtures, and the port's compact_solid
-  vs bcalm_tpu.engine.compact_solid on a branching input.
+  vs bcalm_tpu.engine.compact_solid on a branching input;
+- K16 glue_compose_plain (in place, the response in the exchange's
+  layout) vs the compose step of bcalm_tpu's _glue_shard.
 Every input is made with numpy and fed to both; exact equality.
 """
 
@@ -25,6 +27,7 @@ from bcalm_tpu_torch import convert
 from bcalm_tpu_torch import engine as tengine
 from bcalm_tpu_torch.ops import chains as tchains
 from bcalm_tpu_torch.ops import count as tcount
+from bcalm_tpu_torch.parallel import distcompact
 from tests.test_oracle import CIRC1, CIRC2, CIRC3
 from tests.test_torch_chains import assert_info_equal, successor_graph
 
@@ -243,3 +246,55 @@ def test_chain_info_round_trip():
         assert back[key].dtype == val.dtype and back[key].shape == val.shape
         np.testing.assert_array_equal(back[key], val)
     assert back["uid"].shape[0] == 2 * jengine._round_capacity(n_solid)
+
+
+@pytest.mark.parametrize("n_dev", [1, 3])
+def test_glue_compose_in_place_matches_jax(n_dev):
+    """K16's plain version (in place, the response read in the exchange's
+    (4, W) layout at each row's slot) against JAX's where(need,
+    _composeF(Q, anc), Q) of _glue_shard: ROOTED targets, FIX targets,
+    dists that saturate, ties in mn, dropped slots (clipped to W - 1);
+    the next round's need and route where need was set, the rest kept."""
+    rng = np.random.RandomState(16 + n_dev)
+    run_cap = 300
+    M, c_tot = 2 * run_cap, n_dev * run_cap
+    flags = rng.choice([0, tchains._F_ROOTED, tchains._F_FIX,
+                        tchains._F_SETTLED], M, p=[0.6, 0.2, 0.1, 0.1])
+    dist = np.where(rng.rand(M) < 0.2, tchains._DMASK - rng.randint(0, 3, M),
+                    rng.randint(1, 50, M))
+    Q = np.stack([rng.randint(0, 2 * c_tot, M), dist | flags,
+                  rng.randint(0, 40, M), rng.randint(0, 9, M)], axis=1)
+    cvalid = rng.rand(M) < 0.9
+    need = cvalid & ((Q[:, 1] & tchains._F_ROOTED) == 0)
+    W = 4 * M
+    aflags = rng.choice([0, tchains._F_ROOTED, tchains._F_FIX], W,
+                        p=[0.6, 0.2, 0.2])
+    back = np.stack([rng.randint(0, 2 * c_tot, W),
+                     np.where(rng.rand(W) < 0.2, tchains._DMASK,
+                              rng.randint(1, 50, W)) | aflags,
+                     rng.randint(0, 40, W), rng.randint(0, 9, W)])
+    slots = rng.permutation(W)[:M]
+    slots[rng.rand(M) < 0.05] = W          # dropped: JAX clips to W - 1
+    ptr0, owner0 = rng.randint(0, 9, M), rng.randint(0, 9, M)
+
+    anc = back[:, np.clip(slots, 0, W - 1)].T
+    jq = jnp.asarray(Q.astype(np.int32))
+    want = np.asarray(jnp.where(jnp.asarray(need)[:, None],
+                                jchains._composeF(jq, jnp.asarray(anc.astype(np.int32))),
+                                jq)).astype(np.int64)
+    nxt = need & ((want[:, 1] & tchains._F_ROOTED) == 0)
+    p = want[:, 0]
+    owner = np.where(nxt, np.where(p >= c_tot, p - c_tot, p) // run_cap, n_dev)
+
+    tQ, tneed = t64(Q), torch.from_numpy(need.copy())
+    route = torch.stack([t64(ptr0), t64(owner0)])
+    changed = torch.zeros(1, dtype=torch.int32)
+    distcompact.glue_compose(tQ, t64(back), t64(slots), tneed, changed, route,
+                             run_cap, n_dev)
+    np.testing.assert_array_equal(tQ.numpy(), want)
+    assert int(changed) == int((want != Q).any())
+    np.testing.assert_array_equal(tneed.numpy(), nxt)
+    np.testing.assert_array_equal(route[0].numpy(), np.where(need, p, ptr0))
+    np.testing.assert_array_equal(route[1].numpy(), np.where(need, owner, owner0))
+    assert 0 < nxt.sum() < need.sum()
+    assert ((want[:, 1] & tchains._DMASK) == tchains._DMASK).any()

@@ -181,6 +181,59 @@ def test_jump_round(card):
         Q = Qn
 
 
+def flag_graph(M: int):
+    """(pred, valid) of chains of geometric length (mean 40) in a random
+    order, 3% of the nodes not valid."""
+    rng = np.random.RandomState(M % 1000)
+    order = rng.permutation(M)
+    starts = rng.rand(M) < 1 / 40
+    starts[0] = True
+    pred = np.full(M, -1)
+    pred[order] = np.where(starts, -1, np.roll(order, 1))
+    return torch.from_numpy(pred), torch.from_numpy(rng.rand(M) < 0.97)
+
+
+def test_round_flag_mode(card):
+    """K4's flag mode: from a poisoned Qn, each round writes the plain
+    version's next state and its flag word; after the round that moved no
+    row every launch returns at once (a poisoned Qn stays poisoned, its
+    word stays 0) and both buffers hold the plain version's converged
+    state; the converging phase counts its launches, the rounds that moved
+    a row and one sync a batch."""
+    M = (1 << 16) + 77
+    pred, valid = flag_graph(M)
+    Q0 = chains.init_state(pred, valid)
+    states = [Q0]
+    while len(states) < 2 or not torch.equal(states[-1], states[-2]):
+        states.append(chains.jump_round_plain(states[-1]))
+    k = len(states) - 2            # round k is the first that moved no row
+    rounds = k + 3
+    flags = torch.zeros(rounds, dtype=torch.int32, device=card)
+    A = Q0.to(card)
+    B = torch.full_like(A, -7)
+    for r in range(rounds):
+        _kernels.jump_round(A, B, flags, at=r)
+        A, B = B, A
+        want = states[min(r + 1, k + 1)]
+        assert torch.equal(A.cpu(), want)
+        if r > k:
+            assert torch.equal(B.cpu(), want)
+    assert flags.tolist() == [1] * k + [0] * 3
+    poison = torch.full_like(A, -7)
+    _kernels.jump_round(A, poison, flags, at=rounds - 1)
+    assert bool((poison == -7).all()) and int(flags[-1]) == 0
+    chains.reset_rounds()
+    before = _kernels.LAUNCHES["jump_round"]
+    got = chains.plain_jumpF(pred.to(card), valid.to(card))
+    assert torch.equal(got.cpu(), states[-1])
+    n = chains.ROUNDS
+    assert n["launched"] == _kernels.LAUNCHES["jump_round"] - before
+    assert n["moved"] == k
+    assert n["syncs"] == 1 - (-(n["launched"] - 1) // chains._BATCH)
+    assert n["launched"] == min(chains.max_rounds(M) + 1,
+                                1 + chains._BATCH * (n["syncs"] - 1))
+
+
 @pytest.mark.parametrize("k", [21, 31, 63])
 def test_build_card_equals_cpu(card, k):
     seqs = reads(k + 1, n=600, k=k)
@@ -778,18 +831,39 @@ def test_route_buckets_hash_mode(card, L, n_dev):
 
 
 def test_glue_compose(card):
+    """K16 in place against its plain version: each round's ancestor rows
+    placed in a (4, W) response at shuffled slots (a few dropped: clipped
+    to W - 1), the other columns garbage; Q, changed, need and route
+    (ptr, owner at 3 ranks) equal, the kernel run twice for equal bytes."""
     rng = np.random.RandomState(0)
-    M = 1 << 16
-    pred = torch.from_numpy(np.where(rng.rand(M) < 0.9, rng.randint(0, M, M), -1))
-    Q = chains.init_state(pred, torch.ones(M, dtype=torch.bool))
+    run_cap, n_dev = 1 << 15, 3
+    M, c_tot = 2 * run_cap, n_dev * run_cap
+    pred = np.where(rng.rand(M) < 0.9, rng.randint(0, 2 * c_tot, M), -1)
+    Q = chains.init_state(torch.from_numpy(pred), torch.ones(M, dtype=torch.bool))
+    need = torch.from_numpy(rng.rand(M) < 0.9) & ((Q[:, 1] & chains._F_ROOTED) == 0)
+    ptr = Q[:, 0].clone()
+    route = torch.stack([ptr, torch.where(need, ptr // run_cap, n_dev)])
+    W = 4 * M
     for _ in range(4):
-        anc = Q[torch.clamp(Q[:, 0], 0, M - 1)]
-        need = torch.from_numpy(rng.rand(M) < 0.7)
-        got = _kernels.glue_compose(Q.to(card), anc.to(card), need.to(card))
-        want = distcompact.glue_compose_plain(Q, anc, need)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
-        Q = want[0]
+        slots = torch.from_numpy(rng.permutation(W)[:M].copy())
+        slots[torch.from_numpy(rng.rand(M) < 0.02)] = W
+        back = torch.from_numpy(rng.randint(0, 1 << 30, (4, W)))
+        back[:, torch.clamp(slots, 0, W - 1)] = Q[torch.clamp(Q[:, 0], 0, M - 1)].t()
+        want = [t.clone() for t in (Q, need, route)]
+        ch_want = torch.zeros(1, dtype=torch.int32)
+        distcompact.glue_compose_plain(want[0], back, slots, want[1], ch_want,
+                                       want[2], run_cap, n_dev)
+        outs = []
+        for _ in range(2):
+            got = [t.to(card, copy=True) for t in (Q, need, route)]
+            ch = torch.zeros(1, dtype=torch.int32, device=card)
+            _kernels.glue_compose(got[0], back.to(card), slots.to(card), got[1],
+                                  ch, got[2], run_cap, n_dev)
+            for a, b in zip(got + [ch], want + [ch_want]):
+                assert torch.equal(a.cpu(), b)
+            outs.append(got)
+        assert int(ch_want) == 1
+        Q, need, route = want
 
 
 def hier_level0(M: int):

@@ -160,8 +160,10 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.route_buckets(t((2, 64)),
                                      torch.ones(64, dtype=torch.bool),
                                      None, 4, 64),
-    lambda t: _kernels.glue_compose(t((8, 4)), t((8, 4)),
-                                    torch.ones(8, dtype=torch.bool)),
+    lambda t: _kernels.glue_compose(t((8, 4)), t((4, 8)), t((8,)),
+                                    torch.ones(8, dtype=torch.bool),
+                                    torch.zeros(1, dtype=torch.int32),
+                                    t((2, 8)), 4, 1),
     lambda t: _kernels.hier_round(t((8, 4)), t((8, 4)), t((8,)),
                                   torch.zeros(1, dtype=torch.int32)),
     lambda t: _kernels.hier_contract(t((8, 4)), t((8,)),
