@@ -25,19 +25,31 @@
 //
 // The sharded glue of the -devices N build (global mode) replaces
 // bcalm_tpu/parallel/distcompact.py:_local_succ_shard (:53) around its
-// exchange.  junction_entries, one thread per local k-mer i < slot_cap:
+// exchanges.  junction_entries, one thread per local k-mer i < slot_cap:
 // all four entries of its two sides (suffix at i and N+i, prefix at 2N+i
 // and 3N+i, N = slot_cap), keyed by the exact canonical (k-1)-mer lanes
 // with the strand folded into the spare bits of the top lane (or carried
 // as an extra first row when k-1 is a multiple of 16; palindromic sides
 // take strand 0 on both entries), oriented ids global (+ = gbase + i,
 // - = gbase + i + tot), and each entry's owner rank = hash_lanes(key rows)
-// % n_dev (hash.cuh).  junction_edges, one thread per sorted received
-// entry: the pair rule of junction_pairs, emitting (ok, src, dst) per entry
-// instead of scattering, since src and dst belong to other ranks.
+// % n_dev (hash.cuh); the key rows and the payload as one (K+1, 4N)
+// stack, the exchange's input, and each entry's validity (i < n_local).
+// After the exchange, junction_words packs each received entry's K key
+// rows into the sort's words (models.lanes.pack_keys), all of them the
+// sentinel packing where the slot is empty, so no fill of the rows runs.
+// junction_edges reads the sort's own output, as junction_pairs does:
+// the sorted top word in a shared tile, a neighbour's lower words through
+// perm only where the top words are equal, and a pair head's two payloads
+// through perm (no sorted copy of the keys or the payload exists); it
+// writes per sorted entry ok, the edge (src, dst) and the rank owning
+// src's slot (-1, -1, 0 where not ok), the next exchange's input.
+// junction_scatter, at src's owner, writes each received edge into the
+// rank's successor shard (a memset to -1, then one store an edge), which
+// a boolean compaction of the received edges did before.
 //
 // Bound on this card: memory.  junction_keys reads L*8 bytes per k-mer
-// and writes 2*(K+1)*8 (K key rows); junction_entries writes 4*(K+2)*8.
+// and writes 2*(K+1)*8 (K key rows); junction_entries writes 4*(K+2)*8
+// and 4 validity bytes.
 // Their arithmetic is the two (k-1)-mers' reverse complements, which
 // common.cuh's revcomp_field builds a word at a time (revcomp_word on
 // each lane, then one field shift): O(A) word operations per side, where
@@ -54,7 +66,13 @@
 // half the valid entries) reads perm[i], perm[i+1] and the two payloads
 // (random sectors), and a pair makes two random 8-byte stores.  Its bytes
 // are the word (8 per entry), those sectors, the memset (16 per k-mer)
-// and the stores' sectors.
+// and the stores' sectors.  In the global mode junction_words reads K*8
+// bytes and a validity byte per received slot and writes ceil(K/2)*8;
+// junction_edges reads the sorted word (8 per entry; a lower word through
+// perm, a random sector, only where top words tie) and a pair head's perm
+// and payload sectors, and writes 25 bytes per entry (ok, src, dst,
+// owner), which the router reads next; junction_scatter reads 17 bytes a
+// received slot and sets a random sector per edge after the memset.
 #include "common.cuh"
 #include "hash.cuh"
 
@@ -172,14 +190,6 @@ void launch_keys(const int64_t* solid, long long stride, long long C,
       solid, stride, C, n_solid, k, hashed, keys, kstride, payload, lanes);
 }
 
-__device__ __forceinline__ bool same_key(const int64_t* keys, long long kstride,
-                                         int K, long long a, long long b) {
-  for (int r = 0; r < K; ++r) {
-    if (keys[r * kstride + a] != keys[r * kstride + b]) return false;
-  }
-  return true;
-}
-
 // Entries per junction_pairs block: kPairItems per thread, item q of
 // thread t being entry base + q * kThreads + t (coalesced per warp).
 constexpr int kPairItems = 4;
@@ -259,7 +269,7 @@ __global__ void junction_entries_kernel(
     const int64_t* __restrict__ solid, long long stride, long long N,
     long long n_local, int k, long long gbase, long long tot, int n_dev,
     int64_t* __restrict__ keys, long long kstride, int64_t* __restrict__ payload,
-    int64_t* __restrict__ owner, int lanes) {
+    int64_t* __restrict__ owner, uint8_t* __restrict__ valid_out, int lanes) {
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= N) return;
   const int m = k - 1;
@@ -304,6 +314,7 @@ __global__ void junction_entries_kernel(
     }
     payload[col] = oid[e] | (role[e] << kRoleShift);
     owner[col] = h % static_cast<uint32_t>(n_dev);
+    valid_out[col] = valid;
   }
 }
 
@@ -311,34 +322,131 @@ template <int L>
 void launch_entries(const int64_t* solid, long long stride, long long N,
                     long long n_local, int k, long long gbase, long long tot,
                     int n_dev, int64_t* keys, long long kstride,
-                    int64_t* payload, int64_t* owner, int lanes,
-                    cudaStream_t s) {
+                    int64_t* payload, int64_t* owner, uint8_t* valid,
+                    int lanes, cudaStream_t s) {
   junction_entries_kernel<L><<<bt::blocks_for(N), bt::kThreads, 0, s>>>(
       solid, stride, N, n_local, k, gbase, tot, n_dev, keys, kstride, payload,
-      owner, lanes);
+      owner, valid, lanes);
 }
 
-__global__ void junction_edges_kernel(const int64_t* __restrict__ keys,
-                                      long long kstride, int K,
-                                      const int64_t* __restrict__ pay,
-                                      long long E, long long tot,
-                                      uint8_t* __restrict__ ok,
-                                      int64_t* __restrict__ src,
-                                      int64_t* __restrict__ dst) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+// models.lanes.pack_keys of the u32 key rows r, r+1: ((hi - 2^31) << 32)
+// | lo, an odd last row alone.
+__device__ __forceinline__ long long pack_word(unsigned long long hi,
+                                               unsigned long long lo,
+                                               bool pair) {
+  return pair ? static_cast<long long>(((hi ^ 0x80000000ull) << 32) | lo)
+              : static_cast<long long>(hi);
+}
+
+__global__ void __launch_bounds__(bt::kThreads)
+junction_words_kernel(const int64_t* __restrict__ keys, long long kstride,
+                      int K, const uint8_t* __restrict__ valid, long long E,
+                      int64_t* __restrict__ words) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= E) return;
-  long long pa = pay[i], pb = i + 1 < E ? pay[i + 1] : 0;
-  long long role_a = pa >> kRoleShift, role_b = pb >> kRoleShift;
-  long long oid_a = pa & kOidMask, oid_b = pb & kOidMask;
-  src[i] = role_a == 0 ? oid_a : oid_b;
-  dst[i] = role_a == 0 ? oid_b : oid_a;
-  bool head = i + 1 < E && static_cast<uint32_t>(keys[i]) != bt::kSentinel &&
-              same_key(keys, kstride, K, i, i + 1) &&
-              !(i > 0 && same_key(keys, kstride, K, i, i - 1)) &&
-              !(i + 2 < E && same_key(keys, kstride, K, i + 1, i + 2));
-  long long vert_a = oid_a >= tot ? oid_a - tot : oid_a;
-  long long vert_b = oid_b >= tot ? oid_b - tot : oid_b;
-  ok[i] = head && role_a != role_b && vert_a != vert_b;
+  const bool ok = valid[i] != 0;
+  for (int r = 0; r < K; r += 2) {
+    const bool pair = r + 1 < K;
+    const unsigned long long hi = ok ? keys[r * kstride + i] : bt::kSentinel;
+    const unsigned long long lo =
+        pair ? (ok ? keys[(r + 1) * kstride + i] : bt::kSentinel) : 0ull;
+    words[(r / 2) * E + i] = pack_word(hi, lo, pair);
+  }
+}
+
+// One block a tile of kPairTile sorted entries.  Slot j of the shared
+// tile holds the top word of entry base - 1 + j (j < kPairTile + 3), and
+// eqn[j] whether that entry's key equals the next one's (both < E): the
+// top words, then the W - 1 lower words of the two through perm, read only
+// where the top words are equal.
+__global__ void __launch_bounds__(bt::kThreads)
+junction_edges_kernel(const int64_t* __restrict__ top,
+                      const int64_t* __restrict__ perm,
+                      const int64_t* __restrict__ words, int W,
+                      const int64_t* __restrict__ pay, long long E,
+                      long long tot, long long slot_cap, int shift,
+                      long long sent_hi, uint8_t* __restrict__ ok,
+                      int64_t* __restrict__ edges,
+                      int64_t* __restrict__ owner) {
+  __shared__ long long s0[kPairTile + 3];
+  __shared__ uint8_t eqn[kPairTile + 2];
+  const long long base = static_cast<long long>(blockIdx.x) * kPairTile;
+  for (int j = threadIdx.x; j < kPairTile + 3; j += bt::kThreads) {
+    const long long e = base - 1 + j;
+    s0[j] = (e >= 0 && e < E) ? top[e] : 0;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kPairTile + 2; j += bt::kThreads) {
+    const long long e = base - 1 + j;
+    bool eq = e >= 0 && e + 1 < E && s0[j] == s0[j + 1];
+    if (eq && W > 1) {
+      const long long a = perm[e], b = perm[e + 1];
+      for (int w = 1; w < W && eq; ++w) eq = words[w * E + a] == words[w * E + b];
+    }
+    eqn[j] = eq;
+  }
+  __syncthreads();
+  bool head[kPairItems];
+  long long pa[kPairItems], pb[kPairItems];
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    const int j = q * bt::kThreads + threadIdx.x + 1;  // slot of entry i
+    const long long i = base + j - 1;
+    head[q] = i < E && (s0[j] >> shift) != sent_hi && eqn[j] && !eqn[j - 1] &&
+              !eqn[j + 1];
+  }
+  // only a pair head reads the permutation and the two payloads
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    if (!head[q]) continue;
+    const long long i = base + q * bt::kThreads + threadIdx.x;
+    pa[q] = perm[i];
+    pb[q] = perm[i + 1];
+  }
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    if (!head[q]) continue;
+    pa[q] = pay[pa[q]];
+    pb[q] = pay[pb[q]];
+  }
+#pragma unroll
+  for (int q = 0; q < kPairItems; ++q) {
+    const long long i = base + q * bt::kThreads + threadIdx.x;
+    if (i >= E) continue;
+    long long src = -1, dst = -1, own = 0;
+    bool edge = false;
+    if (head[q]) {
+      const long long role_a = pa[q] >> kRoleShift, role_b = pb[q] >> kRoleShift;
+      const long long oid_a = pa[q] & kOidMask, oid_b = pb[q] & kOidMask;
+      const long long vert_a = oid_a >= tot ? oid_a - tot : oid_a;
+      const long long vert_b = oid_b >= tot ? oid_b - tot : oid_b;
+      edge = role_a != role_b && vert_a != vert_b;
+      if (edge) {
+        src = role_a == 0 ? oid_a : oid_b;
+        dst = role_a == 0 ? oid_b : oid_a;
+        own = (src >= tot ? src - tot : src) / slot_cap;
+      }
+    }
+    ok[i] = edge;
+    edges[i] = src;
+    edges[E + i] = dst;
+    owner[i] = own;
+  }
+}
+
+// One thread a received slot: a valid edge (a, b), a owned here, sets
+// table[local oriented id of a] = b.
+__global__ void __launch_bounds__(bt::kThreads)
+junction_scatter_kernel(const int64_t* __restrict__ edges,
+                        const uint8_t* __restrict__ ev, long long R,
+                        long long tot, long long base, long long slot_cap,
+                        int64_t* __restrict__ table) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= R || !ev[i]) return;
+  const long long a = edges[i];
+  const long long slot = (a >= tot ? a - tot : a) - base;
+  const long long at = a >= tot ? slot + slot_cap : slot;
+  if (at >= 0 && at < 2 * slot_cap) table[at] = edges[R + i];
 }
 
 }  // namespace
@@ -379,26 +487,65 @@ extern "C" int bt_junction_pairs(const int64_t* w0, const int64_t* w1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// keys (K rows, stride kstride) and payload: the (K+1, 4N) stack; valid:
+// 4N bytes.
 extern "C" int bt_junction_entries(const int64_t* solid, long long stride,
                                    long long N, long long n_local, int L, int k,
                                    long long gbase, long long tot, int n_dev,
                                    int64_t* keys, long long kstride,
                                    int64_t* payload, int64_t* owner,
-                                   void* stream) {
+                                   uint8_t* valid, void* stream) {
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BT_DISPATCH_LANES(L, launch_entries, solid, stride, N, n_local, k, gbase,
-                    tot, n_dev, keys, kstride, payload, owner, L, s);
+                    tot, n_dev, keys, kstride, payload, owner, valid, L, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bt_junction_edges(const int64_t* keys, long long kstride, int K,
-                                 const int64_t* pay, long long E,
-                                 long long tot, uint8_t* ok, int64_t* src,
-                                 int64_t* dst, void* stream) {
+// words: (ceil(K/2), E).
+extern "C" int bt_junction_words(const int64_t* keys, long long kstride, int K,
+                                 const uint8_t* valid, long long E,
+                                 int64_t* words, void* stream) {
   if (E == 0) return 0;
-  junction_edges_kernel<<<bt::blocks_for(E), bt::kThreads, 0,
+  junction_words_kernel<<<bt::blocks_for(E), bt::kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      keys, kstride, K, pay, E, tot, ok, src, dst);
+      keys, kstride, K, valid, E, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// words: (W, E) in entry order (row 0, the top word, is read sorted from
+// `top`); edges: (2, E).
+extern "C" int bt_junction_edges(const int64_t* top, const int64_t* perm,
+                                 const int64_t* words, int W,
+                                 const int64_t* pay, long long E,
+                                 long long tot, long long slot_cap, int shift,
+                                 long long sent_hi, uint8_t* ok,
+                                 int64_t* edges, int64_t* owner,
+                                 void* stream) {
+  if (E == 0) return 0;
+  const unsigned int grid =
+      static_cast<unsigned int>((E + kPairTile - 1) / kPairTile);
+  junction_edges_kernel<<<grid, bt::kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      top, perm, words, W, pay, E, tot, slot_cap, shift, sent_hi, ok, edges,
+      owner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// edges: (2, R) received, ev: R bytes; table: 2 * slot_cap, set to -1
+// here (one memset), then the edges.
+extern "C" int bt_junction_scatter(const int64_t* edges, const uint8_t* ev,
+                                   long long R, long long tot, long long base,
+                                   long long slot_cap, int64_t* table,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (slot_cap > 0) {
+    cudaError_t err =
+        cudaMemsetAsync(table, 0xFF, 2 * slot_cap * sizeof(int64_t), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (R == 0) return 0;
+  junction_scatter_kernel<<<bt::blocks_for(R), bt::kThreads, 0, s>>>(
+      edges, ev, R, tot, base, slot_cap, table);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,8 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-# kernel name -> launches since the last reset_launches()
+# kernel name (K21: each of its modes) -> launches since the last
+# reset_launches()
 LAUNCHES = {"extract_insert": 0, "extract_insert_ranged": 0,
             "count_runs": 0, "junction_keys": 0,
             "junction_pairs": 0, "jump_round": 0, "range_fold": 0,
@@ -44,6 +45,8 @@ LAUNCHES = {"extract_insert": 0, "extract_insert_ranged": 0,
             "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
             "run_contract": 0, "run_broadcast": 0, "form_superkmers": 0,
             "mmer_histograms": 0, "route_buckets": 0, "glue_compose": 0,
+            "glue_answer_rows": 0, "glue_answer_run": 0,
+            "glue_answer_uid": 0, "junction_words": 0, "junction_scatter": 0,
             "fixpoint_bits": 0, "hier_round": 0, "hier_contract": 0,
             "hier_expand": 0,
             "kmer_minimizers": 0}
@@ -77,14 +80,19 @@ _SIGNATURES = {
     "bt_run_broadcast": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
                          _P, _P, _P],
     "bt_junction_entries": [_P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _I32,
-                            _P, _I64, _P, _P, _P],
-    "bt_junction_edges": [_P, _I64, _I32, _P, _I64, _I64, _P, _P, _P, _P],
+                            _P, _I64, _P, _P, _P, _P],
+    "bt_junction_words": [_P, _I64, _I32, _P, _I64, _P, _P],
+    "bt_junction_edges": [_P, _P, _P, _I32, _P, _I64, _I64, _I64, _I32, _I64,
+                          _P, _P, _P, _P],
+    "bt_junction_scatter": [_P, _P, _I64, _I64, _I64, _I64, _P, _P],
     "bt_form_superkmers": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32,
                            _I32, _I32, ctypes.c_uint, _P, _P, _P, _P, _P],
     "bt_mmer_histograms": [_P, _P, _I32, _I32, _I32, _I32, _P, _I32, _P, _P],
     "bt_route_buckets": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P,
                          _P, _P, _P],
     "bt_glue_compose": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P],
+    "bt_glue_answer": [_I32, _P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64,
+                       _I64, _P, _P],
     "bt_fixpoint_bits": [_P, _P, _I64, ctypes.c_uint, _P, _P],
     "bt_hier_round": [_P, _P, _P, _P, _I64, _P, _P],
     "bt_hier_contract": [_P, _P, _P, _I64, ctypes.c_uint, _I64, _I64, _P, _P,
@@ -689,40 +697,91 @@ def run_broadcast(cuid: torch.Tensor, crank: torch.Tensor, cstart: torch.Tensor,
 
 def junction_entries(solid: torch.Tensor, n_local: int, k: int, gbase: int,
                      tot: int, n_dev: int, key_rows: int):
-    """K3a, global mode: (keys (key_rows, 4N), payload (4N,), owner (4N,))
-    of the four junction entries of each of the N = solid.shape[1] local
-    k-mers."""
+    """K3a, global mode: (entries (key_rows+1, 4N): the key rows, then the
+    payload; valid (4N,) bool; owner (4N,)) of the four junction entries
+    of each of the N = solid.shape[1] local k-mers."""
     _check(solid, "solid", ndim=2)
     L, N = solid.shape
     _lanes_ok(L, "junction_entries")
     dev = solid.device
-    keys = torch.empty((key_rows, 4 * N), dtype=torch.int64, device=dev)
-    payload = torch.empty((4 * N,), dtype=torch.int64, device=dev)
+    ent = torch.empty((key_rows + 1, 4 * N), dtype=torch.int64, device=dev)
+    valid = torch.empty((4 * N,), dtype=torch.bool, device=dev)
     owner = torch.empty((4 * N,), dtype=torch.int64, device=dev)
     if N:
         _launch("bt_junction_entries", solid.data_ptr(), solid.stride(0), N,
-                n_local, L, k, gbase, tot, n_dev, keys.data_ptr(),
-                keys.stride(0), payload.data_ptr(), owner.data_ptr())
+                n_local, L, k, gbase, tot, n_dev, ent.data_ptr(),
+                ent.stride(0), ent[key_rows].data_ptr(), owner.data_ptr(),
+                valid.data_ptr())
         LAUNCHES["junction_keys"] += 1
-    return keys, payload, owner
+    return ent, valid, owner
 
 
-def junction_edges(s_keys: torch.Tensor, s_pay: torch.Tensor, tot: int):
-    """K3b, global mode: (ok (E,) bool, src (E,), dst (E,)) of the pair
-    rule over E sorted received entries."""
-    _check(s_keys, "s_keys", ndim=2)
-    _check(s_pay, "s_pay", ndim=1)
-    E = s_pay.shape[0]
-    dev = s_pay.device
-    ok = torch.zeros((E,), dtype=torch.bool, device=dev)
-    src = torch.empty((E,), dtype=torch.int64, device=dev)
-    dst = torch.empty((E,), dtype=torch.int64, device=dev)
+def junction_words(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K3, global mode: the (ceil(K/2), E) sort words (models.lanes.pack_keys)
+    of the K received key rows, every word the sentinel packing where the
+    slot is not valid."""
+    _check(keys, "keys", ndim=2, rows_strided=True)
+    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    K, E = keys.shape
+    if valid.shape[0] != E or not 1 <= K <= MAX_LANES + 1:
+        raise ValueError("junction_words: shapes do not match")
+    words = torch.empty(((K + 1) // 2, E), dtype=torch.int64, device=keys.device)
     if E:
-        _launch("bt_junction_edges", s_keys.data_ptr(), s_keys.stride(0),
-                s_keys.shape[0], s_pay.data_ptr(), E, tot, ok.data_ptr(),
-                src.data_ptr(), dst.data_ptr())
+        _launch("bt_junction_words", keys.data_ptr(), keys.stride(0), K,
+                valid.data_ptr(), E, words.data_ptr())
+        LAUNCHES["junction_words"] += 1
+    return words
+
+
+def junction_edges(s_word: torch.Tensor, perm: torch.Tensor,
+                   words: torch.Tensor, payload: torch.Tensor, K: int,
+                   tot: int, slot_cap: int):
+    """K3b, global mode, on the sort's own output: s_word the sorted top
+    word and perm the permutation (sort.lex_sort_words of words), words
+    (ceil(K/2), E) and payload (E,) in entry order.  Returns (ok (E,) bool,
+    edges (2, E): src, dst, owner (E,): the rank owning src's slot) per
+    sorted entry, (-1, -1, 0) where not ok."""
+    from .junctions import sentinel_words
+
+    for t, name in ((s_word, "s_word"), (perm, "perm"), (payload, "payload")):
+        _check(t, name, ndim=1)
+    _check(words, "words", ndim=2)
+    E = s_word.shape[0]
+    if (perm.shape[0] != E or payload.shape[0] != E
+            or words.shape != ((K + 1) // 2, E) or slot_cap < 1):
+        raise ValueError("junction_edges: shapes do not match")
+    dev = s_word.device
+    ok = torch.empty((E,), dtype=torch.bool, device=dev)
+    edges = torch.empty((2, E), dtype=torch.int64, device=dev)
+    owner = torch.empty((E,), dtype=torch.int64, device=dev)
+    sent0, _, shift = sentinel_words(K)
+    if E:
+        _launch("bt_junction_edges", s_word.data_ptr(), perm.data_ptr(),
+                words.data_ptr(), words.shape[0], payload.data_ptr(), E, tot,
+                slot_cap, shift, sent0 >> shift, ok.data_ptr(),
+                edges.data_ptr(), owner.data_ptr())
         LAUNCHES["junction_pairs"] += 1
-    return ok, src, dst
+    return ok, edges, owner
+
+
+def junction_scatter(edges: torch.Tensor, ev: torch.Tensor, tot: int,
+                     base: int, slot_cap: int) -> torch.Tensor:
+    """K3, global mode: the (2*slot_cap,) successor shard of the rank whose
+    slots start at base: each received edge (a, b) with ev set writes b at
+    a's local oriented id, -1 elsewhere.  One C call: a memset and the
+    kernel."""
+    _check(edges, "edges", ndim=2)
+    _check(ev, "ev", dtype=torch.bool, ndim=1)
+    R = ev.shape[0]
+    if edges.shape != (2, R):
+        raise ValueError("junction_scatter: shapes do not match")
+    table = torch.empty((2 * slot_cap,), dtype=torch.int64, device=ev.device)
+    if slot_cap:
+        _launch("bt_junction_scatter", edges.data_ptr(), ev.data_ptr(), R,
+                tot, base, slot_cap, table.data_ptr())
+        if R:
+            LAUNCHES["junction_scatter"] += 1
+    return table
 
 
 def form_superkmers(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
@@ -840,6 +899,46 @@ def glue_compose(Q: torch.Tensor, back: torch.Tensor, slots: torch.Tensor,
                 slots.data_ptr(), need.data_ptr(), M, changed.data_ptr(),
                 route.data_ptr(), run_cap, n_dev)
         LAUNCHES["glue_compose"] += 1
+
+
+# K21's modes: (C function mode, answer channels, tables)
+_GLUE_ANSWER = {"rows": (0, 4, 1), "run": (1, 2, 3), "uid": (2, 1, 1)}
+
+
+def glue_answer(mode: str, vals: torch.Tensor, valid: torch.Tensor, tables,
+                run_cap: int, n_dev: int, me: int) -> torch.Tensor:
+    """K21: the owner's (C, S) channel-major answer to S received query
+    values and their validity (distcompact.glue_answer_plain's contract):
+    mode "rows", tables (Q,) of 2*run_cap state rows (16-byte aligned);
+    "run", tables (rid_loc, head_pos_v, end_pos_v) of this rank's slot_cap
+    slots; "uid", tables (uid_at,) of 2*run_cap runs.  The kernel writes
+    every element."""
+    if mode not in _GLUE_ANSWER:
+        raise ValueError(f"glue_answer: unknown mode {mode!r}")
+    code, C, n_tables = _GLUE_ANSWER[mode]
+    _check(vals, "vals", ndim=1)
+    _check(valid, "valid", dtype=torch.bool, ndim=1)
+    if len(tables) != n_tables:
+        raise ValueError(f"glue_answer: mode {mode} takes {n_tables} tables")
+    for j, t in enumerate(tables):
+        _check(t, f"tables[{j}]", ndim=2 if mode == "rows" else 1)
+    S = vals.shape[0]
+    T = tables[0].shape[0]
+    if (valid.shape[0] != S or run_cap < 1 or n_dev < 1 or not 0 <= me < n_dev
+            or any(t.shape[0] != T for t in tables)
+            or (mode == "rows" and tables[0].shape != (2 * run_cap, 4))
+            or (mode == "uid" and T != 2 * run_cap) or T == 0):
+        raise ValueError("glue_answer: shapes do not match")
+    if mode == "rows":
+        _aligned16(tables[0], "Q")
+    out = torch.empty((C, S), dtype=torch.int64, device=vals.device)
+    if S:
+        ptrs = [t.data_ptr() for t in tables] + [None] * (3 - n_tables)
+        _launch("bt_glue_answer", code, vals.data_ptr(), valid.data_ptr(), S,
+                *ptrs, T, run_cap, n_dev * run_cap, me * T, me * run_cap,
+                out.data_ptr())
+        LAUNCHES[f"glue_answer_{mode}"] += 1
+    return out
 
 
 def _check_state(Q: torch.Tensor, name: str) -> int:

@@ -123,17 +123,19 @@ def sentinel_words(K: int):
 def pair_heads(s_word: torch.Tensor, s_word2, K: int, hashed: bool):
     """Pair heads of the sorted entries: the first entry of each group of
     exactly two equal keys, the key not a sentinel (bcalm_tpu
-    junctions.successor_arrays :207-216).  Equal packed words mean equal
-    keys: pack_keys is a bijection on u32 pairs."""
+    junctions.successor_arrays :207-216).  s_word2: the lower packed
+    words in sorted order (one row or several), or None.  Equal packed
+    words mean equal keys: pack_keys is a bijection on u32 pairs."""
     sent0, sent1, shift = sentinel_words(K)
+    low = None if s_word2 is None else s_word2.reshape(-1, s_word.shape[0])
     if hashed:
-        s_valid = ~((s_word == sent0) & (s_word2 == sent1))
+        s_valid = ~((s_word == sent0) & (low[0] == sent1))
     else:
         s_valid = (s_word >> shift) != (sent0 >> shift)
     f = torch.zeros((1,), dtype=torch.bool, device=s_word.device)
     eq = s_word[1:] == s_word[:-1]
-    if s_word2 is not None:
-        eq &= s_word2[1:] == s_word2[:-1]
+    if low is not None:
+        eq &= (low[:, 1:] == low[:, :-1]).all(dim=0)
     eq_prev = torch.cat([f, eq])
     eq_next = torch.cat([eq, f])
     return s_valid & ~eq_prev & eq_next & ~torch.cat([eq_next[1:], f])
@@ -216,9 +218,10 @@ def _make_keys(keys: torch.Tensor, strand: torch.Tensor, valid: torch.Tensor,
 def junction_entries_plain(solid: torch.Tensor, n_local: int, k: int,
                            gbase: int, tot: int, n_dev: int):
     """Plain version of K3a's global mode: the four junction entries of
-    each local k-mer, (keys (K, 4N), payload (4N,), owner (4N,)); suffix
-    entries at [0, 2N), prefix entries at [2N, 4N); oriented ids global
-    (gbase + i, + tot for the - strand); owner = hash_lanes(key) % n_dev."""
+    each local k-mer, (entries (K+1, 4N): the K key rows, then the
+    payload; valid (4N,); owner (4N,)); suffix entries at [0, 2N), prefix
+    entries at [2N, 4N); oriented ids global (gbase + i, + tot for the -
+    strand); valid where i < n_local; owner = hash_lanes(key) % n_dev."""
     from bcalm_tpu_torch.ops import hashing
 
     N = solid.shape[1]
@@ -246,7 +249,8 @@ def junction_entries_plain(solid: torch.Tensor, n_local: int, k: int,
                       torch.ones(N, dtype=torch.int64, device=dev),
                       torch.zeros(N, dtype=torch.int64, device=dev)])
     payload = oid | (role << _ROLE_SHIFT)
-    return keys, payload, hashing.hash_lanes(keys) % n_dev
+    return (torch.cat([keys, payload[None]]), valid1.repeat(4),
+            hashing.hash_lanes(keys) % n_dev)
 
 
 def junction_entries(solid: torch.Tensor, n_local: int, k: int, gbase: int,
@@ -259,31 +263,81 @@ def junction_entries(solid: torch.Tensor, n_local: int, k: int, gbase: int,
                                      entry_key_rows(k))
 
 
-def junction_edges_plain(s_keys: torch.Tensor, s_pay: torch.Tensor, tot: int):
-    """Plain version of K3b's global mode: per sorted entry, (ok, src, dst)
-    of the pair rule (a group of exactly two entries, one OUT and one IN,
-    on distinct vertices; src/dst are meaningful where ok)."""
-    dev = s_pay.device
-    s_valid = s_keys[0] != SENTINEL
-    f = torch.zeros((1,), dtype=torch.bool, device=dev)
-    eq_prev = torch.cat([f, torch.all(s_keys[:, 1:] == s_keys[:, :-1], dim=0)])
-    eq_next = torch.cat([eq_prev[1:], f])
-    pair_head = s_valid & ~eq_prev & eq_next & ~torch.cat([eq_next[1:], f])
+def junction_words_plain(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the global mode's sort words: the (ceil(K/2), E)
+    packed words (models.lanes.pack_keys) of the K received key rows,
+    each row the sentinel where the slot is not valid (the fill of
+    bcalm_tpu _local_succ_shard's e_keys)."""
+    rows = [torch.where(valid, keys[j], SENTINEL) for j in range(keys.shape[0])]
+    return torch.stack(ln.pack_keys(rows))
+
+
+def junction_words(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Sort-word entry: kernel for CUDA tensors, plain version for CPU
+    tensors."""
+    if valid.device.type == "cpu":
+        return junction_words_plain(keys, valid)
+    return _kernels.junction_words(keys, valid)
+
+
+def junction_edges_plain(s_word: torch.Tensor, perm: torch.Tensor,
+                         words: torch.Tensor, payload: torch.Tensor, K: int,
+                         tot: int, slot_cap: int):
+    """Plain version of K3b's global mode on the sort's own output (the
+    contract of _kernels.junction_edges): per sorted entry, (ok, edges (2,
+    E): src, dst, owner of src's slot) of the pair rule (a group of
+    exactly two equal keys, one OUT and one IN, on distinct vertices);
+    (-1, -1, 0) where not ok."""
+    pair_head = pair_heads(s_word, words[1:, perm] if words.shape[0] > 1
+                           else None, K, False)
+    s_pay = payload[perm]
     nxt_pay = torch.cat([s_pay[1:], torch.zeros((1,), dtype=torch.int64,
-                                                device=dev)])
+                                                device=s_word.device)])
     role_a, role_b = s_pay >> _ROLE_SHIFT, nxt_pay >> _ROLE_SHIFT
     oid_a, oid_b = s_pay & _OID_MASK, nxt_pay & _OID_MASK
     vert_a = torch.where(oid_a >= tot, oid_a - tot, oid_a)
     vert_b = torch.where(oid_b >= tot, oid_b - tot, oid_b)
     ok = pair_head & (role_a != role_b) & (vert_a != vert_b)
-    src = torch.where(role_a == ROLE_OUT, oid_a, oid_b)
-    dst = torch.where(role_a == ROLE_OUT, oid_b, oid_a)
-    return ok, src, dst
+    src = torch.where(ok, torch.where(role_a == ROLE_OUT, oid_a, oid_b), -1)
+    dst = torch.where(ok, torch.where(role_a == ROLE_OUT, oid_b, oid_a), -1)
+    owner = torch.where(ok, torch.where(src >= tot, src - tot, src) // slot_cap,
+                        0)
+    return ok, torch.stack([src, dst]), owner
 
 
-def junction_edges(s_keys: torch.Tensor, s_pay: torch.Tensor, tot: int):
+def junction_edges(s_word: torch.Tensor, perm: torch.Tensor,
+                   words: torch.Tensor, payload: torch.Tensor, K: int,
+                   tot: int, slot_cap: int):
     """K3b global-mode entry: kernel for CUDA tensors, plain version for
     CPU tensors."""
-    if s_pay.device.type == "cpu":
-        return junction_edges_plain(s_keys, s_pay, tot)
-    return _kernels.junction_edges(s_keys, s_pay, tot)
+    if s_word.device.type == "cpu":
+        return junction_edges_plain(s_word, perm, words, payload, K, tot,
+                                    slot_cap)
+    return _kernels.junction_edges(s_word, perm, words, payload, K, tot,
+                                   slot_cap)
+
+
+def junction_scatter_plain(edges: torch.Tensor, ev: torch.Tensor, tot: int,
+                           base: int, slot_cap: int) -> torch.Tensor:
+    """Plain version of the successor shard's scatter (bcalm_tpu
+    _local_succ_shard's scatter_edges after its exchange): each received
+    edge (a, b) with ev set writes b at a's local oriented id (a's slot
+    less base, plus slot_cap on the - strand) of a (2*slot_cap,) table of
+    -1; an id outside the table is dropped."""
+    ea, eb = edges[0][ev], edges[1][ev]
+    eslot = torch.where(ea >= tot, ea - tot, ea) - base
+    lidx = torch.where(ea >= tot, eslot + slot_cap, eslot)
+    keep = (lidx >= 0) & (lidx < 2 * slot_cap)
+    table = torch.full((2 * slot_cap,), -1, dtype=torch.int64,
+                       device=edges.device)
+    table[lidx[keep]] = eb[keep]
+    return table
+
+
+def junction_scatter(edges: torch.Tensor, ev: torch.Tensor, tot: int,
+                     base: int, slot_cap: int) -> torch.Tensor:
+    """Scatter entry: kernel for CUDA tensors, plain version for CPU
+    tensors."""
+    if ev.device.type == "cpu":
+        return junction_scatter_plain(edges, ev, tot, base, slot_cap)
+    return _kernels.junction_scatter(edges, ev, tot, base, slot_cap)

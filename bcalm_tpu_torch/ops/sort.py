@@ -22,7 +22,12 @@ def lex_sort(cols: Sequence[torch.Tensor]):
     (models.lanes.pack_keys) in sorted order, the values of the last
     ``torch.sort``, so a caller that compares adjacent sorted keys needs
     no gather of its own."""
-    keys = ln.pack_keys(list(cols))
+    return lex_sort_words(ln.pack_keys(list(cols)))
+
+
+def lex_sort_words(keys: Sequence[torch.Tensor]):
+    """lex_sort on keys already packed (most significant first): (perm,
+    the first key in sorted order)."""
     perm = None
     for key in reversed(keys):
         if perm is None:

@@ -11,13 +11,15 @@ Counterpart of ``bcalm_tpu/parallel/distcompact.py``'s device path
    global slots [d*slot_cap, (d+1)*slot_cap) in stream order;
 2. local_succ_shard: the four junction entries of each local k-mer with
    global oriented ids (K3a, global mode) go to the rank owning
-   hash_lanes(key) % n_dev (K15 + exchange); sorted there (torch.sort),
-   the pair rule (K3b, global mode) finds the unitig edges, which go back
-   to the rank owning their source slot (K15 + exchange) and fill its
-   successor shard;
+   hash_lanes(key) % n_dev (K15 + exchange); their packed sort words
+   (K3, global mode) are sorted there (torch.sort), the pair rule (K3b,
+   global mode) reads the sort's output and finds the unitig edges, which
+   go back to the rank owning their source slot (K15 + exchange) and are
+   scattered into its successor shard (K3, global mode);
 3. glue_shard: consecutive runs of the shard (K8 with a global slot
    base), the contracted run graph through request/response lookups at
-   the owners, the sharded weighted doubling (glue_round: K15 + exchange
+   the owners (each owner's answer K21, written in the response's
+   layout), the sharded weighted doubling (glue_round: K15 + exchange
    of the ancestor requests, the owners' rows back, K16 in place over the
    state, reading the response where it lands and writing the next
    round's routing; then the changed flag summed over the ranks), and the
@@ -99,25 +101,16 @@ def reshard_pos(mesh, stk: torch.Tensor, k: int, slot_cap: int,
             int(bad[0]))
 
 
-def _scatter_edges(mesh, a: torch.Tensor, b: torch.Tensor, ok: torch.Tensor,
-                   slot_cap: int, cap_entries: int):
-    """The (a -> b) edges routed to the owner of a's slot and scattered
-    into its local table (2*slot_cap,) by a's local oriented id (-1 =
-    none).  Returns (table, drops)."""
-    tot = mesh.n_dev * slot_cap
-    a_slot = torch.where(a >= tot, a - tot, a)
-    bl, bv, drop = route_to_buckets(torch.stack([a, b]), ok,
-                                    a_slot // slot_cap, mesh.n_dev,
-                                    cap_entries)
+def _scatter_edges(mesh, edges: torch.Tensor, ok: torch.Tensor,
+                   owner: torch.Tensor, slot_cap: int, cap_entries: int):
+    """The (a -> b) edges (2, E) where ok, routed to owner (the rank owning
+    a's slot) and scattered into its local table (2*slot_cap,) by a's
+    local oriented id (-1 = none).  Returns (table, drops)."""
+    bl, bv, drop = route_to_buckets(edges, ok, owner, mesh.n_dev, cap_entries)
     recv, rv = mesh.exchange(bl, bv)
-    edges = recv.reshape(2, -1)
-    ev = rv.reshape(-1)
-    ea, eb = edges[0][ev], edges[1][ev]
-    eslot = torch.where(ea >= tot, ea - tot, ea) - mesh.rank * slot_cap
-    lidx = torch.where(ea >= tot, eslot + slot_cap, eslot)
-    table = torch.full((2 * slot_cap,), -1, dtype=torch.int64,
-                       device=a.device)
-    table[lidx] = eb
+    table = junc.junction_scatter(recv.reshape(2, -1), rv.reshape(-1),
+                                  mesh.n_dev * slot_cap, mesh.rank * slot_cap,
+                                  slot_cap)
     return table, drop
 
 
@@ -125,30 +118,32 @@ def local_succ_shard(mesh, solid: torch.Tensor, n_local: int, k: int,
                      cap_entries: int, slot_cap: int, with_pred: bool = False):
     """This rank's successor shard (2*slot_cap,) of global oriented ids
     (-1 = none) and the route drops summed over the ranks (bcalm_tpu
-    _local_succ_shard).  with_pred: also the predecessor shard, the same
-    edges routed to their dst owners, which JAX builds and the glue does
-    not use: (succ, pred, drops)."""
+    _local_succ_shard).  The received entries are sorted on their packed
+    words (empty slots the sentinel), and the pair rule reads the sort's
+    own output: no sorted copy of the keys or the payload.  with_pred:
+    also the predecessor shard, the same edges routed to their dst
+    owners, which JAX builds and the glue does not use: (succ, pred,
+    drops)."""
     n_dev, me = mesh.n_dev, mesh.rank
-    N = solid.shape[1]
     tot = n_dev * slot_cap
-    keys, payload, owner = junc.junction_entries(solid, n_local, k,
-                                                 me * slot_cap, tot, n_dev)
-    valid = (torch.arange(4 * N, device=solid.device) % N) < n_local
-    K = keys.shape[0]
-    bl, bv, drop1 = route_to_buckets(torch.cat([keys, payload[None]]), valid,
-                                     owner, n_dev, cap_entries)
+    ent, valid, owner = junc.junction_entries(solid, n_local, k,
+                                              me * slot_cap, tot, n_dev)
+    K = ent.shape[0] - 1
+    bl, bv, drop1 = route_to_buckets(ent, valid, owner, n_dev, cap_entries)
     recv, rv = mesh.exchange(bl, bv)
-    ent = recv.reshape(K + 1, -1)
-    ev = rv.reshape(-1)
-    e_keys = torch.where(ev[None], ent[:K], SENTINEL)
-    e_pay = torch.where(ev, ent[K], 0)
-    perm = sort_op.lex_argsort([e_keys[j] for j in range(K)])
-    ok, src, dst = junc.junction_edges(e_keys[:, perm].contiguous(),
-                                       e_pay[perm], tot)
-    succ, drop2 = _scatter_edges(mesh, src, dst, ok, slot_cap, cap_entries)
+    rent = recv.reshape(K + 1, -1)
+    words = junc.junction_words(rent[:K], rv.reshape(-1))
+    perm, top = sort_op.lex_sort_words(words)
+    ok, edges, src_owner = junc.junction_edges(top, perm, words, rent[K], K,
+                                               tot, slot_cap)
+    succ, drop2 = _scatter_edges(mesh, edges, ok, src_owner, slot_cap,
+                                 cap_entries)
     if not with_pred:
         return succ, int(mesh.psum(drop1 + drop2)[0])
-    pred, drop3 = _scatter_edges(mesh, dst, src, ok, slot_cap, cap_entries)
+    dst = edges[1]
+    dst_owner = torch.where(dst >= tot, dst - tot, dst) // slot_cap
+    pred, drop3 = _scatter_edges(mesh, torch.stack([dst, edges[0]]), ok,
+                                 dst_owner, slot_cap, cap_entries)
     return succ, pred, int(mesh.psum(drop1 + drop2 + drop3)[0])
 
 
@@ -214,27 +209,67 @@ def glue_compose(Q: torch.Tensor, back: torch.Tensor, slots: torch.Tensor,
                               n_dev)
 
 
+def glue_answer_plain(mode: str, vals: torch.Tensor, valid: torch.Tensor,
+                      tables, run_cap: int, n_dev: int,
+                      me: int) -> torch.Tensor:
+    """Plain PyTorch version of K21: the owner's answer to the received
+    query values (S,) and their validity (S,), channel-major (C, S) (the
+    layout _respond sends), at every slot.  mode "rows": tables (Q,), Q's
+    row clip(gq_local(v), 0, 2*run_cap-1) at every slot, the empty ones
+    included (JAX's take); "run": tables (rid_loc, head_pos_v, end_pos_v)
+    of this rank's slot_cap slots, (me*run_cap + rid_loc[lv], end_pos_v[lv]
+    - head_pos_v[lv] + 1) where valid and (-1, 0) elsewhere, lv =
+    clip(v - me*slot_cap, 0, slot_cap-1); "uid": tables (uid_at,),
+    uid_at[clip(gq_local(v), 0, 2*run_cap-1)] where valid, -1 elsewhere."""
+    c_tot = n_dev * run_cap
+    if mode == "rows":
+        (Q,) = tables
+        local = torch.clamp(_gq_local(vals, run_cap, c_tot), 0, 2 * run_cap - 1)
+        return Q[local].t().contiguous()
+    if mode == "uid":
+        (uid_at,) = tables
+        local = torch.clamp(_gq_local(vals, run_cap, c_tot), 0, 2 * run_cap - 1)
+        return torch.where(valid, uid_at[local], -1)[None]
+    if mode != "run":
+        raise ValueError(f"glue_answer: unknown mode {mode!r}")
+    rid_loc, head_pos_v, end_pos_v = tables
+    slot_cap = rid_loc.shape[0]
+    lv = torch.clamp(vals - me * slot_cap, 0, slot_cap - 1)
+    return torch.stack([
+        torch.where(valid, me * run_cap + rid_loc[lv], -1),
+        torch.where(valid, end_pos_v[lv] - head_pos_v[lv] + 1, 0)])
+
+
+def glue_answer(mode: str, vals: torch.Tensor, valid: torch.Tensor, tables,
+                run_cap: int, n_dev: int, me: int) -> torch.Tensor:
+    """K21 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if vals.device.type == "cpu":
+        return glue_answer_plain(mode, vals, valid, tables, run_cap, n_dev, me)
+    return _kernels.glue_answer(mode, vals, valid, tables, run_cap, n_dev, me)
+
+
 def _request(mesh, q: torch.Tensor, ok: torch.Tensor, owner: torch.Tensor,
-             qcap: int, answer):
+             qcap: int, mode: str, tables, run_cap: int):
     """Request/response round: each valid query value of q (1, n) goes to
-    its owner (K15 + exchange), answer(received values, received validity)
-    gives (C, n_dev*qcap) rows there, and they come back in the layout of
-    the routed queries.  Returns (back (C, n_dev*qcap), slots (n,): each
-    query's column of back (n_dev*qcap where it was dropped or not
-    valid), drops)."""
+    its owner (K15 + exchange), which answers it there (glue_answer in
+    `mode` over its `tables`: (C, n_dev*qcap) rows), and the answers come
+    back in the layout of the routed queries.  Returns (back (C,
+    n_dev*qcap), slots (n,): each query's column of back (n_dev*qcap where
+    it was dropped or not valid), drops)."""
     bl, bv, drop, slots = route_to_buckets(q, ok, owner, mesh.n_dev, qcap,
                                            with_slots=True)
     recv, rv = mesh.exchange(bl, bv)
-    back = _respond(mesh, answer(recv.reshape(-1), rv.reshape(-1)), qcap)
-    return back, slots, drop
+    ans = glue_answer(mode, recv.reshape(-1), rv.reshape(-1), tables, run_cap,
+                      mesh.n_dev, mesh.rank)
+    return _respond(mesh, ans, qcap), slots, drop
 
 
 def _lookup(mesh, q: torch.Tensor, ok: torch.Tensor, owner: torch.Tensor,
-            qcap: int, answer):
+            qcap: int, mode: str, tables, run_cap: int):
     """_request for a query vector q (n,), its rows gathered per query
     entry: ((C, n) rows, drops)."""
     back, slots, drop = _request(mesh, q.contiguous()[None], ok, owner, qcap,
-                                 answer)
+                                 mode, tables, run_cap)
     return back[:, torch.clamp(slots, 0, mesh.n_dev * qcap - 1)], drop
 
 
@@ -248,14 +283,8 @@ def glue_round(mesh, Q: torch.Tensor, need: torch.Tensor, route: torch.Tensor,
     composes the row with its answer where the exchange left it, sets
     changed[0] when a row moved and writes the next round's need and
     route.  Returns this rank's dropped queries (1,)."""
-    c_tot = mesh.n_dev * run_cap
-
-    def rows_of(vals, ok):
-        local = _gq_local(vals, run_cap, c_tot)
-        return Q[torch.clamp(local, 0, 2 * run_cap - 1)].t()
-
     back, slots, drop = _request(mesh, route[:1], need, route[1], qcap,
-                                 rows_of)
+                                 "rows", (Q,), run_cap)
     glue_compose(Q, back, slots, need, changed, route, run_cap, mesh.n_dev)
     return drop
 
@@ -293,15 +322,9 @@ def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
     rvalid2 = torch.cat([rvalid, rvalid])
     q_ok = rvalid2 & (w >= 0)
     wv = torch.where(w >= tot, w - tot, w)
-
-    def run_of(vals, ok):
-        lv = torch.clamp(vals - me * slot_cap, 0, slot_cap - 1)
-        return torch.stack([
-            torch.where(ok, me * run_cap + rid_loc[lv], -1),
-            torch.where(ok, end_pos_v[lv] - head_pos_v[lv] + 1, 0)])
-
     back, drop1 = _lookup(mesh, wv, q_ok, torch.where(q_ok, wv // slot_cap,
-                                                      n_dev), qcap, run_of)
+                                                      n_dev), qcap, "run",
+                          (rid_loc, head_pos_v, end_pos_v), run_cap)
     a_rid = torch.where(q_ok, back[0], -1)
     wsucc = torch.where(q_ok, back[1], 0)
     csucc = torch.where(a_rid >= 0, torch.where(w >= tot, a_rid + C_tot, a_rid),
@@ -375,15 +398,9 @@ def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
     uid_at = torch.where(keep, dev_off + torch.cumsum(keep.to(torch.int64), 0)
                          - 1, -1)
     n_unitigs = int(kept_all.sum())
-
-    def uid_of(vals, ok):
-        local = _gq_local(vals, run_cap, C_tot)
-        return torch.where(ok, uid_at[torch.clamp(local, 0, two_rc - 1)],
-                           -1)[None]
-
     uback, drop3 = _lookup(mesh, start_g, cvalid,
                            torch.where(cvalid, _gq_owner(start_g, run_cap, C_tot),
-                                       n_dev), qcap, uid_of)
+                                       n_dev), qcap, "uid", (uid_at,), run_cap)
     uid2 = torch.where(cvalid, uback[0], -1)
     dropped = int(mesh.psum(drop1 + drop2 + drop3)[0]) + loop_drops
     outs = (torch.tensor([n_runs], **i64), hpos, epos, rlen, uid2,

@@ -48,8 +48,11 @@ Phases (any failure raises, and the script exits non-zero):
    size 1 (one card: every exchange is a real collective, trivially a
    copy), the launch counters reset just before it: its canonical unitig
    set, KC, km, per-k-mer abundances and link count must equal phase 3's
-   output, and K13-K16 with the reused K1, K2, K3, K7, K8 and K11 must
-   have launched; its stats and wall split are printed.  Then its
+   output, and K13-K16 and K21 with the reused K1, K2, K3, K7, K8 and K11
+   must have launched; its stats and wall split are printed, and, while
+   its group is up, K3's global step on its shard (the entries, K15 and
+   the exchange, the sort words, the sort, the pair rule, the edges'
+   exchange, the scatter) against the step with the plain versions.  Then its
    multi-pass branch: the first 1/32 of the reads under a residency
    budget of a third of their distinct k-mers (key ranges, K5, one pass
    over the input per range), counters reset just before it, equal to
@@ -106,9 +109,18 @@ Phases (any failure raises, and the script exits non-zero):
    below _HIER_MIN, and its converging phase (the flag mode, a host sync
    a batch) held against plain rounds; K16 in place on the first round of
    phase 3f's sharded doubling and, measured in phase 3f while its group
-   is up, that whole glue round (K15, the exchange, the owners' rows, the
-   response, K16) against the round with plain K15 and K16, each over
-   fresh copies of the state with the copies taken out;
+   is up, that whole glue round (K15, the exchange, the owners' answer
+   K21, the response, K16) against the round with plain K15, K21 and K16,
+   each over fresh copies of the state with the copies taken out; K21 in
+   its three modes on phase 3f's first round and its two lookups (with
+   torch.index_select at the local rows, not the same function, beside
+   it) and K3's global mode after the exchange (sort words, pair rule,
+   scatter) on phase 3f's step, with the step's row from phase 3f (the
+   inputs of K21 and of the words, pair rule and scatter are recorded
+   after 3f's timed build, by running its K3 global step and glue again:
+   REPLAYED); the pair rule's bound counts what the run's data needs (the
+   top words, the pair heads' perm and payload sectors, the lower words
+   only where the top words tie);
    K20's three modes on phase 3's solid k-mers (its launches are phase
    3g's, on 3g's own solid set): the histogram (torch.bincount is its
    library call), partition ids with phase 3f's frequency rank and a 4-rank
@@ -160,11 +172,18 @@ and 2^24 (a round, and plain_jumpF to convergence), K16's compose step
 at phase 3f's 2^22 rows (in a tree whose K16 works in place, the kernel
 over fresh copies of the state; else the response's gather and
 transpose, the kernel and the passes that make the next round's need,
-ptr column and owners), of each tree in the same turns
+ptr column and owners), K21 in its three modes at phase 3f's shapes (in a
+tree without it, the answer and the copy its _respond made: the
+all_to_all, alike in both, is left out), K3's global step at phase 3f's
+shape after its exchanges (entries with their validity and stack; the
+sort words or fills, the sort and the pair rule, or the gathers and the
+earlier pair kernel; the scatter, or the compaction), of each tree in
+the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
 runtime's launch; the K3b step's, K8's, K12a's, K17's, K18's, K10's,
-K19's, K11's, K4's and K16's outputs must agree across the trees),
+K19's, K11's, K4's, K16's, K21's and K3's global step's outputs must
+agree across the trees),
 K20's three modes at phase 3's and 3h's shapes and K14's sampling of 8
 rounds in both modes (one launch per mode in a tree whose K14 adds into
 the caller's histogram, else one per round and the sums; outputs must
@@ -231,6 +250,12 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
                       "bcalm_tpu/parallel/pipeline.py:59"),
     "glue_compose": ("bcalm_tpu_torch/csrc/glue.cu",
                      "bcalm_tpu/parallel/distcompact.py:303"),
+    "glue_answer": ("bcalm_tpu_torch/csrc/glue.cu",
+                    "bcalm_tpu/parallel/distcompact.py:313"),
+    "junction_words": ("bcalm_tpu_torch/csrc/junctions.cu",
+                       "bcalm_tpu/parallel/distcompact.py:100"),
+    "junction_scatter": ("bcalm_tpu_torch/csrc/junctions.cu",
+                         "bcalm_tpu/parallel/distcompact.py:128"),
     "fixpoint_bits": ("bcalm_tpu_torch/csrc/hier.cu",
                       "bcalm_tpu/ops/chains.py:336"),
     "hier_round": ("bcalm_tpu_torch/csrc/hier.cu",
@@ -246,9 +271,22 @@ HIER = ("fixpoint_bits", "hier_round", "hier_contract", "hier_expand")
 # kernels whose last call is recorded: the upward pass of the hierarchical
 # jump ends at level 0
 RECORD_LAST = ("hier_expand",)
-# K3's global mode (the sharded junction matching) counts its launches
-# under junction_keys and junction_pairs
-GLOBAL_K3 = ("junction_entries", "junction_edges")
+# K3's global mode (the sharded junction matching): the entries count
+# their launches under junction_keys and the pair rule under
+# junction_pairs (the global modes of K3a and K3b); the sort words and the
+# successor shard's scatter count their own
+GLOBAL_K3 = ("junction_entries", "junction_words", "junction_edges",
+             "junction_scatter")
+# wrappers whose inputs phase 3f records after its timed build, by running
+# the build's K3 global step and glue again (their first inputs are ~3 GB,
+# whose copy to the host would fall inside the build's own timing)
+REPLAYED = ("junction_words", "junction_edges", "junction_scatter",
+            "glue_answer")
+# K21's modes and the JAX lines each replaces (_glue_shard's answers);
+# LAUNCHES counts each mode as glue_answer_<mode>
+GLUE_ANSWER = {"rows": "bcalm_tpu/parallel/distcompact.py:313",
+               "run": "bcalm_tpu/parallel/distcompact.py:258",
+               "uid": "bcalm_tpu/parallel/distcompact.py:378"}
 # H100 SXM: HBM3 rate, and the fp32 non-tensor peak taken as the rate of
 # 32-bit integer operations (no lower bound in time is lost by taking a
 # rate that is at least the real one)
@@ -275,15 +313,17 @@ SKIP_BCALM_PATH = COMPACT_POS
 CANONICAL_PATH = ("extract_insert", "count_runs", "junction_keys",
                   "junction_pairs", "jump_round", "chain_finish",
                   "spell_unitigs") + HIER
+K21_MODES = tuple(f"glue_answer_{m}" for m in GLUE_ANSWER)
 MESH_PATH = ("form_superkmers", "mmer_histograms", "route_buckets",
              "glue_compose", "extract_insert", "count_runs", "junction_keys",
-             "junction_pairs", "solid_fold_histogram", "run_scans",
-             "spell_unitigs")
+             "junction_words", "junction_pairs", "junction_scatter",
+             "solid_fold_histogram", "run_scans", "spell_unitigs") + K21_MODES
 # the per-k-mer mesh entry points (phase 3g): the hash-routed count, the
 # per-k-mer minimizers of its solid set, the host-driven compactions
 ENTRY_PATH = ("extract_insert", "route_buckets", "count_runs",
-              "kmer_minimizers", "junction_keys", "junction_pairs",
-              "run_scans", "glue_compose", "spell_unitigs")
+              "kmer_minimizers", "junction_keys", "junction_words",
+              "junction_pairs", "junction_scatter", "run_scans",
+              "glue_compose", "spell_unitigs") + K21_MODES
 # the long-k resident builds (phase 3h): the resident path, the jump
 # hierarchical only where the run graph reaches 2^18 nodes
 LONGK_PATH = ("extract_insert", "count_runs", "solid_fold_histogram",
@@ -477,7 +517,10 @@ def _record_key(name: str, args) -> str:
     and extract_insert in two, with and without a key range (lo, hi):
     each mode is recorded apart; fixpoint_bits' and hier_round's first
     call with a gid array (level 1) apart from their first call (level 0,
-    which passes no gid)."""
+    which passes no gid); glue_answer's three modes (its first argument)
+    apart."""
+    if name == "glue_answer":
+        return f"glue_answer:{args[0]}"
     if name == "route_buckets" and args[2] is None:
         return "route_buckets:hash"
     if name == "fixpoint_bits" and args[0] is not None:
@@ -520,9 +563,7 @@ class Recorder:
                 flat = tuple(bound.arguments.values())
             key = _record_key(name, flat)
             if key not in self.inputs or name in RECORD_LAST:
-                self.inputs[key] = tuple(
-                    a.to("cpu", copy=True) if isinstance(a, torch.Tensor) else a
-                    for a in flat)
+                self.inputs[key] = _moved(flat, "cpu")
             return fn(*args, **kwargs)
         return recorded
 
@@ -534,6 +575,16 @@ class Recorder:
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
             setattr(self.kmod, n, fn)
+
+
+def _moved(args, device):
+    """Recorded arguments on `device` (copies), tensors inside tuples too
+    (glue_answer's tables)."""
+    if isinstance(args, torch.Tensor):
+        return args.to(device, copy=True)
+    if isinstance(args, tuple):
+        return tuple(_moved(a, device) for a in args)
+    return args
 
 
 def _stats(text: str) -> dict:
@@ -1016,7 +1067,7 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
     from bcalm_tpu_torch import cli, engine
     from bcalm_tpu_torch.io import bank as bank_mod
     from bcalm_tpu_torch.ops import _kernels
-    from bcalm_tpu_torch.parallel import launch, pipeline
+    from bcalm_tpu_torch.parallel import distcompact, launch, pipeline
 
     mesh = launch.init_group(1, 0, "cuda",
                              "file://" + os.path.join(tmp, "nccl_group"))
@@ -1026,20 +1077,44 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
         engine.configure_chunk(cfg, 0, dev)
         cli.adapt_max_len(bank, cfg)
         timing = {}
-        with Recorder(_kernels, tuple(KERNELS) + GLOBAL_K3) as rec:
-            _kernels.reset_launches()
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.time()
-            us = pipeline.distributed_build(
-                mesh, bank.sequences(), cfg, pipeline.MinimizerConfig(m=10),
-                timing=timing)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            launches = dict(_kernels.LAUNCHES)
+        # the glue's calls (their shard and capacities: scalars, no copy)
+        glue_calls, glue_shard = [], distcompact.glue_shard
+
+        def noted(mesh, succ_l, *caps):
+            glue_calls.append(caps)
+            return glue_shard(mesh, succ_l, *caps)
+
+        recorded = tuple(n for n in tuple(KERNELS) + GLOBAL_K3
+                         if n not in REPLAYED)
+        distcompact.glue_shard = noted
+        try:
+            with Recorder(_kernels, recorded) as rec:
+                _kernels.reset_launches()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.time()
+                us = pipeline.distributed_build(
+                    mesh, bank.sequences(), cfg,
+                    pipeline.MinimizerConfig(m=10), timing=timing)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = dict(_kernels.LAUNCHES)
+        finally:
+            distcompact.glue_shard = glue_shard
         check_mesh(tmp, ref_path, table, us, wall, timing, launches)
-        # K16's whole glue round needs the group (phase 5 prints its row)
+        # the replayed inputs, K16's whole glue round and K3's global step
+        # need the group (phase 5 prints their rows)
+        rec.inputs.update(replay_inputs(mesh, rec.inputs["junction_entries"],
+                                        glue_calls, dev))
         _, glue_round_row = glue_rows(rec.inputs["glue_compose"], launches,
                                       dev, mesh)
+        step_row = k3_step_row(rec.inputs["junction_entries"],
+                               launches["junction_words"], dev, mesh)
+        say(f"[mesh] K3's global step on phase 3f's shard "
+            f"({step_row['slot_cap']} slots, {step_row['n_local']} k-mers, "
+            f"{step_row['launches']} step(s) in the build): equal to the step "
+            f"with every kernel's plain version; {step_row['ms']:.4f} ms, "
+            f"plain {step_row['plain_ms']:.4f} ms (CUDA events), bound "
+            f"{step_row['bound_ms']:.4f} ms")
         say(f"[mesh] K16's whole glue round on its first round's state "
             f"({glue_round_row['rows']} rows, {glue_round_row['need_step']} "
             f"need a step, {glue_round_row['moved']} move): equal to the "
@@ -1053,7 +1128,34 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
         dist.destroy_process_group()
     check_too_many_devices(tmp, fa)
     return launches, dict(rec.inputs, **{"route_buckets:hash": entry_route}), \
-        entry_launches, entry_solid, ranged_launches, glue_round_row
+        entry_launches, entry_solid, ranged_launches, \
+        [glue_round_row, step_row]
+
+
+def replay_inputs(mesh, entries_args, glue_calls, dev) -> dict:
+    """The first inputs that phase 3f's build gave each REPLAYED wrapper
+    (K21 each mode apart), recorded after the build: its K3 global step
+    again on the shard its junction_entries call was given, then its
+    glue_shard calls again, with their shard and capacities, on that
+    step's successor shard, until each of K21's modes has been called.
+    Both are deterministic, so the calls are the build's."""
+    from bcalm_tpu_torch.ops import _kernels
+    from bcalm_tpu_torch.parallel import distcompact
+
+    solid, n_local, k = entries_args[0].to(dev), entries_args[1], entries_args[2]
+    slot_cap = solid.shape[1]
+    with Recorder(_kernels, REPLAYED) as rec:
+        succ, _ = distcompact.local_succ_shard(mesh, solid, n_local, k,
+                                               4 * slot_cap, slot_cap)
+        for caps in glue_calls:
+            if all(f"glue_answer:{m}" in rec.inputs for m in GLUE_ANSWER):
+                break
+            distcompact.glue_shard(mesh, succ, *caps)
+    missing = [m for m in GLUE_ANSWER if f"glue_answer:{m}" not in rec.inputs]
+    if missing:
+        raise AssertionError(f"phase 3f's glue, run again, called no K21 in "
+                             f"mode(s) {missing}")
+    return rec.inputs
 
 
 def check_mesh(tmp, ref_path, table, us, wall, timing, launches):
@@ -2251,6 +2353,128 @@ same(got, g_step(distcompact.glue_compose_plain), "glue_compose step")
 digest[name] = [digest_of(t.reshape(-1).long()) for t in got]
 fns[name] = (g_timed, 20)
 del got
+# K21 at phase 3f's first round (glue_inputs(): the 2^24 slots of the
+# exchange, the ptr of each row that needs a step in the first slots, as
+# one owner receives them, zeros after) and at its two lookups' shapes
+# (run: K8's tables of run_succ() and 197,556 queries; uid: 2^22 uids and
+# 296,782 queries, as in phase 3f): in a tree with glue_answer, the
+# kernel, whose output is the response's layout; in the other the answer
+# as that tree's glue computed it (rows: Q gathered at every slot, then
+# transposed, and the copy of that view its _respond made for the
+# all_to_all); the all_to_all, which both trees run alike, is left out
+# here (no process group).  K3's global step after its exchanges at phase 3f's shape
+# (step_solid() at world size 1: the valid entries first in the receive
+# buffer, zeros after, as K15 places them): in a tree with
+# junction_words, the entries (with their validity and stack), the sort
+# words, the sort and the pair rule on its output, then the scatter
+# kernel; in the other the entries, validity and stack, the fills,
+# lex_argsort, the gathers of the sorted keys and payload, the pair
+# kernel, then the boolean compaction and the scatter
+g_S = g_back.shape[1]
+g_vals = torch.zeros((g_S,), dtype=torch.int64, device=dev)
+g_ok = torch.zeros((g_S,), dtype=torch.bool, device=dev)
+g_vals[g_slots[g_need]] = gQ[g_need, 0]
+g_ok[g_slots[g_need]] = True
+r21 = np.random.RandomState(21)
+a_succ, a_n, a_C = run_succ()
+_, _, a_rid, a_head, a_end, _ = runchains.run_scans(a_succ, a_n, a_C, 0)
+a_vals = torch.zeros_like(g_vals)
+a_ok = torch.zeros_like(g_ok)
+a_vals[:197556] = torch.from_numpy(r21.randint(0, a_n, 197556)).to(dev)
+a_ok[:197556] = True
+u_at = torch.from_numpy(np.where(r21.rand(2 * g_rc) < 0.07,
+                                 r21.randint(0, 1 << 17, 2 * g_rc), -1)).to(dev)
+u_vals = torch.zeros_like(g_vals)
+u_ok = torch.zeros_like(g_ok)
+u_vals[:296782] = torch.from_numpy(r21.randint(0, 4 * g_rc, 296782)).to(dev)
+u_ok[:296782] = True
+k21_cases = {"rows": (g_vals, g_ok, (gQ,)), "run": (a_vals, a_ok, (a_rid, a_head, a_end)),
+             "uid": (u_vals, u_ok, (u_at,))}
+for mode, (v21, o21, t21) in k21_cases.items():
+    name = f"glue_answer {mode} S={g_S}"
+    if hasattr(distcompact, "glue_answer"):
+        fn21 = lambda a=(mode, v21, o21, t21, g_rc, 1, 0): distcompact.glue_answer(*a)
+        same([fn21()], [distcompact.glue_answer_plain(mode, v21, o21, t21, g_rc, 1, 0)],
+             "glue_answer " + mode)
+    elif mode == "rows":
+        fn21 = lambda: gQ[torch.clamp(distcompact._gq_local(g_vals, g_rc, g_rc), 0,
+                                      2 * g_rc - 1)].t().contiguous().reshape(4, 1, -1)
+    elif mode == "run":
+        def fn21():
+            lv = torch.clamp(a_vals, 0, a_C - 1)
+            return torch.stack([torch.where(a_ok, a_rid[lv], -1),
+                                torch.where(a_ok, a_end[lv] - a_head[lv] + 1, 0)]
+                               ).reshape(2, 1, -1)
+    else:
+        def fn21():
+            local = distcompact._gq_local(u_vals, g_rc, g_rc)
+            return torch.where(u_ok, u_at[torch.clamp(local, 0, 2 * g_rc - 1)],
+                               -1)[None].reshape(1, 1, -1)
+    got = fn21()
+    digest[name] = [int(got.sum()), int((got == -1).sum())]
+    fns[name] = (fn21, 20)
+del a_succ, got
+ge_solid, ge_n, ge_C = step_solid()
+if hasattr(junctions, "junction_words"):
+    def k3_entries():
+        return junctions.junction_entries(ge_solid, ge_n, 31, 0, ge_C, 1)[:2]
+else:
+    def k3_entries():
+        keys_e, pay_e, _ = junctions.junction_entries(ge_solid, ge_n, 31, 0, ge_C, 1)
+        return (torch.cat([keys_e, pay_e[None]]),
+                (torch.arange(4 * ge_C, device=dev) % ge_C) < ge_n)
+ent_e, valid_e = k3_entries()
+K_e = ent_e.shape[0] - 1
+n_v = int(valid_e.sum())
+recv_e = torch.zeros_like(ent_e)
+recv_e[:, :n_v] = ent_e[:, valid_e]
+ev_e = torch.zeros_like(valid_e)
+ev_e[:n_v] = True
+del ent_e, valid_e
+if hasattr(junctions, "junction_words"):
+    def k3_pairs(plain=False):
+        if plain:
+            words = junctions.junction_words_plain(recv_e[:K_e], ev_e)
+            perm, top = sort_op.lex_sort_words(words)
+            return junctions.junction_edges_plain(top, perm, words, recv_e[K_e], K_e, ge_C, ge_C)
+        words = junctions.junction_words(recv_e[:K_e], ev_e)
+        perm, top = sort_op.lex_sort_words(words)
+        return junctions.junction_edges(top, perm, words, recv_e[K_e], K_e, ge_C, ge_C)
+    k3_edges = lambda out: (out[0], out[1][0], out[1][1])
+else:
+    def k3_pairs(plain=False):
+        e_keys = torch.where(ev_e[None], recv_e[:K_e], ln.SENTINEL)
+        e_pay = torch.where(ev_e, recv_e[K_e], 0)
+        perm = sort_op.lex_argsort([e_keys[j] for j in range(K_e)])
+        edges = junctions.junction_edges_plain if plain else junctions.junction_edges
+        return edges(e_keys[:, perm].contiguous(), e_pay[perm], ge_C)
+    k3_edges = lambda out: out
+ok_e, src_e, dst_e = k3_edges(k3_pairs())
+same([ok_e, torch.where(ok_e, src_e, -1), torch.where(ok_e, dst_e, -1)],
+     [torch.where(ok_e, t, -1) if t.dtype != torch.bool else t
+      for t in k3_edges(k3_pairs(True))], "junction_edges step")
+n_ok = int(ok_e.sum())
+erecv = torch.zeros((2, ev_e.shape[0]), dtype=torch.int64, device=dev)
+erecv[0, :n_ok], erecv[1, :n_ok] = src_e[ok_e], dst_e[ok_e]
+eev = torch.zeros_like(ev_e)
+eev[:n_ok] = True
+del ok_e, src_e, dst_e
+if hasattr(junctions, "junction_scatter"):
+    k3_scatter = lambda: junctions.junction_scatter(erecv, eev, ge_C, 0, ge_C)
+else:
+    def k3_scatter():
+        ea, eb = erecv[0][eev], erecv[1][eev]
+        eslot = torch.where(ea >= ge_C, ea - ge_C, ea)
+        lidx = torch.where(ea >= ge_C, eslot + ge_C, eslot)
+        table = torch.full((2 * ge_C,), -1, dtype=torch.int64, device=dev)
+        table[lidx] = eb
+        return table
+got = k3_scatter()
+digest["K3 global step"] = [n_v, n_ok, int(got.sum()), int((got >= 0).sum())]
+for name, fn in (("K3 global entries", k3_entries), ("K3 global pairs", k3_pairs),
+                 ("K3 global scatter", k3_scatter)):
+    fns[f"{name} E={ev_e.shape[0]}"] = (fn, 10)
+del got
 for kk, n_k, C_k, U_k in SPELL_SHAPES:
     sargs = spell_inputs(kk, n_k, C_k, U_k)
     got = _kernels.spell_unitigs(*sargs)
@@ -2382,8 +2606,8 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
     if any(d != digests[0] for d in digests):
         raise AssertionError(f"a kernel of KERNEL_AB's digests gave other "
                              f"outputs in the two trees: {digests}")
-    say(f"[compare] the K3b step, K8, K12a, K17-K19, K4, K16, K10, K11, K20 "
-        f"and K14 give "
+    say(f"[compare] the K3b step, K8, K12a, K17-K19, K4, K16, K21, K3's "
+        f"global step, K10, K11, K20 and K14 give "
         f"the same outputs in both trees (sums and counts): "
         f"{json.dumps(digests[0])}")
     # SPLIT once in each tree: device time per operation
@@ -2716,6 +2940,44 @@ def _gathered(t: torch.Tensor, queries: int) -> int:
     return 32 * queries if n > L2_BYTES else min(n, 32 * queries)
 
 
+def pair_rule_bytes(s_word, perm, words, K: int) -> int:
+    """Bytes that K3b's pair rule on the sort's output (junction_edges)
+    must read on this run's data: every sorted top word; where the key has
+    lower words, those of the two entries of each valid neighbour pair
+    whose top words are equal; perm at those entries (with one word, at
+    each pair head's two); the payload of each pair head's two entries.  perm,
+    each lower word row and the payload count the distinct 32-byte sectors
+    read, or the valid entries' 8 bytes each where that is less (the valid
+    entries sort ahead of the empty slots)."""
+    from bcalm_tpu_torch.ops import junctions
+
+    sent0, _, shift = junctions.sentinel_words(K)
+    E, W = s_word.shape[0], words.shape[0]
+    valid = (s_word >> shift) != (sent0 >> shift)
+    n_valid = int(valid.sum())
+
+    def sectors(idx):
+        return min(8 * n_valid, 32 * torch.unique(idx // 4).numel())
+
+    # eqn[j + 1]: entry j's key equals entry j + 1's, both valid
+    eqn = torch.zeros((E + 2,), dtype=torch.bool, device=s_word.device)
+    eqn[1:E] = (s_word[1:] == s_word[:-1]) & valid[1:]
+    top_eq = torch.nonzero(eqn).flatten() - 1
+    lower = 0
+    if W > 1:
+        pa, pb = perm[top_eq], perm[top_eq + 1]
+        same = torch.ones_like(pa, dtype=torch.bool)
+        for w in range(1, W):
+            same &= words[w][pa] == words[w][pb]
+        eqn[top_eq[~same] + 1] = False
+        lower = (W - 1) * sectors(torch.cat([pa, pb]))
+    head = valid & eqn[1:E + 1] & ~eqn[:E] & ~eqn[2:]
+    heads = torch.nonzero(head).flatten()
+    at = torch.cat([top_eq, top_eq + 1] if W > 1 else [heads, heads + 1])
+    return (8 * E + lower + sectors(at)
+            + sectors(perm[torch.cat([heads, heads + 1])]))
+
+
 def _bound(moved: int, ops: int):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     integer operations over the peak rate."""
@@ -2954,8 +3216,9 @@ def glue_rows(recorded, launches, dev, mesh=None):
     """K16 on the inputs of its first call in phase 3f (Q, back, slots,
     need, changed, route, run_cap, n_dev), bitwise against its plain
     version; with a mesh, K16's whole glue round (distcompact.glue_round:
-    K15, the exchange, the owners' rows, the response, K16) from the same
-    state, against the round with the plain K15 and K16.  Each call runs
+    K15, the exchange, the owners' answer (K21), the response, K16) from
+    the same state, against the round with the plain K15, K21 and K16.
+    Each call runs
     over fresh copies of Q, need and route (the round and K16 write them
     in place): the copies' event time is taken out of ms and plain_ms,
     and K16's device time is its kernel's alone (by name).  The round's
@@ -2985,15 +3248,18 @@ def glue_rows(recorded, launches, dev, mesh=None):
 
     def glue_round(plain):
         copies()
-        saved = distcompact.glue_compose, distcompact.route_to_buckets
+        saved = (distcompact.glue_compose, distcompact.route_to_buckets,
+                 distcompact.glue_answer)
         if plain:
             distcompact.glue_compose = distcompact.glue_compose_plain
             distcompact.route_to_buckets = pipeline.route_to_buckets_plain
+            distcompact.glue_answer = distcompact.glue_answer_plain
         try:
             return distcompact.glue_round(mesh, state[0], state[1], state[2],
                                           ch, back.shape[1] // n_dev, run_cap)
         finally:
-            distcompact.glue_compose, distcompact.route_to_buckets = saved
+            (distcompact.glue_compose, distcompact.route_to_buckets,
+             distcompact.glue_answer) = saved
 
     def outputs(fn):
         def run():
@@ -3033,6 +3299,102 @@ def glue_rows(recorded, launches, dev, mesh=None):
     return rows[0], rows[1]
 
 
+def k3_step_row(entries_args, n_steps, dev, mesh):
+    """K3's global step (distcompact.local_succ_shard: the entries, K15 and
+    the exchange, the sort words, torch.sort, the pair rule on the sort's
+    output, K15 and the exchange of the edges, the scatter into the
+    successor shard) on the shard phase 3f's build gave its first call, at
+    NCCL world size 1, against the same step with the plain versions of
+    K3's global mode and of K15: the successor shard bitwise equal.  CUDA
+    events only (no profiler session while the group is up).  The bound
+    counts the solid shard read once and the successor shard written
+    once."""
+    from bcalm_tpu_torch.ops import junctions
+    from bcalm_tpu_torch.parallel import distcompact, pipeline
+
+    solid, n_local, k = entries_args[0].to(dev), entries_args[1], entries_args[2]
+    slot_cap = solid.shape[1]
+    names = ("junction_entries", "junction_words", "junction_edges",
+             "junction_scatter")
+
+    def step():
+        return distcompact.local_succ_shard(mesh, solid, n_local, k,
+                                            4 * slot_cap, slot_cap)
+
+    def plain_step():
+        saved = ([getattr(junctions, n) for n in names],
+                 distcompact.route_to_buckets)
+        for n in names:
+            setattr(junctions, n, getattr(junctions, n + "_plain"))
+        distcompact.route_to_buckets = pipeline.route_to_buckets_plain
+        try:
+            return step()
+        finally:
+            for n, fn in zip(names, saved[0]):
+                setattr(junctions, n, fn)
+            distcompact.route_to_buckets = saved[1]
+
+    r = check_kernel("junction_pairs", {}, step, plain_step, reads=solid,
+                     written=16 * slot_cap, label="K3 global step",
+                     replaces="bcalm_tpu/parallel/distcompact.py:53",
+                     launched=n_steps, reps=5, device=False)
+    r["slot_cap"], r["n_local"] = slot_cap, n_local
+    return r
+
+
+def glue_answer_rows(inputs, launches, reps=20) -> list:
+    """K21 in each mode on the inputs phase 3f's build gave its first call
+    of that mode (the first doubling round's rows, the run lookup, the uid
+    lookup), bitwise against its plain version, with the mode's launches
+    in that build (LAUNCHES' glue_answer_<mode>).  The library call is torch.index_select of
+    the mode's table at the local rows computed beforehand (Q's rows; rid
+    at the clipped slots; uid_at's rows): not the same function (no mask,
+    no channel-major layout, one table).  The bound counts the answer
+    written and each query's table sectors; rows: every slot's value read
+    (its row is taken whether the slot is valid or not), and a sector for
+    each slot whose row is not the one the empty slots share, and that
+    one; run and uid: every slot's validity byte, and the value of each
+    valid slot (8 bytes: a bucket's valid slots come first)."""
+    from bcalm_tpu_torch.ops import _kernels
+    from bcalm_tpu_torch.parallel import distcompact
+
+    rows = []
+    for mode, replaces in GLUE_ANSWER.items():
+        args = inputs[f"glue_answer:{mode}"]
+        _, vals, valid, tables, run_cap, n_dev, me = args
+        c_tot, S = n_dev * run_cap, vals.shape[0]
+        n_valid = int(valid.sum())
+        if mode == "run":
+            T = tables[0].shape[0]
+            loc = torch.clamp(vals - me * T, 0, T - 1)
+            sectors = sum(_gathered(t, n_valid) for t in tables) + 8 * n_valid
+            per_slot = 1 + 16
+        else:
+            loc = torch.clamp(distcompact._gq_local(vals, run_cap, c_tot), 0,
+                              2 * run_cap - 1)
+            if mode == "rows":
+                loc0 = int(torch.clamp(distcompact._gq_local(
+                    torch.zeros(1, dtype=torch.int64, device=vals.device),
+                    run_cap, c_tot), 0, 2 * run_cap - 1))
+                sectors = _gathered(tables[0], int((loc != loc0).sum()) + 1)
+                per_slot = 8 + 32
+            else:
+                sectors = _gathered(tables[0], n_valid) + 8 * n_valid
+                per_slot = 1 + 8
+        r = check_kernel("glue_answer", {}, lambda a=args: _kernels.glue_answer(*a),
+                         lambda a=args: distcompact.glue_answer_plain(*a),
+                         read_bytes=per_slot * S + sectors, written=0,
+                         label=f"glue_answer:{mode}", replaces=replaces,
+                         launched=launches[f"glue_answer_{mode}"],
+                         library=lambda t=tables[0], l=loc: torch.index_select(t, 0, l),
+                         reps=reps)
+        r["slots"], r["valid"] = S, n_valid
+        r["library_what"] = ("torch.index_select at the local rows computed "
+                             "beforehand, not the same function")
+        rows.append(r)
+    return rows
+
+
 def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                   longk, phases, entry_solid, dev):
     from bcalm_tpu_torch import engine
@@ -3042,8 +3404,7 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                                      junctions, runchains, superkmer)
     from bcalm_tpu_torch.parallel import distcompact, pipeline
 
-    inputs = {name: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
-                          for a in args) for name, args in inputs.items()}
+    inputs = {name: _moved(args, dev) for name, args in inputs.items()}
     rows = []
     extra = []
 
@@ -3492,7 +3853,9 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
               lambda: junctions.junction_entries_plain(*ge[:6]), reads=ge[0],
               row=False)
     extra.append((f"junction_keys, global mode (4 entries per k-mer, owner "
-                  f"ranks; {tuple(ge[0].shape)})", r))
+                  f"ranks; {tuple(ge[0].shape)}; "
+                  f"{launches['junction_keys:global']} launch(es) in phase 3f)",
+                  r))
     # the owner ranks (hash_lanes(key) % n_dev) are all 0 at world size 1:
     # the same entries at 4 ranks
     ge4 = ge[:5] + (4,) + ge[6:]
@@ -3506,24 +3869,39 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                              f"{spread}")
     extra.append((f"junction_keys, global mode at 4 ranks (entries per owner "
                   f"{spread})", r))
-    gk, gp, tot = inputs["junction_edges"]
-
-    def edges(fn):
-        """(ok, src, dst) with src and dst kept where ok only."""
-        ok, src, dst = fn(gk, gp, tot)
-        return ok, torch.where(ok, src, -1), torch.where(ok, dst, -1)
-
-    r = check("junction_pairs", lambda: edges(_kernels.junction_edges),
-              lambda: edges(junctions.junction_edges_plain),
-              lambda: _kernels.junction_edges(gk, gp, tot),
-              lambda: junctions.junction_edges_plain(gk, gp, tot),
-              reads=(gk, gp), row=False)
-    extra.append((f"junction_pairs, global mode (edges of {gk.shape[1]} sorted "
-                  f"entries)", r))
+    # K3's global mode after the exchange, on phase 3f's first step's
+    # inputs: the sort words (which read a slot's key rows only where it is
+    # valid), the pair rule on the sort's output, the successor shard's
+    # scatter (which reads a slot's edge only where the slot is valid)
+    gw = inputs["junction_words"]
+    r = check("junction_words", lambda: _kernels.junction_words(*gw),
+              lambda: junctions.junction_words_plain(*gw),
+              read_bytes=8 * gw[0].shape[0] * int(gw[1].sum()) + gw[1].numel())
+    r["launched_on"] = (f"phase 3f's build; {tuple(gw[0].shape)} received key "
+                        f"rows, {int(gw[1].sum())} valid")
+    gx = inputs["junction_edges"]
+    r = check("junction_pairs", lambda: _kernels.junction_edges(*gx),
+              lambda: junctions.junction_edges_plain(*gx),
+              read_bytes=pair_rule_bytes(*gx[:3], gx[4]), row=False)
+    r["bound_old_ms"] = _bound(_nbytes(gx[:4]) + 25 * gx[0].shape[0], 0)[0]
+    r["bound_old_what"] = "every sorted top word, perm, word and payload read"
+    extra.append((f"junction_pairs, global mode's pair rule on the sort's output "
+                  f"({gx[0].shape[0]} sorted entries, {gx[2].shape[0]} word(s); "
+                  f"{launches['junction_pairs:global']} launch(es) in phase 3f)",
+                  r))
+    gs = inputs["junction_scatter"]
+    r = check("junction_scatter", lambda: _kernels.junction_scatter(*gs),
+              lambda: junctions.junction_scatter_plain(*gs),
+              read_bytes=gs[1].numel() + 16 * int(gs[1].sum()))
+    r["launched_on"] = (f"phase 3f's build; {int(gs[1].sum())} received edges "
+                        f"into {2 * gs[4]} slots")
+    # K21 in its three modes on phase 3f's first calls
+    rows += glue_answer_rows(inputs, launches)
     rows += longk_rows(longk, phases, dev)
     for r in rows:
         lib = ("" if r["library_ms"] is None
-               else f", library call {r['library_ms']:.4f} ms")
+               else f", library call {r['library_ms']:.4f} ms"
+               + (f" ({r['library_what']})" if "library_what" in r else ""))
         if "device_ms" in r:
             lib += (f"; device time {_fmt_ms(r['device_ms'])} ms "
                     f"[{r['device_ops']:g} device operations per call], "
@@ -3576,7 +3954,9 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
               "route_buckets": [tuple(stk.shape), n_dev, cap],
               "glue_compose": tuple(gQ.shape),
               "junction_entries": tuple(ge[0].shape),
-              "junction_edges": tuple(gk.shape),
+              "junction_edges": tuple(gx[2].shape),
+              "glue_answer": {m: inputs[f"glue_answer:{m}"][1].shape[0]
+                              for m in GLUE_ANSWER},
               "hier (S, S1)": res_shape,
               "kmer_minimizers": [(2, n20), m20]}
     say(f"[shapes] {json.dumps(shapes)}")
@@ -3786,7 +4166,8 @@ def main() -> int:
         del ms_inputs
         phase_auto(tmp, fa, path)
         (mesh_launches, mesh_inputs, entry_launches, entry_solid,
-         mesh_ranged, glue_round_row) = phase_mesh(tmp, fa, path, table, dev)
+         mesh_ranged, mesh_rows) = phase_mesh(tmp, fa, path, table,
+                                                          dev)
         phase_invariants(path, stats)
         longk = phase_longk(tmp, args.seed, dev)
     # each kernel is held against its plain version on the inputs of the
@@ -3808,17 +4189,22 @@ def main() -> int:
         launches[kernel] = ooc_launches[kernel]
     for kernel in ("form_superkmers", "mmer_histograms:mmer",
                    "mmer_histograms:load", "route_buckets",
-                   "route_buckets:hash", "glue_compose") + GLOBAL_K3:
+                   "route_buckets:hash", "glue_compose") + GLOBAL_K3 + tuple(
+                       f"glue_answer:{m}" for m in GLUE_ANSWER):
         inputs[kernel] = mesh_inputs[kernel]
     for kernel in ("form_superkmers", "mmer_histograms", "route_buckets",
-                   "glue_compose"):
+                   "glue_compose", "junction_words",
+                   "junction_scatter") + K21_MODES:
         launches[kernel] = mesh_launches[kernel]
+    # K3a's and K3b's global modes (3f runs no local K3)
+    launches["junction_keys:global"] = mesh_launches["junction_keys"]
+    launches["junction_pairs:global"] = mesh_launches["junction_pairs"]
     launches["kmer_minimizers"] = entry_launches["kmer_minimizers"]
     launches["route_buckets:hash"] = entry_launches["route_buckets"]
     del mesh_inputs
     rows = phase_kernels(inputs, launches, canon_hier, ms_launches, table, longk,
                          phases, entry_solid, dev)
-    rows.append(glue_round_row)
+    rows += mesh_rows
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

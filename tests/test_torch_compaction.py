@@ -10,7 +10,9 @@
 - K12 (run_decompose) on circular fixtures, and the port's compact_solid
   vs bcalm_tpu.engine.compact_solid on a branching input;
 - K16 glue_compose_plain (in place, the response in the exchange's
-  layout) vs the compose step of bcalm_tpu's _glue_shard.
+  layout) vs the compose step of bcalm_tpu's _glue_shard;
+- K21 glue_answer_plain (the owners' answer, channel-major) vs the
+  answers _glue_shard computes for a doubling round and its two lookups.
 Every input is made with numpy and fed to both; exact equality.
 """
 
@@ -298,3 +300,62 @@ def test_glue_compose_in_place_matches_jax(n_dev):
     np.testing.assert_array_equal(route[1].numpy(), np.where(need, owner, owner0))
     assert 0 < nxt.sum() < need.sum()
     assert ((want[:, 1] & tchains._DMASK) == tchains._DMASK).any()
+
+
+def _jax_gq_local(g, run_cap, c_tot):
+    """_glue_shard's gq_local (int32, floored remainder)."""
+    s = jnp.where(g >= c_tot, g - c_tot, g)
+    return s % run_cap + jnp.where(g >= c_tot, run_cap, 0)
+
+
+@pytest.mark.parametrize("n_dev", [1, 3])
+@pytest.mark.parametrize("mode", ["rows", "run", "uid"])
+def test_glue_answer_matches_jax(mode, n_dev):
+    """K21's plain version against the answers of bcalm_tpu's _glue_shard
+    at every slot of the exchange: the round's rows (:313-318, take of Q
+    at every slot, the empty ones included), the run lookup (:258-264) and
+    the uid lookup (:378-381).  The received values are zero where the
+    slot is empty, as K15 leaves them; valid ones include values the clip
+    bounds (off this rank's slots, negative, past both strands)."""
+    rng = np.random.RandomState(21 + 3 * n_dev + len(mode))
+    run_cap, slot_cap, qcap = 300, 1024, 96
+    me = n_dev - 1
+    c_tot, two_rc, S = n_dev * run_cap, 2 * run_cap, n_dev * qcap
+    valid = rng.rand(S) < 0.4
+    if mode == "run":
+        v = np.where(rng.rand(S) < 0.8, me * slot_cap + rng.randint(0, slot_cap, S),
+                     rng.randint(-5, n_dev * slot_cap + 5, S))
+    else:
+        v = np.where(rng.rand(S) < 0.8, rng.randint(0, 2 * c_tot, S),
+                     rng.randint(-3 * run_cap, 3 * c_tot, S))
+    vals = np.where(valid, v, 0)
+    jv, jok = jnp.asarray(vals.astype(np.int32)), jnp.asarray(valid)
+    if mode == "rows":
+        Q = np.stack([rng.randint(0, 2 * c_tot, two_rc), rng.randint(0, 1 << 30, two_rc),
+                      rng.randint(0, 2 * c_tot + 1, two_rc), rng.randint(0, 50, two_rc)],
+                     axis=1)
+        tables = (t64(Q),)
+        rloc = jnp.clip(_jax_gq_local(jv, run_cap, c_tot), 0, two_rc - 1)
+        want = jnp.transpose(jnp.take(jnp.asarray(Q.astype(np.int32)), rloc, axis=0))
+    elif mode == "run":
+        head = np.sort(rng.randint(0, slot_cap, slot_cap))
+        end = head + rng.randint(0, 40, slot_cap)
+        rid = np.cumsum(rng.rand(slot_cap) < 0.1)
+        tables = tuple(t64(a) for a in (rid, head, end))
+        lv = jnp.clip(jv - me * slot_cap, 0, slot_cap - 1)
+        j = [jnp.asarray(a.astype(np.int32)) for a in (rid, head, end)]
+        want = jnp.stack([
+            jnp.where(jok, me * run_cap + jnp.take(j[0], lv), -1),
+            jnp.where(jok, jnp.take(j[2], lv) - jnp.take(j[1], lv) + 1, 0)])
+    else:
+        uid_at = np.where(rng.rand(two_rc) < 0.3, rng.randint(0, 5000, two_rc), -1)
+        tables = (t64(uid_at),)
+        urow = jnp.clip(_jax_gq_local(jv, run_cap, c_tot), 0, two_rc - 1)
+        want = jnp.where(jok, jnp.take(jnp.asarray(uid_at.astype(np.int32)), urow),
+                         -1)[None]
+    got = distcompact.glue_answer(mode, t64(vals), torch.from_numpy(valid), tables,
+                                  run_cap, n_dev, me)
+    assert got.shape == ({"rows": 4, "run": 2, "uid": 1}[mode], S)
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+    assert 0 < valid.sum() < S and (vals[~valid] == 0).all()

@@ -707,15 +707,98 @@ def test_junctions_global_mode(card, k, n_dev):
     want = junctions.junction_entries_plain(solid, n - 3, k, gbase, tot, n_dev)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
-    keys, pay, _ = want
-    perm = sort_op.lex_argsort(list(keys))
-    s_keys, s_pay = keys[:, perm].contiguous(), pay[perm]
-    got = junctions.junction_edges(s_keys.to(card), s_pay.to(card), tot)
-    want = junctions.junction_edges_plain(s_keys, s_pay, tot)
-    ok = want[0]
-    assert torch.equal(got[0].cpu(), ok) and int(ok.sum()) > 0
-    for a, b in zip(got[1:], want[1:]):
-        assert torch.equal(a.cpu()[ok], b[ok])
+    ent, valid, _ = want
+    K = ent.shape[0] - 1
+    words = junctions.junction_words_plain(ent[:K], valid)
+    assert torch.equal(_kernels.junction_words(ent[:K].to(card),
+                                               valid.to(card)).cpu(), words)
+    perm, top = sort_op.lex_sort_words(words)
+    args = (top, perm, words, ent[K], K, tot, n)
+    got = junctions.junction_edges(*[a.to(card) if torch.is_tensor(a) else a
+                                     for a in args])
+    want = junctions.junction_edges_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(want[0].sum()) > 0
+
+
+def received(ent, keep, n_dev, rng):
+    """The kept columns of ent shuffled into a receive buffer of n_dev
+    buckets, each a valid prefix with zeros after (as K15 and the
+    all_to_all leave them): (received (C, n_dev * cap), valid)."""
+    cols = torch.nonzero(keep).flatten()
+    cols = cols[torch.from_numpy(rng.permutation(cols.numel()))]
+    cap = -(-cols.numel() // (n_dev - 1)) + 5
+    recv = torch.zeros((ent.shape[0], n_dev * cap), dtype=torch.int64)
+    ev = torch.zeros((n_dev * cap,), dtype=torch.bool)
+    for b, part in enumerate(torch.tensor_split(cols, n_dev - 1)):
+        recv[:, b * cap:b * cap + part.numel()] = ent[:, part]
+        ev[b * cap:b * cap + part.numel()] = True
+    return recv, ev
+
+
+def launched(fn, name):
+    """fn()'s result, asserting that it added one to LAUNCHES[name] and to
+    no other count."""
+    before = dict(_kernels.LAUNCHES)
+    out = fn()
+    assert {n: c - before[n] for n, c in _kernels.LAUNCHES.items()
+            if c != before[n]} == {name: 1}
+    return out
+
+
+@pytest.mark.parametrize("k", [17, 31, 33, 63])
+def test_junction_edges_global(card, k):
+    """K3's global step after the exchange on its interface: the sort
+    words of a receive buffer with empty (zero) slots (junction_words),
+    the pair rule on the sort's own output, reading the lower words (k =
+    33, 63) and a strand row (k = 17, 33) through perm, over many 1024-entry
+    tiles, and the successor shard's scatter of the received edges; each
+    against its plain version on poisoned memory, twice, and counted once
+    a launch under its own key in LAUNCHES (the pair rule under K3b's
+    junction_pairs)."""
+    L = ln.num_lanes(k)
+    kmers = sorted(brute.count_kmers(reads(k, n=3000, k=k), k))
+    solid = torch.tensor([[(x >> (32 * (L - 1 - j))) & 0xFFFFFFFF for x in kmers]
+                          for j in range(L)], dtype=torch.int64)
+    n = solid.shape[1]
+    slot_cap, n_dev, me = n, 4, 2
+    tot = n_dev * slot_cap
+    rng = np.random.RandomState(k)
+    ent, valid, _ = junctions.junction_entries_plain(solid, n - 3, k,
+                                                     me * slot_cap, tot, n_dev)
+    K = ent.shape[0] - 1
+    recv, ev = received(ent, valid, n_dev, rng)
+    E = ev.numel()
+    words = junctions.junction_words_plain(recv[:K], ev)
+    for _ in range(2):
+        poisoned(card, 8 * words.numel() + (1 << 20))
+        got = launched(lambda: _kernels.junction_words(recv[:K].to(card),
+                                                       ev.to(card)),
+                       "junction_words")
+        assert torch.equal(got.cpu(), words)
+    perm, top = sort_op.lex_sort_words(words)
+    want = junctions.junction_edges_plain(top, perm, words, recv[K], K, tot,
+                                          slot_cap)
+    for _ in range(2):
+        poisoned(card, 25 * E + (1 << 20))
+        got = launched(lambda: _kernels.junction_edges(
+            top.to(card), perm.to(card), words.to(card), recv[K].to(card), K,
+            tot, slot_cap), "junction_pairs")
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    ok, edges, owner = want
+    assert E > 8 * 1024 and int(ok.sum()) > 1000
+    erecv, eev = received(edges, ok, n_dev, rng)
+    want = junctions.junction_scatter_plain(erecv, eev, tot, me * slot_cap,
+                                            slot_cap)
+    for _ in range(2):
+        poisoned(card, 16 * slot_cap + (1 << 20))
+        got = launched(lambda: _kernels.junction_scatter(
+            erecv.to(card), eev.to(card), tot, me * slot_cap, slot_cap),
+            "junction_scatter")
+        assert torch.equal(got.cpu(), want)
+    assert int((want >= 0).sum()) == int(ok.sum())
 
 
 def skm_block(k, m, seed=0):
@@ -864,6 +947,59 @@ def test_glue_compose(card):
             outs.append(got)
         assert int(ch_want) == 1
         Q, need, route = want
+
+
+@pytest.mark.parametrize("n_dev", [1, 4])
+@pytest.mark.parametrize("mode", ["rows", "run", "uid"])
+def test_glue_answer(card, mode, n_dev):
+    """K21 against its plain version at every slot, on poisoned memory:
+    an exchange of n_dev * qcap slots (qcap = 1000, not a multiple of the
+    256-slot block), 1% valid, zero elsewhere as K15 leaves them, a few
+    empty slots holding garbage (rows answers them by value, run and uid
+    not at all), valid values the clip bounds; the last column, which a
+    dropped query reads, once empty and once valid; an empty exchange.
+    Each call twice, for equal bytes, counted once a launch under its own
+    mode's key in LAUNCHES (none for the empty exchange)."""
+    rng = np.random.RandomState(17 + n_dev + len(mode))
+    run_cap, slot_cap = 1 << 12, 1 << 14
+    me = n_dev - 1
+    c_tot = n_dev * run_cap
+    if mode == "rows":
+        tables = (torch.from_numpy(rng.randint(-(1 << 40), 1 << 40, (2 * run_cap, 4))),)
+    elif mode == "run":
+        head = np.sort(rng.randint(0, slot_cap, slot_cap))
+        tables = tuple(torch.from_numpy(a) for a in (
+            np.cumsum(rng.rand(slot_cap) < 0.1), head,
+            head + rng.randint(0, 40, slot_cap)))
+    else:
+        tables = (torch.from_numpy(np.where(rng.rand(2 * run_cap) < 0.3,
+                                            rng.randint(0, 1 << 20, 2 * run_cap), -1)),)
+    hi = n_dev * slot_cap if mode == "run" else 2 * c_tot
+    for qcap, last_valid in ((1000, False), (1000, True), (0, False)):
+        S = n_dev * qcap
+        valid = rng.rand(S) < 0.01
+        v = np.where(rng.rand(S) < 0.9, rng.randint(0, hi, S),
+                     rng.randint(-hi, 3 * hi, S))
+        if mode == "run":
+            v = np.where(rng.rand(S) < 0.9, me * slot_cap + v % slot_cap, v)
+        vals = np.where(valid, v, np.where(rng.rand(S) < 0.005, v, 0))
+        if S:
+            valid[-1] = last_valid
+            vals[-1] = v[-1] if last_valid else 0
+        vals, valid = torch.from_numpy(vals), torch.from_numpy(valid)
+        want = distcompact.glue_answer_plain(mode, vals, valid, tables, run_cap,
+                                             n_dev, me)
+        for _ in range(2):
+            poisoned(card, 8 * want.numel() + (1 << 20))
+            before = dict(_kernels.LAUNCHES)
+            got = _kernels.glue_answer(mode, vals.to(card), valid.to(card),
+                                       tuple(t.to(card) for t in tables),
+                                       run_cap, n_dev, me)
+            assert got.shape == want.shape and got.is_contiguous()
+            assert torch.equal(got.cpu(), want)
+            assert {n: c - before[n] for n, c in _kernels.LAUNCHES.items()
+                    if c != before[n]} == ({f"glue_answer_{mode}": 1} if S
+                                           else {})
 
 
 def hier_level0(M: int):

@@ -149,7 +149,8 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.run_broadcast(t((32,)), t((32,)), t((32,)), t((16,)),
                                      t((16,)), t((16,)), t((16,)), t((16,)), 16),
     lambda t: _kernels.junction_entries(t((2, 16)), 16, 31, 0, 16, 2, 2),
-    lambda t: _kernels.junction_edges(t((2, 32)), t((32,)), 16),
+    lambda t: _kernels.junction_edges(t((32,)), t((32,)), t((1, 32)), t((32,)),
+                                      2, 16, 8),
     lambda t: _kernels.form_superkmers(t((4, 10)), t((4,)), 31, 10,
                                        t((4 ** 10,)), None, 10, 5, 4, True, 0),
     lambda t: _kernels.mmer_histograms(t((4, 10)), t((4,)), 31, 10, None,
@@ -173,6 +174,12 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.kmer_minimizers(t((2, 16)), 31, 10),
     lambda t: _kernels.fixpoint_bits(t((8,)), torch.ones(8, dtype=torch.bool),
                                      1),
+    lambda t: _kernels.glue_answer("rows", t((8,)),
+                                   torch.ones(8, dtype=torch.bool), (t((8, 4)),),
+                                   4, 1, 0),
+    lambda t: _kernels.junction_words(t((2, 32)), torch.ones(32, dtype=torch.bool)),
+    lambda t: _kernels.junction_scatter(t((2, 32)),
+                                        torch.ones(32, dtype=torch.bool), 16, 0, 8),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     def cpu(shape):

@@ -9,12 +9,17 @@ engine hands it over.  The pair step reads the sort's own top word
 of exactly two and three equal keys at both ends of the sorted entries, a
 hairpin (one k-mer's two sides in one group) and sentinel columns.  The long-k cases take (k-1) mod 16 to 0, 1 and 15
 and the lane counts 2-32, where the kernel's word-parallel reverse
-complement shifts whole words and bits.  Exact equality.
+complement shifts whole words and bits.  The global mode of the
+-devices build (junction entries, their sort words, the pair rule on the
+sort's output, the successor shard's scatter) is held against the lines
+of bcalm_tpu's _local_succ_shard on received entries with empty slots.
+Exact equality.
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from bcalm_tpu.models import lanes as jln
@@ -220,3 +225,157 @@ def test_successor_arrays_edge_groups(k, case):
         assert int(ts[hp]) == int(ts[hp + C]) == -1
     elif case == "two":
         assert int((ts >= 0).sum()) > 4
+
+
+def _jax_pairing(ent: np.ndarray, ev: np.ndarray, K: int, tot: int):
+    """bcalm_tpu _local_succ_shard's lines from the received entries to
+    (ok, src, dst) per sorted entry: the fills, the stable sort on the K
+    key rows with the payload along, the pair rule."""
+    SENT = np.uint32(0xFFFFFFFF)
+    e = jnp.asarray(ent.astype(np.uint32))
+    jev = jnp.asarray(ev)
+    e_keys = jnp.where(jev[None], e[:K], SENT)
+    e_pay = jnp.where(jev, e[K], 0)
+    out = jax.lax.sort([e_keys[j] for j in range(K)] + [e_pay], num_keys=K)
+    s_keys = jnp.stack(out[:K], axis=0)
+    s_pay = out[K]
+    s_valid = s_keys[0] != SENT
+    eq_prev = jnp.concatenate([jnp.zeros((1,), bool),
+                               jnp.all(s_keys[:, 1:] == s_keys[:, :-1], axis=0)])
+    eq_next = jnp.concatenate([eq_prev[1:], jnp.zeros((1,), bool)])
+    pair_head = s_valid & ~eq_prev & eq_next & ~jnp.concatenate(
+        [eq_next[1:], jnp.zeros((1,), bool)])
+    nxt_pay = jnp.concatenate([s_pay[1:], jnp.zeros((1,), jnp.uint32)])
+    role_a = (s_pay >> jjunc._ROLE_SHIFT).astype(jnp.int32)
+    role_b = (nxt_pay >> jjunc._ROLE_SHIFT).astype(jnp.int32)
+    oid_a = (s_pay & jjunc._OID_MASK).astype(jnp.int32)
+    oid_b = (nxt_pay & jjunc._OID_MASK).astype(jnp.int32)
+    vert_a = jnp.where(oid_a >= tot, oid_a - tot, oid_a)
+    vert_b = jnp.where(oid_b >= tot, oid_b - tot, oid_b)
+    ok = pair_head & (role_a != role_b) & (vert_a != vert_b)
+    src = jnp.where(role_a == jjunc.ROLE_OUT, oid_a, oid_b)
+    dst = jnp.where(role_a == jjunc.ROLE_OUT, oid_b, oid_a)
+    return np.asarray(ok), np.asarray(src), np.asarray(dst)
+
+
+def _received(ent: torch.Tensor, keep: torch.Tensor, n_dev: int, rng):
+    """The kept columns of ent shuffled into an exchange's receive buffer
+    of n_dev buckets: each bucket a valid prefix, zeros after (as K15 and
+    the all_to_all leave them).  Returns (received (C, n_dev*cap), valid)."""
+    cols = torch.nonzero(keep).flatten()
+    cols = cols[torch.from_numpy(rng.permutation(cols.numel()))]
+    cap = -(-cols.numel() // (n_dev - 1)) + 3
+    recv = torch.zeros((ent.shape[0], n_dev * cap), dtype=torch.int64)
+    ev = torch.zeros((n_dev * cap,), dtype=torch.bool)
+    for b, part in enumerate(torch.tensor_split(cols, n_dev - 1)):
+        recv[:, b * cap:b * cap + part.numel()] = ent[:, part]
+        ev[b * cap:b * cap + part.numel()] = True
+    return recv, ev
+
+
+@pytest.mark.parametrize("k", [13, 17, 31, 33, 63])
+def test_global_edges_match_jax(k):
+    """The global mode's pair step on the sort's own output against
+    bcalm_tpu _local_succ_shard: the entries of this rank (1 of 3) in a
+    receive buffer with empty (zero) slots, packed into sort words that
+    are the sentinel where empty, sorted by lex_sort_words; the pair rule
+    reads the top word, the lower words (k = 33, 63: two words; k = 17,
+    33: a strand row) and the payload through perm.  ok, src, dst and
+    src's owner at every sorted position; then the successor shard's
+    scatter of the edges this rank owns against JAX's drop-mode scatter."""
+    rng = np.random.RandomState(k)
+    solid, n = solid_table(k, k + 7)
+    slot_cap, n_dev, me = solid.shape[1], 3, 1
+    tot = n_dev * slot_cap
+    ent, valid, owner = tjunc.junction_entries(
+        convert.lanes_from_numpy(solid, "cpu"), n - 2, k, me * slot_cap, tot,
+        n_dev)
+    K = ent.shape[0] - 1
+    assert K == tjunc.entry_key_rows(k) and int(valid.sum()) == 4 * (n - 2)
+    recv, ev = _received(ent, valid, n_dev, rng)
+    words = tjunc.junction_words(recv[:K], ev)
+    assert words.shape == ((K + 1) // 2, ev.numel())
+    perm, top = tsort.lex_sort_words(words)
+    ok, edges, src_owner = tjunc.junction_edges(top, perm, words, recv[K], K,
+                                                tot, slot_cap)
+    jok, jsrc, jdst = _jax_pairing(recv.numpy(), ev.numpy(), K, tot)
+    np.testing.assert_array_equal(ok.numpy(), jok)
+    okn = ok.numpy()
+    np.testing.assert_array_equal(edges[0].numpy()[okn], jsrc[okn])
+    np.testing.assert_array_equal(edges[1].numpy()[okn], jdst[okn])
+    assert (edges.numpy()[:, ~okn] == -1).all() and (src_owner.numpy()[~okn] == 0).all()
+    vert = np.where(jsrc >= tot, jsrc - tot, jsrc)
+    np.testing.assert_array_equal(src_owner.numpy()[okn], vert[okn] // slot_cap)
+    assert okn.sum() > 10
+    # the shard's scatter: the edges whose source slot this rank owns
+    mine = ok & (src_owner == me)
+    erecv, eev = _received(edges, mine, n_dev, rng)
+    table = tjunc.junction_scatter(erecv, eev, tot, me * slot_cap, slot_cap)
+    ea, eb = jnp.asarray(erecv[0].numpy()), jnp.asarray(erecv[1].numpy())
+    jev = jnp.asarray(eev.numpy())
+    eslot = jnp.where(ea >= tot, ea - tot, ea) - me * slot_cap
+    lidx = jnp.where(ea >= tot, eslot + slot_cap, eslot)
+    want = jnp.full((2 * slot_cap,), -1, dtype=jnp.int32).at[
+        jnp.where(jev, lidx, 2 * slot_cap)].set(jnp.where(jev, eb, -1), mode="drop")
+    np.testing.assert_array_equal(table.numpy(), np.asarray(want))
+    assert int((table >= 0).sum()) == int(mine.sum()) > 0
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("k", [31, 33, 63])
+def test_pair_rule_bytes_counts_the_data(k):
+    """chip_smoke.pair_rule_bytes, the bytes the global pair rule's bound
+    counts, against a count entry by entry on the same sorted receive
+    buffer: every top word, the lower words (k = 33, 63) of each valid
+    neighbour pair whose top words tie, perm at those entries (k = 31: at
+    each pair head's two) and the payload of each pair head's two
+    entries, each as distinct 32-byte sectors or the valid entries' 8
+    bytes, whichever is less; every edge the pair rule emits sits at a
+    pair head."""
+    rng = np.random.RandomState(k)
+    solid, n = solid_table(k, k + 7)
+    slot_cap, n_dev, me = solid.shape[1], 3, 1
+    tot = n_dev * slot_cap
+    ent, valid, _ = tjunc.junction_entries(
+        convert.lanes_from_numpy(solid, "cpu"), n - 2, k, me * slot_cap, tot,
+        n_dev)
+    K = ent.shape[0] - 1
+    recv, ev = _received(ent, valid, n_dev, rng)
+    words = tjunc.junction_words(recv[:K], ev)
+    perm, top = tsort.lex_sort_words(words)
+    got = _chip_smoke().pair_rule_bytes(top, perm, words, K)
+
+    sent0, _, shift = tjunc.sentinel_words(K)
+    E, W = top.numel(), words.shape[0]
+    t, p, w = top.tolist(), perm.tolist(), words.tolist()
+    ok_valid = [(x >> shift) != (sent0 >> shift) for x in t]
+    n_valid = sum(ok_valid)
+    key = [tuple(w[r][p[i]] for r in range(W)) for i in range(E)]
+    eq = [i + 1 < E and ok_valid[i + 1] and key[i] == key[i + 1]
+          for i in range(E)]
+    ties = [i for i in range(E - 1) if ok_valid[i + 1] and t[i] == t[i + 1]]
+    heads = [i for i in range(E) if ok_valid[i] and eq[i]
+             and not (i and eq[i - 1]) and not eq[i + 1]]
+
+    def sectors(idx):
+        return min(8 * n_valid, 32 * len({j // 4 for j in idx}))
+
+    pos = ([i + d for i in ties for d in (0, 1)] if W > 1
+           else [i + d for i in heads for d in (0, 1)])
+    lower = (W - 1) * sectors([p[i] for i in pos]) if W > 1 else 0
+    want = (8 * E + lower + sectors(pos)
+            + sectors([p[i + d] for i in heads for d in (0, 1)]))
+    assert got == want
+    ok, _, _ = tjunc.junction_edges(top, perm, words, recv[K], K, tot, slot_cap)
+    assert set(torch.nonzero(ok).flatten().tolist()) <= set(heads)
+    assert len(heads) > 10 and n_valid < E
