@@ -34,9 +34,16 @@
 // - = gbase + i + tot), and each entry's owner rank = hash_lanes(key rows)
 // % n_dev (hash.cuh); the key rows and the payload as one (K+1, 4N)
 // stack, the exchange's input, and each entry's validity (i < n_local).
-// After the exchange, junction_words packs each received entry's K key
-// rows into the sort's words (models.lanes.pack_keys), all of them the
-// sentinel packing where the slot is empty, so no fill of the rows runs.
+// After the exchange, junction_words compacts the valid received slots,
+// in receive order, into the sort's input: each one's K key rows packed
+// into the sort words (models.lanes.pack_keys) and its payload, and their
+// count n into a device word (one pass, decoupled look-back, as K9).  The
+// sort then takes exactly the n valid entries: JAX sorts every slot with
+// the empty ones filled with the sentinel, but no valid key is the
+// sentinel (its first row is a strand, or a top lane with the strand in a
+// spare bit: below 2^31), so the empty slots sort after every valid one,
+// and a stable sort keeps the valid ones in receive order: JAX's first n
+// sorted entries are these, and its pair rule finds no edge past them.
 // junction_edges reads the sort's own output, as junction_pairs does:
 // the sorted top word in a shared tile, a neighbour's lower words through
 // perm only where the top words are equal, and a pair head's two payloads
@@ -44,8 +51,10 @@
 // writes per sorted entry ok, the edge (src, dst) and the rank owning
 // src's slot (-1, -1, 0 where not ok), the next exchange's input.
 // junction_scatter, at src's owner, writes each received edge into the
-// rank's successor shard (a memset to -1, then one store an edge), which
-// a boolean compaction of the received edges did before.
+// rank's successor shard by windows of 8192 slots (below): a pass that
+// bins the edges into their windows, then a block a window that builds
+// the window in shared memory and writes it whole, -1 where no edge
+// lands, so the table is written once, in whole sectors, with no memset.
 //
 // Bound on this card: memory.  junction_keys reads L*8 bytes per k-mer
 // and writes 2*(K+1)*8 (K key rows); junction_entries writes 4*(K+2)*8
@@ -66,15 +75,20 @@
 // half the valid entries) reads perm[i], perm[i+1] and the two payloads
 // (random sectors), and a pair makes two random 8-byte stores.  Its bytes
 // are the word (8 per entry), those sectors, the memset (16 per k-mer)
-// and the stores' sectors.  In the global mode junction_words reads K*8
-// bytes and a validity byte per received slot and writes ceil(K/2)*8;
-// junction_edges reads the sorted word (8 per entry; a lower word through
+// and the stores' sectors.  In the global mode junction_words reads a
+// validity byte per received slot and (K+1)*8 bytes per valid one, and
+// writes (ceil(K/2)+1)*8 per valid one; junction_edges reads the sorted word (8 per entry; a lower word through
 // perm, a random sector, only where top words tie) and a pair head's perm
 // and payload sectors, and writes 25 bytes per entry (ok, src, dst,
-// owner), which the router reads next; junction_scatter reads 17 bytes a
-// received slot and sets a random sector per edge after the memset.
+// owner), which the router reads next; junction_scatter must read a
+// validity byte a received slot and 16 bytes a valid edge and write the
+// table once: its bins read each edge's source twice and its target once
+// and write 10 bytes an edge into the table's own slots and a u16 array
+// (kept in L2 while a window's bin fills), and its windows read those
+// back and write every slot once.
 #include "common.cuh"
 #include "hash.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -338,19 +352,48 @@ __device__ __forceinline__ long long pack_word(unsigned long long hi,
               : static_cast<long long>(hi);
 }
 
+// The compaction in front of the sort: one block a tile of kWordsTile
+// received slots from the ticket, item q of thread t being slot tile *
+// kWordsTile + q * kThreads + t; select_ranks (lookback.cuh) gives each
+// valid slot its rank among the valid slots of all tiles, in receive
+// order, and the slot's key rows are packed into the sort words and its
+// payload moved to that rank.  Only a valid slot's rows are read.
+constexpr int kWordsItems = 16;
+constexpr long long kWordsTile = bt::kThreads * kWordsItems;  // 4096 slots
+
 __global__ void __launch_bounds__(bt::kThreads)
-junction_words_kernel(const int64_t* __restrict__ keys, long long kstride,
+junction_words_kernel(const int64_t* __restrict__ rows, long long rstride,
                       int K, const uint8_t* __restrict__ valid, long long E,
-                      int64_t* __restrict__ words) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= E) return;
-  const bool ok = valid[i] != 0;
+                      unsigned long long* __restrict__ next_tile,
+                      unsigned long long* __restrict__ status,
+                      int64_t* __restrict__ words, long long wstride,
+                      int64_t* __restrict__ payload,
+                      int64_t* __restrict__ n_out) {
+  const long long tile = take_tile(next_tile);
+  const long long first = tile * kWordsTile + threadIdx.x;
+  bool keep[kWordsItems];
+#pragma unroll
+  for (int q = 0; q < kWordsItems; ++q) {
+    const long long i = first + q * bt::kThreads;
+    keep[q] = i < E && valid[i] != 0;
+  }
+  long long dest[kWordsItems];
+  const long long total = select_ranks<kWordsItems>(keep, tile, status, dest);
+  if (threadIdx.x == 0 && tile == (E - 1) / kWordsTile) n_out[0] = total;
   for (int r = 0; r < K; r += 2) {
     const bool pair = r + 1 < K;
-    const unsigned long long hi = ok ? keys[r * kstride + i] : bt::kSentinel;
-    const unsigned long long lo =
-        pair ? (ok ? keys[(r + 1) * kstride + i] : bt::kSentinel) : 0ull;
-    words[(r / 2) * E + i] = pack_word(hi, lo, pair);
+#pragma unroll
+    for (int q = 0; q < kWordsItems; ++q) {
+      if (dest[q] < 0) continue;
+      const long long i = first + q * bt::kThreads;
+      const unsigned long long hi = rows[r * rstride + i];
+      const unsigned long long lo = pair ? rows[(r + 1) * rstride + i] : 0ull;
+      words[(r / 2) * wstride + dest[q]] = pack_word(hi, lo, pair);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kWordsItems; ++q) {
+    if (dest[q] >= 0) payload[dest[q]] = rows[K * rstride + first + q * bt::kThreads];
   }
 }
 
@@ -362,8 +405,8 @@ junction_words_kernel(const int64_t* __restrict__ keys, long long kstride,
 __global__ void __launch_bounds__(bt::kThreads)
 junction_edges_kernel(const int64_t* __restrict__ top,
                       const int64_t* __restrict__ perm,
-                      const int64_t* __restrict__ words, int W,
-                      const int64_t* __restrict__ pay, long long E,
+                      const int64_t* __restrict__ words, long long wstride,
+                      int W, const int64_t* __restrict__ pay, long long E,
                       long long tot, long long slot_cap, int shift,
                       long long sent_hi, uint8_t* __restrict__ ok,
                       int64_t* __restrict__ edges,
@@ -381,7 +424,9 @@ junction_edges_kernel(const int64_t* __restrict__ top,
     bool eq = e >= 0 && e + 1 < E && s0[j] == s0[j + 1];
     if (eq && W > 1) {
       const long long a = perm[e], b = perm[e + 1];
-      for (int w = 1; w < W && eq; ++w) eq = words[w * E + a] == words[w * E + b];
+      for (int w = 1; w < W && eq; ++w) {
+        eq = words[w * wstride + a] == words[w * wstride + b];
+      }
     }
     eqn[j] = eq;
   }
@@ -434,19 +479,178 @@ junction_edges_kernel(const int64_t* __restrict__ top,
   }
 }
 
-// One thread a received slot: a valid edge (a, b), a owned here, sets
-// table[local oriented id of a] = b.
-__global__ void __launch_bounds__(bt::kThreads)
-junction_scatter_kernel(const int64_t* __restrict__ edges,
-                        const uint8_t* __restrict__ ev, long long R,
-                        long long tot, long long base, long long slot_cap,
-                        int64_t* __restrict__ table) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= R || !ev[i]) return;
-  const long long a = edges[i];
+// The successor shard's scatter, by windows of kWin table slots.  Every
+// oriented node has one out-end, so no two edges name one slot and a
+// window receives at most its own width of edges: window w's bin is the
+// table's own slots [w * kWin, w * kWin + width).  An edge (a, b) whose
+// local id `at` lies in the table enters its window's bin as one word,
+// b << kWinShift | (at's offset in the window).
+// scatter_bin_kernel: a block stages the edges of up to kStageWin windows
+// (blockIdx.y picks which; a table of more windows costs a pass over the
+// received edges for each kStageWin of them) in shared memory,
+// kStageCap words a window, while it walks the tiles of kBinTile received
+// slots blockIdx.x, blockIdx.x + gridDim.x, ... (item q of thread t: slot
+// q * kBinThreads + t); after each tile it moves every window's whole
+// 32-byte groups of 4 words to the bottom of the window's bin (one global
+// atomic on the window's bottom count, 16-byte stores: whole sectors,
+// never a part of one) and keeps the rest (at most 3) for the next tile.
+// Its last words, and an edge that finds its window's stage full, go to
+// the top of the bin (the top count, from the bin's end downwards), so
+// that every bottom group stays sector-aligned.  The order inside a bin
+// is the atomics', which no output depends on.
+// scatter_window_kernel, one block a window: it loads the bin's words
+// (the bottom count's, then the top count's) into registers, sets the
+// window's image in shared memory to -1, stores each word's b at its
+// offset there, and writes the image over the window's slots as whole
+// 16-byte vectors: the table is written once more, in whole sectors, and
+// no memset runs before.
+constexpr int kWinShift = 14;
+constexpr long long kWin = 1LL << kWinShift;   // 16384 slots, 128 KB
+constexpr int kWinThreads = 1024;
+constexpr int kWinItems = static_cast<int>(kWin / kWinThreads);
+constexpr int kBinThreads = 1024;
+constexpr int kBinItems = 4;
+constexpr long long kBinTile = kBinThreads * kBinItems;   // 4096 slots
+constexpr int kStageWin = 1024;
+constexpr int kStageCap = 16;   // words a window: 128 KB of stage a block
+constexpr size_t kStageBytes =
+    kStageWin * kStageCap * sizeof(long long) + kStageWin * sizeof(int);
+
+// The local oriented id of edge source a, or -1 where it is outside the
+// table of T = 2 * slot_cap slots.
+__device__ __forceinline__ long long local_id(long long a, long long tot,
+                                              long long base,
+                                              long long slot_cap, long long T) {
   const long long slot = (a >= tot ? a - tot : a) - base;
   const long long at = a >= tot ? slot + slot_cap : slot;
-  if (at >= 0 && at < 2 * slot_cap) table[at] = edges[R + i];
+  return at >= 0 && at < T ? at : -1;
+}
+
+// The width of window w of a table of T slots.
+__device__ __forceinline__ long long win_width(long long w, long long T) {
+  const long long rest = T - (w << kWinShift);
+  return rest < kWin ? rest : kWin;
+}
+
+__global__ void __launch_bounds__(kBinThreads)
+scatter_bin_kernel(const int64_t* __restrict__ edges,
+                   const uint8_t* __restrict__ ev, long long R, long long tot,
+                   long long base, long long slot_cap, long long T,
+                   long long nwin, int* __restrict__ bottom,
+                   int* __restrict__ top, int64_t* __restrict__ table) {
+  extern __shared__ long long s_stage[];   // kStageWin x kStageCap words
+  int* s_len = reinterpret_cast<int*>(s_stage + kStageWin * kStageCap);
+  const long long w_lo = static_cast<long long>(blockIdx.y) * kStageWin;
+  const int n_w = static_cast<int>(nwin - w_lo < kStageWin ? nwin - w_lo
+                                                           : kStageWin);
+  for (int w = threadIdx.x; w < n_w; w += kBinThreads) s_len[w] = 0;
+  __syncthreads();
+  const long long tiles = (R + kBinTile - 1) / kBinTile;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long first = tile * kBinTile + threadIdx.x;
+    long long at[kBinItems];
+#pragma unroll
+    for (int q = 0; q < kBinItems; ++q) {
+      const long long i = first + q * kBinThreads;
+      at[q] = i < R && ev[i] ? 0 : -1;
+    }
+    long long b[kBinItems];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < kBinItems; ++q) {
+      if (at[q] == 0) {
+        at[q] = local_id(edges[first + q * kBinThreads], tot, base, slot_cap,
+                         T);
+        b[q] = edges[R + first + q * kBinThreads];
+        const long long w = at[q] >> kWinShift;
+        if (w < w_lo || w >= w_lo + n_w) at[q] = -1;
+      }
+      any |= at[q] >= 0;
+    }
+    if (!__syncthreads_or(any)) continue;
+#pragma unroll
+    for (int q = 0; q < kBinItems; ++q) {
+      if (at[q] < 0) continue;
+      const long long word = static_cast<long long>(
+          (static_cast<unsigned long long>(b[q]) << kWinShift) |
+          static_cast<unsigned long long>(at[q] & (kWin - 1)));
+      const long long gw = at[q] >> kWinShift;
+      const int w = static_cast<int>(gw - w_lo);
+      const int r = atomicAdd(&s_len[w], 1);
+      if (r < kStageCap) {
+        s_stage[w * kStageCap + r] = word;
+      } else {   // the stage is full: straight to the top of the bin
+        const long long pos = win_width(gw, T) - 1 - atomicAdd(&top[gw], 1);
+        if (pos >= 0) table[(gw << kWinShift) + pos] = word;
+      }
+    }
+    __syncthreads();
+    for (int w = threadIdx.x; w < n_w; w += kBinThreads) {
+      const int len = s_len[w] < kStageCap ? s_len[w] : kStageCap;
+      const int m = len & ~3;
+      long long* st = s_stage + w * kStageCap;
+      if (m) {
+        const long long gw = w_lo + w;
+        const long long p = atomicAdd(&bottom[gw], m);
+        if (p + m <= win_width(gw, T)) {
+          auto* dst = reinterpret_cast<longlong2*>(table + (gw << kWinShift) + p);
+          const auto* src = reinterpret_cast<const longlong2*>(st);
+          for (int j = 0; j < m / 2; ++j) dst[j] = src[j];
+        }
+        for (int j = m; j < len; ++j) st[j - m] = st[j];
+      }
+      s_len[w] = len - m;
+    }
+    __syncthreads();
+  }
+  // the words left in the stage: to the top of their bins
+  for (int w = threadIdx.x; w < n_w; w += kBinThreads) {
+    const int len = s_len[w];
+    if (!len) continue;
+    const long long gw = w_lo + w;
+    const long long end = win_width(gw, T) - atomicAdd(&top[gw], len);
+    for (int j = 0; j < len; ++j) {
+      if (end - 1 - j >= 0) {
+        table[(gw << kWinShift) + end - 1 - j] = s_stage[w * kStageCap + j];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWinThreads)
+scatter_window_kernel(const int* __restrict__ bottom,
+                      const int* __restrict__ top,
+                      int64_t* __restrict__ table, long long T) {
+  extern __shared__ long long s_img[];   // kWin slots
+  const long long w0 = static_cast<long long>(blockIdx.x) << kWinShift;
+  const int width = static_cast<int>(win_width(blockIdx.x, T));
+  const int n_lo = bottom[blockIdx.x] < width ? bottom[blockIdx.x] : width;
+  const int n_hi =
+      top[blockIdx.x] < width - n_lo ? top[blockIdx.x] : width - n_lo;
+  long long v[kWinItems];
+  bool has[kWinItems];
+#pragma unroll
+  for (int j = 0; j < kWinItems; ++j) {
+    const int e = j * kWinThreads + threadIdx.x;
+    has[j] = e < n_lo || (e >= width - n_hi && e < width);
+    if (has[j]) v[j] = table[w0 + e];
+  }
+  auto* img2 = reinterpret_cast<longlong2*>(s_img);
+  for (int j = threadIdx.x; j < kWin / 2; j += kWinThreads) {
+    img2[j] = make_longlong2(-1, -1);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kWinItems; ++j) {
+    if (has[j]) s_img[v[j] & (kWin - 1)] = v[j] >> kWinShift;
+  }
+  __syncthreads();
+  if (width == kWin) {
+    auto* out2 = reinterpret_cast<longlong2*>(table + w0);
+    for (int j = threadIdx.x; j < kWin / 2; j += kWinThreads) out2[j] = img2[j];
+  } else {
+    for (int j = threadIdx.x; j < width; j += kWinThreads) table[w0 + j] = s_img[j];
+  }
 }
 
 }  // namespace
@@ -502,21 +706,30 @@ extern "C" int bt_junction_entries(const int64_t* solid, long long stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: (ceil(K/2), E).
-extern "C" int bt_junction_words(const int64_t* keys, long long kstride, int K,
-                                 const uint8_t* valid, long long E,
-                                 int64_t* words, void* stream) {
+// rows: the K key rows and the payload row (stride rstride); valid: E
+// bytes; scratch: 2 + ceil(E / 4096) zeroed words ([0] receives the valid
+// count n, [1] the tile counter, [2:] one status word per tile); words:
+// ceil(K/2) rows of stride wstride and payload, each written at [0, n).
+extern "C" int bt_junction_words(const int64_t* rows, long long rstride,
+                                 int K, const uint8_t* valid, long long E,
+                                 long long* scratch, int64_t* words,
+                                 long long wstride, int64_t* payload,
+                                 void* stream) {
   if (E == 0) return 0;
-  junction_words_kernel<<<bt::blocks_for(E), bt::kThreads, 0,
+  auto* w = reinterpret_cast<unsigned long long*>(scratch);
+  const long long tiles = (E + kWordsTile - 1) / kWordsTile;
+  junction_words_kernel<<<static_cast<unsigned int>(tiles), bt::kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      keys, kstride, K, valid, E, words);
+      rows, rstride, K, valid, E, w + 1, w + 2, words, wstride, payload,
+      reinterpret_cast<int64_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: (W, E) in entry order (row 0, the top word, is read sorted from
-// `top`); edges: (2, E).
+// words: W rows of stride wstride, E entries each, in entry order (row
+// 0, the top word, is read sorted from `top`); edges: (2, E).
 extern "C" int bt_junction_edges(const int64_t* top, const int64_t* perm,
-                                 const int64_t* words, int W,
+                                 const int64_t* words, long long wstride,
+                                 int W,
                                  const int64_t* pay, long long E,
                                  long long tot, long long slot_cap, int shift,
                                  long long sent_hi, uint8_t* ok,
@@ -527,25 +740,53 @@ extern "C" int bt_junction_edges(const int64_t* top, const int64_t* perm,
       static_cast<unsigned int>((E + kPairTile - 1) / kPairTile);
   junction_edges_kernel<<<grid, bt::kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      top, perm, words, W, pay, E, tot, slot_cap, shift, sent_hi, ok, edges,
-      owner);
+      top, perm, words, wstride, W, pay, E, tot, slot_cap, shift, sent_hi, ok,
+      edges, owner);
   return static_cast<int>(cudaGetLastError());
 }
 
-// edges: (2, R) received, ev: R bytes; table: 2 * slot_cap, set to -1
-// here (one memset), then the edges.
+// edges: (2, R) received, ev: R bytes; table: 2 * slot_cap slots, every
+// one written; counts: 2 * ceil(2 * slot_cap / 16384) ints of scratch,
+// each window's bottom and top count (zeroed here).  A target b must lie
+// in [-2^49, 2^49) (an oriented id always does).  Three device
+// operations: the memset of the counts, the bins, the windows.
 extern "C" int bt_junction_scatter(const int64_t* edges, const uint8_t* ev,
                                    long long R, long long tot, long long base,
-                                   long long slot_cap, int64_t* table,
-                                   void* stream) {
+                                   long long slot_cap, int* counts,
+                                   int64_t* table, void* stream) {
+  const long long T = 2 * slot_cap;
+  if (T == 0) return 0;
+  if (T > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slot_cap > 0) {
-    cudaError_t err =
-        cudaMemsetAsync(table, 0xFF, 2 * slot_cap * sizeof(int64_t), s);
+  const long long nwin = (T + kWin - 1) / kWin;
+  cudaError_t err = cudaMemsetAsync(counts, 0, 2 * nwin * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (R + kBinTile - 1) / kBinTile;
+  if (tiles > 0) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(scatter_bin_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kStageBytes));
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned int>(tiles < sms ? tiles : sms),
+                    static_cast<unsigned int>((nwin + kStageWin - 1) / kStageWin));
+    scatter_bin_kernel<<<grid, kBinThreads, kStageBytes, s>>>(
+        edges, ev, R, tot, base, slot_cap, T, nwin, counts, counts + nwin,
+        table);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (R == 0) return 0;
-  junction_scatter_kernel<<<bt::blocks_for(R), bt::kThreads, 0, s>>>(
-      edges, ev, R, tot, base, slot_cap, table);
+  const int smem = static_cast<int>(kWin * sizeof(long long));
+  err = cudaFuncSetAttribute(scatter_window_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter_window_kernel<<<static_cast<unsigned int>(nwin), kWinThreads, smem,
+                          s>>>(counts, counts + nwin, table, T);
   return static_cast<int>(cudaGetLastError());
 }

@@ -81,10 +81,10 @@ _SIGNATURES = {
                          _P, _P, _P],
     "bt_junction_entries": [_P, _I64, _I64, _I64, _I32, _I32, _I64, _I64, _I32,
                             _P, _I64, _P, _P, _P, _P],
-    "bt_junction_words": [_P, _I64, _I32, _P, _I64, _P, _P],
-    "bt_junction_edges": [_P, _P, _P, _I32, _P, _I64, _I64, _I64, _I32, _I64,
-                          _P, _P, _P, _P],
-    "bt_junction_scatter": [_P, _P, _I64, _I64, _I64, _I64, _P, _P],
+    "bt_junction_words": [_P, _I64, _I32, _P, _I64, _P, _P, _I64, _P, _P],
+    "bt_junction_edges": [_P, _P, _P, _I64, _I32, _P, _I64, _I64, _I64, _I32,
+                          _I64, _P, _P, _P, _P],
+    "bt_junction_scatter": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P],
     "bt_form_superkmers": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32,
                            _I32, _I32, ctypes.c_uint, _P, _P, _P, _P, _P],
     "bt_mmer_histograms": [_P, _P, _I32, _I32, _I32, _I32, _P, _I32, _P, _P],
@@ -109,6 +109,8 @@ HIER_TILE = 2048  # rows per selection tile of csrc/hier.cu (K18)
 FINISH_TILE = 1024  # nodes per selection tile of csrc/finish.cu (K10)
 RUNSCAN_TILE = 2048  # entries per look-back tile of csrc/runscan.cu (K8)
 COUNT_TILE = 2048  # columns per tile of csrc/count.cu
+WORDS_TILE = 4096  # received slots per look-back tile of junction_words
+SCATTER_WINDOW = 16384  # csrc/junctions.cu kWin: table slots per window
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 
 _lib = None
@@ -716,21 +718,30 @@ def junction_entries(solid: torch.Tensor, n_local: int, k: int, gbase: int,
     return ent, valid, owner
 
 
-def junction_words(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """K3, global mode: the (ceil(K/2), E) sort words (models.lanes.pack_keys)
-    of the K received key rows, every word the sentinel packing where the
-    slot is not valid."""
-    _check(keys, "keys", ndim=2, rows_strided=True)
+def junction_words(rows: torch.Tensor, valid: torch.Tensor):
+    """K3, global mode: the compaction in front of the sort.  rows: the
+    received (K+1, E) stack (K key rows, then the payload), valid (E,).
+    Returns (words (ceil(K/2), E), payload (E,), n (1,)): the n valid
+    slots, in receive order, packed into the sort words
+    (models.lanes.pack_keys) and their payloads, at [0, n) of each row;
+    the columns past n are not written."""
+    _check(rows, "rows", ndim=2, rows_strided=True)
     _check(valid, "valid", dtype=torch.bool, ndim=1)
-    K, E = keys.shape
+    K, E = rows.shape[0] - 1, rows.shape[1]
     if valid.shape[0] != E or not 1 <= K <= MAX_LANES + 1:
         raise ValueError("junction_words: shapes do not match")
-    words = torch.empty(((K + 1) // 2, E), dtype=torch.int64, device=keys.device)
+    dev = rows.device
+    words = torch.empty(((K + 1) // 2, E), dtype=torch.int64, device=dev)
+    payload = torch.empty((E,), dtype=torch.int64, device=dev)
+    # [0] n, [1] the tile counter, [2:] one status word per tile
+    scratch = torch.zeros((2 + -(-E // WORDS_TILE),), dtype=torch.int64,
+                          device=dev)
     if E:
-        _launch("bt_junction_words", keys.data_ptr(), keys.stride(0), K,
-                valid.data_ptr(), E, words.data_ptr())
+        _launch("bt_junction_words", rows.data_ptr(), rows.stride(0), K,
+                valid.data_ptr(), E, scratch.data_ptr(), words.data_ptr(),
+                words.stride(0), payload.data_ptr())
         LAUNCHES["junction_words"] += 1
-    return words
+    return words, payload, scratch[:1]
 
 
 def junction_edges(s_word: torch.Tensor, perm: torch.Tensor,
@@ -738,14 +749,15 @@ def junction_edges(s_word: torch.Tensor, perm: torch.Tensor,
                    tot: int, slot_cap: int):
     """K3b, global mode, on the sort's own output: s_word the sorted top
     word and perm the permutation (sort.lex_sort_words of words), words
-    (ceil(K/2), E) and payload (E,) in entry order.  Returns (ok (E,) bool,
-    edges (2, E): src, dst, owner (E,): the rank owning src's slot) per
-    sorted entry, (-1, -1, 0) where not ok."""
+    (ceil(K/2), E) and payload (E,) in entry order (words' rows may lie
+    apart: the first E columns of junction_words' output).  Returns (ok
+    (E,) bool, edges (2, E): src, dst, owner (E,): the rank owning src's
+    slot) per sorted entry, (-1, -1, 0) where not ok."""
     from .junctions import sentinel_words
 
     for t, name in ((s_word, "s_word"), (perm, "perm"), (payload, "payload")):
         _check(t, name, ndim=1)
-    _check(words, "words", ndim=2)
+    _check(words, "words", ndim=2, rows_strided=True)
     E = s_word.shape[0]
     if (perm.shape[0] != E or payload.shape[0] != E
             or words.shape != ((K + 1) // 2, E) or slot_cap < 1):
@@ -757,7 +769,8 @@ def junction_edges(s_word: torch.Tensor, perm: torch.Tensor,
     sent0, _, shift = sentinel_words(K)
     if E:
         _launch("bt_junction_edges", s_word.data_ptr(), perm.data_ptr(),
-                words.data_ptr(), words.shape[0], payload.data_ptr(), E, tot,
+                words.data_ptr(), words.stride(0), words.shape[0],
+                payload.data_ptr(), E, tot,
                 slot_cap, shift, sent0 >> shift, ok.data_ptr(),
                 edges.data_ptr(), owner.data_ptr())
         LAUNCHES["junction_pairs"] += 1
@@ -768,19 +781,26 @@ def junction_scatter(edges: torch.Tensor, ev: torch.Tensor, tot: int,
                      base: int, slot_cap: int) -> torch.Tensor:
     """K3, global mode: the (2*slot_cap,) successor shard of the rank whose
     slots start at base: each received edge (a, b) with ev set writes b at
-    a's local oriented id, -1 elsewhere.  One C call: a memset and the
-    kernel."""
+    a's local oriented id (an id outside the table is dropped), -1
+    elsewhere.  No two edges may name one slot (every oriented node has
+    one out-end), and b must lie in [-2^49, 2^49) (an oriented id always
+    does).  One C call: the memset of the windows' counts, the bins, the
+    windows."""
     _check(edges, "edges", ndim=2)
     _check(ev, "ev", dtype=torch.bool, ndim=1)
     R = ev.shape[0]
-    if edges.shape != (2, R):
+    if edges.shape != (2, R) or not 0 <= 2 * slot_cap < 2**31:
         raise ValueError("junction_scatter: shapes do not match")
-    table = torch.empty((2 * slot_cap,), dtype=torch.int64, device=ev.device)
-    if slot_cap:
+    dev = ev.device
+    T = 2 * slot_cap
+    table = torch.empty((T,), dtype=torch.int64, device=dev)
+    # each window's bottom count, then each window's top count
+    counts = torch.empty((2 * -(-T // SCATTER_WINDOW),), dtype=torch.int32,
+                         device=dev)
+    if T:
         _launch("bt_junction_scatter", edges.data_ptr(), ev.data_ptr(), R,
-                tot, base, slot_cap, table.data_ptr())
-        if R:
-            LAUNCHES["junction_scatter"] += 1
+                tot, base, slot_cap, counts.data_ptr(), table.data_ptr())
+        LAUNCHES["junction_scatter"] += 1
     return table
 
 

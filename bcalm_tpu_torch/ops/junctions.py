@@ -263,21 +263,29 @@ def junction_entries(solid: torch.Tensor, n_local: int, k: int, gbase: int,
                                      entry_key_rows(k))
 
 
-def junction_words_plain(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Plain version of the global mode's sort words: the (ceil(K/2), E)
-    packed words (models.lanes.pack_keys) of the K received key rows,
-    each row the sentinel where the slot is not valid (the fill of
-    bcalm_tpu _local_succ_shard's e_keys)."""
-    rows = [torch.where(valid, keys[j], SENTINEL) for j in range(keys.shape[0])]
-    return torch.stack(ln.pack_keys(rows))
+def junction_words_plain(rows: torch.Tensor, valid: torch.Tensor):
+    """Plain version of the compaction in front of the global mode's sort
+    (the contract of _kernels.junction_words): of the received (K+1, E)
+    stack (K key rows, then the payload), the valid columns in receive
+    order, as (words (ceil(K/2), n): their packed sort words
+    (models.lanes.pack_keys), payload (n,), n (1,)).  bcalm_tpu
+    _local_succ_shard fills the empty slots with the sentinel and sorts
+    all of them; no valid key is the sentinel, so the empty ones sort
+    last and the stable sort's first n entries are these."""
+    kept = rows[:, valid]
+    K = rows.shape[0] - 1
+    words = torch.stack(ln.pack_keys([kept[j] for j in range(K)]))
+    return words, kept[K], torch.tensor([kept.shape[1]], dtype=torch.int64,
+                                        device=rows.device)
 
 
-def junction_words(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Sort-word entry: kernel for CUDA tensors, plain version for CPU
-    tensors."""
+def junction_words(rows: torch.Tensor, valid: torch.Tensor):
+    """Compaction entry: kernel for CUDA tensors (words and payload of
+    capacity E, written at [0, n)), plain version for CPU tensors (of
+    width n)."""
     if valid.device.type == "cpu":
-        return junction_words_plain(keys, valid)
-    return _kernels.junction_words(keys, valid)
+        return junction_words_plain(rows, valid)
+    return _kernels.junction_words(rows, valid)
 
 
 def junction_edges_plain(s_word: torch.Tensor, perm: torch.Tensor,

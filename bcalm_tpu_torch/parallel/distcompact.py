@@ -11,11 +11,13 @@ Counterpart of ``bcalm_tpu/parallel/distcompact.py``'s device path
    global slots [d*slot_cap, (d+1)*slot_cap) in stream order;
 2. local_succ_shard: the four junction entries of each local k-mer with
    global oriented ids (K3a, global mode) go to the rank owning
-   hash_lanes(key) % n_dev (K15 + exchange); their packed sort words
-   (K3, global mode) are sorted there (torch.sort), the pair rule (K3b,
+   hash_lanes(key) % n_dev (K15 + exchange); the valid received entries
+   are compacted into their packed sort words and payloads (K3, global
+   mode) and only those are sorted there (torch.sort), the pair rule (K3b,
    global mode) reads the sort's output and finds the unitig edges, which
    go back to the rank owning their source slot (K15 + exchange) and are
-   scattered into its successor shard (K3, global mode);
+   scattered into its successor shard, a window of the table at a time
+   (K3, global mode);
 3. glue_shard: consecutive runs of the shard (K8 with a global slot
    base), the contracted run graph through request/response lookups at
    the owners (each owner's answer K21, written in the response's
@@ -114,28 +116,56 @@ def _scatter_edges(mesh, edges: torch.Tensor, ok: torch.Tensor,
     return table, drop
 
 
+def _host_count(n_t: torch.Tensor) -> int:
+    """The valid received count on the host: the step's one sync
+    (torch.sort needs the length)."""
+    return int(n_t[0])
+
+
+def _pair_edges(words: torch.Tensor, payload: torch.Tensor, K: int,
+                tot: int, slot_cap: int):
+    """The sort of the n valid received entries and the pair rule on its
+    output: (ok (n,), edges (2, n), src's owner (n,)); at n = 0 nothing
+    is launched."""
+    n = payload.shape[0]
+    if n == 0:
+        dev = payload.device
+        return (torch.zeros((0,), dtype=torch.bool, device=dev),
+                torch.zeros((2, 0), dtype=torch.int64, device=dev),
+                torch.zeros((0,), dtype=torch.int64, device=dev))
+    perm, top = sort_op.lex_sort_words(words)
+    return junc.junction_edges(top, perm, words, payload, K, tot, slot_cap)
+
+
 def local_succ_shard(mesh, solid: torch.Tensor, n_local: int, k: int,
                      cap_entries: int, slot_cap: int, with_pred: bool = False):
     """This rank's successor shard (2*slot_cap,) of global oriented ids
     (-1 = none) and the route drops summed over the ranks (bcalm_tpu
-    _local_succ_shard).  The received entries are sorted on their packed
-    words (empty slots the sentinel), and the pair rule reads the sort's
-    own output: no sorted copy of the keys or the payload.  with_pred:
-    also the predecessor shard, the same edges routed to their dst
-    owners, which JAX builds and the glue does not use: (succ, pred,
-    drops)."""
+    _local_succ_shard).  The valid received entries are compacted, in
+    receive order, into their packed sort words and payloads, and only
+    those n are sorted (one host read of n a step: torch.sort needs the
+    length); the pair rule reads the sort's own output, so no sorted copy
+    of the keys or the payload is made.  JAX sorts every received slot,
+    the empty ones as the sentinel, which no valid key equals: they sort
+    last and it finds no edge among them.  with_pred: also the
+    predecessor shard, the same edges routed to their dst owners, which
+    JAX builds and the glue does not use: (succ, pred, drops)."""
     n_dev, me = mesh.n_dev, mesh.rank
     tot = n_dev * slot_cap
     ent, valid, owner = junc.junction_entries(solid, n_local, k,
                                               me * slot_cap, tot, n_dev)
     K = ent.shape[0] - 1
     bl, bv, drop1 = route_to_buckets(ent, valid, owner, n_dev, cap_entries)
+    del ent, valid, owner
     recv, rv = mesh.exchange(bl, bv)
-    rent = recv.reshape(K + 1, -1)
-    words = junc.junction_words(rent[:K], rv.reshape(-1))
-    perm, top = sort_op.lex_sort_words(words)
-    ok, edges, src_owner = junc.junction_edges(top, perm, words, rent[K], K,
-                                               tot, slot_cap)
+    del bl, bv
+    words, payload, n_t = junc.junction_words(recv.reshape(K + 1, -1),
+                                              rv.reshape(-1))
+    del recv, rv
+    n = _host_count(n_t)
+    ok, edges, src_owner = _pair_edges(words[:, :n], payload[:n], K, tot,
+                                       slot_cap)
+    del words, payload
     succ, drop2 = _scatter_edges(mesh, edges, ok, src_owner, slot_cap,
                                  cap_entries)
     if not with_pred:

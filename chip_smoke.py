@@ -51,8 +51,9 @@ Phases (any failure raises, and the script exits non-zero):
    output, and K13-K16 and K21 with the reused K1, K2, K3, K7, K8 and K11
    must have launched; its stats and wall split are printed, and, while
    its group is up, K3's global step on its shard (the entries, K15 and
-   the exchange, the sort words, the sort, the pair rule, the edges'
-   exchange, the scatter) against the step with the plain versions.  Then its
+   the exchange, the compaction of the valid entries, the sort of those,
+   the pair rule, the edges' exchange, the scatter) against the step with
+   the plain versions.  Then its
    multi-pass branch: the first 1/32 of the reads under a residency
    budget of a third of their distinct k-mers (key ranges, K5, one pass
    over the input per range), counters reset just before it, equal to
@@ -114,13 +115,16 @@ Phases (any failure raises, and the script exits non-zero):
    each over fresh copies of the state with the copies taken out; K21 in
    its three modes on phase 3f's first round and its two lookups (with
    torch.index_select at the local rows, not the same function, beside
-   it) and K3's global mode after the exchange (sort words, pair rule,
-   scatter) on phase 3f's step, with the step's row from phase 3f (the
-   inputs of K21 and of the words, pair rule and scatter are recorded
-   after 3f's timed build, by running its K3 global step and glue again:
-   REPLAYED); the pair rule's bound counts what the run's data needs (the
-   top words, the pair heads' perm and payload sectors, the lower words
-   only where the top words tie);
+   it) and K3's global mode after the exchange (the compaction of the
+   valid received entries into their sort words and payloads, the pair
+   rule over those alone, the windowed scatter with index_put_ at
+   precomputed slots beside it, not the same function) on phase 3f's
+   step, with the step's row from phase 3f (n, the count sorted, and the
+   wall time of its host read; the inputs of K21 and of the compaction,
+   pair rule and scatter are recorded after 3f's timed build, by running
+   its K3 global step and glue again: REPLAYED); the pair rule's bound
+   counts what the run's data needs (the top words, the pair heads' perm
+   and payload sectors, the lower words only where the top words tie);
    K20's three modes on phase 3's solid k-mers (its launches are phase
    3g's, on 3g's own solid set): the histogram (torch.bincount is its
    library call), partition ids with phase 3f's frequency rank and a 4-rank
@@ -176,9 +180,11 @@ ptr column and owners), K21 in its three modes at phase 3f's shapes (in a
 tree without it, the answer and the copy its _respond made: the
 all_to_all, alike in both, is left out), K3's global step at phase 3f's
 shape after its exchanges (entries with their validity and stack; the
-sort words or fills, the sort and the pair rule, or the gathers and the
-earlier pair kernel; the scatter, or the compaction), of each tree in
-the same turns
+compaction of the valid entries, the sort of those and the pair rule, or
+the sort words of every slot, the sort and the pair rule, or the fills,
+the gathers and the earlier pair kernel; the windowed scatter, the
+scatter after a memset, or the boolean compaction and scatter), of each
+tree in the same turns
 (CUDA events, device time and operations, and for K13 and K15 the host
 time per call split into the wrapper's Python, the ctypes call and the
 runtime's launch; the K3b step's, K8's, K12a's, K17's, K18's, K10's,
@@ -1114,7 +1120,10 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
             f"{step_row['launches']} step(s) in the build): equal to the step "
             f"with every kernel's plain version; {step_row['ms']:.4f} ms, "
             f"plain {step_row['plain_ms']:.4f} ms (CUDA events), bound "
-            f"{step_row['bound_ms']:.4f} ms")
+            f"{step_row['bound_ms']:.4f} ms; the sort took the "
+            f"{step_row['n_sorted']} valid received entries, and the host "
+            f"read of that count {step_row['host_read_ms']:.4f} ms wall "
+            f"(waiting for the queued work)")
         say(f"[mesh] K16's whole glue round on its first round's state "
             f"({glue_round_row['rows']} rows, {glue_round_row['need_step']} "
             f"need a step, {glue_round_row['moved']} move): equal to the "
@@ -2364,10 +2373,12 @@ del got
 # all_to_all); the all_to_all, which both trees run alike, is left out
 # here (no process group).  K3's global step after its exchanges at phase 3f's shape
 # (step_solid() at world size 1: the valid entries first in the receive
-# buffer, zeros after, as K15 places them): in a tree with
-# junction_words, the entries (with their validity and stack), the sort
-# words, the sort and the pair rule on its output, then the scatter
-# kernel; in the other the entries, validity and stack, the fills,
+# buffer, zeros after, as K15 places them): in a tree whose junction_words
+# compacts, the entries (with their validity and stack), the compaction,
+# the host read of its count, the sort of the valid entries and the pair
+# rule on its output, then the windowed scatter; in a tree with the
+# earlier junction_words, the sort words of every slot instead of the
+# compaction and the scatter kernel after a memset; in the other the entries, validity and stack, the fills,
 # lex_argsort, the gathers of the sorted keys and payload, the pair
 # kernel, then the boolean compaction and the scatter
 g_S = g_back.shape[1]
@@ -2431,7 +2442,18 @@ recv_e[:, :n_v] = ent_e[:, valid_e]
 ev_e = torch.zeros_like(valid_e)
 ev_e[:n_v] = True
 del ent_e, valid_e
-if hasattr(junctions, "junction_words"):
+if hasattr(junctions, "junction_words") and "rows" in inspect.signature(
+        junctions.junction_words).parameters:
+    def k3_pairs(plain=False):
+        compact = junctions.junction_words_plain if plain else junctions.junction_words
+        words, pay, n_t = compact(recv_e, ev_e)
+        n = int(n_t[0])
+        words, pay = words[:, :n], pay[:n]
+        perm, top = sort_op.lex_sort_words(words)
+        edges = junctions.junction_edges_plain if plain else junctions.junction_edges
+        return edges(top, perm, words, pay, K_e, ge_C, ge_C)
+    k3_edges = lambda out: (out[0], out[1][0], out[1][1])
+elif hasattr(junctions, "junction_words"):
     def k3_pairs(plain=False):
         if plain:
             words = junctions.junction_words_plain(recv_e[:K_e], ev_e)
@@ -2947,8 +2969,8 @@ def pair_rule_bytes(s_word, perm, words, K: int) -> int:
     whose top words are equal; perm at those entries (with one word, at
     each pair head's two); the payload of each pair head's two entries.  perm,
     each lower word row and the payload count the distinct 32-byte sectors
-    read, or the valid entries' 8 bytes each where that is less (the valid
-    entries sort ahead of the empty slots)."""
+    read, or the valid entries' 8 bytes each where that is less (the step
+    sorts the valid entries alone)."""
     from bcalm_tpu_torch.ops import junctions
 
     sent0, _, shift = junctions.sentinel_words(K)
@@ -3301,14 +3323,16 @@ def glue_rows(recorded, launches, dev, mesh=None):
 
 def k3_step_row(entries_args, n_steps, dev, mesh):
     """K3's global step (distcompact.local_succ_shard: the entries, K15 and
-    the exchange, the sort words, torch.sort, the pair rule on the sort's
-    output, K15 and the exchange of the edges, the scatter into the
+    the exchange, the compaction of the valid received entries, the host
+    read of their count n, torch.sort of those n, the pair rule on the
+    sort's output, K15 and the exchange of the edges, the scatter into the
     successor shard) on the shard phase 3f's build gave its first call, at
     NCCL world size 1, against the same step with the plain versions of
     K3's global mode and of K15: the successor shard bitwise equal.  CUDA
     events only (no profiler session while the group is up).  The bound
     counts the solid shard read once and the successor shard written
-    once."""
+    once.  The row also gives n and the host read's wall time (the wait
+    for the step's queued work included), over 5 steps."""
     from bcalm_tpu_torch.ops import junctions
     from bcalm_tpu_torch.parallel import distcompact, pipeline
 
@@ -3339,6 +3363,88 @@ def k3_step_row(entries_args, n_steps, dev, mesh):
                      replaces="bcalm_tpu/parallel/distcompact.py:53",
                      launched=n_steps, reps=5, device=False)
     r["slot_cap"], r["n_local"] = slot_cap, n_local
+    reads, count = [], distcompact._host_count
+
+    def timed_count(n_t):
+        t0 = time.perf_counter()
+        n = count(n_t)
+        reads.append(((time.perf_counter() - t0) * 1e3, n))
+        return n
+
+    distcompact._host_count = timed_count
+    try:
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        distcompact._host_count = count
+    r["n_sorted"] = reads[0][1]
+    r["host_read_ms"] = sum(t for t, _ in reads) / len(reads)
+    return r
+
+
+def compaction_row(args, launches) -> dict:
+    """The compaction in front of K3's global sort (junction_words) on the
+    inputs of phase 3f's first step, (received rows (K+1, E), valid (E,)),
+    against its plain version: the words and payloads at [0, n) and n
+    (timed without the host read of n that the step makes).  The bound
+    counts the validity read once, each valid slot's K+1 rows read, and
+    its words and payload and the count written."""
+    from bcalm_tpu_torch.ops import _kernels, junctions
+
+    rows_w, valid = args
+    K, n = rows_w.shape[0] - 1, int(valid.sum())
+
+    def compacted():
+        words, payload, n_t = _kernels.junction_words(rows_w, valid)
+        m = int(n_t[0])
+        return words[:, :m], payload[:m], n_t
+
+    r = check_kernel("junction_words", launches, compacted,
+                     lambda: junctions.junction_words_plain(rows_w, valid),
+                     lambda: _kernels.junction_words(rows_w, valid),
+                     read_bytes=valid.numel() + 8 * (K + 1) * n,
+                     written=8 * ((K + 1) // 2 + 1) * n + 8)
+    r["n"] = n
+    r["launched_on"] = (f"phase 3f's build; {tuple(rows_w.shape)} received "
+                        f"rows, {n} valid, compacted for the sort")
+    return r
+
+
+def scatter_row(args, launches, dev) -> dict:
+    """The successor shard's scatter (junction_scatter) on the inputs of
+    phase 3f's first step, (edges (2, R), ev (R,), tot, base, slot_cap),
+    against its plain version.  The library call is the yardstick
+    torch.Tensor.index_put_ of the valid edges' targets at their local
+    slots computed beforehand, into a table filled with -1 (fill_, then
+    index_put_): not the same function (no validity, no local ids, no
+    drop of ids outside the table).  The bound counts the validity read
+    once, 16 bytes a valid edge, and the table written once."""
+    from bcalm_tpu_torch.ops import _kernels, junctions
+
+    edges, ev, tot, base, slot_cap = args
+    ea, eb = edges[0][ev], edges[1][ev]
+    slot = torch.where(ea >= tot, ea - tot, ea) - base
+    lidx = torch.where(ea >= tot, slot + slot_cap, slot)
+    keep = (lidx >= 0) & (lidx < 2 * slot_cap)
+    lidx, eb = lidx[keep].contiguous(), eb[keep].contiguous()
+    table = torch.empty((2 * slot_cap,), dtype=torch.int64, device=dev)
+
+    def library():
+        return table.fill_(-1).index_put_((lidx,), eb)
+
+    if not torch.equal(library(), _kernels.junction_scatter(*args)):
+        raise AssertionError("the scatter's index_put_ yardstick differs from "
+                             "the kernel")
+    n_edges = int(ev.sum())
+    r = check_kernel("junction_scatter", launches,
+                     lambda: _kernels.junction_scatter(*args),
+                     lambda: junctions.junction_scatter_plain(*args),
+                     read_bytes=ev.numel() + 16 * n_edges, library=library)
+    r["library_what"] = ("index_put_ at local slots computed beforehand into "
+                         "a table filled with -1, not the same function")
+    r["launched_on"] = (f"phase 3f's build; {n_edges} received edges into "
+                        f"{2 * slot_cap} slots")
     return r
 
 
@@ -3870,15 +3976,12 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
     extra.append((f"junction_keys, global mode at 4 ranks (entries per owner "
                   f"{spread})", r))
     # K3's global mode after the exchange, on phase 3f's first step's
-    # inputs: the sort words (which read a slot's key rows only where it is
-    # valid), the pair rule on the sort's output, the successor shard's
-    # scatter (which reads a slot's edge only where the slot is valid)
-    gw = inputs["junction_words"]
-    r = check("junction_words", lambda: _kernels.junction_words(*gw),
-              lambda: junctions.junction_words_plain(*gw),
-              read_bytes=8 * gw[0].shape[0] * int(gw[1].sum()) + gw[1].numel())
-    r["launched_on"] = (f"phase 3f's build; {tuple(gw[0].shape)} received key "
-                        f"rows, {int(gw[1].sum())} valid")
+    # inputs: the compaction of the valid received slots into their sort
+    # words and payloads (which reads a slot's rows only where it is
+    # valid), the pair rule on the sort's output over those alone, the
+    # successor shard's scatter (which reads a slot's edge only where the
+    # slot is valid), with index_put_ at precomputed slots beside it
+    rows.append(compaction_row(inputs["junction_words"], launches))
     gx = inputs["junction_edges"]
     r = check("junction_pairs", lambda: _kernels.junction_edges(*gx),
               lambda: junctions.junction_edges_plain(*gx),
@@ -3886,15 +3989,11 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
     r["bound_old_ms"] = _bound(_nbytes(gx[:4]) + 25 * gx[0].shape[0], 0)[0]
     r["bound_old_what"] = "every sorted top word, perm, word and payload read"
     extra.append((f"junction_pairs, global mode's pair rule on the sort's output "
-                  f"({gx[0].shape[0]} sorted entries, {gx[2].shape[0]} word(s); "
+                  f"({gx[0].shape[0]} sorted entries, the valid ones alone, "
+                  f"{gx[2].shape[0]} word(s); "
                   f"{launches['junction_pairs:global']} launch(es) in phase 3f)",
                   r))
-    gs = inputs["junction_scatter"]
-    r = check("junction_scatter", lambda: _kernels.junction_scatter(*gs),
-              lambda: junctions.junction_scatter_plain(*gs),
-              read_bytes=gs[1].numel() + 16 * int(gs[1].sum()))
-    r["launched_on"] = (f"phase 3f's build; {int(gs[1].sum())} received edges "
-                        f"into {2 * gs[4]} slots")
+    rows.append(scatter_row(inputs["junction_scatter"], launches, dev))
     # K21 in its three modes on phase 3f's first calls
     rows += glue_answer_rows(inputs, launches)
     rows += longk_rows(longk, phases, dev)

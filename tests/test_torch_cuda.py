@@ -709,11 +709,11 @@ def test_junctions_global_mode(card, k, n_dev):
         assert torch.equal(a.cpu(), b)
     ent, valid, _ = want
     K = ent.shape[0] - 1
-    words = junctions.junction_words_plain(ent[:K], valid)
-    assert torch.equal(_kernels.junction_words(ent[:K].to(card),
-                                               valid.to(card)).cpu(), words)
+    words, payload, n_t = junctions.junction_words_plain(ent, valid)
+    assert_compacted(_kernels.junction_words(ent.to(card), valid.to(card)),
+                     (words, payload, n_t))
     perm, top = sort_op.lex_sort_words(words)
-    args = (top, perm, words, ent[K], K, tot, n)
+    args = (top, perm, words, payload, K, tot, n)
     got = junctions.junction_edges(*[a.to(card) if torch.is_tensor(a) else a
                                      for a in args])
     want = junctions.junction_edges_plain(*args)
@@ -747,16 +747,28 @@ def launched(fn, name):
     return out
 
 
+def assert_compacted(got, want):
+    """junction_words' kernel output (capacity E, written at [0, n)) equals
+    its plain version's (width n)."""
+    words, payload, n_t = got
+    n = int(n_t[0])
+    assert n == int(want[2][0]) and n_t.shape == (1,)
+    assert words.shape[0] == want[0].shape[0]
+    assert torch.equal(words[:, :n].cpu(), want[0])
+    assert torch.equal(payload[:n].cpu(), want[1])
+
+
 @pytest.mark.parametrize("k", [17, 31, 33, 63])
 def test_junction_edges_global(card, k):
-    """K3's global step after the exchange on its interface: the sort
-    words of a receive buffer with empty (zero) slots (junction_words),
-    the pair rule on the sort's own output, reading the lower words (k =
-    33, 63) and a strand row (k = 17, 33) through perm, over many 1024-entry
-    tiles, and the successor shard's scatter of the received edges; each
-    against its plain version on poisoned memory, twice, and counted once
-    a launch under its own key in LAUNCHES (the pair rule under K3b's
-    junction_pairs)."""
+    """K3's global step after the exchange on its interface: the compaction
+    of a receive buffer with empty (zero) slots into the sort words and
+    payloads of its valid slots (junction_words), the pair rule on the
+    sort's own output over those alone, reading the lower words (k = 33,
+    63: rows of the compaction's wider output) and a strand row (k = 17,
+    33) through perm, over many 1024-entry tiles, and the successor
+    shard's scatter of the received edges; each against its plain version
+    on poisoned memory, twice, and counted once a launch under its own key
+    in LAUNCHES (the pair rule under K3b's junction_pairs)."""
     L = ln.num_lanes(k)
     kmers = sorted(brute.count_kmers(reads(k, n=3000, k=k), k))
     solid = torch.tensor([[(x >> (32 * (L - 1 - j))) & 0xFFFFFFFF for x in kmers]
@@ -770,25 +782,27 @@ def test_junction_edges_global(card, k):
     K = ent.shape[0] - 1
     recv, ev = received(ent, valid, n_dev, rng)
     E = ev.numel()
-    words = junctions.junction_words_plain(recv[:K], ev)
+    want_c = junctions.junction_words_plain(recv, ev)
     for _ in range(2):
-        poisoned(card, 8 * words.numel() + (1 << 20))
-        got = launched(lambda: _kernels.junction_words(recv[:K].to(card),
-                                                       ev.to(card)),
-                       "junction_words")
-        assert torch.equal(got.cpu(), words)
+        poisoned(card, 8 * (K + 3) * E + (1 << 20))
+        got_c = launched(lambda: _kernels.junction_words(recv.to(card),
+                                                         ev.to(card)),
+                         "junction_words")
+        assert_compacted(got_c, want_c)
+    words, payload, n_t = want_c
+    nv = int(n_t[0])
     perm, top = sort_op.lex_sort_words(words)
-    want = junctions.junction_edges_plain(top, perm, words, recv[K], K, tot,
+    want = junctions.junction_edges_plain(top, perm, words, payload, K, tot,
                                           slot_cap)
     for _ in range(2):
-        poisoned(card, 25 * E + (1 << 20))
+        poisoned(card, 25 * nv + (1 << 20))
         got = launched(lambda: _kernels.junction_edges(
-            top.to(card), perm.to(card), words.to(card), recv[K].to(card), K,
+            top.to(card), perm.to(card), got_c[0][:, :nv], got_c[1][:nv], K,
             tot, slot_cap), "junction_pairs")
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
     ok, edges, owner = want
-    assert E > 8 * 1024 and int(ok.sum()) > 1000
+    assert nv > 8 * 1024 and int(ok.sum()) > 1000
     erecv, eev = received(edges, ok, n_dev, rng)
     want = junctions.junction_scatter_plain(erecv, eev, tot, me * slot_cap,
                                             slot_cap)
@@ -799,6 +813,113 @@ def test_junction_edges_global(card, k):
             "junction_scatter")
         assert torch.equal(got.cpu(), want)
     assert int((want >= 0).sum()) == int(ok.sum())
+
+
+@pytest.mark.parametrize("case", ["full", "none", "one", "scattered",
+                                  "tiles"])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_junction_words_compaction(card, case, K):
+    """The compaction in front of the global sort against its plain
+    version, on poisoned outputs, twice: no empty slot, no valid slot, one
+    valid slot (in the buffer's middle), valid slots scattered over the
+    buffer (not bucket prefixes), and a receive buffer of ~300 look-back
+    tiles whose valid slots are bucket prefixes; K key rows (the odd last
+    row a word of its own), the received stack's rows lying apart (a row
+    slice of the exchange's output)."""
+    rng = np.random.RandomState(K)
+    E = {"tiles": 300 * 4096 + 77}.get(case, 20_000)
+    stack = torch.from_numpy(rng.randint(0, 2**32, size=(K + 2, E),
+                                         dtype=np.uint64).astype(np.int64))
+    rows = stack[:K + 1]
+    if case == "full":
+        ev = np.ones(E, bool)
+    elif case == "none":
+        ev = np.zeros(E, bool)
+    elif case == "one":
+        ev = np.zeros(E, bool)
+        ev[E // 2 + 3] = True
+    elif case == "scattered":
+        ev = rng.rand(E) < 0.37
+    else:
+        ev = np.zeros(E, bool)
+        cap = E // 4
+        for b, fill in enumerate((cap, cap // 2, 0, cap - 5)):
+            ev[b * cap:b * cap + fill] = True
+    ev = torch.from_numpy(ev)
+    want = junctions.junction_words_plain(rows, ev)
+    for _ in range(2):
+        poisoned(card, 8 * (K + 3) * E + (1 << 20))
+        got = _kernels.junction_words(stack.to(card)[:K + 1], ev.to(card))
+        assert_compacted(got, want)
+    assert int(want[2][0]) == int(ev.sum())
+
+
+@pytest.mark.parametrize("slot_cap", [1, 8192, 8193, 50_000])
+@pytest.mark.parametrize("edges_case", ["edges", "none"])
+def test_junction_scatter_windows(card, slot_cap, edges_case):
+    """The successor shard's scatter by 16384-slot windows against its
+    plain version, on poisoned memory, twice: a table of 2 slots, one
+    window, one window and 2 slots, several windows (the last one part
+    filled); edges at each window's first and last slot and at random
+    slots on both strands, many more a tile than a window's stage holds
+    (the stage's overflow to the top of the bin), received ids whose local id falls outside the
+    table (below the rank's base on the + strand, past its last slot on
+    the - strand: dropped) and empty received slots holding garbage; or
+    no edge at all (every slot -1)."""
+    rng = np.random.RandomState(slot_cap)
+    n_dev, me = 3, 1
+    tot, base, T = n_dev * slot_cap, me * slot_cap, 2 * slot_cap
+    W = _kernels.SCATTER_WINDOW
+    ends = np.unique(np.concatenate([np.arange(0, T, W),
+                                     np.minimum(np.arange(W - 1, T + W - 1, W),
+                                                T - 1)]))
+    at = np.unique(np.concatenate([ends, rng.randint(0, T, T // 3 + 1)]))
+    at = at[rng.permutation(at.size)]
+    a = np.where(at >= slot_cap, at - slot_cap + base + tot, at + base)
+    # ids whose local id (JAX's lidx) falls outside [0, T)
+    outside = np.array([0, base - 1, tot + base + slot_cap, 2 * tot - 1])
+    lidx = np.where(outside >= tot, outside - tot - base + slot_cap,
+                    outside - base)
+    assert ((lidx < 0) | (lidx >= T)).all()
+    src = np.concatenate([a, outside])
+    dst = rng.randint(0, 2 * tot, src.size)
+    R = 2 * src.size + 9
+    edges = torch.from_numpy(rng.randint(-5, 2 * tot, size=(2, R)).astype(np.int64))
+    ev = torch.zeros((R,), dtype=torch.bool)
+    if edges_case == "edges":
+        slots = torch.from_numpy(np.sort(rng.choice(R, src.size, replace=False)))
+        edges[0, slots] = torch.from_numpy(src)
+        edges[1, slots] = torch.from_numpy(dst)
+        ev[slots] = True
+    want = junctions.junction_scatter_plain(edges, ev, tot, base, slot_cap)
+    for _ in range(2):
+        poisoned(card, 8 * T + 16 * R + (1 << 20))
+        got = launched(lambda: _kernels.junction_scatter(
+            edges.to(card), ev.to(card), tot, base, slot_cap),
+            "junction_scatter")
+        assert torch.equal(got.cpu(), want)
+    assert int((want >= 0).sum()) == (at.size if edges_case == "edges" else 0)
+
+
+@pytest.mark.parametrize("slot_cap", [(1 << 23) + 8192, 3 << 23])
+def test_junction_scatter_many_windows(card, slot_cap):
+    """Tables of more windows than a block stages (1,025 and 3,072
+    windows: 2 and 3 passes over the received edges), with about 4 edges
+    a window in each 4096-slot tile as at phase 3f's shape: against the
+    plain version, 3 M edges at random slots and every window's first and
+    last slot."""
+    rng = np.random.RandomState(5)
+    T, W = 2 * slot_cap, _kernels.SCATTER_WINDOW
+    ends = np.concatenate([np.arange(0, T, W), np.arange(W - 1, T, W)])
+    at = np.unique(np.concatenate([ends, rng.randint(0, T, 3_000_000)]))
+    # one rank: a's local id is a itself (base 0, tot = slot_cap)
+    at = torch.from_numpy(at[rng.permutation(at.size)]).to(card)
+    edges = torch.stack([at, torch.arange(at.numel(), device=card)])
+    ev = torch.ones((at.numel(),), dtype=torch.bool, device=card)
+    got = _kernels.junction_scatter(edges, ev, slot_cap, 0, slot_cap)
+    want = junctions.junction_scatter_plain(edges, ev, slot_cap, 0, slot_cap)
+    assert torch.equal(got, want)
+    assert int((got >= 0).sum()) == at.numel()
 
 
 def skm_block(k, m, seed=0):

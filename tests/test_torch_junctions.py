@@ -31,6 +31,7 @@ from bcalm_tpu_torch.models import lanes as tln
 from bcalm_tpu_torch.ops import junctions as tjunc
 from bcalm_tpu_torch.ops import sort as tsort
 from bcalm_tpu_torch.ops.runchains import round_capacity
+from bcalm_tpu_torch.parallel import distcompact
 
 _RC = str.maketrans("ACGT", "TGCA")
 
@@ -273,16 +274,51 @@ def _received(ent: torch.Tensor, keep: torch.Tensor, n_dev: int, rng):
     return recv, ev
 
 
+def _port_pairing(recv: torch.Tensor, ev: torch.Tensor, K: int, tot: int,
+                  slot_cap: int):
+    """The port's global step from the received entries to the edges: the
+    compaction of the valid slots (junction_words), the sort of those n
+    alone and the pair rule on its output.  Returns (n, words, ok, edges,
+    src's owner)."""
+    words, payload, n_t = tjunc.junction_words(recv, ev)
+    n = int(n_t[0])
+    assert n == int(ev.sum()) and words.shape == ((K + 1) // 2, n)
+    assert payload.shape == (n,)
+    ok, edges, owner = distcompact._pair_edges(words, payload, K, tot,
+                                               slot_cap)
+    return n, words, ok, edges, owner
+
+
+def _assert_pairing_is_jax(recv, ev, K, tot, slot_cap):
+    """The port's compacted step against bcalm_tpu's on the whole receive
+    buffer: JAX's ok is False at every sorted position past n, and at the
+    first n positions ok, src, dst and src's owner are the port's.
+    Returns (the port's ok, edges, owner, words)."""
+    n, words, ok, edges, owner = _port_pairing(recv, ev, K, tot, slot_cap)
+    jok, jsrc, jdst = _jax_pairing(recv.numpy(), ev.numpy(), K, tot)
+    assert not jok[n:].any()
+    np.testing.assert_array_equal(ok.numpy(), jok[:n])
+    okn = ok.numpy()
+    np.testing.assert_array_equal(edges[0].numpy()[okn], jsrc[:n][okn])
+    np.testing.assert_array_equal(edges[1].numpy()[okn], jdst[:n][okn])
+    assert (edges.numpy()[:, ~okn] == -1).all() and (owner.numpy()[~okn] == 0).all()
+    vert = np.where(jsrc[:n] >= tot, jsrc[:n] - tot, jsrc[:n])
+    np.testing.assert_array_equal(owner.numpy()[okn], vert[okn] // slot_cap)
+    return ok, edges, owner, words
+
+
 @pytest.mark.parametrize("k", [13, 17, 31, 33, 63])
 def test_global_edges_match_jax(k):
     """The global mode's pair step on the sort's own output against
     bcalm_tpu _local_succ_shard: the entries of this rank (1 of 3) in a
-    receive buffer with empty (zero) slots, packed into sort words that
-    are the sentinel where empty, sorted by lex_sort_words; the pair rule
-    reads the top word, the lower words (k = 33, 63: two words; k = 17,
-    33: a strand row) and the payload through perm.  ok, src, dst and
-    src's owner at every sorted position; then the successor shard's
-    scatter of the edges this rank owns against JAX's drop-mode scatter."""
+    receive buffer with empty (zero) slots; the valid slots compacted, in
+    receive order, into their packed sort words and payloads, and only
+    those n sorted by lex_sort_words; the pair rule reads the top word,
+    the lower words (k = 33, 63: two words; k = 17, 33: a strand row) and
+    the payload through perm.  ok, src, dst and src's owner at the n
+    sorted positions equal JAX's first n, which sorts every slot, and
+    JAX's ok is False past them; then the successor shard's scatter of the
+    edges this rank owns against JAX's drop-mode scatter."""
     rng = np.random.RandomState(k)
     solid, n = solid_table(k, k + 7)
     slot_cap, n_dev, me = solid.shape[1], 3, 1
@@ -293,32 +329,123 @@ def test_global_edges_match_jax(k):
     K = ent.shape[0] - 1
     assert K == tjunc.entry_key_rows(k) and int(valid.sum()) == 4 * (n - 2)
     recv, ev = _received(ent, valid, n_dev, rng)
-    words = tjunc.junction_words(recv[:K], ev)
-    assert words.shape == ((K + 1) // 2, ev.numel())
-    perm, top = tsort.lex_sort_words(words)
-    ok, edges, src_owner = tjunc.junction_edges(top, perm, words, recv[K], K,
-                                                tot, slot_cap)
-    jok, jsrc, jdst = _jax_pairing(recv.numpy(), ev.numpy(), K, tot)
-    np.testing.assert_array_equal(ok.numpy(), jok)
-    okn = ok.numpy()
-    np.testing.assert_array_equal(edges[0].numpy()[okn], jsrc[okn])
-    np.testing.assert_array_equal(edges[1].numpy()[okn], jdst[okn])
-    assert (edges.numpy()[:, ~okn] == -1).all() and (src_owner.numpy()[~okn] == 0).all()
-    vert = np.where(jsrc >= tot, jsrc - tot, jsrc)
-    np.testing.assert_array_equal(src_owner.numpy()[okn], vert[okn] // slot_cap)
-    assert okn.sum() > 10
+    ok, edges, src_owner, _ = _assert_pairing_is_jax(recv, ev, K, tot,
+                                                     slot_cap)
+    assert int(ok.sum()) > 10
     # the shard's scatter: the edges whose source slot this rank owns
     mine = ok & (src_owner == me)
     erecv, eev = _received(edges, mine, n_dev, rng)
     table = tjunc.junction_scatter(erecv, eev, tot, me * slot_cap, slot_cap)
+    np.testing.assert_array_equal(table.numpy(),
+                                  _jax_scatter(erecv, eev, tot, me, slot_cap))
+    assert int((table >= 0).sum()) == int(mine.sum()) > 0
+
+
+def _jax_scatter(erecv, eev, tot, me, slot_cap):
+    """bcalm_tpu _local_succ_shard's scatter_edges after its exchange."""
     ea, eb = jnp.asarray(erecv[0].numpy()), jnp.asarray(erecv[1].numpy())
     jev = jnp.asarray(eev.numpy())
     eslot = jnp.where(ea >= tot, ea - tot, ea) - me * slot_cap
     lidx = jnp.where(ea >= tot, eslot + slot_cap, eslot)
-    want = jnp.full((2 * slot_cap,), -1, dtype=jnp.int32).at[
-        jnp.where(jev, lidx, 2 * slot_cap)].set(jnp.where(jev, eb, -1), mode="drop")
-    np.testing.assert_array_equal(table.numpy(), np.asarray(want))
-    assert int((table >= 0).sum()) == int(mine.sum()) > 0
+    return np.asarray(jnp.full((2 * slot_cap,), -1, dtype=jnp.int32).at[
+        jnp.where(jev, lidx, 2 * slot_cap)].set(jnp.where(jev, eb, -1),
+                                                mode="drop"))
+
+
+def _homopolymer_table(k: int):
+    """The solid set of reads holding the four homopolymers beside a random
+    genome's k-mers: (lanes, n)."""
+    rng = np.random.RandomState(k)
+    genome = "".join("ACGT"[c] for c in rng.randint(0, 4, 200))
+    seqs = [b * (k + 3) for b in "ACGT"]
+    seqs += [genome, "A" * (k - 1) + "C" + genome[:40] + "G" * k]
+    kmers = sorted(brute.count_kmers(seqs, k))
+    return jln.ints_to_lanes(kmers, k)[:, rng.permutation(len(kmers))], len(kmers)
+
+
+@pytest.mark.parametrize("case", ["full", "none", "one", "scattered",
+                                  "homopolymer"])
+@pytest.mark.parametrize("k", [17, 31, 33])
+def test_compaction_cases_match_jax(k, case):
+    """The compaction in front of the sort on edge-case masks, each held
+    against bcalm_tpu's sort of every slot: no empty slot ("full"), no
+    valid slot, one valid slot, a mask that is not bucket prefixes (valid
+    slots scattered over the buffer, empty ones holding garbage), and
+    reads of the homopolymers A/C/G/T, whose (k-1)-mer T^(k-1) has the
+    sentinel's lanes (it keys as its canonical A^(k-1), G^(k-1) as
+    C^(k-1)), with the strand as a row of its own (k - 1 = 16, 32) or in
+    the top lane's spare bits (k = 31): no valid slot's words are the
+    sentinel packing, and the all-zero key A^(k-1) is among them."""
+    rng = np.random.RandomState(k + len(case))
+    if case == "homopolymer":
+        solid, n = _homopolymer_table(k)
+    else:
+        solid, n = solid_table(k, k + 3)
+    slot_cap, n_dev, me = solid.shape[1], 2, 0
+    tot = n_dev * slot_cap
+    ent, valid, _ = tjunc.junction_entries(
+        convert.lanes_from_numpy(solid, "cpu"), n, k, me * slot_cap, tot,
+        n_dev)
+    K = ent.shape[0] - 1
+    cols = ent[:, valid][:, torch.from_numpy(rng.permutation(int(valid.sum())))]
+    E = cols.shape[1]
+    if case in ("full", "homopolymer"):
+        recv, ev = cols, torch.ones((E,), dtype=torch.bool)
+    else:
+        recv = torch.from_numpy(rng.randint(0, 2**32, size=(K + 1, 2 * E + 5),
+                                            dtype=np.uint64).astype(np.int64))
+        ev = torch.zeros((2 * E + 5,), dtype=torch.bool)
+        at = {"none": [], "one": [E + 2],
+              "scattered": sorted(rng.choice(2 * E + 5, E, replace=False))}[case]
+        at = torch.tensor(at, dtype=torch.int64)
+        recv[:, at] = cols[:, :at.numel()]
+        ev[at] = True
+    ok, _, _, words = _assert_pairing_is_jax(recv, ev, K, tot, slot_cap)
+    sent = torch.tensor(ln_sentinel_packing(K))[:, None]
+    assert not (words == sent).all(dim=0).any()
+    sent0, _, shift = tjunc.sentinel_words(K)
+    assert ((words[0] >> shift) != (sent0 >> shift)).all()
+    if case in ("full", "scattered", "homopolymer"):
+        assert int(ok.sum()) > 10
+    if case == "homopolymer":
+        assert (recv[:K] == 0).all(dim=0).any()
+
+
+def ln_sentinel_packing(K: int):
+    """The packed words of a key whose K rows are all the sentinel."""
+    return [int(w) for w in tln.pack_keys([torch.tensor(tln.SENTINEL)] * K)]
+
+
+def test_global_step_edges_name_distinct_slots():
+    """What junction_scatter relies on: no two edges of the global step
+    name one source slot (every oriented node has one out-end), nor one
+    target (the predecessor shard's scatter); on the plain step of a
+    repeat-seeded genome's k-mers (solid_table) at 4 ranks, every rank's
+    sorted entries."""
+    k = 31
+    solid, n = solid_table(k, 3)
+    solid = convert.lanes_from_numpy(solid[:, :n], "cpu")
+    n_dev = 4
+    slot_cap = -(-n // n_dev)
+    tot = n_dev * slot_cap
+    solid = torch.nn.functional.pad(solid, (0, tot - n))
+    ents = [tjunc.junction_entries_plain(
+        solid[:, r * slot_cap:(r + 1) * slot_cap], min(slot_cap, n - r * slot_cap),
+        k, r * slot_cap, tot, n_dev) for r in range(n_dev)]
+    srcs, dsts = [], []
+    for d in range(n_dev):
+        cols = [e[0][:, e[1] & (e[2] == d)] for e in ents]
+        rows = torch.cat(cols, dim=1)
+        words, payload, _ = tjunc.junction_words_plain(
+            rows, torch.ones(rows.shape[1], dtype=torch.bool))
+        ok, edges, _ = distcompact._pair_edges(words, payload, rows.shape[0] - 1,
+                                               tot, slot_cap)
+        srcs.append(edges[0][ok])
+        dsts.append(edges[1][ok])
+    src, dst = torch.cat(srcs), torch.cat(dsts)
+    assert src.numel() > 500
+    assert torch.unique(src).numel() == src.numel()
+    assert torch.unique(dst).numel() == dst.numel()
 
 
 def _chip_smoke():
@@ -351,7 +478,7 @@ def test_pair_rule_bytes_counts_the_data(k):
         n_dev)
     K = ent.shape[0] - 1
     recv, ev = _received(ent, valid, n_dev, rng)
-    words = tjunc.junction_words(recv[:K], ev)
+    words, payload, _ = tjunc.junction_words(recv, ev)
     perm, top = tsort.lex_sort_words(words)
     got = _chip_smoke().pair_rule_bytes(top, perm, words, K)
 
@@ -376,6 +503,6 @@ def test_pair_rule_bytes_counts_the_data(k):
     want = (8 * E + lower + sectors(pos)
             + sectors([p[i + d] for i in heads for d in (0, 1)]))
     assert got == want
-    ok, _, _ = tjunc.junction_edges(top, perm, words, recv[K], K, tot, slot_cap)
+    ok, _, _ = tjunc.junction_edges(top, perm, words, payload, K, tot, slot_cap)
     assert set(torch.nonzero(ok).flatten().tolist()) <= set(heads)
-    assert len(heads) > 10 and n_valid < E
+    assert len(heads) > 10 and n_valid == E == int(ev.sum())

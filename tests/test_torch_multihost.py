@@ -9,7 +9,9 @@ of 4 whose per-rank outputs of the mesh steps (sample_tables,
 local_skm_count over every round, distributed_succ, glue_shard) equal
 those of the same world-4 group started by one launcher.  The one-launcher
 runs at world sizes 2 and 4 also hold sample_tables and distributed_succ
-against bcalm_tpu's on 2 and 4 of conftest's virtual CPU devices.
+against bcalm_tpu's on 2 and 4 of conftest's virtual CPU devices; at world
+size 2 also distributed_succ on k-mers whose junction entries all go to
+rank 0, so that rank 1 receives no entry.
 
 The launchers are this file run as a script:
     python tests/test_torch_multihost.py N_LOCAL WORLD RANK_BASE INIT_METHOD OUT_DIR
@@ -59,6 +61,44 @@ def _solid_shards(n_dev):
     return solid, n_local, slot_cap
 
 
+def _shards_of(kmers, n_dev):
+    """k-mers dealt to n_dev shards in turn (k-mer i to shard i % n_dev),
+    each zero padded to slot_cap columns: (L, n_dev*slot_cap) uint32,
+    n_local (n_dev,), slot_cap."""
+    from bcalm_tpu_torch.ops.runchains import round_capacity
+
+    L = (K + 15) // 16
+    slot_cap = round_capacity(-(-len(kmers) // n_dev))
+    solid = np.zeros((L, n_dev * slot_cap), np.uint32)
+    n_local = np.zeros((n_dev,), np.int32)
+    for i, x in enumerate(kmers):
+        d = i % n_dev
+        for j in range(L):
+            solid[j, d * slot_cap + n_local[d]] = (x >> (32 * (L - 1 - j))) & 0xFFFFFFFF
+        n_local[d] += 1
+    return solid, n_local, slot_cap
+
+
+def _rank0_owned_shards():
+    """The reads' k-mers whose four junction entries all hash to rank 0 of
+    2, dealt to two shards: at world size 2, rank 1 receives no entry in
+    the junction exchange, yet owns the source slots of some edges."""
+    import torch
+
+    from bcalm_tpu_torch.oracle import brute
+    from bcalm_tpu_torch.ops import junctions
+
+    kmers = sorted(brute.count_kmers(_reads(), K))
+    L = (K + 15) // 16
+    lanes = torch.tensor([[(x >> (32 * (L - 1 - j))) & 0xFFFFFFFF
+                           for x in kmers] for j in range(L)],
+                         dtype=torch.int64)
+    N = len(kmers)
+    _, _, owner = junctions.junction_entries_plain(lanes, N, K, 0, N, 2)
+    keep = (owner.view(4, N) == 0).all(dim=0).tolist()
+    return _shards_of([x for x, kept in zip(kmers, keep) if kept], 2)
+
+
 def rank_work(mesh, out_dir):
     """The mesh steps on this rank; pickles what they gave to
     out_dir/<rank>.pkl."""
@@ -95,6 +135,8 @@ def rank_work(mesh, out_dir):
     succ, pred, dropped = distcompact.distributed_succ(
         mesh, mine.contiguous(), int(n_local[me]), K, 4 * slot_cap, slot_cap)
     out.update(succ=succ.numpy(), pred=pred.numpy(), succ_dropped=dropped)
+    if n_dev == 2:
+        out["rank0_owned"] = _rank0_owned_step(mesh)
     run_cap = max(16, slot_cap // 4)
     while True:   # distcompact._glue_and_assemble's run_cap escalation
         qcap = max(64, (4 * 2 * run_cap) // n_dev)
@@ -108,6 +150,36 @@ def rank_work(mesh, out_dir):
                glue_dropped=g_dropped, glue_rounds=g_rounds)
     with open(os.path.join(out_dir, f"{me}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def _rank0_owned_step(mesh):
+    """distributed_succ on _rank0_owned_shards, with the count of valid
+    entries this rank's compaction received."""
+    import torch
+
+    from bcalm_tpu_torch.ops import junctions
+    from bcalm_tpu_torch.parallel import distcompact
+
+    solid, n_local, slot_cap = _rank0_owned_shards()
+    me = mesh.rank
+    mine = torch.from_numpy(
+        solid[:, me * slot_cap:(me + 1) * slot_cap].astype(np.int64))
+    received, compact = [], junctions.junction_words
+
+    def counted(rows, valid):
+        out = compact(rows, valid)
+        received.append(int(out[2][0]))
+        return out
+
+    junctions.junction_words = counted
+    try:
+        succ, pred, dropped = distcompact.distributed_succ(
+            mesh, mine.contiguous(), int(n_local[me]), K, 4 * slot_cap,
+            slot_cap)
+    finally:
+        junctions.junction_words = compact
+    return {"succ": succ.numpy(), "pred": pred.numpy(), "dropped": dropped,
+            "received": received}
 
 
 def _free_port() -> int:
@@ -179,26 +251,33 @@ def test_two_launchers_match_one_launcher(tmp_path_factory):
                for o in runs["one4"])
 
 
-def _jax_mesh_steps(n_dev):
+def _jax_succ(n_dev, solid, n_local, slot_cap):
+    """bcalm_tpu's distributed_succ on n_dev of conftest's virtual CPU
+    devices: (succ, pred, dropped)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from bcalm_tpu.parallel import distcompact, pipeline
 
-    rounds = list(pipeline.iter_global_blocks(_reads(), K, n_dev, BLOCK_READS,
-                                              MAX_LEN))
-    tables = pipeline.sample_tables(*rounds[0], K,
-                                    pipeline.MinimizerConfig(m=M), n_dev)
     mesh = pipeline.make_mesh(n_dev)
-    solid, n_local, slot_cap = _solid_shards(n_dev)
     g_solid = jax.device_put(jnp.asarray(solid),
                              NamedSharding(mesh, P(None, pipeline.AXIS)))
     g_nloc = jax.device_put(jnp.asarray(n_local),
                             NamedSharding(mesh, P(pipeline.AXIS)))
     succ, pred, dropped = distcompact.distributed_succ(
         mesh, g_solid, g_nloc, K, 4 * slot_cap, slot_cap)
-    return tables, np.asarray(succ), np.asarray(pred), dropped
+    return np.asarray(succ), np.asarray(pred), dropped
+
+
+def _jax_mesh_steps(n_dev):
+    from bcalm_tpu.parallel import pipeline
+
+    rounds = list(pipeline.iter_global_blocks(_reads(), K, n_dev, BLOCK_READS,
+                                              MAX_LEN))
+    tables = pipeline.sample_tables(*rounds[0], K,
+                                    pipeline.MinimizerConfig(m=M), n_dev)
+    return (tables,) + _jax_succ(n_dev, *_solid_shards(n_dev))
 
 
 def test_sample_tables_and_distributed_succ_match_jax(tmp_path_factory):
@@ -218,6 +297,24 @@ def test_sample_tables_and_distributed_succ_match_jax(tmp_path_factory):
                                           pred[r * span:(r + 1) * span])
             n_edges += int((out["succ"] >= 0).sum())
         assert n_edges > 1000
+
+
+def test_distributed_succ_with_a_rank_that_receives_no_entry(tmp_path_factory):
+    """At world size 2, every junction entry hashed to rank 0: rank 1's
+    compaction receives no valid entry (nothing sorted, no pair rule
+    launched), yet it takes part in the edges' exchange and scatters the
+    edges whose source slot it owns.  Both shards equal bcalm_tpu's."""
+    outs = [o["rank0_owned"] for o in _runs(_tmp(tmp_path_factory))["one2"]]
+    solid, n_local, slot_cap = _rank0_owned_shards()
+    succ, pred, dropped = _jax_succ(2, solid, n_local, slot_cap)
+    assert dropped == 0 and all(o["dropped"] == 0 for o in outs)
+    assert outs[0]["received"] == [4 * int(n_local.sum())]
+    assert outs[1]["received"] == [0]
+    span = succ.shape[0] // 2
+    for r, out in enumerate(outs):
+        np.testing.assert_array_equal(out["succ"], succ[r * span:(r + 1) * span])
+        np.testing.assert_array_equal(out["pred"], pred[r * span:(r + 1) * span])
+        assert int((out["succ"] >= 0).sum()) > 0
 
 
 def test_init_from_env_reads_the_ranks(monkeypatch):
