@@ -36,15 +36,16 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-# kernel name (K21: each of its modes) -> launches since the last
-# reset_launches()
+# kernel name (K21: each of its modes; K15: its hash mode apart) ->
+# launches since the last reset_launches()
 LAUNCHES = {"extract_insert": 0, "extract_insert_ranged": 0,
             "count_runs": 0, "junction_keys": 0,
             "junction_pairs": 0, "jump_round": 0, "range_fold": 0,
             "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0,
             "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
             "run_contract": 0, "run_broadcast": 0, "form_superkmers": 0,
-            "mmer_histograms": 0, "route_buckets": 0, "glue_compose": 0,
+            "mmer_histograms": 0, "route_buckets": 0,
+            "route_buckets_hash": 0, "glue_compose": 0,
             "glue_answer_rows": 0, "glue_answer_run": 0,
             "glue_answer_uid": 0, "junction_words": 0, "junction_scatter": 0,
             "fixpoint_bits": 0, "hier_round": 0, "hier_contract": 0,
@@ -88,8 +89,8 @@ _SIGNATURES = {
     "bt_form_superkmers": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32,
                            _I32, _I32, ctypes.c_uint, _P, _P, _P, _P, _P],
     "bt_mmer_histograms": [_P, _P, _I32, _I32, _I32, _I32, _P, _I32, _P, _P],
-    "bt_route_buckets": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _P, _P,
-                         _P, _P, _P],
+    "bt_route_buckets": [_P, _I64, _I32, _P, _P, _I64, _I32, _I64, _I64, _I32,
+                         _P, _P, _P, _P],
     "bt_glue_compose": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _P],
     "bt_glue_answer": [_I32, _P, _P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64,
                        _I64, _P, _P],
@@ -101,7 +102,8 @@ _SIGNATURES = {
     "bt_kmer_minimizers": [_P, _I64, _I32, _I64, _I32, _I32, _P, _P, _I32, _P,
                            _P],
 }
-ROUTE_TILE = 1024  # entries per look-back tile of csrc/route.cu
+ROUTE_TILE = 2048  # entries per look-back tile of csrc/route.cu
+ROUTE_POOL_TILES = 1024  # csrc/route.cu kPoolTiles: a pool block a tile below
 MAX_ROW_WORDS = 64  # csrc/superkmer.cu: rows of <= 1024 positions
 SPELL_TILE = 1024  # unitigs per look-back tile of csrc/spell.cu (K11)
 COMPACT_TILE = 4096  # columns per tile of csrc/compact.cu
@@ -860,37 +862,45 @@ def mmer_histograms(words: torch.Tensor, lengths: torch.Tensor, k: int, m: int,
 
 
 def route_buckets(stacked: torch.Tensor, valid: torch.Tensor,
-                  owner, n_dev: int, cap: int, with_slots: bool = False):
-    """K15: (buckets (C, n_dev, cap), bucket_valid (n_dev, cap), n_dropped
-    (1,)[, slots (N,)]).  owner None: hash mode, each entry's owner is
-    hash_lanes of its C channels % n_dev (csrc/hash.cuh)."""
+                  owner, n_dev: int, cap: int, with_slots: bool = False,
+                  fill: int = 0, with_valid: bool = True):
+    """K15: (send (n_dev, C+V, cap), n_dropped (1,)[, slots (N,)]): the
+    exchange's send buffer, bucket d's C channels then, with_valid (V =
+    1), its validity (1 where placed, 0 where empty) as channel C, the
+    empty slots of channels 0..C-1 holding `fill`.  owner None: hash mode,
+    each entry's owner is hash_lanes of its C channels % n_dev
+    (csrc/hash.cuh), counted in LAUNCHES as route_buckets_hash."""
     _check(stacked, "stacked", ndim=2, rows_strided=True)
     _check(valid, "valid", dtype=torch.bool, ndim=1)
     if owner is not None:
         _check(owner, "owner", ndim=1)
     C, N = stacked.shape
     if (valid.shape[0] != N or (owner is not None and owner.shape[0] != N)
-            or not 1 <= n_dev <= 256):
+            or not 1 <= n_dev <= 256 or C < 1 or cap < 0):
         raise ValueError("route_buckets: shapes do not match")
     dev = stacked.device
-    # the kernel writes every slot (the placed entries, then each bucket's
-    # tail) and zeroes its scratch: [0] dropped, [1] the tile counter, [2:]
-    # one status word per tile and owner
-    buckets = torch.empty((C, n_dev, cap), dtype=torch.int64, device=dev)
-    bvalid = torch.empty((n_dev, cap), dtype=torch.bool, device=dev)
-    scratch = torch.empty((2 + -(-N // ROUTE_TILE) * n_dev,), dtype=torch.int64,
-                          device=dev)
+    # the kernel writes every element of send (the placed entries, the
+    # empty slots as its blocks prove them empty) and zeroes its scratch:
+    # [0] dropped, [1] the tile counter, [2:] one status word per block and
+    # owner (an empty stack runs one tile; a grid of fewer tiles than SMs
+    # as many pool blocks more)
+    send = torch.empty((n_dev, C + int(with_valid), cap), dtype=torch.int64,
+                       device=dev)
+    tiles = max(1, -(-N // ROUTE_TILE))
+    blocks = 2 * tiles if tiles < ROUTE_POOL_TILES else tiles
+    scratch = torch.empty((2 + blocks * n_dev,), dtype=torch.int64, device=dev)
     slots = (torch.empty((N,), dtype=torch.int64, device=dev)
              if with_slots else None)
     if N or cap:
         _launch("bt_route_buckets", stacked.data_ptr(), stacked.stride(0), C,
                 None if owner is None else owner.data_ptr(), valid.data_ptr(),
-                N, n_dev, cap, scratch.data_ptr(), buckets.data_ptr(),
-                bvalid.data_ptr(), None if slots is None else slots.data_ptr())
-        LAUNCHES["route_buckets"] += 1
+                N, n_dev, cap, fill, int(with_valid), scratch.data_ptr(),
+                send.data_ptr(), None if slots is None else slots.data_ptr())
+        LAUNCHES["route_buckets" if owner is not None
+                 else "route_buckets_hash"] += 1
     else:
         scratch.zero_()
-    out = (buckets, bvalid, scratch[:1])
+    out = (send, scratch[:1])
     return out + (slots,) if with_slots else out
 
 

@@ -85,11 +85,11 @@ def reshard_pos(mesh, stk: torch.Tensor, k: int, slot_cap: int,
     owner = torch.zeros_like(pos_s)
     for j in range(n_dev - 1):
         owner += (pos_s >= allq[(j + 1) * Q]).to(torch.int64)
-    buckets, bvalid, dropped = route_to_buckets(stk_s, valid, owner, n_dev,
-                                                route_cap)
-    recv, rvalid = mesh.exchange(buckets, bvalid)
-    rvalid = rvalid.reshape(-1)
-    ent = torch.where(rvalid[None], recv.reshape(L + 2, -1), SENTINEL)
+    send, dropped = route_to_buckets(stk_s, valid, owner, n_dev, route_cap,
+                                     fill=SENTINEL)
+    recv, rvalid = mesh.exchange(send)
+    del send
+    ent = recv.reshape(L + 2, -1)
     ent = ent[:, sort_op.lex_argsort([ent[L + 1]])]
     n_recv = int(rvalid.sum())
     pos2 = ent[L + 1, :slot_cap]
@@ -108,8 +108,8 @@ def _scatter_edges(mesh, edges: torch.Tensor, ok: torch.Tensor,
     """The (a -> b) edges (2, E) where ok, routed to owner (the rank owning
     a's slot) and scattered into its local table (2*slot_cap,) by a's
     local oriented id (-1 = none).  Returns (table, drops)."""
-    bl, bv, drop = route_to_buckets(edges, ok, owner, mesh.n_dev, cap_entries)
-    recv, rv = mesh.exchange(bl, bv)
+    send, drop = route_to_buckets(edges, ok, owner, mesh.n_dev, cap_entries)
+    recv, rv = mesh.exchange(send)
     table = junc.junction_scatter(recv.reshape(2, -1), rv.reshape(-1),
                                   mesh.n_dev * slot_cap, mesh.rank * slot_cap,
                                   slot_cap)
@@ -155,10 +155,10 @@ def local_succ_shard(mesh, solid: torch.Tensor, n_local: int, k: int,
     ent, valid, owner = junc.junction_entries(solid, n_local, k,
                                               me * slot_cap, tot, n_dev)
     K = ent.shape[0] - 1
-    bl, bv, drop1 = route_to_buckets(ent, valid, owner, n_dev, cap_entries)
+    send, drop1 = route_to_buckets(ent, valid, owner, n_dev, cap_entries)
     del ent, valid, owner
-    recv, rv = mesh.exchange(bl, bv)
-    del bl, bv
+    recv, rv = mesh.exchange(send)
+    del send
     words, payload, n_t = junc.junction_words(recv.reshape(K + 1, -1),
                                               rv.reshape(-1))
     del recv, rv
@@ -286,9 +286,9 @@ def _request(mesh, q: torch.Tensor, ok: torch.Tensor, owner: torch.Tensor,
     back in the layout of the routed queries.  Returns (back (C,
     n_dev*qcap), slots (n,): each query's column of back (n_dev*qcap where
     it was dropped or not valid), drops)."""
-    bl, bv, drop, slots = route_to_buckets(q, ok, owner, mesh.n_dev, qcap,
-                                           with_slots=True)
-    recv, rv = mesh.exchange(bl, bv)
+    send, drop, slots = route_to_buckets(q, ok, owner, mesh.n_dev, qcap,
+                                         with_slots=True)
+    recv, rv = mesh.exchange(send)
     ans = glue_answer(mode, recv.reshape(-1), rv.reshape(-1), tables, run_cap,
                       mesh.n_dev, mesh.rank)
     return _respond(mesh, ans, qcap), slots, drop
@@ -406,11 +406,11 @@ def glue_shard(mesh, succ_l: torch.Tensor, n_loc: int, slot_cap: int,
     is_start = cvalid & (~has_pred | break_node)
     is_end = cvalid & ((csucc < 0) | (in_cycle & (csucc == mn)))
 
-    ebl, ebv, drop2 = route_to_buckets(
+    esend, drop2 = route_to_buckets(
         torch.stack([start_g, gidx2, rank + wlen2]), is_end,
         torch.where(is_end, _gq_owner(start_g, run_cap, C_tot), n_dev), n_dev,
         qcap)
-    erl, erv = mesh.exchange(ebl, ebv)
+    erl, erv = mesh.exchange(esend)
     ent = erl.reshape(3, -1)
     ev = erv.reshape(-1)
     erow = torch.clamp(_gq_local(ent[0], run_cap, C_tot), 0, two_rc - 1)[ev]

@@ -9,10 +9,14 @@ on the default process group: NCCL on ``cuda:<rank>``, gloo on the CPU.
 Nothing is emulated in-process: at world size 1 the collectives still run
 (as copies).
 
-Bucket layout: an exchange takes channel-major buckets ``(C, n_dev, cap)``
-(bucket j goes to rank j) and returns the same shape, bucket j now
-holding what rank j sent here, as ``all_to_all(split_axis=1,
-concat_axis=1)`` does in the JAX package.
+Bucket layout: ``exchange`` sends K15's buffer ``(n_dev, C+1, cap)`` as
+it is (bucket j, its C channels and its validity as channel C, goes to
+rank j; a buffer with no validity channel, ``(n_dev, C, cap)``, with
+``with_valid=False``) and returns channel-major ``(C, n_dev, cap)`` with
+the validity ``(n_dev, cap)``, bucket j now holding what rank j sent here, as
+``all_to_all(split_axis=1, concat_axis=1)`` of the buckets and of their
+validity does in the JAX package.  ``all_to_all`` takes channel-major
+``(C, n_dev, cap)`` and returns the same shape (the glue's responses).
 """
 
 from __future__ import annotations
@@ -40,14 +44,17 @@ class Mesh:
         dist.all_to_all_single(recv, send)
         return recv.permute(1, 0, 2).contiguous()
 
-    def exchange(self, buckets: torch.Tensor, bvalid: torch.Tensor):
-        """all_to_all of the buckets (C, n_dev, cap) and their validity
-        (n_dev, cap) in one collective; the validity rides as an extra
-        channel."""
-        C = buckets.shape[0]
-        both = torch.cat([buckets, bvalid.to(buckets.dtype)[None]], dim=0)
-        recv = self.all_to_all(both)
-        return recv[:C], recv[C] != 0
+    def exchange(self, send: torch.Tensor, with_valid: bool = True):
+        """all_to_all of K15's send buffer (n_dev, C+1, cap), or (n_dev, C,
+        cap) with no validity channel (with_valid False), as it is, bucket
+        j to rank j; returns received() of what arrives: bucket j as rank j
+        sent it."""
+        if send.shape[0] != self.n_dev:
+            raise ValueError(f"exchange: {send.shape[0]} buckets for "
+                             f"{self.n_dev} ranks")
+        got = torch.empty_like(send)
+        dist.all_to_all_single(got, send)
+        return received(got, with_valid)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         out = x.clone()
@@ -68,3 +75,13 @@ class Mesh:
 
     def sum_int(self, value) -> int:
         return int(self.gather_ints([value]).sum())
+
+
+def received(got: torch.Tensor, with_valid: bool = True):
+    """The receive side of an exchange, on the received buffer (n_dev, C+1,
+    cap), or (n_dev, C, cap) with no validity channel: (recv (C, n_dev, cap)
+    channel-major, the validity (n_dev, cap) bool, or None with no
+    validity channel).  At n_dev = 1 recv is a view; above, one permute."""
+    C = got.shape[1] - int(with_valid)
+    recv = got[:, :C].permute(1, 0, 2).contiguous()
+    return recv, (got[:, C] != 0) if with_valid else None

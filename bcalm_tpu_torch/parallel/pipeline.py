@@ -63,10 +63,12 @@ SAMPLE_ROUNDS = 8
 
 def route_to_buckets_plain(stacked: torch.Tensor, valid: torch.Tensor,
                            owner, n_dev: int, cap: int,
-                           with_slots: bool = False):
+                           with_slots: bool = False, fill: int = 0,
+                           with_valid: bool = True):
     """Plain PyTorch version of K15 (bcalm_tpu _route_to_buckets: stable
-    argsort by owner, position within each owner run); owner None: the
-    hash mode, hash_lanes(stacked) % n_dev."""
+    argsort by owner, position within each owner run), written into the
+    exchange's send buffer (n_dev, C+V, cap); owner None: the hash mode,
+    hash_lanes(stacked) % n_dev."""
     C, N = stacked.shape
     dev = stacked.device
     if owner is None:
@@ -82,38 +84,48 @@ def route_to_buckets_plain(stacked: torch.Tensor, valid: torch.Tensor,
     run_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
     within = idx - run_start
     ok = s_valid & (within < cap) & (s_owner < n_dev) & (s_owner >= 0)
-    dest = torch.where(ok, s_owner * cap + within, n_dev * cap)
-    buckets = torch.zeros((C, n_dev * cap), dtype=torch.int64, device=dev)
-    buckets[:, dest[ok]] = stacked[:, order[ok]]
-    bvalid = torch.zeros((n_dev * cap,), dtype=torch.bool, device=dev)
-    bvalid[dest[ok]] = True
+    V = int(with_valid)
+    send = torch.full((n_dev, C + V, cap), fill, dtype=torch.int64, device=dev)
+    channels = send.permute(1, 0, 2)  # (C+V, n_dev, cap), a view
+    o_ok, w_ok = s_owner[ok], within[ok]
+    channels[:C, o_ok, w_ok] = stacked[:, order[ok]]
+    if V:
+        send[:, C] = 0
+        channels[C, o_ok, w_ok] = 1
     dropped = (s_valid & ~ok).sum().reshape(1)
-    out = (buckets.reshape(C, n_dev, cap), bvalid.reshape(n_dev, cap), dropped)
+    out = (send, dropped)
     if with_slots:
         slots = torch.empty(N, dtype=torch.int64, device=dev)
-        slots[order] = dest
+        slots[order] = torch.where(ok, s_owner * cap + within, n_dev * cap)
         out = out + (slots,)
     return out
 
 
 def route_to_buckets(stacked: torch.Tensor, valid: torch.Tensor,
                      owner, n_dev: int, cap: int,
-                     with_slots: bool = False):
-    """Scatter the valid columns of a channel-major (C, N) stack into
-    per-rank buckets by owner (None: hash_lanes of the C channels %
-    n_dev), in entry order within each bucket.
+                     with_slots: bool = False, fill: int = 0,
+                     with_valid: bool = True):
+    """Place the valid columns of a channel-major (C, N) stack in per-rank
+    buckets by owner (None: hash_lanes of the C channels % n_dev), in
+    entry order within each bucket, written as the exchange's send buffer.
 
-    Returns (buckets (C, n_dev, cap), bucket_valid (n_dev, cap), n_dropped
-    (1,)[, slots (N,)]); an entry past its bucket's cap is dropped and
+    Returns (send (n_dev, C+V, cap), n_dropped (1,)[, slots (N,)]): bucket
+    d is send[d], its C channels then, with_valid (V = 1), its validity as
+    channel C (1 where an entry was placed, 0 where empty); every empty
+    slot of channels 0..C-1 holds `fill`.  The default 0 is what
+    bcalm_tpu's _route_to_buckets writes there; a caller that reads the
+    validity never reads that word, and one that passes with_valid=False
+    (the per-k-mer count) needs a fill word that no entry holds, the
+    sentinel.  An entry past its bucket's cap is dropped and
     counted, never silent.  slots: each entry's flat bucket slot
     (owner*cap + within; n_dev*cap when dropped or invalid), which matches
     answers that come back in the same layout to their entries.  K15 for
     CUDA tensors, the plain version for CPU tensors."""
     if stacked.device.type == "cpu":
         return route_to_buckets_plain(stacked, valid, owner, n_dev, cap,
-                                      with_slots)
+                                      with_slots, fill, with_valid)
     return _kernels.route_buckets(stacked, valid, owner, n_dev, cap,
-                                  with_slots)
+                                  with_slots, fill, with_valid)
 
 
 def iter_global_blocks(seqs, k: int, n_dev: int, block_reads: int,
@@ -170,11 +182,13 @@ def _local_shard_count(mesh, words: torch.Tensor, lengths: torch.Tensor,
     extract_op.extract_insert(body, words, lengths, k, 0, 0)
     lanes = body[:L]
     valid = body[L] != SENTINEL
-    bl, bv, dropped = route_to_buckets(lanes, valid, None, mesh.n_dev, cap)
+    # no validity channel: an empty slot holds the sentinel in every lane
+    send, dropped = route_to_buckets(lanes, valid, None, mesh.n_dev, cap,
+                                     fill=SENTINEL, with_valid=False)
     del body, lanes, valid
-    recv, rv = mesh.exchange(bl, bv)
-    mine = torch.where(rv.reshape(-1)[None], recv.reshape(L, -1), SENTINEL)
-    unique, counts, _, n_unique = count_op.count_canonical(mine)
+    recv, _ = mesh.exchange(send, with_valid=False)
+    del send
+    unique, counts, _, n_unique = count_op.count_canonical(recv.reshape(L, -1))
     return unique, counts, int(n_unique), int(mesh.psum(dropped)[0])
 
 
@@ -329,8 +343,8 @@ def local_skm_count(mesh, words, lengths, table, rank, round_base: int, *,
         words, lengths, k, m, table, rank, max_span=max_span,
         use_rank=use_rank, with_pos=True, pos_base=pos_base)
     Wn = skm_words.shape[0] - 1
-    bl, bv, dropped = route_to_buckets(skm_words, start, owner, n_dev, cap)
-    recv, rv = mesh.exchange(bl, bv)
+    send, dropped = route_to_buckets(skm_words, start, owner, n_dev, cap)
+    recv, rv = mesh.exchange(send)
     ent = recv.reshape(Wn + 1, -1)
     ev = rv.reshape(-1)
     r_words = ent[:Wn].t().contiguous()

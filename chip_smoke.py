@@ -53,7 +53,9 @@ Phases (any failure raises, and the script exits non-zero):
    its group is up, K3's global step on its shard (the entries, K15 and
    the exchange, the compaction of the valid entries, the sort of those,
    the pair rule, the edges' exchange, the scatter) against the step with
-   the plain versions.  Then its
+   the plain versions, with the CUDA-event times of its two exchanges
+   (the all_to_all alone, then Mesh.exchange on K15's send buffer).  Then
+   its
    multi-pass branch: the first 1/32 of the reads under a residency
    budget of a third of their distinct k-mers (key ranges, K5, one pass
    over the input per range), counters reset just before it, equal to
@@ -68,7 +70,9 @@ Phases (any failure raises, and the script exits non-zero):
    minimizers and partition ids of the solid set (K20), then
    distributed_compact_pos with first-occurrence keys and
    distributed_compact (K3 global mode, K8, K16, K11): both equal to the
-   single-device CLI on those reads (unitigs, KC, km, links);
+   single-device CLI on those reads (unitigs, KC, km, links); after the
+   launches are read, the count's exchange (CUDA events: the all_to_all
+   alone, Mesh.exchange on K15's send buffer, and K15 with it);
 3h. long k (9-32 lanes): a second read set of the same genome at 30x with
    300 bp reads (the MiSeq 2x300 length), 0.08% errors and 20% duplicates,
    built in this process with ``-kmer-size 151`` (10 lanes), then its first
@@ -96,8 +100,11 @@ Phases (any failure raises, and the script exits non-zero):
    sampling of a 3f build (both modes, each into a histogram it zeroes),
    with the L2 atomics K14 makes; K13 and K3's global mode (the sharded glue's
    junction entries) also with 4 ranks as owners, since at world size 1
-   every owner is 0; K15 also at 4 and 8 destinations (synthetic owners)
-   and in its hash mode on phase 3g's k-mers at world size 1 and 4;
+   every owner is 0; K15 (which writes the exchange's send buffer, each
+   call also held with the other fill word, 0 or the sentinel) also at 4
+   and 8 destinations (synthetic owners) and in its hash mode on phase
+   3g's k-mers at world size 1 (a row of its own) and 4, with the passes
+   of the exchange's receive side on those buffers (device time);
    K17-K19 at level 0 of phase 3's and of phase 3d's hierarchical jump,
    K17 also at level 1 of phase 3d's (K17's round and K19's bounds count
    a random row's 32-byte sector per row not ROOTED only where its array
@@ -162,7 +169,9 @@ the phase 3 reads, resident and with ``-max-memory 2192``, after a
 warm-up run of each that builds its kernels and ingest library; before
 those runs, KERNEL_AB (below) times the L = 2 lane kernels, K1 at L = 10
 and in range mode, K2 at phase 3's shape (with pos, and weighted) beside
-torch.unique_consecutive, K3a at L = 10 and 16, K6, K9, K13 and K15, the
+torch.unique_consecutive, K3a at L = 10 and 16, K6, K9, K13 and K15 (and
+K15's hash mode with one exchange as the per-k-mer count makes it, the
+all_to_all a copy of the buffer, at 1 and 4 ranks), the
 K3b step at phase 3's shape (a tree whose pair kernel takes the sort's own
 word: that kernel; else the gathers of the sorted keys and payload, then
 the kernel), K18 at level 0 of phase 3's and the canonical order's
@@ -326,7 +335,8 @@ MESH_PATH = ("form_superkmers", "mmer_histograms", "route_buckets",
              "solid_fold_histogram", "run_scans", "spell_unitigs") + K21_MODES
 # the per-k-mer mesh entry points (phase 3g): the hash-routed count, the
 # per-k-mer minimizers of its solid set, the host-driven compactions
-ENTRY_PATH = ("extract_insert", "route_buckets", "count_runs",
+ENTRY_PATH = ("extract_insert", "route_buckets_hash", "route_buckets",
+              "count_runs",
               "kmer_minimizers", "junction_keys", "junction_words",
               "junction_pairs", "junction_scatter", "run_scans",
               "glue_compose", "spell_unitigs") + K21_MODES
@@ -1123,13 +1133,15 @@ def phase_mesh(tmp: str, fa: str, ref_path: str, table, dev):
             f"{step_row['bound_ms']:.4f} ms; the sort took the "
             f"{step_row['n_sorted']} valid received entries, and the host "
             f"read of that count {step_row['host_read_ms']:.4f} ms wall "
-            f"(waiting for the queued work)")
+            f"(waiting for the queued work); its two exchanges: "
+            f"{exchange_text(step_row['exchanges'])}")
         say(f"[mesh] K16's whole glue round on its first round's state "
             f"({glue_round_row['rows']} rows, {glue_round_row['need_step']} "
             f"need a step, {glue_round_row['moved']} move): equal to the "
             f"round with plain K15 and K16; {glue_round_row['ms']:.4f} ms, "
             f"plain {glue_round_row['plain_ms']:.4f} ms (CUDA events), bound "
-            f"{glue_round_row['bound_ms']:.4f} ms")
+            f"{glue_round_row['bound_ms']:.4f} ms; its exchange: "
+            f"{exchange_text(glue_round_row['exchanges'])}")
         ranged_launches = phase_mesh_ranged(tmp, fa, mesh, dev)
         entry_launches, entry_route, entry_solid = phase_entry_points(
             tmp, fa, mesh, dev)
@@ -1370,6 +1382,16 @@ def phase_entry_points(tmp: str, fa: str, mesh, dev):
     torch.cuda.synchronize()
     walls["compact"] = time.time() - t0
     launches = dict(_kernels.LAUNCHES)
+    # after the launches are read: the count's exchange on its K15 send
+    # buffer, and K15 with it, as _local_shard_count runs them (CUDA
+    # events, under the group)
+    route_args = _moved(rec.inputs["route_buckets:hash"], dev)
+    send = _kernels.route_buckets(*route_args)[0]
+    count_x = exchange_text(exchange_times(mesh, [(send, False)]))
+    del send
+    routed_x = _time_ms(lambda: mesh.exchange(
+        _kernels.route_buckets(*route_args)[0], False), reps=5)
+    del route_args
     _require_launched(launches, ENTRY_PATH, "per-k-mer mesh entry points")
     if res.dropped != 0:
         raise AssertionError(f"distributed_count dropped {res.dropped} k-mers")
@@ -1397,6 +1419,9 @@ def phase_entry_points(tmp: str, fa: str, mesh, dev):
         f"(glue_runs {us_zero.stats['glue_runs']}) give the CLI's unitigs, KC, "
         f"km and {_links(ref + '.unitigs.fa')} links; walls (s) "
         f"{json.dumps({key: round(v, 3) for key, v in walls.items()})}")
+    say(f"[exchange] phase 3g's count: {count_x}; K15 and Mesh.exchange "
+        f"as the count runs them {routed_x:.4f} ms event (no sentinel pass "
+        f"after: K15 fills the empty slots with it)")
     say(f"[launches] {json.dumps(launches)}")
     return launches, rec.inputs["route_buckets:hash"], n
 
@@ -2525,6 +2550,35 @@ for mode, (fn, plain) in k14_sampling(rounds14, rank14).items():
     digest[name] = digest_of(got)
     fns[name] = (fn, 20)
     split[name] = True
+# one exchange as the per-k-mer count makes it, on the hash mode's inputs
+# at 1 and 4 ranks: K15, then Mesh.exchange (in a tree whose K15 writes
+# the send buffer, that buffer as it is, the sentinel its fill word; else
+# the validity's cast and torch.cat, the send permute, then the receive's
+# and the count's sentinel pass).  No process group here: all_to_all_single
+# is a copy of the buffer, what NCCL does at world size 1 (at 4 ranks this
+# rank's own buckets come back); digests agree across the trees
+import torch.distributed as dist
+from bcalm_tpu_torch.parallel.mesh import Mesh
+dist.all_to_all_single = lambda out, inp: out.copy_(inp)
+route_params = inspect.signature(_kernels.route_buckets).parameters
+writes_send = "fill" in route_params
+# the count's buffer has no validity channel where K15 can leave it out
+count_valid = (False,) if "with_valid" in route_params else ()
+for n in (1, 4):
+    xmesh, xcap = Mesh(n, 0, dev), -(-2 * int(hv.sum()) // n)
+    if writes_send:
+        def count_exchange(xmesh=xmesh, n=n, xcap=xcap):
+            send = _kernels.route_buckets(hl, hv, None, n, xcap, False, ln.SENTINEL,
+                                          *count_valid)[0]
+            return xmesh.exchange(send, False)[0].reshape(2, -1)
+    else:
+        def count_exchange(xmesh=xmesh, n=n, xcap=xcap):
+            bl, bv, _ = _kernels.route_buckets(hl, hv, None, n, xcap)
+            recv, rv = xmesh.exchange(bl, bv)
+            return torch.where(rv.reshape(-1)[None], recv.reshape(2, -1), ln.SENTINEL)
+    name = f"route_buckets hash + exchange n={n} (count)"
+    digest[name] = digest_of(count_exchange().reshape(-1))
+    fns[name] = (count_exchange, 20)
 dms = {n: device_ms(f, r, only.get(n, "")) for n, (f, r) in fns.items()}
 print(json.dumps({"ms": {n: time_ms(f, r) - (time_ms(copies[n], r) if n in copies else 0)
                          for n, (f, r) in fns.items()},
@@ -2629,7 +2683,8 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
         raise AssertionError(f"a kernel of KERNEL_AB's digests gave other "
                              f"outputs in the two trees: {digests}")
     say(f"[compare] the K3b step, K8, K12a, K17-K19, K4, K16, K21, K3's "
-        f"global step, K10, K11, K20 and K14 give "
+        f"global step, K10, K11, K20, K14 and K15's hash mode with the "
+        f"count's exchange give "
         f"the same outputs in both trees (sums and counts): "
         f"{json.dumps(digests[0])}")
     # SPLIT once in each tree: device time per operation
@@ -2865,6 +2920,24 @@ def _device_ms(fn, reps: int = 20, only: str = ""):
 
 def _fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def receive_line(got, valid_channel: bool = True) -> str:
+    """The passes parallel.mesh.received makes on a received buffer (n_dev,
+    C+1, cap): without and with the validity (a buffer with no validity
+    channel, (n_dev, C, cap): without), device ms [device operations] and
+    CUDA-event ms."""
+    from bcalm_tpu_torch.parallel import mesh as mesh_mod
+
+    parts = []
+    for with_valid in (False, True) if valid_channel else (False,):
+        fn = (lambda w=with_valid: mesh_mod.received(got, w))
+        dms, ops = _device_ms(fn)
+        dev_text = (f"{_fmt_ms(dms)} device ms [{ops:g} operations]" if ops
+                    else "no device operation")
+        parts.append(f"{'with' if with_valid else 'without'} the validity "
+                     f"{dev_text}, {_time_ms(fn):.4f} ms event")
+    return "; ".join(parts)
 
 
 def _max_err(a, b) -> float:
@@ -3313,12 +3386,65 @@ def glue_rows(recorded, launches, dev, mesh=None):
                                                          only="glue_compose")
             r["library_device_ms"] = None
         r["rows"], r["need_step"], r["moved"] = Q.shape[0], n_need, n_moved
+        if mesh is not None:
+            with sends_of(mesh) as sends:
+                kernel_fn()
+            r["exchanges"] = exchange_times(mesh, sends)
+            del sends
         rows.append(r)
     # the earlier K16's bound: Q, its ancestor rows and need read, every
     # row written
     rows[0]["bound_old_ms"] = _bound(3 * _nbytes(Q) + _nbytes(need), 0)[0]
     rows[0]["bound_old_what"] = "Q, anc and need read once, every row written"
     return rows[0], rows[1]
+
+
+@contextlib.contextmanager
+def sends_of(mesh):
+    """The send buffers of the exchanges made inside the block (kept, not
+    copied: no caller writes one after its exchange)."""
+    sends, real = [], mesh.exchange
+
+    def noted(send, with_valid=True):
+        sends.append((send, with_valid))
+        return real(send, with_valid)
+
+    mesh.exchange = noted
+    try:
+        yield sends
+    finally:
+        del mesh.exchange
+
+
+def exchange_times(mesh, sends, reps: int = 5) -> list:
+    """CUDA-event ms of each (send buffer, with_valid) exchange under the
+    NCCL group: the all_to_all_single alone, then Mesh.exchange (the
+    all_to_all and the receive side) as its caller made it, and for a
+    buffer with a validity channel also without the validity's compare."""
+    import torch.distributed as dist
+
+    out = []
+    for send, with_valid in sends:
+        got = torch.empty_like(send)
+        out.append({
+            "shape": tuple(send.shape), "validity": with_valid,
+            "all_to_all": _time_ms(lambda: dist.all_to_all_single(got, send),
+                                   reps),
+            "exchange": _time_ms(lambda: mesh.exchange(send, with_valid),
+                                 reps),
+            "without_valid": (_time_ms(lambda: mesh.exchange(send, False),
+                                       reps) if with_valid else None)})
+        del got
+    return out
+
+
+def exchange_text(times) -> str:
+    return "; ".join(
+        f"{t['shape']}: all_to_all {t['all_to_all']:.4f}, Mesh.exchange "
+        + (f"{t['exchange']:.4f} (without the validity's compare "
+           f"{t['without_valid']:.4f})" if t["validity"]
+           else f"{t['exchange']:.4f} (no validity channel)")
+        for t in times) + " ms event"
 
 
 def k3_step_row(entries_args, n_steps, dev, mesh):
@@ -3380,6 +3506,10 @@ def k3_step_row(entries_args, n_steps, dev, mesh):
         distcompact._host_count = count
     r["n_sorted"] = reads[0][1]
     r["host_read_ms"] = sum(t for t, _ in reads) / len(reads)
+    with sends_of(mesh) as sends:
+        step()
+    r["exchanges"] = exchange_times(mesh, sends)
+    del sends
     return r
 
 
@@ -3912,43 +4042,66 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
         r["launched_on"] = f"phase 3g's {entry_solid} solid k-mers"
         rows.append(r)
     del lanes20
-    stk, valid, owner, n_dev, cap, with_slots = inputs["route_buckets"]
-    check("route_buckets",
-          lambda: _kernels.route_buckets(*inputs["route_buckets"]),
-          lambda: pipeline.route_to_buckets_plain(*inputs["route_buckets"]),
-          reads=(stk, valid, owner))
+    # K15 writes the exchange's send buffer: each call held bitwise against
+    # its plain version with the fill word its run gave it, and once more
+    # with the other one (0 as JAX fills, the sentinel as the count and the
+    # reshard fill)
+    def route_check(args, what, row=True, **kw):
+        other = args[:6] + (0 if args[6] else ln.SENTINEL,) + args[7:]
+        err = _max_err(_kernels.route_buckets(*other),
+                       pipeline.route_to_buckets_plain(*other))
+        if err != 0:
+            raise AssertionError(f"{what}: K15 differs from its plain "
+                                 f"version with fill word {other[6]}")
+        return check("route_buckets", lambda: _kernels.route_buckets(*args),
+                     lambda: pipeline.route_to_buckets_plain(*args), row=row,
+                     **kw)
+
+    stk, valid, owner, n_dev, cap, with_slots, fill, _ = inputs["route_buckets"]
+    route_check(inputs["route_buckets"], "route_buckets",
+                reads=(stk, valid, owner))
     rng = torch.Generator(device="cpu").manual_seed(0)
     for nd in (4, 8):
         syn = torch.randint(0, nd, (stk.shape[1],), generator=rng).to(dev)
         cap_nd = max(1, -(-2 * int(valid.sum()) // nd))
-        r = check("route_buckets",
-                  lambda: _kernels.route_buckets(stk, valid, syn, nd, cap_nd, True),
-                  lambda: pipeline.route_to_buckets_plain(stk, valid, syn, nd,
-                                                          cap_nd, True),
-                  reads=(stk, valid, syn), row=False)
+        r = route_check((stk, valid, syn, nd, cap_nd, True, fill),
+                        f"route_buckets at {nd} destinations",
+                        reads=(stk, valid, syn), row=False)
         extra.append((f"route_buckets at {nd} destinations (synthetic owners, "
                       f"cap {cap_nd}, with slots)", r))
     # the hash mode (owner = hash_lanes(k-mer) % n_dev, computed in the
-    # kernel) on phase 3g's k-mers: as the world-size-1 count ran it, and
-    # at 4 ranks, where the owners spread
-    hl, hv, _, hn, hcap, hslots = inputs["route_buckets:hash"]
+    # kernel; none at one rank) on phase 3g's k-mers: as the world-size-1
+    # count ran it (its row), and at 4 ranks, where the owners spread; then
+    # the receive side of the exchange on those send buffers, the passes
+    # Mesh.exchange makes after its all_to_all (a view and no pass at one
+    # rank; the validity's compare where the caller takes it)
+    hl, hv, _, hn, hcap, hslots, hfill, hvc = inputs["route_buckets:hash"]
     hcap4 = max(1, -(-2 * int(hv.sum()) // 4))
     for nd, cap_nd, slots_nd in ((hn, hcap, hslots), (4, hcap4, True)):
-        r = check("route_buckets",
-                  lambda: _kernels.route_buckets(hl, hv, None, nd, cap_nd,
-                                                 slots_nd),
-                  lambda: pipeline.route_to_buckets_plain(hl, hv, None, nd,
-                                                          cap_nd, slots_nd),
-                  reads=(hl, hv), row=False)
+        r = route_check((hl, hv, None, nd, cap_nd, slots_nd, hfill, hvc),
+                        f"route_buckets hash mode at {nd} ranks",
+                        reads=(hl, hv), row=nd == hn, label="route_buckets:hash",
+                        replaces="bcalm_tpu/parallel/pipeline.py:111",
+                        launched=launches["route_buckets:hash"])
         spread = torch.bincount(
             (hashing.hash_lanes(hl) % nd)[hv], minlength=nd).tolist()
         if min(spread) == 0:
             raise AssertionError(f"route_buckets hash mode at {nd} ranks: "
                                  f"k-mers per owner {spread}")
-        extra.append((f"route_buckets, hash mode at {nd} rank(s) ({hl.shape[1]} "
-                      f"slots of phase 3g's count, {int(hv.sum())} k-mers; per "
-                      f"owner {spread}; {launches['route_buckets:hash']} "
-                      f"launches in phase 3g)", r))
+        what = (f"route_buckets, hash mode at {nd} rank(s) ({hl.shape[1]} "
+                f"slots of phase 3g's count, {int(hv.sum())} k-mers; per "
+                f"owner {spread}; cap {cap_nd}; "
+                f"{launches['route_buckets:hash']} launches in phase 3g)")
+        if nd == hn:
+            r["launched_on"] = what
+        else:
+            extra.append((what, r))
+        send = _kernels.route_buckets(hl, hv, None, nd, cap_nd, False, hfill,
+                                      hvc)[0]
+        say(f"[exchange] receive side at {nd} rank(s) of phase 3g's count "
+            f"(the send buffer {tuple(send.shape)}, K15's output as it is "
+            f"sent: no send pass): " + receive_line(send, hvc))
+        del send
     del hl, hv
     # K16 in place on the first round of phase 3f's sharded doubling
     r16, _ = glue_rows(inputs["glue_compose"], launches, dev)
@@ -4299,7 +4452,7 @@ def main() -> int:
     launches["junction_keys:global"] = mesh_launches["junction_keys"]
     launches["junction_pairs:global"] = mesh_launches["junction_pairs"]
     launches["kmer_minimizers"] = entry_launches["kmer_minimizers"]
-    launches["route_buckets:hash"] = entry_launches["route_buckets"]
+    launches["route_buckets:hash"] = entry_launches["route_buckets_hash"]
     del mesh_inputs
     rows = phase_kernels(inputs, launches, canon_hier, ms_launches, table, longk,
                          phases, entry_solid, dev)

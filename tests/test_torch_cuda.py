@@ -1000,6 +1000,9 @@ def test_mmer_histograms_rows(card, k, m):
 @pytest.mark.parametrize("n_dev", [1, 4, 8, 256])
 @pytest.mark.parametrize("with_slots", [False, True])
 def test_route_buckets(card, n_dev, with_slots):
+    """K15 writes the exchange's send buffer (n_dev, C+1, cap): every
+    element, the empty slots holding the fill word (0 or the sentinel),
+    twice on poisoned memory, bitwise equal to its plain version."""
     rng = np.random.RandomState(n_dev)
     N, C = 300_000, 3
     stacked = torch.from_numpy(rng.randint(0, 2**32, size=(C, N),
@@ -1007,31 +1010,86 @@ def test_route_buckets(card, n_dev, with_slots):
     valid = torch.from_numpy(rng.rand(N) < 0.8)
     owner = torch.from_numpy(np.where(rng.rand(N) < 0.3, 0,
                                       rng.randint(0, n_dev, N)))
+    gs, gv, go = stacked.to(card), valid.to(card), owner.to(card)
     for cap in (N, max(1, N // (3 * n_dev))):
-        args = (n_dev, cap, with_slots)
-        got = _kernels.route_buckets(stacked.to(card), valid.to(card),
-                                     owner.to(card), *args)
-        want = pipeline.route_to_buckets_plain(stacked, valid, owner, *args)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
+        for fill in (0, ln.SENTINEL):
+            args = (n_dev, cap, with_slots, fill)
+            want = pipeline.route_to_buckets_plain(stacked, valid, owner, *args)
+            twice_poisoned(card, lambda: _kernels.route_buckets(gs, gv, go, *args),
+                           want)
 
 
 @pytest.mark.parametrize("L,n_dev", [(1, 1), (2, 4), (3, 8), (8, 256)])
 def test_route_buckets_hash_mode(card, L, n_dev):
     """K15 with no owner array: each entry goes to hash_lanes of its L
-    lanes % n_dev, as the per-k-mer mesh count routes its k-mers."""
+    lanes % n_dev, as the per-k-mer mesh count routes its k-mers; the send
+    buffer on poisoned memory, twice, with both fill words, and at the
+    sentinel also with no validity channel (the count's buffer); each
+    call counted as route_buckets_hash."""
     rng = np.random.RandomState(L)
     N = 300_000
     lanes = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
                                          dtype=np.uint64).astype(np.int64))
     valid = torch.from_numpy(rng.rand(N) < 0.8)
+    gl, gv = lanes.to(card), valid.to(card)
     for cap in (N, max(1, N // (3 * n_dev))):
-        got = _kernels.route_buckets(lanes.to(card), valid.to(card), None,
-                                     n_dev, cap, True)
-        want = pipeline.route_to_buckets_plain(lanes, valid, None, n_dev, cap,
-                                               True)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
+        for fill, with_valid in ((0, True), (ln.SENTINEL, True),
+                                 (ln.SENTINEL, False)):
+            args = (n_dev, cap, True, fill, with_valid)
+            want = pipeline.route_to_buckets_plain(lanes, valid, None, *args)
+            twice_poisoned(card, lambda: launched(lambda: _kernels.route_buckets(
+                gl, gv, None, *args), "route_buckets_hash"), want)
+
+
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_route_buckets_hash_one_rank(card, L):
+    """Phase 3g's shape: the hash mode at n_dev = 1 (no hash computed, every
+    valid entry to bucket 0) with a cap of twice the valid entries, so
+    that the slots at or past N are empty from the start and the last
+    tile ends the fill; invalid runs at the end of every 130-slot row, as
+    K1 leaves them; the sentinel as the fill word."""
+    rng = np.random.RandomState(30 + L)
+    rows, P = 7_700, 130
+    N = rows * P
+    lanes = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
+                                         dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(np.tile(np.arange(P) < 120, rows)
+                             & (rng.rand(N) < 0.99))
+    cap = 2 * int(valid.sum())
+    gl, gv = lanes.to(card), valid.to(card)
+    for fill, with_slots, with_valid in ((ln.SENTINEL, False, False),
+                                         (ln.SENTINEL, False, True),
+                                         (0, True, True)):
+        args = (1, cap, with_slots, fill, with_valid)
+        want = pipeline.route_to_buckets_plain(lanes, valid, None, *args)
+        assert want[0].shape == (1, L + with_valid, cap)
+        if with_valid:
+            assert int(want[0][0, L].sum()) == int(valid.sum())
+        twice_poisoned(card, lambda: _kernels.route_buckets(
+            gl, gv, None, *args), want)
+
+
+@pytest.mark.parametrize("C", [4, 5, 9])
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_route_buckets_wide_stack(card, C, n_dev):
+    """Owners given and C = 4 (the reshard's stack at k = 31: all in
+    registers) or past K15's register channels (5, the 3f superkmer
+    rounds' stack; 9): one channel loaded while the previous one is
+    stored.  Over many tiles, with and without drops."""
+    rng = np.random.RandomState(C * n_dev)
+    N = 500_003
+    stacked = torch.from_numpy(rng.randint(0, 2**32, size=(C, N),
+                                           dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(rng.rand(N) < 0.7)
+    owner = torch.from_numpy(rng.randint(0, n_dev, N))
+    gs, gv, go = stacked.to(card), valid.to(card), owner.to(card)
+    n_valid = int(valid.sum())
+    for cap, fill in ((-(-2 * n_valid // n_dev), ln.SENTINEL),
+                      (max(1, n_valid // (2 * n_dev)), 0)):
+        want = pipeline.route_to_buckets_plain(stacked, valid, owner, n_dev,
+                                               cap, True, fill)
+        twice_poisoned(card, lambda: _kernels.route_buckets(
+            gs, gv, go, n_dev, cap, True, fill), want)
 
 
 def test_glue_compose(card):
@@ -1645,15 +1703,28 @@ def twice_equal(fn, want):
         assert torch.equal(a, b)
 
 
+def twice_poisoned(card, fn, want):
+    """twice_equal, the caching allocator's memory poisoned before each
+    call: K15 writes every element of its send buffer, no fill before it."""
+    nbytes = sum(8 * t.numel() for t in want) + (1 << 20)
+
+    def run():
+        poisoned(card, nbytes)
+        return fn()
+
+    twice_equal(run, want)
+
+
 @pytest.mark.parametrize("N,n_dev", [(0, 3), (1, 1), (1023, 2), (1025, 3),
                                      (2_000_000, 1), (2_000_000, 4),
                                      (300_000, 32), (300_000, 33),
                                      (300_000, 256), (5000, 256)])
 def test_route_buckets_lookback(card, N, n_dev):
-    """K15's one-pass multi-split over 1024-entry look-back tiles: no entry,
-    one, a tile minus and plus one, and thousands of tiles; owners out of
-    range among them; every entry invalid; every entry to one owner; a cap
-    that every owner overflows at once; with and without slots."""
+    """K15's one-pass multi-split over 2048-entry look-back tiles: no entry,
+    one, 1023 and 1025 entries, and hundreds of tiles; owners out of range
+    among them; every entry invalid; every entry to one owner; a cap
+    that every owner overflows at once; with and without slots; the send
+    buffer on poisoned memory, twice, with fill words 0 and the sentinel."""
     rng = np.random.RandomState(N + n_dev)
     C = 3
     stacked = torch.from_numpy(rng.randint(0, 2**32, size=(C, N),
@@ -1666,29 +1737,86 @@ def test_route_buckets_lookback(card, N, n_dev):
              (torch.zeros(N, dtype=torch.bool), owner, 5),
              (valid, torch.full((N,), n_dev - 1, dtype=torch.int64),
               max(1, n_valid // 2))]
-    for v, o, cap in cases:
+    for n_case, (v, o, cap) in enumerate(cases):
         for with_slots in (False, True):
-            args = (n_dev, cap, with_slots)
+            fill = (0, ln.SENTINEL)[(n_case + with_slots) % 2]
+            args = (n_dev, cap, with_slots, fill)
             want = pipeline.route_to_buckets_plain(stacked, v, o, *args)
             gs, gv, go = stacked.to(card), v.to(card), o.to(card)
-            twice_equal(lambda: _kernels.route_buckets(gs, gv, go, *args), want)
+            twice_poisoned(card, lambda: _kernels.route_buckets(gs, gv, go,
+                                                                *args), want)
+
+
+@pytest.mark.parametrize("N", [2047, 2048, 2049, 4097])
+@pytest.mark.parametrize("n_dev", [1, 3])
+def test_route_buckets_tile_edges(card, N, n_dev):
+    """K15 at a 2048-entry tile minus one, a tile, a tile plus one and two
+    tiles plus one, in the hash and the owner mode, with caps that leave
+    slots at or past N empty from the start (cap > N) and that drop: the
+    fills of the first tile and of the last one, twice on poisoned
+    memory."""
+    rng = np.random.RandomState(N * n_dev)
+    stacked = torch.from_numpy(rng.randint(0, 2**32, size=(2, N),
+                                           dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(rng.rand(N) < 0.9)
+    owner = torch.from_numpy(rng.randint(0, n_dev, N))
+    gs, gv, go = stacked.to(card), valid.to(card), owner.to(card)
+    for o, go_ in ((None, None), (owner, go)):
+        for cap, fill in ((N + 77, ln.SENTINEL), (N // (2 * n_dev) + 1, 0)):
+            want = pipeline.route_to_buckets_plain(stacked, valid, o, n_dev,
+                                                   cap, True, fill)
+            twice_poisoned(card, lambda: _kernels.route_buckets(
+                gs, gv, go_, n_dev, cap, True, fill), want)
+
+
+@pytest.mark.parametrize("tiles,n_dev", [(80, 1), (80, 4), (80, 8), (1, 8),
+                                         (2, 3), (65, 2), (66, 2), (67, 5),
+                                         (131, 4), (132, 4), (133, 4)])
+def test_route_buckets_pool_blocks(card, tiles, n_dev):
+    """A grid of fewer 2048-entry tiles than the card has SMs: the blocks
+    past the last tile fill the last tiles' ranges of each bucket's tail
+    (80 tiles: the -devices rounds' 163,840 entries), on both sides of
+    half the SMs and of all of them; N one short of the tiles, caps that
+    leave most of each bucket empty, that leave slots at or past N empty
+    and that drop, both modes, with and without a validity channel, twice
+    on poisoned memory."""
+    rng = np.random.RandomState(tiles * 10 + n_dev)
+    N, C = tiles * _kernels.ROUTE_TILE - 1, 5
+    stacked = torch.from_numpy(rng.randint(0, 2**32, size=(C, N),
+                                           dtype=np.uint64).astype(np.int64))
+    valid = torch.from_numpy(rng.rand(N) < 0.1)
+    owner = torch.from_numpy(rng.randint(0, n_dev, N))
+    gs, gv, go = stacked.to(card), valid.to(card), owner.to(card)
+    n_valid = int(valid.sum())
+    for o, go_ in ((owner, go), (None, None)):
+        for cap, fill, with_valid in (
+                (-(-2 * n_valid // n_dev), 0, True),
+                (-(-2 * n_valid // n_dev), ln.SENTINEL, False),
+                (N + 5, ln.SENTINEL, True),
+                (max(1, n_valid // (2 * n_dev)), 0, True)):
+            args = (n_dev, cap, True, fill, with_valid)
+            want = pipeline.route_to_buckets_plain(stacked, valid, o, *args)
+            twice_poisoned(card, lambda: _kernels.route_buckets(
+                gs, gv, go_, *args), want)
 
 
 @pytest.mark.parametrize("L,n_dev", [(1, 1), (2, 4), (10, 3), (32, 33)])
 def test_route_buckets_hash_lookback(card, L, n_dev):
-    """K15's hash mode (owner = hash_lanes % n_dev, hashed once per entry)
-    over many tiles, at 1, 2, 10 and 32 lanes, with and without overflow."""
+    """K15's hash mode (owner = hash_lanes % n_dev, hashed once per entry,
+    none at one rank) over many tiles, at 1, 2, 10 and 32 lanes, with and
+    without overflow, on poisoned memory with both fill words."""
     rng = np.random.RandomState(L * n_dev)
     N = 1_000_003
     lanes = torch.from_numpy(rng.randint(0, 2**32, size=(L, N),
                                          dtype=np.uint64).astype(np.int64))
     valid = torch.from_numpy(rng.rand(N) < 0.8)
     gl, gv = lanes.to(card), valid.to(card)
-    for cap in (-(-2 * N // n_dev), max(1, N // (3 * n_dev))):
+    for cap, fill in ((-(-2 * N // n_dev), 0),
+                      (max(1, N // (3 * n_dev)), ln.SENTINEL)):
         want = pipeline.route_to_buckets_plain(lanes, valid, None, n_dev, cap,
-                                               True)
-        twice_equal(lambda: _kernels.route_buckets(gl, gv, None, n_dev, cap,
-                                                   True), want)
+                                               True, fill)
+        twice_poisoned(card, lambda: _kernels.route_buckets(
+            gl, gv, None, n_dev, cap, True, fill), want)
 
 
 @pytest.mark.parametrize("k,m,W,max_span", [(31, 10, 10, None), (31, 10, 64, 3),

@@ -157,10 +157,10 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
                                        True, t((4 ** 10,))),
     lambda t: _kernels.route_buckets(t((3, 64)),
                                      torch.ones(64, dtype=torch.bool),
-                                     t((64,)), 2, 64),
+                                     t((64,)), 2, 64, fill=0xFFFFFFFF),
     lambda t: _kernels.route_buckets(t((2, 64)),
                                      torch.ones(64, dtype=torch.bool),
-                                     None, 4, 64),
+                                     None, 4, 64, True, 0, False),
     lambda t: _kernels.glue_compose(t((8, 4)), t((4, 8)), t((8,)),
                                     torch.ones(8, dtype=torch.bool),
                                     torch.zeros(1, dtype=torch.int32),

@@ -11,7 +11,8 @@ those of the same world-4 group started by one launcher.  The one-launcher
 runs at world sizes 2 and 4 also hold sample_tables and distributed_succ
 against bcalm_tpu's on 2 and 4 of conftest's virtual CPU devices; at world
 size 2 also distributed_succ on k-mers whose junction entries all go to
-rank 0, so that rank 1 receives no entry.
+rank 0, so that rank 1 receives no entry, and Mesh.exchange of K15's send
+buffer against bcalm_tpu's all_to_all of the buckets and their validity.
 
 The launchers are this file run as a script:
     python tests/test_torch_multihost.py N_LOCAL WORLD RANK_BASE INIT_METHOD OUT_DIR
@@ -137,6 +138,7 @@ def rank_work(mesh, out_dir):
     out.update(succ=succ.numpy(), pred=pred.numpy(), succ_dropped=dropped)
     if n_dev == 2:
         out["rank0_owned"] = _rank0_owned_step(mesh)
+        out["exchange"] = _exchange_step(mesh)
     run_cap = max(16, slot_cap // 4)
     while True:   # distcompact._glue_and_assemble's run_cap escalation
         qcap = max(64, (4 * 2 * run_cap) // n_dev)
@@ -180,6 +182,44 @@ def _rank0_owned_step(mesh):
         junctions.junction_words = compact
     return {"succ": succ.numpy(), "pred": pred.numpy(), "dropped": dropped,
             "received": received}
+
+
+# the exchange cases: (cap, fill word, hash mode, validity channel); the
+# second cap drops; the last is the per-k-mer count's buffer
+EXCHANGES = ((150, 0, False, True), (150, 0, True, True),
+             (100, 0xFFFFFFFF, False, True), (100, 0xFFFFFFFF, True, True),
+             (150, 0xFFFFFFFF, True, False))
+
+
+def _exchange_case(rank, n_dev):
+    """Rank `rank`'s seeded entries: (stacked (3, 300) uint32, valid,
+    owner)."""
+    rng = np.random.RandomState(50 + rank)
+    stacked = rng.randint(0, 2**32, size=(3, 300), dtype=np.uint64).astype(np.uint32)
+    valid = rng.rand(300) < 0.8
+    owner = rng.randint(0, n_dev, 300).astype(np.int32)
+    return stacked, valid, owner
+
+
+def _exchange_step(mesh):
+    """K15's send buffer of this rank's entries through Mesh.exchange, for
+    each of EXCHANGES: [(recv (C, n_dev, cap), rvalid (None with no
+    validity channel), dropped)]."""
+    import torch
+
+    from bcalm_tpu_torch.parallel import pipeline
+
+    stacked, valid, owner = _exchange_case(mesh.rank, mesh.n_dev)
+    out = []
+    for cap, fill, hashed, with_valid in EXCHANGES:
+        send, dropped = pipeline.route_to_buckets(
+            torch.from_numpy(stacked.astype(np.int64)), torch.from_numpy(valid),
+            None if hashed else torch.from_numpy(owner.astype(np.int64)),
+            mesh.n_dev, cap, fill=fill, with_valid=with_valid)
+        recv, rvalid = mesh.exchange(send, with_valid)
+        out.append((recv.numpy(), None if rvalid is None else rvalid.numpy(),
+                    int(dropped[0])))
+    return out
 
 
 def _free_port() -> int:
@@ -315,6 +355,68 @@ def test_distributed_succ_with_a_rank_that_receives_no_entry(tmp_path_factory):
         np.testing.assert_array_equal(out["succ"], succ[r * span:(r + 1) * span])
         np.testing.assert_array_equal(out["pred"], pred[r * span:(r + 1) * span])
         assert int((out["succ"] >= 0).sum()) > 0
+
+
+def _jax_exchange(n_dev, cap, hashed):
+    """bcalm_tpu's route and exchange on n_dev of conftest's virtual CPU
+    devices, each device the entries of _exchange_case: _route_to_buckets,
+    then jax.lax.all_to_all of the buckets and of their validity, as
+    _local_shard_count exchanges.  Per rank: (recv, rvalid, dropped)."""
+    import jax
+    import jax.numpy as jnp
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from bcalm_tpu.ops import hashing
+    from bcalm_tpu.parallel import pipeline
+
+    cases = [_exchange_case(r, n_dev) for r in range(n_dev)]
+    stacked = np.concatenate([c[0] for c in cases], axis=1)
+    valid = np.concatenate([c[1] for c in cases])
+    owner = np.concatenate([c[2] for c in cases])
+    ax = pipeline.AXIS
+
+    def body(st, v, o):
+        if hashed:
+            o = (hashing.hash_lanes(st) % np.uint32(n_dev)).astype(jnp.int32)
+        bl, bv, dropped = pipeline._route_to_buckets(st, v, o, n_dev, cap)
+        return (jax.lax.all_to_all(bl, ax, split_axis=1, concat_axis=1),
+                jax.lax.all_to_all(bv, ax, split_axis=0, concat_axis=0),
+                dropped[None])
+
+    fn = jax.jit(shard_map(body, mesh=pipeline.make_mesh(n_dev),
+                           in_specs=(P(None, ax), P(ax), P(ax)),
+                           out_specs=(P(None, ax), P(ax), P(ax)),
+                           check_vma=False))
+    rl, rv, dropped = (np.asarray(x) for x in fn(stacked, valid, owner))
+    return [(rl[:, r * n_dev:(r + 1) * n_dev], rv[r * n_dev:(r + 1) * n_dev],
+             int(dropped[r])) for r in range(n_dev)]
+
+
+def test_exchange_of_the_send_buffer_matches_jax(tmp_path_factory):
+    """At world size 2 (gloo), Mesh.exchange sends K15's (n_dev, C+1, cap)
+    buffer as it is and returns what bcalm_tpu's all_to_all of the buckets
+    and of their validity gives each rank: the buckets channel-major, the
+    empty slots holding the fill word (0 as JAX fills, or the sentinel),
+    the validity and the drops; given and hashed owners, with and without
+    drops at cap; and the count's buffer, with no validity channel and
+    the sentinel in its empty slots."""
+    outs = [o["exchange"] for o in _runs(_tmp(tmp_path_factory))["one2"]]
+    drops, empty = 0, 0
+    for j, (cap, fill, hashed, with_valid) in enumerate(EXCHANGES):
+        for r, (rl, rv, dropped) in enumerate(_jax_exchange(2, cap, hashed)):
+            recv, rvalid, got_dropped = outs[r][j]
+            assert recv.shape == (3, 2, cap)
+            if not with_valid:
+                assert rvalid is None
+                rvalid = (recv != fill).any(0)
+            np.testing.assert_array_equal(rvalid, rv)
+            np.testing.assert_array_equal(
+                recv, np.where(rv[None], rl.astype(np.int64), fill))
+            assert got_dropped == dropped and rvalid.any()
+            drops += dropped
+            empty += int((~rvalid).sum())
+    assert drops > 0 and empty > 0
 
 
 def test_init_from_env_reads_the_ranks(monkeypatch):

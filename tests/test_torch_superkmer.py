@@ -159,6 +159,25 @@ def route_case(seed: int, N: int, C: int, n_dev: int):
     return stacked, valid, owner
 
 
+def jax_send(want, n_dev: int, cap: int, fill: int = 0):
+    """bcalm_tpu _route_to_buckets' (buckets (C, n_dev, cap), validity
+    (n_dev, cap), dropped[, slots]) in K15's layout: (send (n_dev, C+1,
+    cap), the validity as channel C, the empty slots of channels 0..C-1
+    taken where(valid, ..., fill); dropped[, slots])."""
+    bl = np.asarray(want[0]).astype(np.int64)
+    bv = np.asarray(want[1])
+    bl = np.where(bv[None], bl, fill)
+    send = np.concatenate([bl, bv[None].astype(np.int64)]).transpose(1, 0, 2)
+    return (send,) + tuple(np.asarray(x) for x in want[2:])
+
+
+def assert_route(want, got, n_dev, cap, fill=0):
+    for name, a, b in zip(("send", "dropped", "slots"),
+                          jax_send(want, n_dev, cap, fill), got):
+        assert same(a.reshape(-1), b.reshape(-1)), name
+    assert got[0].shape == (n_dev, np.asarray(want[0]).shape[0] + 1, cap)
+
+
 @pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
 @pytest.mark.parametrize("overflow", [False, True])
 def test_route_to_buckets(n_dev, overflow):
@@ -170,14 +189,12 @@ def test_route_to_buckets(n_dev, overflow):
                                  with_slots=True)
     got = tpl.route_to_buckets(t64(stacked), torch.from_numpy(valid),
                                t64(owner), n_dev, cap, with_slots=True)
-    for name, a, b in zip(("buckets", "bucket_valid", "dropped", "slots"),
-                          want, got):
-        assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
-    assert (int(got[2][0]) > 0) == overflow
+    assert_route(want, got, n_dev, cap)
+    assert (int(got[1][0]) > 0) == overflow
     plain = tpl.route_to_buckets(t64(stacked), torch.from_numpy(valid),
                                  t64(owner), n_dev, cap)
-    assert len(plain) == 3 and all(torch.equal(a, b)
-                                   for a, b in zip(plain, got[:3]))
+    assert len(plain) == 2 and all(torch.equal(a, b)
+                                   for a, b in zip(plain, got[:2]))
 
 
 @pytest.mark.parametrize("L,n_dev", [(1, 3), (2, 4), (3, 8), (10, 4),
@@ -192,9 +209,7 @@ def test_route_to_buckets_hash_mode(L, n_dev):
                                  owner, n_dev, 700 // n_dev, with_slots=True)
     got = tpl.route_to_buckets(t64(stacked), torch.from_numpy(valid), None,
                                n_dev, 700 // n_dev, with_slots=True)
-    for name, a, b in zip(("buckets", "bucket_valid", "dropped", "slots"),
-                          want, got):
-        assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
+    assert_route(want, got, n_dev, 700 // n_dev)
 
 
 @pytest.mark.parametrize("n_dev", [3, 33])
@@ -213,10 +228,70 @@ def test_route_to_buckets_overflow_every_owner(n_dev):
                                  with_slots=True)
     got = tpl.route_to_buckets(t64(stacked), torch.from_numpy(valid),
                                t64(owner), n_dev, cap, with_slots=True)
-    for name, a, b in zip(("buckets", "bucket_valid", "dropped", "slots"),
-                          want, got):
-        assert same(np.asarray(a).reshape(-1), b.reshape(-1)), name
-    assert int(got[1].sum(1).min()) == cap
+    assert_route(want, got, n_dev, cap)
+    assert int(got[0][:, C].sum(1).min()) == cap
+
+
+@pytest.mark.parametrize("hashed", [False, True])
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_route_to_buckets_send_buffer(hashed, n_dev, C):
+    """K15's plain version writes the exchange's send buffer: JAX's buckets
+    and validity in the (n_dev, C+1, cap) layout, the empty slots holding
+    the fill word (0, as JAX fills, or the sentinel), in the owner and the
+    hash mode, with and without drops at cap, with and without slots."""
+    N = 600
+    stacked, valid, owner = route_case(100 * C + n_dev, N, C, n_dev)
+    if hashed:
+        owner = np.asarray(jhash.hash_lanes(jnp.asarray(stacked))
+                           % np.uint32(n_dev)).astype(np.int32)
+    n_valid = int(valid.sum())
+    for cap in (n_valid, max(1, n_valid // (3 * n_dev))):
+        want = jpl._route_to_buckets(jnp.asarray(stacked), jnp.asarray(valid),
+                                     jnp.asarray(owner), n_dev, cap,
+                                     with_slots=True)
+        dropped = int(np.asarray(want[2]))
+        assert (dropped > 0) == (cap < n_valid)
+        for fill in (0, int(tpl.SENTINEL)):
+            args = (t64(stacked), torch.from_numpy(valid),
+                    None if hashed else t64(owner), n_dev, cap)
+            got = tpl.route_to_buckets(*args, with_slots=True, fill=fill)
+            assert_route(want, got, n_dev, cap, fill)
+            plain = tpl.route_to_buckets(*args, fill=fill)
+            assert len(plain) == 2 and all(torch.equal(a, b)
+                                           for a, b in zip(plain, got[:2]))
+
+
+@pytest.mark.parametrize("hashed", [False, True])
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+def test_route_to_buckets_without_validity(hashed, n_dev):
+    """with_valid=False, as the per-k-mer count routes its k-mers: the send
+    buffer (n_dev, C, cap) holds JAX's buckets where(valid, ..., fill) and
+    no validity channel; with the sentinel as the fill word every empty
+    slot is the sentinel in every lane, so the slots that hold no sentinel
+    are JAX's valid ones."""
+    N, C = 600, 2
+    stacked, valid, owner = route_case(700 + n_dev, N, C, n_dev)
+    if hashed:
+        owner = np.asarray(jhash.hash_lanes(jnp.asarray(stacked))
+                           % np.uint32(n_dev)).astype(np.int32)
+    n_valid = int(valid.sum())
+    for cap in (2 * n_valid // n_dev + 1, max(1, n_valid // (3 * n_dev))):
+        want = jpl._route_to_buckets(jnp.asarray(stacked), jnp.asarray(valid),
+                                     jnp.asarray(owner), n_dev, cap,
+                                     with_slots=True)
+        send, bvalid = jax_send(want, n_dev, cap, int(tpl.SENTINEL))[0][:, :C], \
+            np.asarray(want[1])
+        got = tpl.route_to_buckets(t64(stacked), torch.from_numpy(valid),
+                                   None if hashed else t64(owner), n_dev, cap,
+                                   with_slots=True, fill=int(tpl.SENTINEL),
+                                   with_valid=False)
+        assert got[0].shape == (n_dev, C, cap)
+        assert same(send.reshape(-1), got[0].reshape(-1))
+        assert same(np.asarray(want[2]).reshape(-1), got[1].reshape(-1))
+        assert same(np.asarray(want[3]).reshape(-1), got[2].reshape(-1))
+        np.testing.assert_array_equal(
+            (got[0] != tpl.SENTINEL).any(1).numpy(), bvalid)
 
 
 def test_form_superkmers_row_lengths():
