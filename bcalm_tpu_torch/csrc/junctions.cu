@@ -20,8 +20,12 @@
 // key is a sentinel when every word is the all-sentinel packing.  A group
 // of exactly two entries (one OUT, one IN, on distinct vertices) sets
 // succ[src] = dst and the mirror edge succ[mirror(dst)] = mirror(src).
-// Every oriented node has one out-end, so no two threads write one slot;
-// succ starts as one memset to -1.
+// Those stores go by window, as junction_scatter's (below): the pair rule
+// runs inside the bin pass (PairEdges), which stages each edge's two
+// words in its window's bin, and a block a window then writes succ whole,
+// -1 where no edge lands: no memset of succ and no random store into it.
+// The windows rely on one invariant: every oriented node has one out-end
+// and one in-end, so no two words name one slot of succ.
 //
 // The sharded glue of the -devices N build (global mode) replaces
 // bcalm_tpu/parallel/distcompact.py:_local_succ_shard (:53) around its
@@ -51,7 +55,7 @@
 // writes per sorted entry ok, the edge (src, dst) and the rank owning
 // src's slot (-1, -1, 0 where not ok), the next exchange's input.
 // junction_scatter, at src's owner, writes each received edge into the
-// rank's successor shard by windows of 8192 slots (below): a pass that
+// rank's successor shard by windows of 16384 slots (below): a pass that
 // bins the edges into their windows, then a block a window that builds
 // the window in shared memory and writes it whole, -1 where no edge
 // lands, so the table is written once, in whole sectors, with no memset.
@@ -68,14 +72,14 @@
 // lane loop runs over the array's compile-time width with the live lanes
 // as a predicate, so the arrays stay in registers.  A thread's loads and
 // stores are consecutive columns of each row: coalesced per warp.
-// junction_pairs loads each sorted word once, into a shared tile of 1024
-// entries with a halo of one before and two after, and compares there
-// (for a three-row key it reads the second word through perm with the
-// same load: a random 32-byte sector per entry); only a pair head (about
-// half the valid entries) reads perm[i], perm[i+1] and the two payloads
-// (random sectors), and a pair makes two random 8-byte stores.  Its bytes
-// are the word (8 per entry), those sectors, the memset (16 per k-mer)
-// and the stores' sectors.  In the global mode junction_words reads a
+// junction_pairs loads each sorted word once (neighbours by shuffle, a
+// warp's edge entries again from L1; for a three-row key the second word
+// through perm: a random 32-byte sector per entry); only a pair head
+// (about half the valid entries) reads perm[i], perm[i+1] and the two
+// payloads (random sectors).  Its bytes are the word (8 per entry),
+// those sectors and succ written once (16 per k-mer); its bins write 8
+// bytes a word into succ's own slots and the windows read them back.  In
+// the global mode junction_words reads a
 // validity byte per received slot and (K+1)*8 bytes per valid one, and
 // writes (ceil(K/2)+1)*8 per valid one; junction_edges reads the sorted word (8 per entry; a lower word through
 // perm, a random sector, only where top words tie) and a pair head's perm
@@ -204,79 +208,10 @@ void launch_keys(const int64_t* solid, long long stride, long long C,
       solid, stride, C, n_solid, k, hashed, keys, kstride, payload, lanes);
 }
 
-// Entries per junction_pairs block: kPairItems per thread, item q of
+// Entries per junction_edges block: kPairItems per thread, item q of
 // thread t being entry base + q * kThreads + t (coalesced per warp).
 constexpr int kPairItems = 4;
 constexpr int kPairTile = bt::kThreads * kPairItems;
-
-// The sorted words of a tile and its halo: slot j holds entry base - 1 + j,
-// for j in [0, kPairTile + 3).  kTwo: the key's second word, read through
-// perm in the same load.
-template <bool kTwo>
-__global__ void __launch_bounds__(bt::kThreads)
-junction_pairs_kernel(const int64_t* __restrict__ w0,
-                      const int64_t* __restrict__ w1,
-                      const int64_t* __restrict__ perm,
-                      const int64_t* __restrict__ pay, long long E,
-                      long long C, int hashed, long long sent0,
-                      long long sent1, int shift, int64_t* __restrict__ succ) {
-  __shared__ long long s0[kPairTile + 3];
-  __shared__ long long s1[kTwo ? kPairTile + 3 : 1];
-  const long long base = static_cast<long long>(blockIdx.x) * kPairTile;
-  for (int j = threadIdx.x; j < kPairTile + 3; j += bt::kThreads) {
-    const long long e = base - 1 + j;
-    if (e >= 0 && e < E) {
-      s0[j] = w0[e];
-      if constexpr (kTwo) s1[j] = w1[perm[e]];
-    }
-  }
-  __syncthreads();
-  auto same = [&](int a, int b) {
-    if constexpr (kTwo) return s0[a] == s0[b] && s1[a] == s1[b];
-    else return s0[a] == s0[b];
-  };
-  const long long sent_hi = sent0 >> shift;
-  bool head[kPairItems];
-  long long pa[kPairItems], pb[kPairItems];
-#pragma unroll
-  for (int q = 0; q < kPairItems; ++q) {
-    const int j = q * bt::kThreads + threadIdx.x + 1;  // slot of entry i
-    const long long i = base + j - 1;
-    head[q] = false;
-    if (i + 1 >= E) continue;  // a pair head has a partner at i+1
-    const bool valid = hashed ? !(s0[j] == sent0 && s1[kTwo ? j : 0] == sent1)
-                              : (s0[j] >> shift) != sent_hi;
-    head[q] = valid && same(j, j + 1) && !(i > 0 && same(j - 1, j)) &&
-              !(i + 2 < E && same(j + 1, j + 2));
-  }
-  // only a pair head reads the permutation and the two payloads
-#pragma unroll
-  for (int q = 0; q < kPairItems; ++q) {
-    if (!head[q]) continue;
-    const long long i = base + q * bt::kThreads + threadIdx.x;
-    pa[q] = perm[i];
-    pb[q] = perm[i + 1];
-  }
-#pragma unroll
-  for (int q = 0; q < kPairItems; ++q) {
-    if (!head[q]) continue;
-    pa[q] = pay[pa[q]];
-    pb[q] = pay[pb[q]];
-  }
-#pragma unroll
-  for (int q = 0; q < kPairItems; ++q) {
-    if (!head[q]) continue;
-    const long long role_a = pa[q] >> kRoleShift, role_b = pb[q] >> kRoleShift;
-    const long long oid_a = pa[q] & kOidMask, oid_b = pb[q] & kOidMask;
-    const long long vert_a = oid_a >= C ? oid_a - C : oid_a;
-    const long long vert_b = oid_b >= C ? oid_b - C : oid_b;
-    if (role_a == role_b || vert_a == vert_b) continue;
-    const long long src = role_a == 0 ? oid_a : oid_b;
-    const long long dst = role_a == 0 ? oid_b : oid_a;
-    succ[src] = dst;
-    succ[dst >= C ? dst - C : dst + C] = src >= C ? src - C : src + C;
-  }
-}
 
 template <int L>
 __global__ void junction_entries_kernel(
@@ -487,10 +422,12 @@ junction_edges_kernel(const int64_t* __restrict__ top,
 // b << kWinShift | (at's offset in the window).
 // scatter_bin_kernel: a block stages the edges of up to kStageWin windows
 // (blockIdx.y picks which; a table of more windows costs a pass over the
-// received edges for each kStageWin of them) in shared memory,
-// kStageCap words a window, while it walks the tiles of kBinTile received
-// slots blockIdx.x, blockIdx.x + gridDim.x, ... (item q of thread t: slot
-// q * kBinThreads + t); after each tile it moves every window's whole
+// edge source for each kStageWin of them) in shared memory, kStageCap
+// words a window, while it walks the tiles of kBinThreads * kItems items
+// of its edge source (ReceivedEdges: the received slots; PairEdges: the
+// sorted entries, one edge and its mirror a pair head) blockIdx.x,
+// blockIdx.x + gridDim.x, ... (item q of thread t: item q * kBinThreads +
+// t); after each tile it moves every window's whole
 // 32-byte groups of 4 words to the bottom of the window's bin (one global
 // atomic on the window's bottom count, 16-byte stores: whole sectors,
 // never a part of one) and keeps the rest (at most 3) for the next tile.
@@ -510,7 +447,6 @@ constexpr int kWinThreads = 1024;
 constexpr int kWinItems = static_cast<int>(kWin / kWinThreads);
 constexpr int kBinThreads = 1024;
 constexpr int kBinItems = 4;
-constexpr long long kBinTile = kBinThreads * kBinItems;   // 4096 slots
 constexpr int kStageWin = 1024;
 constexpr int kStageCap = 16;   // words a window: 128 KB of stage a block
 constexpr size_t kStageBytes =
@@ -532,12 +468,150 @@ __device__ __forceinline__ long long win_width(long long w, long long T) {
   return rest < kWin ? rest : kWin;
 }
 
+// The edges of junction_scatter: received slot i holds edge (edges[i],
+// edges[R + i]) where ev[i] is set; at is its source's local id.
+struct ReceivedEdges {
+  static constexpr int kItems = kBinItems;   // items a thread
+  static constexpr int kPer = 1;             // edges an item
+  const int64_t* edges;
+  const uint8_t* ev;
+  long long R, tot, base, slot_cap, T;
+
+  template <int Q>
+  __device__ __forceinline__ void load(long long first,
+                                       long long (&at)[Q][kPer],
+                                       long long (&b)[Q][kPer]) const {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const long long i = first + q * kBinThreads;
+      at[q][0] = i < R && ev[i] ? 0 : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (at[q][0] < 0) continue;
+      const long long i = first + q * kBinThreads;
+      at[q][0] = local_id(edges[i], tot, base, slot_cap, T);
+      b[q][0] = edges[R + i];
+    }
+  }
+};
+
+// The edges of junction_pairs, found on the sort's own output: sorted
+// entry i is a pair head when its key is valid and equals entry i+1's
+// and neither i-1's nor i+2's; a head's two payloads (through perm) give
+// the edge src -> dst (one OUT and one IN on distinct vertices) and its
+// mirror mirror(dst) -> mirror(src); at is the oriented id itself (the
+// table is the whole 2C successor array).  Neighbouring keys come by
+// shuffle, a warp's edge entries from memory; kTwo: the key's second
+// word, read through perm.
+template <bool kTwo>
+struct PairEdges {
+  // 2 items a thread: at 4 the pair rule's registers spilled under the
+  // bin kernel's 64-register cap (0.63 against 0.48 device ms on an H100
+  // SXM, 16.8 M entries)
+  static constexpr int kItems = 2;
+  static constexpr int kPer = 2;
+  const int64_t* w0;
+  const int64_t* w1;
+  const int64_t* perm;
+  const int64_t* pay;
+  long long E, C, sent0, sent1;
+  int hashed, shift;
+
+  __device__ __forceinline__ long long second(long long e) const {
+    if constexpr (kTwo) return w1[perm[e]];
+    else return 0;
+  }
+
+  __device__ __forceinline__ bool valid(long long a0, long long a1) const {
+    return hashed ? !(a0 == sent0 && a1 == sent1)
+                  : (a0 >> shift) != (sent0 >> shift);
+  }
+
+  template <int Q>
+  __device__ __forceinline__ void load(long long first,
+                                       long long (&at)[Q][kPer],
+                                       long long (&b)[Q][kPer]) const {
+    const int lane = threadIdx.x & 31;
+    long long x0[Q], x1[Q];  // entry i's key words
+    long long n0[Q], n1[Q];  // lane 0: entry i-1's; lane 31: entry i+1's
+    long long m0[Q], m1[Q];  // lane 31: entry i+2's
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const long long i = first + q * kBinThreads;
+      const long long e = lane == 0 ? i - 1 : i + 1;
+      const bool edge = (lane == 0 || lane == 31) && e >= 0 && e < E;
+      x0[q] = i < E ? w0[i] : 0;
+      n0[q] = edge ? w0[e] : 0;
+      m0[q] = lane == 31 && i + 2 < E ? w0[i + 2] : 0;
+      x1[q] = n1[q] = m1[q] = 0;
+      if constexpr (kTwo) {
+        if (i < E) x1[q] = second(i);
+        if (edge) n1[q] = second(e);
+        if (lane == 31 && i + 2 < E) m1[q] = second(i + 2);
+      }
+    }
+    bool head[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const long long i = first + q * kBinThreads;
+      // eqn: entry i equals entry i+1 (both exist)
+      long long y0 = __shfl_down_sync(0xFFFFFFFFu, x0[q], 1);
+      long long y1 = __shfl_down_sync(0xFFFFFFFFu, x1[q], 1);
+      if (lane == 31) {
+        y0 = n0[q];
+        y1 = n1[q];
+      }
+      const bool eqn = i + 1 < E && x0[q] == y0 && x1[q] == y1;
+      bool eqp = __shfl_up_sync(0xFFFFFFFFu, eqn, 1);      // i-1 equals i
+      bool eqnn = __shfl_down_sync(0xFFFFFFFFu, eqn, 1);   // i+1 equals i+2
+      if (lane == 0) eqp = i > 0 && i < E && n0[q] == x0[q] && n1[q] == x1[q];
+      if (lane == 31) eqnn = i + 2 < E && n0[q] == m0[q] && n1[q] == m1[q];
+      head[q] = eqn && valid(x0[q], x1[q]) && !eqp && !eqnn;
+    }
+    // only a pair head reads the permutation and the two payloads
+    long long pa[Q], pb[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const long long i = first + q * kBinThreads;
+      if (head[q]) {
+        pa[q] = perm[i];
+        pb[q] = perm[i + 1];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (head[q]) {
+        pa[q] = pay[pa[q]];
+        pb[q] = pay[pb[q]];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      at[q][0] = at[q][1] = -1;
+      if (!head[q]) continue;
+      const long long role_a = pa[q] >> kRoleShift, role_b = pb[q] >> kRoleShift;
+      const long long oid_a = pa[q] & kOidMask, oid_b = pb[q] & kOidMask;
+      const long long vert_a = oid_a >= C ? oid_a - C : oid_a;
+      const long long vert_b = oid_b >= C ? oid_b - C : oid_b;
+      if (role_a == role_b || vert_a == vert_b) continue;
+      const long long src = role_a == 0 ? oid_a : oid_b;
+      const long long dst = role_a == 0 ? oid_b : oid_a;
+      at[q][0] = src;
+      b[q][0] = dst;
+      at[q][1] = dst >= C ? dst - C : dst + C;
+      b[q][1] = src >= C ? src - C : src + C;
+    }
+  }
+};
+
+template <class Edges>
 __global__ void __launch_bounds__(kBinThreads)
-scatter_bin_kernel(const int64_t* __restrict__ edges,
-                   const uint8_t* __restrict__ ev, long long R, long long tot,
-                   long long base, long long slot_cap, long long T,
-                   long long nwin, int* __restrict__ bottom,
-                   int* __restrict__ top, int64_t* __restrict__ table) {
+scatter_bin_kernel(Edges src, long long R, long long T, long long nwin,
+                   int* __restrict__ bottom, int* __restrict__ top,
+                   int64_t* __restrict__ table) {
+  constexpr int kQ = Edges::kItems, kPer = Edges::kPer;
+  constexpr long long kTileN = static_cast<long long>(kBinThreads) * kQ;
   extern __shared__ long long s_stage[];   // kStageWin x kStageCap words
   int* s_len = reinterpret_cast<int*>(s_stage + kStageWin * kStageCap);
   const long long w_lo = static_cast<long long>(blockIdx.y) * kStageWin;
@@ -545,43 +619,39 @@ scatter_bin_kernel(const int64_t* __restrict__ edges,
                                                            : kStageWin);
   for (int w = threadIdx.x; w < n_w; w += kBinThreads) s_len[w] = 0;
   __syncthreads();
-  const long long tiles = (R + kBinTile - 1) / kBinTile;
+  const long long tiles = (R + kTileN - 1) / kTileN;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long first = tile * kBinTile + threadIdx.x;
-    long long at[kBinItems];
-#pragma unroll
-    for (int q = 0; q < kBinItems; ++q) {
-      const long long i = first + q * kBinThreads;
-      at[q] = i < R && ev[i] ? 0 : -1;
-    }
-    long long b[kBinItems];
+    const long long first = tile * kTileN + threadIdx.x;
+    long long at[kQ][kPer], b[kQ][kPer];
+    src.template load<kQ>(first, at, b);
     bool any = false;
 #pragma unroll
-    for (int q = 0; q < kBinItems; ++q) {
-      if (at[q] == 0) {
-        at[q] = local_id(edges[first + q * kBinThreads], tot, base, slot_cap,
-                         T);
-        b[q] = edges[R + first + q * kBinThreads];
-        const long long w = at[q] >> kWinShift;
-        if (w < w_lo || w >= w_lo + n_w) at[q] = -1;
+    for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const long long w = at[q][e] >> kWinShift;
+        if (at[q][e] >= 0 && (w < w_lo || w >= w_lo + n_w)) at[q][e] = -1;
+        any |= at[q][e] >= 0;
       }
-      any |= at[q] >= 0;
     }
     if (!__syncthreads_or(any)) continue;
 #pragma unroll
-    for (int q = 0; q < kBinItems; ++q) {
-      if (at[q] < 0) continue;
-      const long long word = static_cast<long long>(
-          (static_cast<unsigned long long>(b[q]) << kWinShift) |
-          static_cast<unsigned long long>(at[q] & (kWin - 1)));
-      const long long gw = at[q] >> kWinShift;
-      const int w = static_cast<int>(gw - w_lo);
-      const int r = atomicAdd(&s_len[w], 1);
-      if (r < kStageCap) {
-        s_stage[w * kStageCap + r] = word;
-      } else {   // the stage is full: straight to the top of the bin
-        const long long pos = win_width(gw, T) - 1 - atomicAdd(&top[gw], 1);
-        if (pos >= 0) table[(gw << kWinShift) + pos] = word;
+    for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        if (at[q][e] < 0) continue;
+        const long long word = static_cast<long long>(
+            (static_cast<unsigned long long>(b[q][e]) << kWinShift) |
+            static_cast<unsigned long long>(at[q][e] & (kWin - 1)));
+        const long long gw = at[q][e] >> kWinShift;
+        const int w = static_cast<int>(gw - w_lo);
+        const int r = atomicAdd(&s_len[w], 1);
+        if (r < kStageCap) {
+          s_stage[w * kStageCap + r] = word;
+        } else {   // the stage is full: straight to the top of the bin
+          const long long pos = win_width(gw, T) - 1 - atomicAdd(&top[gw], 1);
+          if (pos >= 0) table[(gw << kWinShift) + pos] = word;
+        }
       }
     }
     __syncthreads();
@@ -594,8 +664,8 @@ scatter_bin_kernel(const int64_t* __restrict__ edges,
         const long long p = atomicAdd(&bottom[gw], m);
         if (p + m <= win_width(gw, T)) {
           auto* dst = reinterpret_cast<longlong2*>(table + (gw << kWinShift) + p);
-          const auto* src = reinterpret_cast<const longlong2*>(st);
-          for (int j = 0; j < m / 2; ++j) dst[j] = src[j];
+          const auto* src2 = reinterpret_cast<const longlong2*>(st);
+          for (int j = 0; j < m / 2; ++j) dst[j] = src2[j];
         }
         for (int j = m; j < len; ++j) st[j - m] = st[j];
       }
@@ -653,6 +723,47 @@ scatter_window_kernel(const int* __restrict__ bottom,
   }
 }
 
+// The T-slot table of the edges of src's R items, by windows: the memset
+// of the windows' counts (2 * ceil(T / kWin) ints: each window's bottom
+// and top count), the bins, the windows.  Every slot is written.
+template <class Edges>
+int scatter_windows(const Edges& src, long long R, long long T, int* counts,
+                    int64_t* table, cudaStream_t s) {
+  if (T == 0) return 0;
+  if (T > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nwin = (T + kWin - 1) / kWin;
+  cudaError_t err = cudaMemsetAsync(counts, 0, 2 * nwin * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles =
+      (R + kBinThreads * Edges::kItems - 1) / (kBinThreads * Edges::kItems);
+  if (tiles > 0) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(scatter_bin_kernel<Edges>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kStageBytes));
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned int>(tiles < sms ? tiles : sms),
+                    static_cast<unsigned int>((nwin + kStageWin - 1) / kStageWin));
+    scatter_bin_kernel<Edges><<<grid, kBinThreads, kStageBytes, s>>>(
+        src, R, T, nwin, counts, counts + nwin, table);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int smem = static_cast<int>(kWin * sizeof(long long));
+  err = cudaFuncSetAttribute(scatter_window_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter_window_kernel<<<static_cast<unsigned int>(nwin), kWinThreads, smem,
+                          s>>>(counts, counts + nwin, table, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int bt_junction_keys(const int64_t* solid, long long stride,
@@ -666,29 +777,25 @@ extern "C" int bt_junction_keys(const int64_t* solid, long long stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// succ: 2C slots, set to -1 here (one memset), then the pairs' edges.
-// w1: null unless the key packs into two words.
+// succ: 2C slots, every one written (-1 where no edge lands); counts:
+// 2 * ceil(2C / 16384) ints of scratch (scatter_windows).  w1: null
+// unless the key packs into two words.  Three device operations: the
+// memset of the counts, the pair rule with its bins, the windows.
 extern "C" int bt_junction_pairs(const int64_t* w0, const int64_t* w1,
                                  const int64_t* perm, const int64_t* pay,
                                  long long E, long long C, int hashed,
                                  long long sent0, long long sent1, int shift,
-                                 int64_t* succ, void* stream) {
+                                 int* counts, int64_t* succ, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C > 0) {
-    cudaError_t err = cudaMemsetAsync(succ, 0xFF, 2 * C * sizeof(int64_t), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (E < 2) return 0;
-  const unsigned int grid =
-      static_cast<unsigned int>((E + kPairTile - 1) / kPairTile);
+  const long long R = E < 2 ? 0 : E;   // a pair needs two entries
   if (w1 != nullptr) {
-    junction_pairs_kernel<true><<<grid, bt::kThreads, 0, s>>>(
-        w0, w1, perm, pay, E, C, hashed, sent0, sent1, shift, succ);
-  } else {
-    junction_pairs_kernel<false><<<grid, bt::kThreads, 0, s>>>(
-        w0, w1, perm, pay, E, C, hashed, sent0, sent1, shift, succ);
+    const PairEdges<true> src{w0, w1, perm, pay, E, C, sent0, sent1, hashed,
+                              shift};
+    return scatter_windows(src, R, 2 * C, counts, succ, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  const PairEdges<false> src{w0, w1, perm, pay, E, C, sent0, sent1, hashed,
+                             shift};
+  return scatter_windows(src, R, 2 * C, counts, succ, s);
 }
 
 // keys (K rows, stride kstride) and payload: the (K+1, 4N) stack; valid:
@@ -755,38 +862,7 @@ extern "C" int bt_junction_scatter(const int64_t* edges, const uint8_t* ev,
                                    long long slot_cap, int* counts,
                                    int64_t* table, void* stream) {
   const long long T = 2 * slot_cap;
-  if (T == 0) return 0;
-  if (T > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long nwin = (T + kWin - 1) / kWin;
-  cudaError_t err = cudaMemsetAsync(counts, 0, 2 * nwin * sizeof(int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (R + kBinTile - 1) / kBinTile;
-  if (tiles > 0) {
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(scatter_bin_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kStageBytes));
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned int>(tiles < sms ? tiles : sms),
-                    static_cast<unsigned int>((nwin + kStageWin - 1) / kStageWin));
-    scatter_bin_kernel<<<grid, kBinThreads, kStageBytes, s>>>(
-        edges, ev, R, tot, base, slot_cap, T, nwin, counts, counts + nwin,
-        table);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int smem = static_cast<int>(kWin * sizeof(long long));
-  err = cudaFuncSetAttribute(scatter_window_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_window_kernel<<<static_cast<unsigned int>(nwin), kWinThreads, smem,
-                          s>>>(counts, counts + nwin, table, T);
-  return static_cast<int>(cudaGetLastError());
+  const ReceivedEdges src{edges, ev, R, tot, base, slot_cap, T};
+  return scatter_windows(src, R, T, counts, table,
+                         static_cast<cudaStream_t>(stream));
 }

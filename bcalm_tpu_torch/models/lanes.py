@@ -141,6 +141,36 @@ def pack_keys(cols: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return keys
 
 
+def pack_rows(lanes: torch.Tensor) -> torch.Tensor:
+    """(L, N) u32 lanes -> the (ceil(L/2), N) rows of :func:`pack_keys`
+    in one tensor (one pass for all the pairs; at one lane, the lanes
+    themselves)."""
+    L = lanes.shape[0]
+    if L == 1:
+        return lanes
+    out = torch.empty(((L + 1) // 2,) + tuple(lanes.shape[1:]),
+                      dtype=torch.int64, device=lanes.device)
+    pairs = out[:L // 2]
+    torch.sub(lanes[0:L - 1:2], _BIAS, out=pairs)
+    pairs <<= 32
+    pairs |= lanes[1:L:2]
+    if L % 2:
+        out[-1] = lanes[-1]
+    return out
+
+
+def unpack_keys(words: Sequence[torch.Tensor], L: int) -> torch.Tensor:
+    """The inverse of :func:`pack_keys`: ceil(L/2) packed words -> (L, ...)
+    u32 lanes."""
+    rows = []
+    for j, w in enumerate(words):
+        if 2 * j + 1 < L:
+            rows += [(w >> 32) + _BIAS, w & U32]
+        else:
+            rows.append(w)
+    return torch.stack(rows)
+
+
 def lanes_to_int(lanes) -> int:
     """One k-mer's L u32 lane values (host) -> its integer, first base most
     significant (bcalm_tpu.models.lanes.lanes_to_int)."""

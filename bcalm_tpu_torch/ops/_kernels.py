@@ -36,10 +36,11 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-# kernel name (K21: each of its modes; K15: its hash mode apart) ->
-# launches since the last reset_launches()
+# kernel name (K21: each of its modes; K15: its hash mode apart; K2: its
+# weighted calls, the LSM merges, apart) -> launches since the last
+# reset_launches()
 LAUNCHES = {"extract_insert": 0, "extract_insert_ranged": 0,
-            "count_runs": 0, "junction_keys": 0,
+            "count_sorted": 0, "count_sorted_weighted": 0, "junction_keys": 0,
             "junction_pairs": 0, "jump_round": 0, "range_fold": 0,
             "lower_bound": 0, "solid_fold_histogram": 0, "run_scans": 0,
             "solid_compact": 0, "chain_finish": 0, "spell_unitigs": 0,
@@ -58,12 +59,13 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "bt_extract_insert": [_P, _I64, _P, _P, _I32, _I32, _I32, _I32, _I32,
                           ctypes.c_uint, _P, _I64, _P, _P, _P],
-    "bt_count_runs": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _I64, _P, _P,
-                      _P],
+    "bt_count_sorted": [_P, _P, _P, _I64, _I32, _I64, _P, _P, _P, _I64,
+                        ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _I64, _P,
+                        _P, _P, _P],
     "bt_junction_keys": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _I64, _P,
                          _P],
     "bt_junction_pairs": [_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
-                          _P, _P],
+                          _P, _P, _P],
     "bt_jump_round": [_P, _P, _I64, _P, _P, _P],
     "bt_range_fold": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P],
     "bt_lower_bound": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _P],
@@ -111,6 +113,7 @@ HIER_TILE = 2048  # rows per selection tile of csrc/hier.cu (K18)
 FINISH_TILE = 1024  # nodes per selection tile of csrc/finish.cu (K10)
 RUNSCAN_TILE = 2048  # entries per look-back tile of csrc/runscan.cu (K8)
 COUNT_TILE = 2048  # columns per tile of csrc/count.cu
+COUNT_EPOCHS = 1 << 30  # csrc/count.cu: a status word's epoch has 30 bits
 WORDS_TILE = 4096  # received slots per look-back tile of junction_words
 SCATTER_WINDOW = 16384  # csrc/junctions.cu kWin: table slots per window
 MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
@@ -118,6 +121,9 @@ MAX_LANES = MAX_K // 16  # csrc/common.cuh kMaxLanes: every k the port takes
 _lib = None
 _FNS = {}  # C function name -> its bound ctypes function (load())
 _SCRATCH = {}  # device index -> K5's (sum, ticket) pair (_fold_scratch)
+# device index -> K2's [workspace, capacity in tiles, tiles taken,
+# launches] (_count_work)
+_COUNT_WORK = {}
 
 
 def reset_launches() -> None:
@@ -284,40 +290,81 @@ def extract_insert(buf: torch.Tensor, words: torch.Tensor,
     LAUNCHES["extract_insert_ranged" if ranged else "extract_insert"] += 1
 
 
-def count_runs(s_lanes: torch.Tensor, weights, pos):
-    """K2 on sorted (L, N) lanes: returns (unique, counts, minpos|None,
-    n_unique 0-d tensor).  One launch, and one fill of its tile flags."""
-    _check(s_lanes, "s_lanes", ndim=2)
-    L, N = s_lanes.shape
-    _lanes_ok(L, "count_runs")
+def _count_work(device: torch.device, tiles: int):
+    """K2's workspace on this card and the arguments of the next launch
+    on it: (workspace, its capacity in tiles, the tiles taken before this
+    launch, this launch's epoch).  The workspace is zeroed once when made
+    (again when a launch needs more tiles than it holds, or the epochs
+    run out) and never cleared between launches: each launch's status
+    words carry its epoch."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    st = _COUNT_WORK.get(key)
+    if st is None or st[1] < tiles or st[3] + 1 >= COUNT_EPOCHS:
+        cap = max(tiles, 2 * st[1] if st is not None else 1024)
+        st = _COUNT_WORK[key] = [
+            torch.zeros((1 + 3 * cap,), dtype=torch.int64,
+                        device=torch.device("cuda", key)), cap, 0, 0]
+    st[3] += 1
+    base = st[2]
+    st[2] += tiles
+    return st[0], st[1], base, st[3]
+
+
+def count_sorted(top: torch.Tensor, perm: torch.Tensor, lower, L: int,
+                 weights, pos):
+    """K2 on the sort's own output: top, the (N,) top packed key word in
+    sorted order (sort.lex_sort_words over models.lanes.pack_rows); perm,
+    the sort's permutation; lower, the (ceil(L/2) - 1, N) lower packed
+    words in entry order (None at 1 or 2 lanes); weights and pos (N,) in
+    entry order, or None.  Returns (unique (L, N), counts, minpos|None,
+    n_unique 0-d tensor).  One launch, no fill: the workspace's status
+    words carry the launch's epoch (_count_work)."""
+    _check(top, "top", ndim=1)
+    _check(perm, "perm", ndim=1)
+    N = top.shape[0]
+    _lanes_ok(L, "count_sorted")
+    W = (L + 1) // 2
+    if perm.shape[0] != N:
+        raise ValueError("count_sorted: top and perm differ in length")
+    if (lower is None) != (W == 1):
+        raise ValueError(f"count_sorted: {L} lanes take {W - 1} lower words")
+    if lower is not None:
+        _check(lower, "lower", ndim=2, rows_strided=True)
+        if lower.shape != (W - 1, N):
+            raise ValueError(f"count_sorted: lower is {tuple(lower.shape)}, "
+                             f"expected {(W - 1, N)}")
     for t, name in ((weights, "weights"), (pos, "pos")):
         if t is not None:
             _check(t, name, ndim=1)
             if t.shape[0] != N:
-                raise ValueError(f"count_runs: {name} has {t.shape[0]} "
-                                 f"columns, the lanes {N}")
-    dev = s_lanes.device
+                raise ValueError(f"count_sorted: {name} has {t.shape[0]} "
+                                 f"columns, the keys {N}")
+    if N >= 2**32:
+        raise ValueError("count_sorted: N >= 2^32 (a status word holds 32 "
+                         "bits of heads)")
+    dev = top.device
     if N == 0:
-        empty = s_lanes.new_zeros((0,))
-        return (s_lanes.new_zeros((L, 0)), empty,
-                None if pos is None else empty.clone(), s_lanes.new_zeros(()))
+        empty = top.new_zeros((0,))
+        return (top.new_zeros((L, 0)), empty,
+                None if pos is None else empty.clone(), top.new_zeros(()))
     # the kernel writes every column: the runs, then the tail
     unique = torch.empty((L, N), dtype=torch.int64, device=dev)
     counts = torch.empty((N,), dtype=torch.int64, device=dev)
     minpos = (torch.empty((N,), dtype=torch.int64, device=dev)
               if pos is not None else None)
-    # [0] n_unique, [1] the tile ticket, then a status word per tile
-    # (zeroed), then 2 summary words per tile
-    tiles = -(-N // COUNT_TILE)
-    scratch = torch.empty((2 + 3 * tiles,), dtype=torch.int64, device=dev)
-    scratch[:2 + tiles].zero_()
-    _launch("bt_count_runs", s_lanes.data_ptr(), s_lanes.stride(0), N, L,
+    n_unique = torch.empty((1,), dtype=torch.int64, device=dev)
+    work, cap, base, epoch = _count_work(dev, -(-N // COUNT_TILE))
+    _launch("bt_count_sorted", top.data_ptr(), perm.data_ptr(),
+            None if lower is None else lower.data_ptr(),
+            0 if lower is None else lower.stride(0), L, N,
             None if weights is None else weights.data_ptr(),
-            None if pos is None else pos.data_ptr(), scratch.data_ptr(),
-            unique.data_ptr(), unique.stride(0), counts.data_ptr(),
-            None if minpos is None else minpos.data_ptr())
-    LAUNCHES["count_runs"] += 1
-    return unique, counts, minpos, scratch[0]
+            None if pos is None else pos.data_ptr(), work.data_ptr(), cap,
+            base, epoch, unique.data_ptr(), unique.stride(0),
+            counts.data_ptr(), None if minpos is None else minpos.data_ptr(),
+            n_unique.data_ptr())
+    LAUNCHES["count_sorted" if weights is None else "count_sorted_weighted"] += 1
+    return unique, counts, minpos, n_unique[0]
 
 
 def junction_keys(solid: torch.Tensor, n_solid: int, k: int, hashed: bool,
@@ -343,7 +390,9 @@ def junction_pairs(s_word: torch.Tensor, perm: torch.Tensor,
     """K3b on the sort's output: the (2C,) successor array (-1 = none).
     s_word: the top packed key word in sorted order; perm: the sort's
     permutation; payload and word2 (the second word of a three-row key, or
-    None): in entry order.  One C call: a memset of succ and the kernel."""
+    None): in entry order.  One C call: the memset of the windows' counts,
+    the pair rule binning each edge and its mirror by 16384-slot window of
+    succ, and a block a window writing it whole (no memset of succ)."""
     from .junctions import sentinel_words
 
     for t, name in ((s_word, "s_word"), (perm, "perm"), (payload, "payload")):
@@ -359,13 +408,18 @@ def junction_pairs(s_word: torch.Tensor, perm: torch.Tensor,
         _check(word2, "word2", ndim=1)
         if word2.shape[0] != E:
             raise ValueError("junction_pairs: word2 differs in length")
+    if not 0 <= 2 * C < 2**31:
+        raise ValueError(f"junction_pairs: 2C = {2 * C} slots")
     succ = torch.empty((2 * C,), dtype=torch.int64, device=s_word.device)
+    # each window's bottom count, then each window's top count
+    counts = torch.empty((2 * -(-2 * C // SCATTER_WINDOW),), dtype=torch.int32,
+                         device=s_word.device)
     sent0, sent1, shift = sentinel_words(K)
-    _launch("bt_junction_pairs", s_word.data_ptr(),
-            None if word2 is None else word2.data_ptr(), perm.data_ptr(),
-            payload.data_ptr(), E, C, int(hashed), sent0, sent1, shift,
-            succ.data_ptr())
-    if E >= 2:
+    if C:
+        _launch("bt_junction_pairs", s_word.data_ptr(),
+                None if word2 is None else word2.data_ptr(), perm.data_ptr(),
+                payload.data_ptr(), E, C, int(hashed), sent0, sent1, shift,
+                counts.data_ptr(), succ.data_ptr())
         LAUNCHES["junction_pairs"] += 1
     return succ
 

@@ -8,9 +8,10 @@ _settle_n).  Lanes are lane-major (L, N) int64 tensors holding u32
 values; invalid columns are folded to the all-ones sentinel, which sorts
 after every canonical k-mer and compares above every range bound.
 
-:func:`count_canonical` sorts with ``torch.sort`` (ops.sort) and reduces
-the sorted runs with :func:`count_runs`.  Each kernel entry here
-(count_runs, range_fold, lower_bound, solid_fold_histogram, solid_compact,
+:func:`count_canonical` sorts the packed keys with ``torch.sort``
+(ops.sort) and reduces the sorted runs with :func:`count_sorted`, which
+reads the sort's own output.  Each kernel entry here (count_sorted,
+range_fold, lower_bound, solid_fold_histogram, solid_compact,
 filter_abundance)
 launches its CUDA kernel (csrc/{count,ranges,solid,compact}.cu) for CUDA
 tensors and runs its
@@ -38,7 +39,7 @@ def column_valid(lanes: torch.Tensor) -> torch.Tensor:
 
 def count_runs_plain(s_lanes: torch.Tensor, weights: Optional[torch.Tensor],
                      pos: Optional[torch.Tensor]):
-    """Plain PyTorch version of the K2 kernels: run heads of sorted (L, N)
+    """The run reduction of K2 on sorted columns: run heads of sorted (L, N)
     lanes, per-group weight sum (1 per column when unweighted) and min
     pos, compacted to the front.  Returns (unique (L,N) zero-filled,
     counts (N,), minpos (N,) sentinel-filled or None, n_unique tensor)."""
@@ -63,11 +64,25 @@ def count_runs_plain(s_lanes: torch.Tensor, weights: Optional[torch.Tensor],
     return unique, counts, minpos, n_unique
 
 
-def count_runs(s_lanes, weights=None, pos=None):
+def count_sorted_plain(top: torch.Tensor, perm: torch.Tensor, lower,
+                       L: int, weights: Optional[torch.Tensor] = None,
+                       pos: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K2 on the sort's own output (the contract
+    of _kernels.count_sorted): the sorted lanes unpacked from the top
+    word and the lower words gathered through perm, the weights and pos
+    gathered through perm, then :func:`count_runs_plain`."""
+    words = [top] + ([] if lower is None
+                     else [lower[j][perm] for j in range(lower.shape[0])])
+    return count_runs_plain(ln.unpack_keys(words, L),
+                            None if weights is None else weights[perm],
+                            None if pos is None else pos[perm])
+
+
+def count_sorted(top, perm, lower, L: int, weights=None, pos=None):
     """K2 entry: kernel for CUDA tensors, plain version for CPU tensors."""
-    if s_lanes.device.type == "cpu":
-        return count_runs_plain(s_lanes, weights, pos)
-    return _kernels.count_runs(s_lanes, weights, pos)
+    if top.device.type == "cpu":
+        return count_sorted_plain(top, perm, lower, L, weights, pos)
+    return _kernels.count_sorted(top, perm, lower, L, weights, pos)
 
 
 def count_canonical(lanes: torch.Tensor, weights: Optional[torch.Tensor] = None,
@@ -77,13 +92,15 @@ def count_canonical(lanes: torch.Tensor, weights: Optional[torch.Tensor] = None,
     lanes: (L, N); weights: optional (N,) per-column weights (merging
     counted runs); pos: optional (N,) first-occurrence keys, reduced by min.
     Returns (unique (L, N) sorted and compacted to the front, zero-filled;
-    counts (N,); minpos (N,) or None; n_unique 0-d tensor)."""
+    counts (N,); minpos (N,) or None; n_unique 0-d tensor).  K2 reads the
+    sort's own top word and permutation (and, past 2 lanes, the lower
+    packed words): no sorted copy of the lanes, weights or pos is made."""
     L = lanes.shape[0]
-    perm = sort_op.lex_argsort([lanes[j] for j in range(L)])
-    s_lanes = lanes[:, perm]
-    return count_runs(s_lanes,
-                      None if weights is None else weights[perm],
-                      None if pos is None else pos[perm])
+    keys = ln.pack_rows(lanes)
+    perm, top = sort_op.lex_sort_words(list(keys))
+    lower = keys[1:] if L > 2 else None
+    del keys   # at 1 or 2 lanes nothing reads it: freed before K2's outputs
+    return count_sorted(top, perm, lower, L, weights, pos)
 
 
 def lex_lt_plain(lanes: torch.Tensor, bound: Sequence[int]) -> torch.Tensor:

@@ -89,8 +89,12 @@ Phases (any failure raises, and the script exits non-zero):
    where one PyTorch call computes the same function, that call's time;
    K1 on phase 3's block, with per-row slot bases on phase 3f's received
    superkmers, in range mode on phase 3b's first range-mode block, and at
-   L = 10 and 16 on phase 3h's blocks; K2 also on phase 3b's first chunk
-   count, with 3b's launches (chunks and LSM merges); K5 on phase 3b's first chunk in
+   L = 10 and 16 on phase 3h's blocks; K2 (count_sorted, on the sort's
+   own output) on phase 3's, phase 3b's and phase 3f's first count and on
+   phase 3b's first LSM merge (weighted), each with the launches of its
+   kind in its run (the merges counted as count_sorted_weighted), its
+   bound counting the run's data (perm and the random sectors of pos,
+   weights and lower words only where a column needs its entry); K5 on phase 3b's first chunk in
    range mode (that block extracted without the range, the chunk a column
    slice), the same chunk at an odd stride, and the first chunk 3b owed a
    fold, if any; each K1 and K5 row with its device time and operations
@@ -148,8 +152,7 @@ Phases (any failure raises, and the script exits non-zero):
    kernel and the device time of its library call, beside their CUDA-event
    times, which include the launch path.  K3b's
    bound counts its own bytes: the sorted top word, the perm sectors and
-   random payload sectors its pair heads read, the memset of succ and
-   each edge's two random store sectors.
+   random payload sectors its pair heads read, and succ written once.
 
 The last line is {"ok": true, "device": {...}}.  Exits 1 without a result
 when no CUDA device is available.
@@ -168,7 +171,10 @@ example a parent commit, ``git archive``) and of this tree in turns on
 the phase 3 reads, resident and with ``-max-memory 2192``, after a
 warm-up run of each that builds its kernels and ingest library; before
 those runs, KERNEL_AB (below) times the L = 2 lane kernels, K1 at L = 10
-and in range mode, K2 at phase 3's shape (with pos, and weighted) beside
+and in range mode, the count step after the sort at phase 3's, 3b's
+chunk's, an LSM merge's, 3h's L = 10 and a 3f round's shapes (a tree
+whose K2 reads the sort's own output: that kernel; else the gathers of
+the sorted lanes, weights and pos, then the earlier kernel) beside
 torch.unique_consecutive, K3a at L = 10 and 16, K6, K9, K13 and K15 (and
 K15's hash mode with one exchange as the per-k-mer count makes it, the
 all_to_all a copy of the buffer, at 1 and 4 ranks), the
@@ -231,8 +237,8 @@ LONG_READ_LEN, LONG_COVERAGE = 300, 30.0
 KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
     "extract_insert": ("bcalm_tpu_torch/csrc/extract.cu",
                        "bcalm_tpu/engine.py:243"),
-    "count_runs": ("bcalm_tpu_torch/csrc/count.cu",
-                   "bcalm_tpu/ops/count.py:78"),
+    "count_sorted": ("bcalm_tpu_torch/csrc/count.cu",
+                     "bcalm_tpu/ops/count.py:78"),
     "junction_keys": ("bcalm_tpu_torch/csrc/junctions.cu",
                       "bcalm_tpu/ops/junctions.py:142"),
     "junction_pairs": ("bcalm_tpu_torch/csrc/junctions.cu",
@@ -320,29 +326,29 @@ L2_BYTES = 50 * 2**20
 COMPACT_POS = ("junction_keys", "junction_pairs", "run_scans", "run_contract",
                "jump_round", "chain_finish", "run_broadcast",
                "spell_unitigs") + HIER
-RESIDENT_PATH = ("extract_insert", "count_runs", "solid_fold_histogram",
+RESIDENT_PATH = ("extract_insert", "count_sorted", "solid_fold_histogram",
                  "solid_compact") + COMPACT_POS
-OOC_PATH = ("extract_insert", "extract_insert_ranged", "count_runs",
+OOC_PATH = ("extract_insert", "extract_insert_ranged", "count_sorted",
             "lower_bound") + COMPACT_POS
 SKIP_BCALM_PATH = COMPACT_POS
-CANONICAL_PATH = ("extract_insert", "count_runs", "junction_keys",
+CANONICAL_PATH = ("extract_insert", "count_sorted", "junction_keys",
                   "junction_pairs", "jump_round", "chain_finish",
                   "spell_unitigs") + HIER
 K21_MODES = tuple(f"glue_answer_{m}" for m in GLUE_ANSWER)
 MESH_PATH = ("form_superkmers", "mmer_histograms", "route_buckets",
-             "glue_compose", "extract_insert", "count_runs", "junction_keys",
+             "glue_compose", "extract_insert", "count_sorted", "junction_keys",
              "junction_words", "junction_pairs", "junction_scatter",
              "solid_fold_histogram", "run_scans", "spell_unitigs") + K21_MODES
 # the per-k-mer mesh entry points (phase 3g): the hash-routed count, the
 # per-k-mer minimizers of its solid set, the host-driven compactions
 ENTRY_PATH = ("extract_insert", "route_buckets_hash", "route_buckets",
-              "count_runs",
+              "count_sorted",
               "kmer_minimizers", "junction_keys", "junction_words",
               "junction_pairs", "junction_scatter", "run_scans",
               "glue_compose", "spell_unitigs") + K21_MODES
 # the long-k resident builds (phase 3h): the resident path, the jump
 # hierarchical only where the run graph reaches 2^18 nodes
-LONGK_PATH = ("extract_insert", "count_runs", "solid_fold_histogram",
+LONGK_PATH = ("extract_insert", "count_sorted", "solid_fold_histogram",
               "solid_compact", "junction_keys", "junction_pairs", "run_scans",
               "run_contract", "jump_round", "chain_finish", "run_broadcast",
               "spell_unitigs")
@@ -530,13 +536,16 @@ def _record_key(name: str, args) -> str:
     minimizer load (its sixth argument), kmer_minimizers in two, the
     minimizer (or partition id) and the histogram (its last argument),
     route_buckets in two, given owners and hashed ones (no owner array),
-    and extract_insert in two, with and without a key range (lo, hi):
+    and extract_insert in two, with and without a key range (lo, hi),
+    count_sorted in two, with weights (an LSM merge) and without:
     each mode is recorded apart; fixpoint_bits' and hier_round's first
     call with a gid array (level 1) apart from their first call (level 0,
     which passes no gid); glue_answer's three modes (its first argument)
     apart."""
     if name == "glue_answer":
         return f"glue_answer:{args[0]}"
+    if name == "count_sorted" and args[4] is not None:
+        return "count_sorted:weighted"
     if name == "route_buckets" and args[2] is None:
         return "route_buckets:hash"
     if name == "fixpoint_bits" and args[0] is not None:
@@ -1819,17 +1828,14 @@ def digest_of(t):
 # exec(chip_smoke.SPLIT, {})"`): the split of the K3b step and of K18 by
 # device operation (torch.profiler: device ms and calls per step), with
 # each piece's CUDA-event ms and K18's host time per call (its enqueue,
-# no synchronisation); then a probe build of the tree's junctions.cu with
-# the two succ stores made conditional on an impossible value (the loads
-# and the pair rule stay), timed through the same wrapper, which gives
-# the scatter's share; then K8 and K12a on the successor arrays of
+# no synchronisation); then K8 and K12a on the successor arrays of
 # step_solid() and run_succ() (device ms per operation, with R and
 # R_cap); K17 at canonical levels 0 and 1 and phase 3's level 0 (the
 # level's fixpoint bitmap and a round given it), K10 at phase 3's M
 # and at 2^24, K19 at the same levels as K17 and K11 at SPELL_SHAPES, by
 # device operation.  Prints one JSON line.
 SPLIT = r"""
-import ctypes, json, re, subprocess, sys, tempfile, time
+import json, sys, time
 import torch
 sys.path.insert(0, ".")
 dev = torch.device("cuda", 0)
@@ -1868,31 +1874,6 @@ def host_ms(fn, reps=50):
     return t
 
 out = {}
-# a probe: a copy of one source with some lines rewritten (count: how many
-# the pattern must match), built alone and swapped in for the wrapper's C
-# function
-def probe(source, c_fn, pattern, repl, count, fn):
-    src = open("bcalm_tpu_torch/csrc/" + source).read()
-    text, n_sub = re.subn(pattern, repl, src)
-    if n_sub != count:
-        raise AssertionError(f"the probe of {source} matched {n_sub} lines, not {count}")
-    with tempfile.TemporaryDirectory() as work:
-        with open(work + "/probe_" + source, "w") as f:
-            f.write(text)
-        subprocess.run([_kernels._find_nvcc(), *_kernels.NVCC_FLAGS, "-shared",
-                        "-I", "bcalm_tpu_torch/csrc", "-o", work + "/probe.so",
-                        work + "/probe_" + source], check=True)
-        lib = ctypes.CDLL(work + "/probe.so")
-    cfn = getattr(lib, c_fn)
-    cfn.argtypes = _kernels._SIGNATURES[c_fn]
-    cfn.restype = ctypes.c_int
-    saved = _kernels._FNS[c_fn]
-    _kernels._FNS[c_fn] = cfn
-    try:
-        return {"ms": time_ms(fn), "device": breakdown(fn)}
-    finally:
-        _kernels._FNS[c_fn] = saved
-
 solid, n, C = step_solid()
 keys, pay = junctions.junction_keys(solid, n, 31)
 rows = [keys[r] for r in range(keys.shape[0])]
@@ -1905,10 +1886,6 @@ for name, fn in pieces.items():
     out["pieces"][name] = {"ms": time_ms(fn), "device": breakdown(fn)}
 succ = pieces["junction_pairs"]()
 out["heads_and_edges"] = [int((succ >= 0).sum())]
-# the pair kernel without its scatter stores
-out["pieces"]["junction_pairs probe (no succ stores)"] = probe(
-    "junctions.cu", "bt_junction_pairs", r"succ\[(.+?)\] = (.+);",
-    r"if ((\1) == -7LL) succ[0] = (\2);", 2, pieces["junction_pairs"])
 # K8 and K12a at phase 3's shape on the random genome's own successor
 # array and on phase 3's run structure
 for label, (succ_r, n_r, C_r) in (
@@ -2181,24 +2158,8 @@ for n in (1, 4):
     name = f"route_buckets hash n={n}"
     fns[name] = (lambda rargs=rargs: _kernels.route_buckets(*rargs), 20)
     split[name] = True
-# K2 at phase 3's shape (2 x 2^25 sorted columns drawn from 8,125,243
-# distinct keys, the last 5% the sentinel), with pos, and with weights too
-# (an LSM merge's call); torch.unique_consecutive beside it is not the
-# same function (no weights, no min pos).  K3a at L = 10 and 16 (phase
-# 3h's solid table sizes at k = 151 and 255)
+# K3a at L = 10 and 16 (phase 3h's solid table sizes at k = 151 and 255)
 r2 = np.random.RandomState(2)
-pool2 = r2.randint(0, 2**62, size=8125243, dtype=np.int64)
-packed = torch.sort(torch.from_numpy(pool2[r2.randint(0, pool2.size, size=1 << 25)]).to(dev))[0]
-k2_lanes = torch.stack([packed >> 32, packed & 0xFFFFFFFF]).contiguous()
-k2_lanes[:, -(1 << 25) // 20:] = 0xFFFFFFFF
-k2_pos = torch.from_numpy(r2.randint(0, 2**32 - 1, size=1 << 25, dtype=np.int64)).to(dev)
-k2_w = torch.from_numpy(r2.randint(1, 9, size=1 << 25).astype(np.int64)).to(dev)
-for name, args in (("count_runs", (k2_lanes, None, k2_pos)),
-                   ("count_runs weighted", (k2_lanes, k2_w, k2_pos))):
-    same(_kernels.count_runs(*args), count.count_runs_plain(*args), name)
-    fns[name] = (lambda args=args: _kernels.count_runs(*args), 20)
-fns["unique_consecutive (not the same function: no weights, no min pos)"] = (
-    lambda: torch.unique_consecutive(packed, return_counts=True), 20)
 for L, kk, C in ((10, 151, 5595027), (16, 255, 1175295)):
     sl = torch.from_numpy(r2.randint(0, 2**32, size=(L, C), dtype=np.uint64).astype(np.int64)).to(dev)
     sl[0] &= (1 << (2 * (kk % 16 or 16))) - 1
@@ -2207,6 +2168,54 @@ for L, kk, C in ((10, 151, 5595027), (16, 255, 1175295)):
          f"junction_keys L={L}")
     fns[f"junction_keys L={L}"] = (lambda kargs=kargs: _kernels.junction_keys(*kargs), 20)
 """ + STEP_INPUTS + r"""
+# the count step after the sort (K2's part of count_canonical) at the
+# main paths' shapes: in a tree whose K2 reads the sort's own output
+# (count.count_sorted), that kernel on the sort's top word and perm, the
+# lower packed words (past 2 lanes), weights and pos in entry order; else
+# the gathers of the sorted lanes, weights and pos, then the earlier
+# kernel.  Columns drawn from a pool of distinct keys (first lane below
+# 2^30, as k = 31's), a share of them the sentinel, in a random order;
+# pos a permutation.  Each held against its plain version, with digests;
+# torch.unique_consecutive on phase 3's sorted word beside it is not the
+# same function (no weights, no min pos)
+K2_SHAPES = {  # name: (L, N, sentinel share, distinct keys, weighted)
+    "count step phase 3 (2 x 2^25, pos)": (2, 1 << 25, 0.05, 8125243, False),
+    "count step 3b chunk (2 x 2^20, pos)": (2, 1 << 20, 0.05, 8125243, False),
+    "count step LSM merge (2 x 2^24, weighted, pos)": (2, 1 << 24, 0.0, 10 << 20, True),
+    "count step 3h L=10 (10 x 2^24, pos)": (10, 1 << 24, 0.05, 5595027, False),
+    "count step 3f round (2 x 1,338,852, pos)": (2, 1338852, 0.907, 8125243, False),
+}
+digest = {}
+r3 = np.random.RandomState(3)
+for name, (L, N, sent, pool, weighted) in K2_SHAPES.items():
+    pv = torch.from_numpy(r3.randint(0, 2**32, size=(L, pool), dtype=np.uint64).astype(np.int64)).to(dev)
+    pv[0] &= (1 << 30) - 1
+    k2_lanes = pv[:, torch.from_numpy(r3.randint(0, pool, size=N)).to(dev)].contiguous()
+    k2_lanes[:, torch.from_numpy(r3.choice(N, int(N * sent), replace=False)).to(dev)] = 0xFFFFFFFF
+    k2_pos = torch.from_numpy(r3.permutation(N).astype(np.int64)).to(dev)
+    k2_w = (torch.from_numpy(r3.randint(1, 9, size=N).astype(np.int64)).to(dev)
+            if weighted else None)
+    k2_keys = ln.pack_keys([k2_lanes[j] for j in range(L)])
+    k2_perm, k2_top = sort_op.lex_sort_words(k2_keys)
+    if hasattr(count, "count_sorted"):
+        k2_args = (k2_top, k2_perm, torch.stack(k2_keys[1:]) if L > 2 else None, L,
+                   k2_w, k2_pos)
+        step = lambda a=k2_args: _kernels.count_sorted(*a)
+        plain_step = lambda a=k2_args: count.count_sorted_plain(*a)
+    else:
+        def gathered(x=k2_lanes, p=k2_perm, w=k2_w, q=k2_pos):
+            return x[:, p], None if w is None else w[p], q[p]
+        step = lambda g=gathered: _kernels.count_runs(*g())
+        plain_step = lambda g=gathered: count.count_runs_plain(*g())
+    got = step()
+    same(got, plain_step(), name)
+    digest[name] = [digest_of(t.reshape(-1)) for t in got[:3]] + [int(got[3])]
+    fns[name] = (step, 20 if L == 2 else 5)
+    if name.startswith("count step phase 3"):
+        k2_word = k2_top
+    del got, k2_keys, pv
+fns["unique_consecutive (not the same function: no weights, no min pos)"] = (
+    lambda: torch.unique_consecutive(k2_word, return_counts=True), 20)
 # the K3b step at phase 3's shape: in a tree whose pair kernel takes the
 # sort's own output (sort.lex_sort), that kernel alone; else the two
 # gathers of the sorted keys and payload, then the kernel.  K18 at level 0
@@ -2215,7 +2224,6 @@ for L, kk, C in ((10, 151, 5595027), (16, 255, 1175295)):
 solid_s, n_s, C_s = step_solid()
 keys_s, pay_s = junctions.junction_keys(solid_s, n_s, 31)
 rows_s = [keys_s[r] for r in range(keys_s.shape[0])]
-digest = {}
 if hasattr(sort_op, "lex_sort"):
     perm_s, word_s = sort_op.lex_sort(rows_s)
     step = lambda: _kernels.junction_pairs(word_s, perm_s, pay_s, C_s, 2, False)
@@ -3002,8 +3010,7 @@ def _pairs_bytes(s_word, perm, payload, C, K, hashed, word2) -> tuple:
     three-row key the permutation and the second word through it (random:
     a 32-byte sector each); else the sectors of perm that the pair heads'
     perm[i], perm[i+1] touch; the two payloads of each head (random
-    sectors); the memset of succ and the two stores of each edge (random
-    sectors)."""
+    sectors); succ written once (its windows are written whole)."""
     from bcalm_tpu_torch.ops import junctions
 
     E = s_word.shape[0]
@@ -3014,9 +3021,29 @@ def _pairs_bytes(s_word, perm, payload, C, K, hashed, word2) -> tuple:
         read += 8 * E + 32 * E
     else:
         read += 32 * torch.unique(torch.cat([heads, heads + 1]) // 4).numel()
-    succ = junctions.junction_pairs_plain(s_word, perm, payload, C, K, hashed,
-                                          word2)
-    return read, 16 * C + 32 * int((succ >= 0).sum())
+    return read, 16 * C
+
+
+def _count_bytes(top, perm, lower, L, weights, pos) -> int:
+    """Bytes that K2 on the sort's output must read on this run's data:
+    every sorted top word; perm, and through it the weight, pos and lower
+    words of each column that needs its entry (at 1 or 2 lanes a valid
+    column, where there are weights or pos; past 2 lanes every column),
+    each a random 32-byte sector where its row exceeds the L2."""
+    N = top.shape[0]
+    if lower is None:
+        sent = 0x7FFFFFFFFFFFFFFF if L == 2 else 0xFFFFFFFF
+        need = (int((top != sent).sum())
+                if weights is not None or pos is not None else 0)
+    else:
+        need = N
+    moved = 8 * N + 8 * need
+    for t in (weights, pos):
+        if t is not None:
+            moved += _gathered(t, need)
+    if lower is not None:
+        moved += sum(_gathered(lower[j], N) for j in range(lower.shape[0]))
+    return moved
 
 
 def _spell_bytes(solid, counts, uid, rank, length, start_oid, U, k,
@@ -3663,17 +3690,22 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
             ("extract_insert:ranged", "extract_insert:ranged",
              "extract_insert_ranged", launches)):
         rows.append(k1_row(inputs[key], run_launches, label, counter, phases))
-    s_lanes, w, pos = inputs["count_runs"]
-    check("count_runs", lambda: _kernels.count_runs(s_lanes, w, pos),
-          lambda: count.count_runs_plain(s_lanes, w, pos),
-          reads=(s_lanes, w, pos))
-    # K2 at phase 3b's chunk shape (its first chunk count), with the
-    # launches of 3b's run (chunks and LSM merges)
-    c_lanes, c_w, c_pos = inputs["count_runs:3b"]
-    check("count_runs", lambda: _kernels.count_runs(c_lanes, c_w, c_pos),
-          lambda: count.count_runs_plain(c_lanes, c_w, c_pos),
-          reads=(c_lanes, c_w, c_pos), label="count_runs:3b",
-          launched=phases["3b"]["count_runs"])
+    # K2 on the sort's output: phase 3's first chunk count, phase 3b's
+    # first chunk count and first LSM merge (weighted), and phase 3f's
+    # first round count, each with the launches of its kind in its run
+    # (count_sorted_weighted: the merges)
+    k2_shapes = {}
+    for key, launched in (
+            ("count_sorted", launches["count_sorted"]),
+            ("count_sorted:3b", phases["3b"]["count_sorted"]),
+            ("count_sorted:weighted@3b", phases["3b"]["count_sorted_weighted"]),
+            ("count_sorted:3f", phases["3f"]["count_sorted"])):
+        c_args = inputs[key]
+        k2_shapes[key] = [c_args[3], c_args[0].shape[0]]
+        check("count_sorted", lambda a=c_args: _kernels.count_sorted(*a),
+              lambda a=c_args: count.count_sorted_plain(*a),
+              read_bytes=_count_bytes(*c_args), label=key, launched=launched)
+        del c_args
     solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
     check("junction_keys",
           lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
@@ -4188,8 +4220,7 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
                        f"{r['bound_old_ms']:.4f} ms)")
         say(f"[kernel] {what}: equal to plain, {r['ms']:.4f} ms{dev_ms} vs "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
-    shapes = {"extract_insert": tuple(words.shape), "count_runs": tuple(s_lanes.shape),
-              "count_runs:3b": tuple(c_lanes.shape),
+    shapes = {"extract_insert": tuple(words.shape), **k2_shapes,
               "junction_keys": tuple(solid.shape),
               "junction_pairs": [tuple(jp_args[0].shape), jp_args[4]],
               "jump_round": tuple(Q.shape), "range_fold": k5_shapes,
@@ -4226,6 +4257,7 @@ def longk_rows(longk, phases, dev):
     Plain versions are timed over 5 calls (some take seconds at this
     width)."""
     from bcalm_tpu_torch import engine
+    from bcalm_tpu_torch.models import lanes as ln
     from bcalm_tpu_torch.models import minimizer
     from bcalm_tpu_torch.ops import _kernels, count, junctions
 
@@ -4262,10 +4294,24 @@ def longk_rows(longk, phases, dev):
     row("junction_keys",
         lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
         lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid)
-    s_lanes, w, pos = inputs["count_runs"]
-    row("count_runs", lambda: _kernels.count_runs(s_lanes, w, pos),
-        lambda: count.count_runs_plain(s_lanes, w, pos),
-        reads=(s_lanes, w, pos))
+    # K3b in its hashed mode (three hashed key rows: the top word and the
+    # second word through perm)
+    jp_args = inputs["junction_pairs"]
+    jp_read, jp_written = _pairs_bytes(*jp_args)
+    row("junction_pairs", lambda: _kernels.junction_pairs(*jp_args),
+        lambda: junctions.junction_pairs_plain(*jp_args), read_bytes=jp_read,
+        written=jp_written)
+    del jp_args
+    c_args = inputs["count_sorted"]
+    row("count_sorted", lambda: _kernels.count_sorted(*c_args),
+        lambda: count.count_sorted_plain(*c_args),
+        read_bytes=_count_bytes(*c_args))
+    # the build's first chunk, sorted
+    top, perm, lower, L, _, pos = c_args
+    s_lanes = ln.unpack_keys([top] + [lower[j][perm] for j in
+                                      range(lower.shape[0])], L)
+    pos = pos[perm]
+    del c_args, top, perm, lower
     # K5 and K6 (the multi-pass count's, not on this resident path) on the
     # build's first sorted chunk: the middle third of its keys, and 256
     # quantile bounds as the range split's pivots
@@ -4432,7 +4478,9 @@ def main() -> int:
               "3h": {n: longk[LONG_K][1][n] + longk[LONG_K2][1][n]
                      for n in longk[LONG_K][1]}}
     inputs["lower_bound"] = ooc_inputs["lower_bound"]
-    inputs["count_runs:3b"] = ooc_inputs["count_runs"]
+    inputs["count_sorted:3b"] = ooc_inputs["count_sorted"]
+    inputs["count_sorted:3f"] = mesh_inputs["count_sorted"]
+    inputs["count_sorted:weighted@3b"] = ooc_inputs["count_sorted:weighted"]
     inputs["extract_insert:ranged"] = ooc_inputs["extract_insert:ranged"]
     inputs["extract_insert:row_base"] = mesh_inputs["extract_insert"]
     if "range_fold" in ooc_inputs:

@@ -18,7 +18,9 @@ from bcalm_tpu import engine as jengine
 from bcalm_tpu.io import packing
 from bcalm_tpu.ops import count as jcount
 from bcalm_tpu_torch import convert, engine as tengine
+from bcalm_tpu_torch.models import lanes as tln
 from bcalm_tpu_torch.ops import count as tcount
+from bcalm_tpu_torch.ops import sort as tsort
 
 SENT = 0xFFFFFFFF
 
@@ -38,7 +40,7 @@ def t(x):
     return convert.lanes_from_numpy(x, "cpu")
 
 
-@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("L", [1, 2, 3, 10])
 def test_count_canonical_with_pos(L):
     lanes, valid, pos = random_occurrences(L, 700, L)
     ju, jc, jn, jp = jcount.count_canonical(
@@ -125,6 +127,80 @@ def test_count_canonical_run_shapes(case):
     if case != "all_sentinel":
         assert int(tc.sum()) == (len(valid) if weights is None
                                  else int(weights.sum()))
+
+
+def sorted_case(L: int, case: str):
+    """(lanes (L, N) u32, valid, weights or None, pos or None) in entry
+    order: draws from a pool of 60 k-mers, ~15% sentinel columns and, past
+    two lanes, ~5% whose first two lanes alone are the sentinel (valid);
+    "long_run": one k-mer in 4500 columns (past two 2048-column tiles) in
+    a random order among the draws; "one"/"empty": N = 1 / 0."""
+    rng = np.random.RandomState(10 * L + len(case))
+    pool = rng.randint(0, 2**32, size=(L, 60), dtype=np.uint64).astype(np.uint32)
+    N = {"one": 1, "empty": 0}.get(case, 3000)
+    idx = rng.randint(0, 60, N)
+    if case == "long_run":
+        idx = rng.permutation(np.concatenate([idx, np.zeros(4500, np.int64)]))
+        N = idx.size
+    lanes = pool[:, idx]
+    valid = rng.rand(N) > 0.15
+    if L > 2:
+        lanes[:2, rng.rand(N) < 0.05] = SENT
+    weights = (rng.randint(1, 1000, N).astype(np.int32)
+               if case in ("weighted", "long_run") else None)
+    pos = (None if case == "unweighted"
+           else rng.permutation(N).astype(np.uint32) * np.uint32(3))
+    return lanes, valid, weights, pos
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 10])
+@pytest.mark.parametrize("case", ["unweighted", "weighted", "pos", "one",
+                                  "empty", "long_run"])
+def test_count_sorted_plain_matches_jax(L, case):
+    """K2's entry on the sort's own output (top word, perm, lower packed
+    words, weights and pos in entry order; its plain version on the CPU)
+    against bcalm_tpu's count_canonical, exactly (at N = 0, which JAX's
+    indexing refuses, against empty outputs)."""
+    lanes, valid, weights, pos = sorted_case(L, case)
+    N = lanes.shape[1]
+    kw = {}
+    if weights is not None:
+        kw.update(weights=jnp.asarray(weights), weighted=True)
+    if pos is not None:
+        kw.update(pos=jnp.asarray(pos), with_pos=True)
+    if N:
+        out = jcount.count_canonical(jnp.asarray(lanes), jnp.asarray(valid), **kw)
+    else:
+        out = (np.zeros((L, 0), np.uint32), np.zeros(0, np.int32), 0,
+               np.zeros(0, np.uint32))
+    ju, jc, jn = out[:3]
+    folded = t(np.where(valid[None], lanes, np.uint32(SENT)))
+    keys = tln.pack_rows(folded)
+    perm, top = tsort.lex_sort_words(list(keys))
+    tu, tc, tp, tn = tcount.count_sorted(
+        top, perm, keys[1:] if L > 2 else None, L,
+        None if weights is None else convert.counts_from_numpy(weights, "cpu"),
+        None if pos is None else t(pos))
+    assert int(tn) == int(jn)
+    np.testing.assert_array_equal(convert.lanes_to_numpy(tu), np.asarray(ju))
+    np.testing.assert_array_equal(convert.counts_to_numpy(tc), np.asarray(jc))
+    if pos is not None:
+        np.testing.assert_array_equal(convert.pos_to_numpy(tp), np.asarray(out[3]))
+    else:
+        assert tp is None
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 10, 32])
+def test_pack_rows_and_unpack(L):
+    """pack_rows is pack_keys in one tensor; unpack_keys inverts it."""
+    rng = np.random.RandomState(L)
+    lanes = t(rng.randint(0, 2**32, size=(L, 257), dtype=np.uint64)
+              .astype(np.uint32))
+    rows = tln.pack_rows(lanes)
+    for a, b in zip(rows, tln.pack_keys(list(lanes))):
+        assert a.dtype == b.dtype and bool((a == b).all())
+    assert rows.shape[0] == (L + 1) // 2
+    assert bool((tln.unpack_keys(list(rows), L) == lanes).all())
 
 
 def test_filter_fold_and_histogram():

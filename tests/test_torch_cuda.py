@@ -61,20 +61,36 @@ def test_extract_insert(card, k):
         assert torch.equal(bufs[0], bufs[1])
 
 
-@pytest.mark.parametrize("L,weighted", [(1, False), (2, True), (4, False)])
+def count_inputs(lanes):
+    """K2's inputs from entry-order (L, N) lanes, as count_canonical makes
+    them: (top, perm, lower, L)."""
+    L = lanes.shape[0]
+    keys = ln.pack_rows(lanes)
+    perm, top = sort_op.lex_sort_words(list(keys))
+    return top, perm, keys[1:] if L > 2 else None, L
+
+
+@pytest.mark.parametrize("L,weighted", [(1, False), (2, True), (4, False),
+                                        (3, True)])
 def test_count_runs(card, L, weighted):
+    """K2 on the sort's output against its plain version and against the
+    reduction of lexsorted columns; 10% sentinel columns, and columns
+    whose first two lanes are the sentinel and the rest not (valid)."""
     rng = np.random.RandomState(L)
     pool = rng.randint(0, 2**32, size=(L, 300), dtype=np.uint64)
     lanes = torch.from_numpy(pool[:, rng.randint(0, 300, 50_000)].astype(np.int64))
     lanes[:, rng.rand(50_000) < 0.1] = ln.SENTINEL
+    if L > 2:
+        lanes[:2, rng.rand(50_000) < 0.05] = ln.SENTINEL
     w = torch.from_numpy(rng.randint(1, 9, 50_000)) if weighted else None
     pos = torch.from_numpy(rng.randint(0, 2**32, 50_000, dtype=np.uint64).astype(np.int64))
+    args = [t if t is None or isinstance(t, int) else t.to(card)
+            for t in count_inputs(lanes) + (w, pos)]
+    got = _kernels.count_sorted(*args)
     perm = torch.from_numpy(np.lexsort(tuple(lanes.numpy()[::-1])))
-    args = [lanes[:, perm].contiguous().to(card),
-            None if w is None else w[perm].to(card), pos[perm].to(card)]
-    got, want = _kernels.count_runs(*args), count.count_runs_plain(*args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for a, b, c in zip(got, count.count_sorted_plain(*args), count.count_runs_plain(
+            lanes[:, perm], None if w is None else w[perm], pos[perm])):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
 
 
 def sorted_pairs_inputs(keys, pay):
@@ -164,6 +180,55 @@ def test_junction_pairs_tiles(card, K, hashed, C):
         got = _kernels.junction_pairs(*args, C, K, hashed, w2)
         assert torch.equal(got.cpu(), want)
     assert int((want >= 0).sum()) > C // 4
+
+
+def ring_pairs(K: int, hashed: bool, C: int, linked: bool, seed: int):
+    """Key rows (K, 2C) and payload (2C,) in a random entry order: linked,
+    vertex i's suffix (OUT) shares a key with vertex i+1's prefix (IN) in
+    a ring, so every one of the 2C slots of succ gets an edge; else every
+    key is distinct and no slot gets one."""
+    rng = np.random.RandomState(seed)
+    ids = np.arange(C)
+    pay = np.concatenate([ids, ids | (1 << 30)])   # all strands +
+    pool = rng.randint(0, 2**31, size=(K, 2 * C), dtype=np.uint64)
+    pool[-1] = np.arange(2 * C)   # distinct keys
+    keys = pool.astype(np.int64)
+    if linked:
+        keys[:, C + (ids + 1) % C] = keys[:, ids]
+    order = torch.from_numpy(rng.permutation(2 * C))
+    return (torch.from_numpy(keys)[:, order].contiguous(),
+            torch.from_numpy(pay)[order].contiguous())
+
+
+@pytest.mark.parametrize("case,C", [
+    ("no_edge", 20000), ("every_slot", 20000),
+    ("partial_window", 3 * 8192 + 77), ("every_slot", (1 << 23) + 4099)])
+@pytest.mark.parametrize("K,hashed", [(1, False), (3, False), (3, True)])
+def test_junction_pairs_windows(card, case, C, K, hashed):
+    """K3b's windowed succ: no edge (every slot -1), every slot written (a
+    ring), random groups in a succ whose 2C is not a multiple of the
+    16384-slot window, and 2C past 2^24 (more windows than one block
+    stages, so the pair rule runs once a window group); exact one-word,
+    two-word (word2) and hashed keys; on poisoned memory, twice."""
+    if case == "partial_window":
+        keys, pay = pair_groups(K, hashed, C, seed=C + K)
+    else:
+        keys, pay = ring_pairs(K, hashed, C, case == "every_slot", seed=K)
+    s_word, perm, pay, K, word2 = [t.to(card) if isinstance(t, torch.Tensor)
+                                   else t for t in sorted_pairs_inputs(
+                                       keys.to(card), pay.to(card))]
+    want = junctions.junction_pairs_plain(s_word, perm, pay, C, K, hashed, word2)
+    n_edge = int((want >= 0).sum())
+    if case == "partial_window":
+        assert 2 * C % _kernels.SCATTER_WINDOW and n_edge > C // 4
+    else:
+        assert n_edge == (2 * C if case == "every_slot" else 0)
+    for _ in range(2):
+        poisoned(card, 16 * C + (1 << 20))
+        before = _kernels.LAUNCHES["junction_pairs"]
+        got = _kernels.junction_pairs(s_word, perm, pay, C, K, hashed, word2)
+        assert _kernels.LAUNCHES["junction_pairs"] == before + 1
+        assert torch.equal(got, want)
 
 
 def test_jump_round(card):
@@ -1930,7 +1995,8 @@ def test_range_fold_columns(card, L):
             assert int(got[0]) == int(want[0])
 
 
-# -- K2's one-pass segmented reduce; K3's word-parallel reverse complement --
+# -- K2's one-pass segmented reduce on the sort's output; K3's word-parallel
+# reverse complement --
 
 def sorted_runs(L, lengths, n_sent, seed, device):
     """Sorted (L, N) lanes: len(lengths) distinct random keys in order, key
@@ -1963,10 +2029,12 @@ def run_lengths(N, seed, long_runs=()):
 
 @pytest.mark.parametrize("L", [1, 2, 8, 10, 16, 32])
 def test_count_runs_segmented(card, L):
-    """K2 against its plain version, bitwise, at N = 0, 1, around one tile
-    and past 3 * 2^20 with runs crossing 1, 2 and ~300 tiles (2048
-    columns each); weighted (sums past 2^32) and not, with and without
-    pos; all-sentinel inputs; one launch a call, the same bytes twice."""
+    """K2 on the sort's output against its plain version, bitwise, at N =
+    0, 1, around one tile and past 3 * 2^20 with runs crossing 1, 2 and
+    ~300 tiles (2048 columns each), the columns in a random entry order;
+    weighted (sums past 2^32) and not, with and without pos; all-sentinel
+    inputs; one launch a call, the same bytes twice (the workspace is
+    reused with no fill between launches)."""
     shapes = [(1, ()), (4095, ()), (4096, ()), (4097, (3000,)),
               (3 * 2**20 + 5, (2100, 4200, 300 * 2048 + 17))]
     rng = np.random.RandomState(L)
@@ -1974,28 +2042,31 @@ def test_count_runs_segmented(card, L):
         n_sent = N // 10
         lanes = sorted_runs(L, run_lengths(N - n_sent, N + L, long_runs),
                             n_sent, N, card)
+        lanes = lanes[:, torch.from_numpy(rng.permutation(N)).to(card)]
+        inputs = count_inputs(lanes)
         weights = torch.from_numpy(rng.randint(1, 2**31, N)).to(card)
         pos = torch.from_numpy(rng.randint(0, 2**32, N, dtype=np.uint64)
                                .astype(np.int64)).to(card)
         for w in (None, weights):
             for p in (None, pos):
-                before = _kernels.LAUNCHES["count_runs"]
-                got = _kernels.count_runs(lanes, w, p)
-                assert _kernels.LAUNCHES["count_runs"] == before + 1
-                again = _kernels.count_runs(lanes, w, p)
-                want = count.count_runs_plain(lanes, w, p)
+                key = "count_sorted" if w is None else "count_sorted_weighted"
+                before = _kernels.LAUNCHES[key]
+                got = _kernels.count_sorted(*inputs, w, p)
+                assert _kernels.LAUNCHES[key] == before + 1
+                again = _kernels.count_sorted(*inputs, w, p)
+                want = count.count_sorted_plain(*inputs, w, p)
                 for a, b, c in zip(got, again, want):
                     assert (a is None) == (b is None) == (c is None)
                     if a is not None:
                         assert torch.equal(a, c) and torch.equal(a, b)
         if long_runs:
-            g = count.count_runs_plain(lanes, weights, None)[1]
+            g = count.count_sorted_plain(*inputs, weights, None)[1]
             assert int(g.max()) > 2**32
     for N in (0, 4097):   # empty, and every column the sentinel
         lanes = torch.full((L, N), ln.SENTINEL, dtype=torch.int64, device=card)
         pos = torch.arange(N, device=card)
-        got = _kernels.count_runs(lanes, None, pos)
-        want = count.count_runs_plain(lanes, None, pos)
+        got = _kernels.count_sorted(*count_inputs(lanes), None, pos)
+        want = count.count_sorted_plain(*count_inputs(lanes), None, pos)
         for a, b in zip(got, want):
             assert a.shape == b.shape and torch.equal(a, b)
 

@@ -128,7 +128,7 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("call", [
     lambda t: _kernels.extract_insert(t((3, 64)), t((2, 2)), t((2,)), 31, 0, 0),
-    lambda t: _kernels.count_runs(t((2, 8)), None, None),
+    lambda t: _kernels.count_sorted(t((8,)), t((8,)), None, 2, None, None),
     lambda t: _kernels.junction_keys(t((2, 16)), 16, 31, False, 2),
     lambda t: _kernels.junction_pairs(t((32,)), t((32,)), t((32,)), 16, 2,
                                       False),

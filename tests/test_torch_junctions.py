@@ -67,6 +67,25 @@ def test_successor_arrays_match(k):
     assert (ts >= 0).sum() > n // 2
 
 
+@pytest.mark.parametrize("k", [31, 63])
+def test_successor_arrays_partial_window(k):
+    """A successor array of 2C = 16,538 slots, one whole 16,384-slot
+    window of the card's scatter and a partial one (exact and hashed
+    keys), against bcalm_tpu's successor_arrays."""
+    rng = np.random.RandomState(k)
+    genome = "".join("ACGT"[c] for c in rng.randint(0, 4, 8260))
+    kmers = sorted(brute.count_kmers([genome, genome[:3000]], k))
+    lanes = jln.ints_to_lanes(kmers, k)[:, rng.permutation(len(kmers))]
+    n, C = lanes.shape[1], 8192 + 77
+    assert 16384 - C < n < C and 2 * C % 16384
+    solid = np.concatenate([lanes, np.full((lanes.shape[0], C - n), 0xFFFFFFFF,
+                                           np.uint32)], axis=1)
+    js, _ = jjunc.successor_arrays(jnp.asarray(solid), jnp.asarray(n, jnp.int32), k)
+    ts = tjunc.successor_arrays(convert.lanes_from_numpy(solid, "cpu"), n, k)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert int((ts[16384:] >= 0).sum()) > 0 and (ts >= 0).sum() > n
+
+
 def test_hash96_matches():
     rng = np.random.RandomState(0)
     keys = rng.randint(0, 2**32, size=(4, 257), dtype=np.uint64).astype(np.uint32)
