@@ -31,7 +31,15 @@ set past that budget is counted in several passes over key ranges, each
 re-reading the input.  ``-devices N`` (N > 1) runs the
 minimizer-partitioned build on N ranks (parallel.launch, parallel.pipeline):
 one NCCL rank per card, or N gloo processes on the CPU.
-``-server``/``-connect`` exit 1 and name their ROADMAP item.
+
+``-server SOCK`` keeps one process alive that serves builds on a unix
+socket, and ``-connect SOCK <arguments>`` sends one command line to it
+(serve, connect: bcalm_tpu.cli's protocol, so either package's client
+talks to either server).  A multi-pass build whose compaction runs out of
+device memory after the store's checkpoint re-runs itself once with
+``-skip-bcalm`` in a fresh process (_respawn_skip_bcalm).  torch is
+imported only past ``-version``, ``-connect`` and ``-help``, so those run
+without it.
 """
 
 from __future__ import annotations
@@ -41,8 +49,6 @@ import os
 import sys
 import time
 from typing import List, Optional
-
-import torch
 
 from bcalm_tpu_torch.utils.logging import Progress
 from bcalm_tpu_torch.utils.options import OptionFailure, OptionsParser
@@ -179,12 +185,6 @@ def _input_blocks(bank, cfg, verbose: int, nb_cores: int = 0,
         )
 
 
-def _not_ported(what: str) -> int:
-    print(f"{what}: not ported: the keep-alive server is on ROADMAP's "
-          f"do-not-port list", file=sys.stderr)
-    return 1
-
-
 def adapt_max_len(bank, cfg) -> None:
     """Block geometry and occurrence estimate from the bank: the max_len
     and est_total_occ rules of bcalm_tpu.cli._adapt_max_len, so both
@@ -301,6 +301,8 @@ def _devices_build(props, cfg, device, n_dev: int, in_path: str, prefix: str,
     (parallel.launch; bcalm_tpu.cli.main's mesh branch, its refusals and
     messages).  On the CPU the ranks are gloo processes, on the card one
     NCCL rank per device."""
+    import torch
+
     from bcalm_tpu_torch.io import bank as bank_mod
     from bcalm_tpu_torch.parallel import launch, pipeline
 
@@ -376,14 +378,239 @@ def devices_rank(mesh, job: dict) -> None:
         print(f"    [peak_rss_mb] {peak_rss_mb():.0f}")
 
 
+def resolve_device():
+    """The device of BCALM_TORCH_DEVICE (default cuda); None, after a
+    message, when CUDA is asked for and torch sees no card (never a
+    silent CPU run)."""
+    import torch
+
+    device = torch.device(os.environ.get(DEVICE_ENV, "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"CUDA device requested ({DEVICE_ENV} unset or 'cuda') but "
+              f"torch.cuda.is_available() is false; set {DEVICE_ENV}=cpu "
+              f"to run on the CPU", file=sys.stderr)
+        return None
+    return device
+
+
+def _warm(device) -> None:
+    """Pay a build's fixed costs once: CUDA's context, the kernel library
+    (built with nvcc when its sources have no build yet), the native
+    ingest library, the modules a request imports, and the library
+    kernels a build launches (a small build of random reads)."""
+    import numpy as np
+    import torch
+
+    from bcalm_tpu_torch import engine
+    from bcalm_tpu_torch.io import bank, fasta_writer, native  # noqa: F401
+    from bcalm_tpu_torch.storage import store  # noqa: F401
+
+    if device.type == "cuda":
+        from bcalm_tpu_torch.ops import _kernels
+
+        torch.cuda.init()
+        torch.zeros((1,), device=device)
+        _kernels.load()
+    native.available()
+    rng = np.random.RandomState(0)
+    genome = "".join("ACGT"[c] for c in rng.randint(0, 4, 2000))
+    reads = [genome[i:i + 100] for i in range(0, 1900, 20)] * 2
+    engine.build_from_seqs(
+        reads, engine.EngineConfig(k=31, chunk_kmers=engine.MIN_CHUNK), device)
+
+
+def _reset_peak(device) -> None:
+    """device_peak_mb counts from here: each run's own, also in a server
+    process."""
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _release(device) -> None:
+    """Free what a finished request left: collected objects, and on a
+    card the allocator's cached blocks, so that another process (a
+    -devices rank, a respawned compaction) gets the card's memory."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def serve(socket_path: str) -> int:
+    """Keep-alive server: one process holds the initialised device and
+    every loaded library; each connection carries one JSON line
+    {"argv": [...]} and receives {"rc": N, "output": "..."} (the
+    request's standard output); {"op": "shutdown"} stops the server
+    (bcalm_tpu.cli.serve's protocol byte for byte).  Requests run one at a
+    time, in the server's working directory and on its device; a client
+    that vanishes does not stop the server.
+
+    Before it listens, the server resolves its device (a cuda server
+    without a card exits 1 here) and pays a build's fixed costs (_warm).
+    After each request it frees the allocator's cache (_release), and
+    logs the request, with the memory the allocator still reserves, on
+    its standard error."""
+    import contextlib
+    import io
+    import json
+    import socket as socket_mod
+
+    device = resolve_device()
+    if device is None:
+        return 1
+    t0 = time.time()
+    _warm(device)
+    _release(device)
+    from bcalm_tpu_torch.io import native
+
+    print(f"bcalm-tpu server: {device} ready in {time.time() - t0:.2f}s "
+          f"(CUDA context and kernels loaded: {device.type == 'cuda'}; "
+          f"ingest parser {'native' if native.available() else 'python'})",
+          file=sys.stderr, flush=True)
+    if os.path.exists(socket_path):
+        os.unlink(socket_path)
+    srv = socket_mod.socket(socket_mod.AF_UNIX, socket_mod.SOCK_STREAM)
+    srv.bind(socket_path)
+    srv.listen(4)
+    print(f"bcalm-tpu server listening on {socket_path}", flush=True)
+    served = 0
+    try:
+        while True:
+            conn, _ = srv.accept()
+            with conn:
+                try:
+                    data = b""
+                    while not data.endswith(b"\n"):
+                        chunk = conn.recv(1 << 16)
+                        if not chunk:
+                            break
+                        data += chunk
+                    if not data.strip():
+                        continue
+                    try:
+                        req = json.loads(data)
+                    except ValueError:
+                        req = None
+                    if not isinstance(req, dict):
+                        conn.sendall(b'{"rc": 1, "output": "bad request"}\n')
+                        continue
+                    if req.get("op") == "shutdown":
+                        conn.sendall(b'{"rc": 0, "output": "bye"}\n')
+                        return 0
+                    argv = [str(a) for a in req.get("argv", [])]
+                    buf = io.StringIO()
+                    t0 = time.time()
+                    if "-server" in argv or "-connect" in argv:
+                        buf.write("server error: a request cannot carry "
+                                  "-server or -connect\n")
+                        rc = 1
+                    else:
+                        try:
+                            with contextlib.redirect_stdout(buf):
+                                rc = main(argv)
+                        except SystemExit as e:   # argv errors
+                            rc = e.code if isinstance(e.code, int) else 1
+                        except Exception as e:  # noqa: BLE001 — report, keep serving
+                            import traceback
+
+                            traceback.print_exc(file=sys.stderr)
+                            buf.write(f"server error: {e!r}\n")
+                            rc = 1
+                    _release(device)
+                    served += 1
+                    note = ""
+                    if device.type == "cuda":
+                        import torch
+
+                        note = (f"; device memory reserved "
+                                f"{torch.cuda.memory_reserved(device) >> 20} MiB")
+                    print(f"bcalm-tpu server: request {served}: rc {rc} in "
+                          f"{time.time() - t0:.2f}s{note}", file=sys.stderr,
+                          flush=True)
+                    conn.sendall(json.dumps(
+                        {"rc": rc, "output": buf.getvalue()}).encode() + b"\n")
+                except OSError:
+                    # the client vanished mid-request or mid-reply: keep
+                    # serving
+                    continue
+    finally:
+        srv.close()
+        if os.path.exists(socket_path):
+            os.unlink(socket_path)
+
+
+def connect(socket_path: str, argv: List[str]) -> int:
+    """Client side of -server: forward one command line, print its
+    output, return its exit code (bcalm_tpu.cli.connect)."""
+    import json
+    import socket as socket_mod
+
+    cli = socket_mod.socket(socket_mod.AF_UNIX, socket_mod.SOCK_STREAM)
+    cli.connect(socket_path)
+    cli.sendall(json.dumps({"argv": argv}).encode() + b"\n")
+    data = b""
+    while not data.endswith(b"\n"):
+        chunk = cli.recv(1 << 16)
+        if not chunk:
+            break
+        data += chunk
+    resp = json.loads(data)
+    sys.stdout.write(resp.get("output", ""))
+    return int(resp.get("rc", 1))
+
+
+def _respawn_skip_bcalm(argv: List[str], err) -> int:
+    """Continue a run whose compaction ran out of device memory in a
+    fresh process (bcalm_tpu.cli._respawn_skip_bcalm).  The solid set is
+    already checkpointed, so the same command line runs again with
+    -skip-bcalm and BTPU_NO_RESPAWN=1 (a respawned child never respawns):
+    compaction restarts on a clean allocator, on the same device (the
+    child inherits the environment), and the child owns the rest of the
+    run.  Where this process's standard output is no file (a -server
+    request's buffer), the child's is captured and written there, so it
+    reaches the client.  Returns the child's exit code."""
+    import subprocess
+
+    print(f"{err} — restarting compaction in a fresh process",
+          file=sys.stderr)
+    env = dict(os.environ, BTPU_NO_RESPAWN="1")
+    # the child imports this package, wherever the parent found it
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "bcalm_tpu_torch", *argv, "-skip-bcalm"]
+    try:
+        sys.stdout.fileno()
+    except (AttributeError, OSError, ValueError):
+        proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE, text=True)
+        sys.stdout.write(proc.stdout)
+        return proc.returncode
+    return subprocess.call(cmd, env=env)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "-version" in argv or "--version" in argv:
         print(version_string())
         return 0
-    for flag in ("-server", "-connect"):
-        if flag in argv:
-            return _not_ported(flag)
+    if "-server" in argv:
+        i = argv.index("-server")
+        if i + 1 >= len(argv):
+            print("-server requires a socket path", file=sys.stderr)
+            return 1
+        return serve(argv[i + 1])
+    if "-connect" in argv:
+        i = argv.index("-connect")
+        if i + 1 >= len(argv):
+            print("-connect requires a socket path", file=sys.stderr)
+            return 1
+        return connect(argv[i + 1], argv[:i] + argv[i + 2:])
     parser = build_parser()
     try:
         props = parser.parse(argv)
@@ -407,11 +634,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         redo_links(unitigs_path, k, verbose)
         return 0
 
-    device = torch.device(os.environ.get(DEVICE_ENV, "cuda"))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print(f"CUDA device requested ({DEVICE_ENV} unset or 'cuda') but "
-              f"torch.cuda.is_available() is false; set {DEVICE_ENV}=cpu "
-              f"to run on the CPU", file=sys.stderr)
+    device = resolve_device()
+    if device is None:
         return 1
 
     from bcalm_tpu_torch import engine
@@ -447,6 +671,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     built_us = None
     stats = {}
     if skip_bcalm:
+        _reset_peak(device)
         with ti.timer("load_counts"):
             loaded = _load_store(store, cfg, k, auto_amin, verbose)
         if isinstance(loaded, int):
@@ -467,6 +692,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"note: {flag} only affects the -devices N mesh "
                       f"path; ignored on the single-device path",
                       file=sys.stderr)
+        _reset_peak(device)
         bank = bank_mod.Bank.open(in_path)
         adapt_max_len(bank, cfg)
         nb_cores = props.get_int("-nb-cores")
@@ -478,6 +704,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         progress = Progress("reads packed", enabled=verbose >= 1)
         ingest_t = {"t0": None, "t1": None, "bases": 0}
+        oom = None
 
         def counted(it):
             # a first pass: the progress line and the ingest rate
@@ -496,12 +723,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             else:
                 # reread re-opens the bank for each further pass of a
                 # multi-pass count, with the same block geometry
-                built_us = engine.build_from_blocks(
-                    counted(blocks()), cfg, device, reread=blocks, store=store,
-                    auto_amin_cap=(props.get_int("-abundance-min-threshold")
-                                   if auto_amin else None),
-                    only_uf=only_uf, uf_stats=uf_stats,
-                    solidity_kind=solidity_kind)
+                try:
+                    built_us = engine.build_from_blocks(
+                        counted(blocks()), cfg, device, reread=blocks,
+                        store=store,
+                        auto_amin_cap=(props.get_int("-abundance-min-threshold")
+                                       if auto_amin else None),
+                        only_uf=only_uf, uf_stats=uf_stats,
+                        solidity_kind=solidity_kind)
+                except engine.CompactionOOM as e:
+                    # a respawned child does not respawn again (and a run
+                    # given -skip-bcalm never reaches this count)
+                    if os.environ.get("BTPU_NO_RESPAWN") == "1":
+                        raise
+                    oom = str(e)
+        if oom is not None:
+            # the error and the tensors its frames held are gone: free
+            # the card for the child
+            _release(device)
+            return _respawn_skip_bcalm(argv, oom)
         progress.done()
         if built_us is not None and ingest_t["t1"]:
             # stream rate over the packing loop (overlapped with device

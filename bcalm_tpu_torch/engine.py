@@ -62,6 +62,22 @@ MAX_CHUNK = 1 << 25
 RESIDENT_SLACK = 4
 
 
+class CompactionOOM(RuntimeError):
+    """The device ran out of memory in compaction after the counted solid
+    set was checkpointed to the store: the run resumes with -skip-bcalm
+    in a fresh process, whose allocator is clean
+    (bcalm_tpu.engine.CompactionOOM)."""
+
+
+def _is_resource_exhausted(e: BaseException) -> bool:
+    """An allocator's death: torch's OutOfMemoryError, or the text that
+    bcalm_tpu.engine._is_resource_exhausted matches."""
+    if isinstance(e, torch.OutOfMemoryError):
+        return True
+    s = f"{type(e).__name__}: {e}"
+    return "RESOURCE_EXHAUSTED" in s or "ResourceExhausted" in s
+
+
 def device_bytes(device) -> int:
     """Memory of the device: the card's total memory, or CPU_DEVICE_BYTES."""
     device = torch.device(device)
@@ -115,6 +131,10 @@ class EngineConfig:
     # estimate of the total k-mer occurrences (from the input's size);
     # sharpens the first pass's choice of range count (0 = unknown)
     est_total_occ: int = 0
+    # multi-pass device block cache (MB): the first pass keeps each
+    # block's device words and lengths while they fit, and later passes
+    # replay them instead of re-reading the input (0 = off)
+    dev_block_cache_mb: int = 512
 
 
 def configure_chunk(cfg: EngineConfig, max_memory_mb: int, device) -> int:
@@ -122,13 +142,22 @@ def configure_chunk(cfg: EngineConfig, max_memory_mb: int, device) -> int:
     memory budget: ``-max-memory`` M MiB when M > 0, else the device's
     memory (device_bytes).
 
-    A quarter of the budget buys chunk slots (chunk_slot_bytes, a power of
-    two in [MIN_CHUNK, MAX_CHUNK]); three quarters buy resident slots
-    (resident_slots).  The resident budget holds at least two chunks (a
-    chunk's distinct run must fit): the chunk shrinks to keep that floor
-    inside the budget.  Below MIN_CHUNK the budget cannot be met and the
-    floor wins.  Returns cfg.chunk_kmers."""
-    budget = (max_memory_mb << 20) if max_memory_mb > 0 else device_bytes(device)
+    Under ``-max-memory`` the device block cache is reserved first, as
+    bcalm_tpu.engine.configure_chunk reserves it: at most a quarter of the
+    budget, cfg.dev_block_cache_mb shrunk to fit.  Of the rest, a quarter
+    buys chunk slots (chunk_slot_bytes, a power of two in [MIN_CHUNK,
+    MAX_CHUNK]); three quarters buy resident slots (resident_slots).  The
+    resident budget holds at least two chunks (a chunk's distinct run must
+    fit): the chunk shrinks to keep that floor inside the budget.  Below
+    MIN_CHUNK the budget cannot be met and the floor wins.  Returns
+    cfg.chunk_kmers."""
+    if max_memory_mb > 0:
+        budget = max_memory_mb << 20
+        if cfg.dev_block_cache_mb * 1_000_000 > budget // 4:
+            cfg.dev_block_cache_mb = (budget // 4) // 1_000_000
+        budget -= int(cfg.dev_block_cache_mb * 1_000_000)
+    else:
+        budget = device_bytes(device)
     res = resident_slots(cfg.k, budget)
     chunk = MAX_CHUNK
     while chunk > MIN_CHUNK and (chunk * chunk_slot_bytes(cfg.k) > budget // 4
@@ -321,6 +350,13 @@ class _RangeCounter:
         self.results: List[_Fetch] = []
         self.cache = (_BlockCache(cfg.spill_dir, cfg.max_disk_mb)
                       if use_cache else None)
+        # the device block cache (bcalm_tpu.engine.count_blocks' dev_cache):
+        # (words, lengths, F, occ) of every block of the first pass while
+        # their device bytes stay within cfg.dev_block_cache_mb, dropped
+        # whole when they do not; later passes replay it
+        self.block_cache: list = []
+        self.block_cache_bytes = 0
+        self.block_cache_ok = cfg.dev_block_cache_mb > 0
         self.pass_no = 0
         self.did_split = False
         # a split happened since the last settle: the pending chunk was
@@ -536,11 +572,12 @@ class _RangeCounter:
         if self.fill >= self.cap:
             self.flush()
 
-    def run_pass(self, block_iter, first_pass: bool):
-        """Stream every block once.  slot_base restarts at 0, so every pass
-        gives each occurrence the same first-occurrence key."""
+    def upload(self, block_iter, first_pass: bool):
+        """The blocks on the device, as (words, lengths, F, occ).  The
+        first pass also counts the reads, stages the blocks of a one-shot
+        iterator (_BlockCache) and fills the device block cache."""
         k = self.cfg.k
-        self.slot_base = self.fill = self.t_seen = self.pass_occ_seen = 0
+        limit = self.cfg.dev_block_cache_mb * 1_000_000
         for block in block_iter:
             if first_pass and self.cache is not None:
                 self.cache.add(block.words, block.lengths)
@@ -553,6 +590,21 @@ class _RangeCounter:
                 self.n_occ += occ
             words = torch.from_numpy(block.words.astype(np.int64)).to(self.device)
             lengths = torch.from_numpy(lens).to(self.device)
+            if first_pass and self.block_cache_ok:
+                self.block_cache_bytes += (words.numel() * words.element_size()
+                                           + lengths.numel() * lengths.element_size())
+                if self.block_cache_bytes > limit:
+                    self.block_cache.clear()
+                    self.block_cache_ok = False
+                else:
+                    self.block_cache.append((words, lengths, F, occ))
+            yield words, lengths, F, occ
+
+    def run_pass(self, blocks):
+        """Stream every block once.  slot_base restarts at 0, so every pass
+        gives each occurrence the same first-occurrence key."""
+        self.slot_base = self.fill = self.t_seen = self.pass_occ_seen = 0
+        for words, lengths, F, occ in blocks:
             self.insert(words, lengths, F, occ)
         self.flush()
 
@@ -599,17 +651,27 @@ class _RangeCounter:
                 first = self.pass_no == 1
                 tp = time.time()
                 if first:
-                    self.run_pass(block_iter, True)
+                    self.run_pass(self.upload(block_iter, True))
+                elif self.block_cache_ok and self.block_cache:
+                    self.run_pass(self.block_cache)
                 elif reread is not None:
-                    self.run_pass(reread(), False)
+                    self.run_pass(self.upload(reread(), False))
                 else:
-                    self.run_pass(self.cache.blocks(), False)
+                    self.run_pass(self.upload(self.cache.blocks(), False))
                 tm["passes"].append(round(time.time() - tp, 3))
                 if self.device.type == "cuda":
                     tm.setdefault("hbm_mb", []).append(
                         torch.cuda.memory_allocated(self.device) >> 20)
                 if first and not self.did_split and not self.range_stack:
-                    return self.final_range_run() + (self.stats(),)
+                    # a count that never split replays nothing: the cache
+                    # goes before the final merge allocates
+                    self.block_cache = []
+                    stats = self.stats()
+                    if self.device.type == "cuda":
+                        # the peak of pass 1 (the final merge's comes after)
+                        stats["device_pass1_peak_mb"] = (
+                            torch.cuda.max_memory_allocated(self.device) >> 20)
+                    return self.final_range_run() + (stats,)
                 t0 = time.time()
                 unique, counts, minpos = self.final_range_run()
                 tm["final_merge"] += time.time() - t0
@@ -628,6 +690,8 @@ class _RangeCounter:
                 self.lo, self.hi = self.range_stack.pop()
                 self.anchor = [0, 0, 1.0]
         finally:
+            cached = self.block_cache_ok and bool(self.block_cache)
+            self.block_cache = []     # release the device block cache
             if self.cache is not None:
                 self.cache.close()
         # ranges are ascending: their concatenation is the sorted table
@@ -640,7 +704,11 @@ class _RangeCounter:
         for key in ("settle_wait", "split", "final_merge", "fetch_wait"):
             tm[key] = round(tm[key], 3)
         stats = self.stats()
+        # the MB the device block cache held when it served the later
+        # passes; 0 when they re-read the input (cache off or overflowed)
         stats.update(ooc_passes=self.pass_no, ooc_ranges=len(self.results),
+                     ooc_block_cache_mb=(round(self.block_cache_bytes / 1e6, 3)
+                                         if cached else 0.0),
                      timing=tm)
         return lanes, counts, pos, stats
 
@@ -658,15 +726,18 @@ def count_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     (cfg.resident_kmers), counting goes multi-pass over key ranges
     (bcalm_tpu.engine.count_blocks): the current range splits at quantile
     keys of its merged run, keeps the lowest part, and queues the rest
-    for later passes, each of which re-reads the input through reread()
-    when given, else from a _BlockCache.  Each finished range is fetched
-    to the host once, asynchronously, while the next pass runs.
+    for later passes.  Those replay the first pass's blocks from the
+    device block cache when they fit in cfg.dev_block_cache_mb, else
+    re-read the input through reread() when given, else from a
+    _BlockCache; the cache is freed before count_blocks returns.  Each
+    finished range is fetched to the host once, asynchronously, while the
+    next pass runs.
 
     Returns (unique, counts, minpos, stats): the sorted distinct k-mers,
     their counts and min first-occurrence keys; device tensors of exact
     size when everything stayed resident, else numpy arrays (lanes u32
-    (L, n), counts int32, pos u32) with stats "ooc_passes", "ooc_ranges"
-    and "timing"."""
+    (L, n), counts int32, pos u32) with stats "ooc_passes", "ooc_ranges",
+    "ooc_block_cache_mb" and "timing"."""
     counter = _RangeCounter(cfg, torch.device(device), reread is None)
     return counter.count(blocks, reread)
 
@@ -992,7 +1063,13 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     table.  auto_amin_cap: choose cfg.abundance_min from the histogram
     (``-abundance-min auto``).  only_uf / uf_stats: stop after the chain
     decomposition, keeping it in UnitigSet.chain_info / add chain
-    statistics (bcalm_tpu's glue debug flags)."""
+    statistics (bcalm_tpu's glue debug flags).
+
+    On a card, stats carry device_count_peak_mb (the peak through
+    counting) and device_peak_mb (through the whole build).  On the
+    multi-pass path with a store, the device's running out of memory in
+    compaction raises CompactionOOM: the solid set is checkpointed, and
+    ``-skip-bcalm`` in a fresh process resumes from it (cli.main does)."""
     device = torch.device(device)
     if device.type == "cuda":
         # the allocator's statistics exist once CUDA is initialised; a
@@ -1003,6 +1080,8 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     unique, counts, minpos, stats = count_blocks(blocks, cfg, device, reread)
     _sync(device)
     stats["t_count_s"] = round(time.time() - t0, 2)
+    if device.type == "cuda":
+        stats["device_count_peak_mb"] = torch.cuda.max_memory_allocated(device) >> 20
 
     def write_store(solid_np, counts_np, minpos_np, histo):
         if store is not None:
@@ -1016,9 +1095,20 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
         histo, keep = _host_solidity(unique, counts, cfg, auto_amin_cap)
         stats["distinct_kmers"] = int(counts.shape[0])
         write_store(unique[:, keep], counts[keep], minpos[keep], histo)
-        us = compact_from_counts(unique[:, keep], counts[keep], cfg, device,
-                                 only_uf=only_uf, uf_stats=uf_stats,
-                                 minpos_np=minpos[keep])
+        try:
+            us = compact_from_counts(unique[:, keep], counts[keep], cfg,
+                                     device, only_uf=only_uf,
+                                     uf_stats=uf_stats, minpos_np=minpos[keep])
+        except Exception as e:  # noqa: BLE001 — classify the allocator's death
+            # after a long multi-pass count a fresh process compacts the
+            # checkpointed solid set on a clean allocator
+            if store is not None and _is_resource_exhausted(e):
+                raise CompactionOOM(
+                    f"device allocator exhausted during compaction "
+                    f"({type(e).__name__}); the counted solid set is "
+                    f"checkpointed — resume with -skip-bcalm in a fresh "
+                    f"process") from e
+            raise
         us.histogram = histo
         us.stats.update(stats)
     else:

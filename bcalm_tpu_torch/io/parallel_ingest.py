@@ -20,8 +20,10 @@ Record alignment:
 The reference's analog is gatb's Dispatcher fanning one bank's
 sequences to -nb-cores threads (SURVEY.md §3.2).
 
-Copy of ``bcalm_tpu/io/parallel_ingest.py`` with the imports pointed at this package:
-the port imports nothing of the JAX package.
+Copy of ``bcalm_tpu/io/parallel_ingest.py`` with the imports pointed at this package
+(the port imports nothing of the JAX package); an abandoned stream stops
+its reader at the next chunk and waits for the chunks in parsing, so it
+leaves no thread behind and reads no further.
 """
 
 from __future__ import annotations
@@ -78,12 +80,15 @@ def iter_blocks_parallel(path: str, k: int, block_reads: int = 4096,
 
     chunk_q: "Queue" = Queue(maxsize=n_workers * 2)
     err: list = []
+    stop = threading.Event()
 
     def reader():
         try:
             carry = b""
             with _open_raw(path) as f:
                 while True:
+                    if stop.is_set():
+                        return      # the consumer left: read no further
                     piece = f.read(chunk_bytes)
                     if not piece:
                         break
@@ -128,9 +133,12 @@ def iter_blocks_parallel(path: str, k: int, block_reads: int = 4096,
             raise err[0]
     finally:
         # consumer may abandon the generator mid-stream (GeneratorExit):
-        # drain the queue so the blocked reader thread can exit instead
-        # of leaking with ~100s of MB of buffered chunks
-        pool.shutdown(wait=False, cancel_futures=True)
+        # stop the reader at its next chunk and drain the queue so the
+        # blocked reader thread can exit instead of leaking with ~100s of
+        # MB of buffered chunks; the chunks in parsing finish before this
+        # returns, so no pool thread outlives it
+        stop.set()
+        pool.shutdown(wait=True, cancel_futures=True)
         while t.is_alive():
             try:
                 item = chunk_q.get_nowait()

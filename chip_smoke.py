@@ -25,14 +25,36 @@ Phases (any failure raises, and the script exits non-zero):
    key ranges; again first as ``python -m bcalm_tpu_torch``, then
    through ``cli.main`` with the counters reset just before it.  At least
    3 ranges, the FASTA byte-identical to phase 3's, peak device memory
-   within M, K1 launched in range mode (after the first split it folds
-   the columns outside the range as it writes them; K5 runs only on the
-   chunks a split left owing a fold, and their count is printed);
+   within M (the device block cache reserved inside it), the passes after
+   the first replayed from the device block cache (ooc_block_cache_mb and
+   each pass's time printed, with the counting peak), K1 launched in
+   range mode (after the first split it folds the columns outside the
+   range as it writes them; K5 runs only on the chunks a split left owing
+   a fold, and their count is printed); then once more through
+   ``cli.main`` with the cache made to overflow, so that passes 2.. re-read
+   and re-upload the input (the path of an input too large for the
+   cache): ooc_block_cache_mb 0, the same passes, K1 in range mode, the
+   same bytes and peak within M, its pass times beside the cached run's;
 3c. store and resume on the same reads: ``-only-uf -uf-stats`` keeps the
    store and its chains (as many classes as phase 3's unitigs); with the
    input renamed away, ``-skip-bcalm -skip-bglue`` and, after a fresh
    ``-only-uf``, ``-skip-bcalm`` alone (in process too, counters reset)
    write phase 3's bytes; ``-redo-links`` leaves phase 3's FASTA as it is;
+3i. the keep-alive server: ``python -m bcalm_tpu_torch -server`` timed
+   from its spawn to its listening line (its ready line, kernels and
+   ingest library loaded, comes first); phase 3's arguments three times
+   and 3b's once through ``python -m bcalm_tpu_torch -connect``, each
+   answer phase 3's bytes with the in-process run's device_peak_mb (a
+   gzip cut short, which fails mid-build with rc 1, sent between the
+   second and the third), each client's wall printed beside phase 3's
+   fresh ``python -m`` wall; a
+   missing input answered rc 1, then a shutdown ends the server with rc
+   0; the server's log gives its reserved memory after each request;
+3j. the compaction-OOM respawn: 3b's build in a child process whose
+   allocator is capped between 3b's counting peak and its build's peak
+   (both printed): compaction raises torch.OutOfMemoryError, and the CLI
+   re-runs itself with -skip-bcalm in a fresh process on the card, which
+   writes phase 3's bytes;
 3d. multi-sample solidity: a second read set of the same genome (seed +
    1); an album of the two under ``-solidity-kind min`` and ``max`` must
    give the canonical k-mers and the KC of numpy's min/max combination of
@@ -168,7 +190,8 @@ reads: unitig set, KC, km and link count.
 
 runs only ``python -m bcalm_tpu_torch`` of the tree unpacked in DIR (for
 example a parent commit, ``git archive``) and of this tree in turns on
-the phase 3 reads, resident and with ``-max-memory 2192``, after a
+the phase 3 reads, resident and with each tree's phase 3b ``-max-memory``
+(its pass times printed), after a
 warm-up run of each that builds its kernels and ingest library; before
 those runs, KERNEL_AB (below) times the L = 2 lane kernels, K1 at L = 10
 and in range mode, the count step after the sort at phase 3's, 3b's
@@ -652,10 +675,16 @@ def _inproc(args, what: str, record=tuple(KERNELS)):
     """cli.main in this process with the launch counters and the converging
     phases' round counts reset just before it: (wall, stats (with the
     round counts as `converge_rounds`), stdout, launches, the inputs of the
-    kernels named in record)."""
+    kernels named in record).  The allocator's cache is emptied first, so
+    the run's device_peak_mb is a fresh process's (a cached block reused
+    whole counts in full)."""
+    import gc
+
     from bcalm_tpu_torch import cli
     from bcalm_tpu_torch.ops import _kernels, chains
 
+    gc.collect()
+    torch.cuda.empty_cache()
     buf = io.StringIO()
     with Recorder(_kernels, record) as rec:
         _kernels.reset_launches()
@@ -683,14 +712,15 @@ def _run_cli(tmp: str, args, what: str, out: str):
     just before it; both outputs must be byte-identical.  Returns (path of
     the in-process output, its stats, the subprocess's stats, its
     launches, recorded inputs)."""
-    wall, sub_stats, _ = _sub(args + ["-out", os.path.join(tmp, out + "_sub")],
-                              what)
+    sub_wall, sub_stats, _ = _sub(
+        args + ["-out", os.path.join(tmp, out + "_sub")], what)
     _report(f"python -m bcalm_tpu_torch {what} (process start included)",
-            wall, sub_stats)
+            sub_wall, sub_stats)
     wall, stats, _, launches, inputs = _inproc(
         args + ["-out", os.path.join(tmp, out)], what)
     _report("cli.main, same arguments, in this process", wall, stats)
     stats["wall_s"] = wall
+    stats["sub_wall_s"] = sub_wall
     path = os.path.join(tmp, out + ".unitigs.fa")
     if _read(path) != _read(os.path.join(tmp, out + "_sub.unitigs.fa")):
         raise AssertionError("the two CLI runs wrote different unitigs")
@@ -710,6 +740,12 @@ def _require_launched(launches, path_kernels, what: str):
                                  f"{what} main path")
 
 
+def resident_args(fa: str):
+    """Phase 3's command line."""
+    return ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
+            "-verbose", "1"]
+
+
 def phase_full(tmp: str, coverage: float, seed: int):
     """The resident build of the E. coli-class reads."""
     fa = os.path.join(tmp, "reads.fa")
@@ -717,16 +753,20 @@ def phase_full(tmp: str, coverage: float, seed: int):
     n_reads = write_reads(fa, coverage, seed)
     say(f"[input] {n_reads} reads of 150 bp (4.6 Mbp genome, {coverage}x, "
         f"seed {seed}) written in {time.time() - t0:.1f}s")
-    args = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
-            "-verbose", "1"]
     path, stats, sub_stats, launches, inputs = _run_cli(
-        tmp, args, "-kmer-size 31 -abundance-min 2", "ec")
+        tmp, resident_args(fa), "-kmer-size 31 -abundance-min 2", "ec")
     _require_launched(launches, RESIDENT_PATH, "resident")
     for what, st in (("python -m", sub_stats), ("cli.main", stats)):
         if st.get("ingest_parser") != "native":
             raise AssertionError(f"{what}: ingest_parser "
                                  f"{st.get('ingest_parser')}, expected native")
     say("[full] ingest_parser native in both runs")
+    for what, st in (("python -m", sub_stats), ("cli.main", stats)):
+        say(f"[full] {what}: device_pass1_peak_mb "
+            f"{st['device_pass1_peak_mb']} (the count's one pass, the device "
+            f"block cache's fill included), device_count_peak_mb "
+            f"{st['device_count_peak_mb']} (its final merge too), "
+            f"device_peak_mb {st['device_peak_mb']} (the whole build)")
     return fa, path, stats, launches, inputs
 
 
@@ -841,9 +881,18 @@ def phase_ooc(tmp: str, fa: str, resident_path: str, resident_stats, dev):
         if int(st["device_peak_mb"]) > mb:
             raise AssertionError(f"{what}: peak device memory "
                                  f"{st['device_peak_mb']} MiB > -max-memory {mb}")
+        # the device block cache holds the input: passes 2.. replay it
+        if float(st["ooc_block_cache_mb"]) <= 0:
+            raise AssertionError(f"{what}: the later passes re-read the "
+                                 f"input (ooc_block_cache_mb "
+                                 f"{st['ooc_block_cache_mb']})")
         say(f"[ooc] {what}: ooc_passes {st['ooc_passes']}, ooc_ranges "
-            f"{st['ooc_ranges']}, device_peak_mb {st['device_peak_mb']} "
-            f"<= {mb}; timing {st['timing']}")
+            f"{st['ooc_ranges']}, ooc_block_cache_mb "
+            f"{st['ooc_block_cache_mb']} (passes 2-{st['ooc_passes']} "
+            f"replayed from the device), pass times "
+            f"{_literal(st['timing'])['passes']} s, device_count_peak_mb "
+            f"{st['device_count_peak_mb']}, device_peak_mb "
+            f"{st['device_peak_mb']} <= {mb}; timing {st['timing']}")
     with open(path, "rb") as f1, open(resident_path, "rb") as f2:
         if f1.read() != f2.read():
             raise AssertionError("the multi-pass FASTA differs from the "
@@ -855,7 +904,253 @@ def phase_ooc(tmp: str, fa: str, resident_path: str, resident_stats, dev):
         f"{launches['range_fold']} (chunks owed a fold); K6 "
         f"{launches['lower_bound']}")
     _require_launched(launches, OOC_PATH, "multi-pass")
-    return launches, inputs
+    stats["max_memory"] = mb
+    phase_ooc_reread(tmp, args, resident_path, stats)
+    return launches, inputs, (args, path, stats)
+
+
+def phase_ooc_reread(tmp: str, args, resident_path: str, cached) -> None:
+    """3b's arguments once more in this process with the device block
+    cache made to overflow (its size set to half what 3b's cache held,
+    after configure_chunk sized the chunk and the resident budget with
+    the full reservation): passes 2.. re-read and re-upload the input
+    (the path of an input too large for the cache), with 3b's passes,
+    phase 3's bytes and device_peak_mb <= M."""
+    from bcalm_tpu_torch import engine
+
+    mb = cached["max_memory"]
+    small = int(float(cached["ooc_block_cache_mb"])) // 2
+    real = engine.configure_chunk
+
+    def overflowing(cfg, max_memory_mb, device):
+        chunk = real(cfg, max_memory_mb, device)
+        cfg.dev_block_cache_mb = small
+        return chunk
+
+    engine.configure_chunk = overflowing
+    try:
+        wall, st, _, launches, _ = _inproc(
+            args + ["-out", os.path.join(tmp, "ooc_reread")],
+            "-max-memory with the block cache overflowing", record=())
+    finally:
+        engine.configure_chunk = real
+    if float(st["ooc_block_cache_mb"]) != 0:
+        raise AssertionError(f"the overflowing cache served the later "
+                             f"passes (ooc_block_cache_mb "
+                             f"{st['ooc_block_cache_mb']})")
+    if st["ooc_passes"] != cached["ooc_passes"]:
+        raise AssertionError(f"{st['ooc_passes']} passes re-reading, "
+                             f"{cached['ooc_passes']} from the cache")
+    if int(st["device_peak_mb"]) > mb:
+        raise AssertionError(f"peak device memory {st['device_peak_mb']} "
+                             f"MiB > -max-memory {mb}")
+    if launches["extract_insert_ranged"] <= 0:
+        raise AssertionError("K1 did not launch in range mode")
+    _require_launched(launches, OOC_PATH, "multi-pass (re-read)")
+    if _read(os.path.join(tmp, "ooc_reread.unitigs.fa")) != _read(resident_path):
+        raise AssertionError("the re-reading multi-pass FASTA differs from "
+                             "the resident run's")
+    say(f"[ooc] cache overflowing at {small} MB (cli.main, 3b's arguments): "
+        f"ooc_block_cache_mb 0 (passes 2-{st['ooc_passes']} re-read the "
+        f"input), pass times {_literal(st['timing'])['passes']} s against "
+        f"{_literal(cached['timing'])['passes']} s from the cache, t_count_s "
+        f"{st['t_count_s']} against {cached['t_count_s']}, wall {wall:.2f}s "
+        f"against {cached['wall_s']:.2f}s; K1 {launches['extract_insert_ranged']} "
+        f"in range mode; device_peak_mb {st['device_peak_mb']} <= {mb}; "
+        f"FASTA byte-identical to phase 3's")
+
+
+def _literal(text: str):
+    """A python literal the CLI printed (a stat's dict or list)."""
+    import ast
+
+    return ast.literal_eval(text)
+
+
+def _poll(path: str, text: str, proc, timeout: float) -> float:
+    """Seconds until `text` shows in the file at path; raises if proc
+    ends or the time runs out first."""
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        if os.path.exists(path) and text in open(path).read():
+            return time.time() - t0
+        if proc.poll() is not None:
+            raise RuntimeError(f"the server exited {proc.returncode} before "
+                               f"'{text}'")
+        time.sleep(0.02)
+    raise AssertionError(f"no '{text}' within {timeout}s")
+
+
+def _client(tmp: str, args):
+    """`python -m bcalm_tpu_torch -connect srv.sock ...` once, a user's
+    client: (wall from its spawn, exit code, stdout)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bcalm_tpu_torch", "-connect", "srv.sock",
+         *args], cwd=tmp, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+    return time.time() - t0, proc.returncode, proc.stdout
+
+
+def _shutdown(sock: str) -> bytes:
+    import socket
+
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as c:
+        c.connect(sock)
+        c.sendall(b'{"op": "shutdown"}\n')
+        return c.recv(1 << 10)
+
+
+def phase_server(tmp: str, full, ooc) -> None:
+    """Phase 3i: the keep-alive server.  `python -m bcalm_tpu_torch -server`
+    (a relative socket path in tmp, so no path limit binds), timed from
+    its spawn to its listening line; phase 3's arguments sent three times
+    and 3b's once through `python -m bcalm_tpu_torch -connect`, each
+    answer phase 3's bytes with the in-process run's device_peak_mb, a
+    gzip cut short under 3b's M (rc 1: it fails after its first chunks
+    were counted on the card) between the second and the third; a missing
+    input answered rc 1; a shutdown ending the server with rc 0.
+    Each client's wall (its start included) beside phase 3's fresh
+    `python -m` wall, and the server's memory_reserved after each request
+    (its log)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    args3, path3, stats3 = full
+    args3b, _, stats3b = ooc
+    want = _read(path3)
+    out_log, err_log = (os.path.join(tmp, "srv.out"),
+                        os.path.join(tmp, "srv.err"))
+    t0 = time.time()
+    with open(out_log, "w") as out, open(err_log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bcalm_tpu_torch", "-server", "srv.sock"],
+            cwd=tmp, stdout=out, stderr=err,
+            env=dict(os.environ, PYTHONPATH=repo))
+    try:
+        up = _poll(out_log, "listening on srv.sock", proc, 300)
+        log = open(err_log).read()
+        if "ready" not in log:
+            raise AssertionError(f"the server listened before it was ready:"
+                                 f"\n{log}")
+        say(f"[server] python -m bcalm_tpu_torch -server: listening "
+            f"{up:.2f}s after its spawn; {log.strip().splitlines()[-1]}")
+        # a request that fails mid-build: a gzip cut short, under 3b's M,
+        # whose first 16 MB of reads fill and count 3b's 2^20-slot chunk
+        # (K1, K2) a dozen times before the reader's EOFError
+        import gzip
+
+        cut = os.path.join(tmp, "cut.fa.gz")
+        with open(args3[1], "rb") as f:
+            packed = gzip.compress(f.read(48 << 20), compresslevel=1)
+        with open(cut, "wb") as f:
+            f.write(packed[: len(packed) * 3 // 4])
+        rows = []
+        plan = [(args3, stats3)] * 2 + [None] + [(args3, stats3),
+                                                (args3b, stats3b)]
+        for i, req in enumerate(plan):
+            prefix = os.path.join(tmp, f"srv{i}")
+            if req is None:
+                wall, rc, text = _client(tmp, ["-in", cut, "-kmer-size",
+                                               str(K), "-max-memory",
+                                               str(stats3b["max_memory"]),
+                                               "-out", prefix])
+                if rc != 1 or "EOFError" not in text:
+                    raise AssertionError(f"the cut gzip answered rc {rc}:"
+                                         f"\n{text}")
+                rows.append(f"a gzip cut short: rc 1 after {wall:.2f}s "
+                            f"({text.strip().splitlines()[-1][:120]})")
+                continue
+            args, st_in = req
+            wall, rc, text = _client(tmp, args + ["-out", prefix])
+            st = _stats(text)
+            if rc != 0:
+                raise AssertionError(f"server request {i + 1} exited {rc}:"
+                                     f"\n{text}")
+            if _read(prefix + ".unitigs.fa") != want:
+                raise AssertionError(f"server request {i + 1}: FASTA differs "
+                                     f"from phase 3's")
+            if st["device_peak_mb"] != st_in["device_peak_mb"]:
+                raise AssertionError(
+                    f"server request {i + 1}: device_peak_mb "
+                    f"{st['device_peak_mb']}, in process "
+                    f"{st_in['device_peak_mb']}")
+            ooc = args is args3b
+            rows.append(f"{'3b' if ooc else '3'}: client wall "
+                        f"{wall:.2f}s (fresh python -m "
+                        f"{st_in['sub_wall_s']:.2f}s), time:build "
+                        f"{st['time:build']}, t_count_s {st['t_count_s']}, "
+                        f"device_peak_mb {st['device_peak_mb']}"
+                        + (f", ooc_passes {st['ooc_passes']}, pass times "
+                           f"{_literal(st['timing'])['passes']} s"
+                           if ooc else ""))
+        say("[server] requests (each build's FASTA phase 3's bytes, its "
+            "device_peak_mb the in-process run's): " + "; ".join(rows))
+        wall, rc, text = _client(tmp, ["-in", os.path.join(tmp, "nope.fa")])
+        if rc != 1:
+            raise AssertionError(f"a missing input answered rc {rc}")
+        reply = _shutdown(os.path.join(tmp, "srv.sock"))
+        rc = proc.wait(timeout=120)
+        if rc != 0 or reply != b'{"rc": 0, "output": "bye"}\n':
+            raise AssertionError(f"shutdown: reply {reply!r}, exit {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    served = [line for line in open(err_log).read().splitlines()
+              if line.startswith("bcalm-tpu server: request")]
+    say(f"[server] missing input: rc 1 (client wall {wall:.2f}s); shutdown: "
+        f"rc 0, server up {time.time() - t0:.2f}s; its log: "
+        + " | ".join(served))
+
+
+def phase_respawn(tmp: str, ref_path: str, ooc) -> None:
+    """Phase 3j: the compaction-OOM respawn.  3b's build in a child process
+    that first caps its allocator (torch.cuda.set_per_process_memory_fraction)
+    between 3b's counting peak and its whole build's peak: the count
+    fits, compaction raises torch.OutOfMemoryError after the store's
+    checkpoint, and the CLI re-runs itself with -skip-bcalm in a fresh
+    process without the cap, on the card, which writes phase 3's bytes."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    args, _, st = ooc
+    count_peak = int(st["device_count_peak_mb"])
+    peak = int(st["device_peak_mb"])
+    if peak - count_peak < 256:
+        raise AssertionError(f"3b's counting peak {count_peak} MiB and its "
+                             f"build's peak {peak} MiB leave no room for a "
+                             f"cap between them")
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap_mb = (count_peak + peak) // 2
+    frac = (cap_mb << 20) / total
+    prefix = os.path.join(tmp, "respawn")
+    child = ("import sys, torch\n"
+             f"torch.cuda.set_per_process_memory_fraction({frac!r})\n"
+             "from bcalm_tpu_torch import cli\n"
+             "sys.exit(cli.main(sys.argv[1:]))\n")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", child, *args, "-out", prefix],
+                          cwd=repo, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=repo), timeout=900)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the capped build exited {proc.returncode}:\n"
+                             f"{proc.stderr}")
+    if ("(OutOfMemoryError)" not in proc.stderr
+            or "restarting compaction in a fresh process" not in proc.stderr):
+        raise AssertionError(f"no compaction OOM and respawn:\n{proc.stderr}")
+    if _read(prefix + ".unitigs.fa") != _read(ref_path):
+        raise AssertionError("the respawned build's FASTA differs from "
+                             "phase 3's")
+    if "(cuda)" not in proc.stdout or os.path.exists(prefix + "_btpu"):
+        raise AssertionError("the respawned child did not finish on the card")
+    child_st = _stats(proc.stdout)
+    say(f"[respawn] 3b's arguments with the allocator capped at {cap_mb} MiB "
+        f"(fraction {frac:.5f} of the card) between 3b's counting peak "
+        f"{count_peak} MiB and its build's peak {peak} MiB: compaction "
+        f"raised torch.OutOfMemoryError, the CLI re-ran itself with "
+        f"-skip-bcalm in a fresh process (t_compact_s "
+        f"{child_st['t_compact_s']}, device_peak_mb "
+        f"{child_st['device_peak_mb']}) that wrote phase 3's bytes; wall "
+        f"{wall:.2f}s, both processes' starts included")
 
 
 def phase_resume(tmp: str, fa: str, ref_path: str, ref_stats: dict):
@@ -2659,7 +2954,8 @@ def kernel_ab_line(times: dict) -> str:
 def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
     """--compare-tree DIR: `python -m bcalm_tpu_torch` from the tree in DIR
     and from this one in turns (DIR, this, this, DIR) on the phase 3 reads,
-    resident and at -max-memory 2192; before them, KERNEL_AB and DIST_AB
+    resident and at each tree's phase 3b -max-memory (its pass times
+    printed); before them, KERNEL_AB and DIST_AB
     (the -devices build at world size 1 on 1/8 of the reads) in each tree
     in the same turns.  A warm-up run of each tree on a small input builds
     its kernels and ingest library first, so that no timed run builds
@@ -2729,20 +3025,41 @@ def phase_compare(tmp: str, parent: str, coverage: float, seed: int) -> None:
             f"links equal the single-device build's")
     base = ["-in", fa, "-kmer-size", str(K), "-abundance-min", "2",
             "-verbose", "1"]
-    outputs = {}
+    outputs, max_memory = {}, {}
     for turn, name in enumerate(("parent", "change", "change", "parent")):
-        for extra in ([], ["-max-memory", "2192"]):
+        for ooc in (False, True):
+            extra = []
+            if ooc:
+                # each tree at its own phase 3b M (pick_max_memory), whose
+                # resident budget is the same in both
+                if name not in max_memory:
+                    proc = subprocess.run(
+                        [sys.executable, "-c", "import chip_smoke, torch; "
+                         f"print(chip_smoke.pick_max_memory({distinct}, "
+                         "torch.device('cuda', 0))[0])"],
+                        cwd=trees[name], capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"{name} pick_max_memory failed:\n"
+                                           f"{proc.stderr}")
+                    max_memory[name] = int(proc.stdout.split()[-1])
+                extra = ["-max-memory", str(max_memory[name])]
             out = os.path.join(tmp, f"cmp{turn}{len(extra)}")
             wall, st, _ = _sub(base + extra + ["-out", out],
                                f"{name} {' '.join(extra)}", trees[name])
-            outputs.setdefault(len(extra), set()).add(_read(out + ".unitigs.fa"))
+            distinct = int(st["distinct_kmers"])
+            outputs.setdefault(ooc, set()).add(_read(out + ".unitigs.fa"))
+            passes = (f", ooc_passes {st['ooc_passes']}, pass times "
+                      f"{_literal(st['timing'])['passes']} s, "
+                      f"ooc_block_cache_mb "
+                      f"{st.get('ooc_block_cache_mb', 'none')}" if ooc else "")
             say(f"[compare] {name} {' '.join(extra) or 'resident'}: wall "
                 f"{wall:.2f}s (process start included), time:build "
                 f"{st['time:build']}, t_count_s {st['t_count_s']}, "
                 f"t_compact_s {st['t_compact_s']}, t_assemble_s "
                 f"{st['t_assemble_s']}, write {st['time:write']}, "
                 f"ingest_parser {st.get('ingest_parser', 'not printed')}, "
-                f"device_peak_mb {st.get('device_peak_mb', 'not measured')}")
+                f"device_peak_mb {st.get('device_peak_mb', 'not measured')}"
+                + passes)
     if any(len(v) != 1 for v in outputs.values()):
         raise AssertionError("the two trees wrote different unitigs")
     say(f"[compare] {n_reads} reads; both trees wrote the same bytes")
@@ -4454,8 +4771,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fa, path, stats, launches, inputs = phase_full(tmp, args.coverage,
                                                        args.seed)
-        ooc_launches, ooc_inputs = phase_ooc(tmp, fa, path, stats, dev)
+        ooc_launches, ooc_inputs, ooc = phase_ooc(tmp, fa, path, stats, dev)
         phase_resume(tmp, fa, path, stats)
+        phase_server(tmp, (resident_args(fa), path, stats), ooc)
+        phase_respawn(tmp, path, ooc)
         inputs["jump_round:plain"] = phase_hier_resident(inputs, dev)
         M, ms_launches, ms_inputs, table, peak_mb = phase_multi(
             tmp, fa, path, args.coverage, args.seed, dev)

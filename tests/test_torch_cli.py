@@ -1,6 +1,5 @@
 """`python -m bcalm_tpu_torch` command line: output parity, the -devices N
-build and its refusals, and the option that is not ported (the
-keep-alive server).
+build and its refusals (the keep-alive server: tests/test_torch_server.py).
 
 The parity tests drive both command lines (bcalm_tpu on JAX's CPU
 backend, the port with BCALM_TORCH_DEVICE=cpu) on one FASTA file and
@@ -42,19 +41,6 @@ def test_cli_byte_identical(tmp_path, monkeypatch):
     want = (tmp_path / "jax.unitigs.fa").read_bytes()
     assert (tmp_path / "torch.unitigs.fa").read_bytes() == want
     assert want.count(b">") > 10
-
-
-@pytest.mark.parametrize("extra", [
-    ["-server", "sock"],
-    ["-connect", "sock"],
-])
-def test_not_ported_options_exit_1(tmp_path, monkeypatch, capsys, extra):
-    fa = tmp_path / "reads.fa"
-    fa.write_text(">r\nACGTACGTACGTACGTACGTACGT\n")
-    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
-    assert tcli.main(["-in", str(fa), "-kmer-size", "21", "-out",
-                      str(tmp_path / "out")] + extra) == 1
-    assert "on ROADMAP's do-not-port list" in capsys.readouterr().err
 
 
 def test_missing_input_exits_1(tmp_path, monkeypatch, capsys):

@@ -387,11 +387,16 @@ def test_configure_chunk_monotone_with_floor(k):
         assert (chunk, cfg.resident_kmers) >= prev
         assert chunk >= prev[0] and cfg.resident_kmers >= prev[1]
         prev = (chunk, cfg.resident_kmers)
+        # the device block cache is reserved inside the budget first: at
+        # most a quarter of it, JAX's 512 MB shrunk to fit
+        cache = cfg.dev_block_cache_mb * 1_000_000
+        assert cfg.dev_block_cache_mb == min(512, ((mb << 20) // 4) // 1_000_000)
         if chunk > tengine.MIN_CHUNK:   # inside the budget
             used = (chunk * tengine.chunk_slot_bytes(k)
                     + cfg.resident_kmers * tengine.resident_slot_bytes(k))
-            assert used <= mb << 20
+            assert used + cache <= mb << 20
     cfg = tengine.EngineConfig(k=k)
     tengine.configure_chunk(cfg, 0, "cpu")      # no -max-memory: the device
     assert cfg.resident_kmers == tengine.resident_slots(
         k, tengine.CPU_DEVICE_BYTES)
+    assert cfg.dev_block_cache_mb == 512        # nothing reserved

@@ -4,8 +4,9 @@ The port's out-of-core build writes the bytes of the JAX package's
 out-of-core build and of its own resident build: on the end-to-end
 scenario of tests/test_ooc_count.py, on a branching input (repeats, read
 errors, duplicates) at abundance-min 1 and 2, and through the command
-line with ``-max-memory``.  The counting itself is held against the JAX
-package table by table in tests/test_torch_ooc.py.
+line with ``-max-memory``; with the device block cache on, off and
+overflowing.  The counting itself is held against the JAX package table
+by table in tests/test_torch_ooc.py.
 """
 
 import io
@@ -119,3 +120,59 @@ def test_cli_multipass_rereads_input(tmp_path, monkeypatch):
     assert seen["ooc_passes"] > 1
     assert ((tmp_path / "ooc.unitigs.fa").read_bytes()
             == (tmp_path / "res.unitigs.fa").read_bytes())
+
+
+@pytest.mark.parametrize("cache_mb", [512, 0, 0.05])
+def test_device_block_cache_matches_jax(cache_mb):
+    """The device block cache held (512 MB), off (0) and overflowing (50
+    kB: the port's int64 blocks take ~170 kB, JAX's uint32 ones ~85 kB)
+    gives JAX's bytes and passes at the same chunk and resident sizes."""
+    reads = _reads(7, 3500, 55, 3)
+    jcfg, tcfg = configs(17)
+    jcfg.dev_block_cache_mb = tcfg.dev_block_cache_mb = cache_mb
+    want = jengine.build_from_seqs(reads, jcfg)
+    got = tengine.build_from_seqs(reads, tcfg, "cpu")
+    assert got.stats["ooc_passes"] == want.stats["ooc_passes"] > 1
+    assert fasta(got, twriter) == fasta(want, jwriter)
+    held = got.stats["ooc_block_cache_mb"]
+    assert (held > 0) == (cache_mb == 512), held
+
+
+@pytest.mark.parametrize("cache_mb", [512, 0])
+def test_cli_later_passes_replay_the_cache(tmp_path, monkeypatch, cache_mb):
+    """With the cache holding the input the CLI reads the FASTA once, for
+    the first pass; without it every pass re-reads it.  Same bytes as the
+    resident run either way."""
+    from tests.test_torch_cli import write_reads
+
+    fa = tmp_path / "reads.fa"
+    write_reads(fa)
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    args = ["-in", str(fa), "-kmer-size", "31", "-abundance-min", "2"]
+    assert tcli.main(args + ["-out", str(tmp_path / "res")]) == 0
+    seen, opened = {}, []
+    real, real_blocks = tengine.build_from_blocks, tcli._input_blocks
+
+    def counting(*a, **kw):
+        opened.append(1)
+        return real_blocks(*a, **kw)
+
+    def small_budget(blocks, cfg, device, reread=None, **kw):
+        cfg.block_reads, cfg.chunk_kmers, cfg.resident_kmers = 16, 1024, 2048
+        cfg.dev_block_cache_mb = cache_mb
+        us = real(blocks, cfg, device, reread=reread, **kw)
+        seen.update(us.stats)
+        return us
+
+    monkeypatch.setattr(tcli, "_input_blocks", counting)
+    monkeypatch.setattr(tengine, "build_from_blocks", small_budget)
+    assert tcli.main(args + ["-out", str(tmp_path / "ooc")]) == 0
+    assert seen["ooc_passes"] > 1
+    if cache_mb:
+        assert len(opened) == 1 and seen["ooc_block_cache_mb"] > 0
+    else:
+        assert len(opened) == seen["ooc_passes"]
+        assert seen["ooc_block_cache_mb"] == 0
+    assert ((tmp_path / "ooc.unitigs.fa").read_bytes()
+            == (tmp_path / "res.unitigs.fa").read_bytes())
+
