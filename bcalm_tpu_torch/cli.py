@@ -52,7 +52,7 @@ from typing import List, Optional
 
 from bcalm_tpu_torch.utils.logging import Progress
 from bcalm_tpu_torch.utils.options import OptionFailure, OptionsParser
-from bcalm_tpu_torch.utils.timeinfo import TimeInfo, peak_rss_mb
+from bcalm_tpu_torch.utils.timeinfo import TimeInfo, peak_rss_mb, span
 from bcalm_tpu_torch.version import version_string
 
 DEVICE_ENV = "BCALM_TORCH_DEVICE"
@@ -348,34 +348,30 @@ def devices_rank(mesh, job: dict) -> None:
     from bcalm_tpu_torch.parallel import pipeline
     from bcalm_tpu_torch.storage.store import Store
 
-    ti = TimeInfo()
     cfg = job["cfg"]
     bank = bank_mod.Bank.open(job["in_path"])
     store = Store(job["prefix"])
-    with ti.timer("build_distributed"):
-        us = pipeline.distributed_build(
-            mesh, bank.sequences(), cfg, job["mcfg"],
-            auto_amin_cap=job["auto_amin_cap"], store=store,
-            reread=lambda: bank.sequences())
-    if mesh.rank != 0:
-        return
-    verbose = job["verbose"]
-    if job["auto_amin_cap"] is not None and verbose:
-        print(f"auto abundance-min = {cfg.abundance_min}")
-    unitigs_path = job["prefix"] + ".unitigs.fa"
-    with ti.timer("write"):
-        with open(unitigs_path, "w") as f:
-            fasta_writer.write_fasta(
-                us, f, all_abundance_counts=job["all_abundance_counts"])
-    store.remove()
-    if verbose:
-        print(f"wrote {len(us.seqs)} unitigs -> {unitigs_path} "
-              f"({mesh.n_dev} devices)")
-        for key, val in sorted(us.stats.items()):
-            print(f"    [{key}] {val}")
-        for name, secs in ti.report().items():
-            print(f"    [time:{name}] {secs:.2f}s")
-        print(f"    [peak_rss_mb] {peak_rss_mb():.0f}")
+    with TimeInfo().active() as ti:
+        with span("build_distributed"):
+            us = pipeline.distributed_build(
+                mesh, bank.sequences(), cfg, job["mcfg"],
+                auto_amin_cap=job["auto_amin_cap"], store=store,
+                reread=lambda: bank.sequences())
+        if mesh.rank != 0:
+            return
+        verbose = job["verbose"]
+        if job["auto_amin_cap"] is not None and verbose:
+            print(f"auto abundance-min = {cfg.abundance_min}")
+        unitigs_path = job["prefix"] + ".unitigs.fa"
+        with span("write"):
+            with open(unitigs_path, "w") as f:
+                fasta_writer.write_fasta(
+                    us, f, all_abundance_counts=job["all_abundance_counts"])
+        store.remove()
+        if verbose:
+            print(f"wrote {len(us.seqs)} unitigs -> {unitigs_path} "
+                  f"({mesh.n_dev} devices)")
+            _print_stats(us.stats, ti)
 
 
 def resolve_device():
@@ -611,6 +607,23 @@ def main(argv: Optional[List[str]] = None) -> int:
             print("-connect requires a socket path", file=sys.stderr)
             return 1
         return connect(argv[i + 1], argv[:i] + argv[i + 2:])
+    with TimeInfo().active() as ti:
+        return _run(argv, ti)
+
+
+def _print_stats(stats: dict, ti: TimeInfo) -> None:
+    """The -verbose report: each stat, each span's time and calls, the
+    process's peak RSS."""
+    for key, val in sorted(stats.items()):
+        print(f"    [{key}] {val}")
+    for line in ti.report_lines():
+        print(f"    {line}")
+    print(f"    [peak_rss_mb] {peak_rss_mb():.0f}")
+
+
+def _run(argv: List[str], ti: TimeInfo) -> int:
+    """One command line past -version, -server and -connect, with ti the
+    active recorder of its spans."""
     parser = build_parser()
     try:
         props = parser.parse(argv)
@@ -666,13 +679,12 @@ def main(argv: Optional[List[str]] = None) -> int:
               "with -only-uf, then -skip-bcalm -skip-bglue)", file=sys.stderr)
         return 1
 
-    ti = TimeInfo()
     solid = counts = minpos = histo = None
     built_us = None
     stats = {}
     if skip_bcalm:
         _reset_peak(device)
-        with ti.timer("load_counts"):
+        with span("load_counts"):
             loaded = _load_store(store, cfg, k, auto_amin, verbose)
         if isinstance(loaded, int):
             return loaded
@@ -703,20 +715,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                                  info=ingest)
 
         progress = Progress("reads packed", enabled=verbose >= 1)
-        ingest_t = {"t0": None, "t1": None, "bases": 0}
         oom = None
 
         def counted(it):
-            # a first pass: the progress line and the ingest rate
-            if ingest_t["t0"] is None:
-                ingest_t["t0"] = time.time()
+            # a first pass: the progress line
             for blk in it:
                 progress.update(int((blk.lengths > 0).sum()))
-                ingest_t["bases"] += int(blk.lengths.sum())
-                ingest_t["t1"] = time.time()
                 yield blk
 
-        with ti.timer("build"):
+        with span("build"):
             if solidity_kind != "sum" and len(bank.paths) > 1:
                 solid, counts, histo, stats = _count_samples(
                     bank, cfg, props, verbose, device, auto_amin, counted)
@@ -743,19 +750,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             _release(device)
             return _respawn_skip_bcalm(argv, oom)
         progress.done()
-        if built_us is not None and ingest_t["t1"]:
-            # stream rate over the packing loop (overlapped with device
-            # compute, so a lower bound on the parser's speed)
-            dt = max(1e-6, ingest_t["t1"] - ingest_t["t0"])
-            built_us.stats["ingest_mbps"] = round(
-                ingest_t["bases"] / 1e6 / dt, 1)
         if auto_amin and verbose:
             print(f"auto abundance-min = {cfg.abundance_min}")
         stats.setdefault("ingest_parser", ingest.get("ingest_parser", "none"))
         if built_us is not None:
             built_us.stats["ingest_parser"] = stats["ingest_parser"]
         if solid is not None:
-            with ti.timer("store"):
+            with span("store"):
                 store.write_counts(
                     solid, counts, k, histogram=histo, minpos=minpos,
                     config={"abundance_min": cfg.abundance_min,
@@ -788,7 +789,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 return 1
             if verbose:
                 print("reusing stored chain decomposition (skip-bglue)")
-        with ti.timer("compact"):
+        with span("compact"):
             try:
                 us = engine.compact_from_counts(
                     solid, counts, cfg, device, only_uf=only_uf,
@@ -803,14 +804,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         store.write_chains(us.chain_info, k, int(us.stats.get("solid_kmers", 0)))
 
     if not only_uf:
-        with ti.timer("write"):
+        with span("write"):
             with open(unitigs_path, "w") as f:
                 fasta_writer.write_fasta(
                     us, f,
                     all_abundance_counts=props.get_bool("-all-abundance-counts"))
         # a finished run removes its checkpoint; -only-uf keeps it for the
         # resume stages
-        with ti.timer("remove_store"):
+        with span("remove_store"):
             store.remove()
 
     if verbose:
@@ -819,11 +820,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"({us.stats.get('uf_classes', 0)} classes)")
         else:
             print(f"wrote {len(us.seqs)} unitigs -> {unitigs_path} ({device})")
-        for key, val in sorted(us.stats.items()):
-            print(f"    [{key}] {val}")
-        for name, secs in ti.report().items():
-            print(f"    [time:{name}] {secs:.2f}s")
-        print(f"    [peak_rss_mb] {peak_rss_mb():.0f}")
+        _print_stats(us.stats, ti)
     return 0
 
 

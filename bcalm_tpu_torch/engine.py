@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import os
 import tempfile
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -50,6 +49,7 @@ from bcalm_tpu_torch.ops import extract as extract_op
 from bcalm_tpu_torch.ops import junctions as junctions_op
 from bcalm_tpu_torch.ops import runchains
 from bcalm_tpu_torch.utils import dna
+from bcalm_tpu_torch.utils.timeinfo import span
 
 # CPU tensors have no card to ask for its memory: the plain paths are
 # sized as if for an 80 GB card
@@ -434,10 +434,9 @@ class _RangeCounter:
                 and est <= 1.2 * budget
                 and self.resident_slots <= 8 * budget):
             return
-        t0 = time.time()
-        self.force_merge_all()
-        tm["split_merge"] = round(tm.get("split_merge", 0.0)
-                                  + time.time() - t0, 3)
+        with span("count.split.merge") as sp:
+            self.force_merge_all()
+        tm["split_merge"] = round(tm.get("split_merge", 0.0) + sp.seconds, 3)
         tm["n_force_merges"] = tm.get("n_force_merges", 0) + 1
         m_new = self.resident_n()
         anchor[2] = float(np.clip((m_new - m0) / max(1, raw - m0), 0.02, 1.0))
@@ -502,19 +501,19 @@ class _RangeCounter:
             return
         unique, counts, minpos, n_dev, occ_dev = self.pending
         self.pending = None
-        t0 = time.time()
-        n_eff = int(n_dev)
-        self.t_seen += int(occ_dev)
-        self.tm["settle_wait"] += time.time() - t0
+        with span("count.settle_wait") as sp:
+            n_eff = int(n_dev)
+            self.t_seen += int(occ_dev)
+        self.tm["settle_wait"] += sp.seconds
         if self.refilter_pending:
             n_eff = int(count_op.lower_bound(unique, n_eff,
                                              self._bound(self.hi))[0])
             self.refilter_pending = False
         self._append(_exact(unique, counts, minpos, n_eff), 0)
         self.merge_generations()
-        t0 = time.time()
-        self.split_current_range()
-        self.tm["split"] += time.time() - t0
+        with span("count.split") as sp:
+            self.split_current_range()
+        self.tm["split"] += sp.seconds
 
     # ---- the chunk buffer ----
     def range_active(self) -> bool:
@@ -575,10 +574,19 @@ class _RangeCounter:
     def upload(self, block_iter, first_pass: bool):
         """The blocks on the device, as (words, lengths, F, occ).  The
         first pass also counts the reads, stages the blocks of a one-shot
-        iterator (_BlockCache) and fills the device block cache."""
+        iterator (_BlockCache) and fills the device block cache.  The wait
+        for each block from the host iterator (the parser, its prefetch,
+        the CLI's progress) is the span count.ingest_wait, its conversion
+        and copies to the device count.upload."""
         k = self.cfg.k
         limit = self.cfg.dev_block_cache_mb * 1_000_000
-        for block in block_iter:
+        block_iter = iter(block_iter)
+        while True:
+            try:
+                with span("count.ingest_wait"):
+                    block = next(block_iter)
+            except StopIteration:
+                return
             if first_pass and self.cache is not None:
                 self.cache.add(block.words, block.lengths)
             F = extract_op.block_slots(block.words.shape, k)
@@ -588,8 +596,10 @@ class _RangeCounter:
                 self.n_reads += int((lens > 0).sum())
                 self.n_bases += int(lens.sum())
                 self.n_occ += occ
-            words = torch.from_numpy(block.words.astype(np.int64)).to(self.device)
-            lengths = torch.from_numpy(lens).to(self.device)
+            with span("count.upload"):
+                words = torch.from_numpy(
+                    block.words.astype(np.int64)).to(self.device)
+                lengths = torch.from_numpy(lens).to(self.device)
             if first_pass and self.block_cache_ok:
                 self.block_cache_bytes += (words.numel() * words.element_size()
                                            + lengths.numel() * lengths.element_size())
@@ -649,16 +659,16 @@ class _RangeCounter:
             while True:
                 self.pass_no += 1
                 first = self.pass_no == 1
-                tp = time.time()
-                if first:
-                    self.run_pass(self.upload(block_iter, True))
-                elif self.block_cache_ok and self.block_cache:
-                    self.run_pass(self.block_cache)
-                elif reread is not None:
-                    self.run_pass(self.upload(reread(), False))
-                else:
-                    self.run_pass(self.upload(self.cache.blocks(), False))
-                tm["passes"].append(round(time.time() - tp, 3))
+                with span("count.pass") as sp:
+                    if first:
+                        self.run_pass(self.upload(block_iter, True))
+                    elif self.block_cache_ok and self.block_cache:
+                        self.run_pass(self.block_cache)
+                    elif reread is not None:
+                        self.run_pass(self.upload(reread(), False))
+                    else:
+                        self.run_pass(self.upload(self.cache.blocks(), False))
+                tm["passes"].append(round(sp.seconds, 3))
                 if self.device.type == "cuda":
                     tm.setdefault("hbm_mb", []).append(
                         torch.cuda.memory_allocated(self.device) >> 20)
@@ -671,19 +681,20 @@ class _RangeCounter:
                         # the peak of pass 1 (the final merge's comes after)
                         stats["device_pass1_peak_mb"] = (
                             torch.cuda.max_memory_allocated(self.device) >> 20)
-                    return self.final_range_run() + (stats,)
-                t0 = time.time()
-                unique, counts, minpos = self.final_range_run()
-                tm["final_merge"] += time.time() - t0
+                    with span("count.final_merge"):
+                        return self.final_range_run() + (stats,)
+                with span("count.final_merge") as sp:
+                    unique, counts, minpos = self.final_range_run()
+                tm["final_merge"] += sp.seconds
                 self.total_occ_known = self.n_occ
                 # the previous range's copy had a whole pass to land:
                 # completing it now keeps two fetches in flight at most
-                t0 = time.time()
-                if self.results:
-                    self.results[-1].materialize()
-                self.results.append(_Fetch(torch.cat(
-                    [unique, counts[None], minpos[None]])))
-                tm["fetch_wait"] += time.time() - t0
+                with span("count.fetch_wait") as sp:
+                    if self.results:
+                        self.results[-1].materialize()
+                    self.results.append(_Fetch(torch.cat(
+                        [unique, counts[None], minpos[None]])))
+                tm["fetch_wait"] += sp.seconds
                 del unique, counts, minpos
                 if not self.range_stack:
                     break
@@ -695,9 +706,9 @@ class _RangeCounter:
             if self.cache is not None:
                 self.cache.close()
         # ranges are ascending: their concatenation is the sorted table
-        t0 = time.time()
-        triples = [f.materialize() for f in self.results]
-        tm["fetch_wait"] += time.time() - t0
+        with span("count.fetch_wait") as sp:
+            triples = [f.materialize() for f in self.results]
+        tm["fetch_wait"] += sp.seconds
         lanes = np.concatenate([t[0] for t in triples], axis=1)
         counts = np.concatenate([t[1] for t in triples])
         pos = np.concatenate([t[2] for t in triples])
@@ -962,11 +973,14 @@ def _finish_build(solid_r, counts_r, info, n_solid: int, cfg: EngineConfig,
         us = _empty_set(cfg, histo, stats)
         us.chain_info = info_np
         return us
-    t1 = time.time()
-    seqs, kc, abund, circular = assemble_unitigs_device(
-        solid_r, counts_r, info, cfg.k, int(info["n_unitigs"]), n_solid)
-    links = link_join(seqs, cfg.k)
-    stats["t_assemble_s"] = round(time.time() - t1, 2)
+    with span("assemble") as sp:
+        with span("assemble.spell"):
+            seqs, kc, abund, circular = assemble_unitigs_device(
+                solid_r, counts_r, info, cfg.k, int(info["n_unitigs"]),
+                n_solid)
+        with span("assemble.links"):
+            links = link_join(seqs, cfg.k)
+    stats["t_assemble_s"] = round(sp.seconds, 2)
     stats["unitigs"] = len(seqs)
     return UnitigSet(k=cfg.k, seqs=seqs, kc=kc, abundances=abund,
                      circular=circular, links=links, histogram=histo,
@@ -1007,22 +1021,22 @@ def compact_from_counts(solid_np: np.ndarray, counts_np: np.ndarray,
         minpos = torch.full((cap,), ln.SENTINEL, dtype=torch.int64,
                             device=device)
         minpos[:n_solid] = convert.pos_from_numpy(minpos_np, device)
-    t1 = time.time()
-    if chain_info is not None:
-        if np.asarray(chain_info["uid"]).shape[0] != 2 * cap:
-            raise ValueError("chain checkpoint is stale (solid set size "
-                             "changed); rerun without -skip-bglue")
-        if minpos is not None:
-            solid, counts = runchains.reorder_by_pos(solid, counts, minpos,
-                                                     cfg.k)
-        info = convert.chain_info_from_numpy(chain_info, device)
-    elif minpos is not None:
-        solid, counts, info = compact_solid_pos(solid, counts, minpos,
-                                                n_solid, cfg.k)
-    else:
-        _, info = compact_solid(solid, n_solid, cfg.k)
-    _sync(device)
-    stats["t_compact_s"] = round(time.time() - t1, 2)
+    with span("compaction") as sp:
+        if chain_info is not None:
+            if np.asarray(chain_info["uid"]).shape[0] != 2 * cap:
+                raise ValueError("chain checkpoint is stale (solid set size "
+                                 "changed); rerun without -skip-bglue")
+            if minpos is not None:
+                solid, counts = runchains.reorder_by_pos(solid, counts,
+                                                         minpos, cfg.k)
+            info = convert.chain_info_from_numpy(chain_info, device)
+        elif minpos is not None:
+            solid, counts, info = compact_solid_pos(solid, counts, minpos,
+                                                    n_solid, cfg.k)
+        else:
+            _, info = compact_solid(solid, n_solid, cfg.k)
+        _sync(device)
+    stats["t_compact_s"] = round(sp.seconds, 2)
     us = _finish_build(solid, counts, info, n_solid, cfg, None, stats,
                        only_uf, uf_stats)
     if device.type == "cuda":
@@ -1076,10 +1090,11 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
         # build that is the process's first CUDA call initialises it here
         torch.cuda.init()
         torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.time()
-    unique, counts, minpos, stats = count_blocks(blocks, cfg, device, reread)
-    _sync(device)
-    stats["t_count_s"] = round(time.time() - t0, 2)
+    with span("count") as sp:
+        unique, counts, minpos, stats = count_blocks(blocks, cfg, device,
+                                                     reread)
+        _sync(device)
+    stats["t_count_s"] = round(sp.seconds, 2)
     if device.type == "cuda":
         stats["device_count_peak_mb"] = torch.cuda.max_memory_allocated(device) >> 20
 
@@ -1092,9 +1107,11 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
                         "solidity_kind": solidity_kind})
 
     if isinstance(unique, np.ndarray):
-        histo, keep = _host_solidity(unique, counts, cfg, auto_amin_cap)
+        with span("solid"):
+            histo, keep = _host_solidity(unique, counts, cfg, auto_amin_cap)
         stats["distinct_kmers"] = int(counts.shape[0])
-        write_store(unique[:, keep], counts[keep], minpos[keep], histo)
+        with span("checkpoint"):
+            write_store(unique[:, keep], counts[keep], minpos[keep], histo)
         try:
             us = compact_from_counts(unique[:, keep], counts[keep], cfg,
                                      device, only_uf=only_uf,
@@ -1114,39 +1131,42 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     else:
         n_u = unique.shape[1]
         amax = cfg.abundance_max
-        if auto_amin_cap is not None:
-            # the cutoff depends on the histogram: read it first
-            histo = count_op.solid_fold_histogram(
-                unique, counts, minpos, n_u, 1, amax, cfg.histo_max)[4]
-            cfg.abundance_min = auto_abundance_min(histo.cpu().numpy(),
-                                                   auto_amin_cap)
-        solid, counts_s, pos_s, n_solid_t, histo = count_op.solid_fold_histogram(
-            unique, counts, minpos, n_u, cfg.abundance_min, amax, cfg.histo_max)
-        n_solid = int(n_solid_t[0])
-        histo = histo.cpu().numpy().astype(np.int32)
-        stats["distinct_kmers"] = n_u
-        stats["solid_kmers"] = n_solid
-        stats["solid_kmer_abundance"] = int(counts_s.sum())
         fetch = None
-        if store is not None:
-            # the checkpoint needs the solid set compacted in canonical
-            # order (the fold leaves it scattered): K9, then one copy
-            # that rides behind compaction
-            stacked, _ = count_op.solid_compact(unique, counts, minpos, n_u,
-                                                cfg.abundance_min, amax,
-                                                width=n_solid)
-            fetch = _Fetch(stacked)
-            del stacked
+        with span("solid"):
+            if auto_amin_cap is not None:
+                # the cutoff depends on the histogram: read it first
+                histo = count_op.solid_fold_histogram(
+                    unique, counts, minpos, n_u, 1, amax, cfg.histo_max)[4]
+                cfg.abundance_min = auto_abundance_min(histo.cpu().numpy(),
+                                                       auto_amin_cap)
+            solid, counts_s, pos_s, n_solid_t, histo = (
+                count_op.solid_fold_histogram(unique, counts, minpos, n_u,
+                                              cfg.abundance_min, amax,
+                                              cfg.histo_max))
+            n_solid = int(n_solid_t[0])
+            histo = histo.cpu().numpy().astype(np.int32)
+            stats["distinct_kmers"] = n_u
+            stats["solid_kmers"] = n_solid
+            stats["solid_kmer_abundance"] = int(counts_s.sum())
+            if store is not None:
+                # the checkpoint needs the solid set compacted in canonical
+                # order (the fold leaves it scattered): K9, then one copy
+                # that rides behind compaction
+                stacked, _ = count_op.solid_compact(
+                    unique, counts, minpos, n_u, cfg.abundance_min, amax,
+                    width=n_solid)
+                fetch = _Fetch(stacked)
+                del stacked
         if n_solid:
-            t1 = time.time()
-            solid_r, counts_r, info = compact_solid_pos(solid, counts_s, pos_s,
-                                                        n_solid, cfg.k)
-            _sync(device)
-            stats["t_compact_s"] = round(time.time() - t1, 2)
+            with span("compaction") as sp:
+                solid_r, counts_r, info = compact_solid_pos(
+                    solid, counts_s, pos_s, n_solid, cfg.k)
+                _sync(device)
+            stats["t_compact_s"] = round(sp.seconds, 2)
         if fetch is not None:
-            t1 = time.time()
-            write_store(*fetch.materialize(), histo)
-            stats["t_store_s"] = round(time.time() - t1, 2)
+            with span("checkpoint") as sp:
+                write_store(*fetch.materialize(), histo)
+            stats["t_store_s"] = round(sp.seconds, 2)
         us = (_finish_build(solid_r, counts_r, info, n_solid, cfg, histo,
                             stats, only_uf, uf_stats)
               if n_solid else _empty_set(cfg, histo, stats))
@@ -1160,7 +1180,9 @@ def count_and_filter(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
     """Counting phase -> host arrays: (solid lanes u32 (L, n), counts
     int32, minpos u32, histogram int32, stats), the histogram and the
     solidity filter in numpy (bcalm_tpu.engine.count_and_filter)."""
-    unique, counts, minpos, stats = count_blocks(blocks, cfg, device, reread)
+    with span("count"):
+        unique, counts, minpos, stats = count_blocks(blocks, cfg, device,
+                                                     reread)
     if not isinstance(unique, np.ndarray):
         unique = convert.lanes_to_numpy(unique)
         counts = convert.counts_to_numpy(counts)

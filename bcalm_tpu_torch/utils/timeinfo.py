@@ -1,32 +1,114 @@
-"""Per-stage wall-clock accounting (gatb TimeInfo analog) + peak-RSS probe
+"""Per-stage timing of a build (gatb TimeInfo analog) + peak-RSS probe
 (the reference ships scripts/memused polling /proc VmHWM — cited
 SURVEY.md §6).
 
-Copy of ``bcalm_tpu/utils/timeinfo.py`` with the imports pointed at this package:
-the port imports nothing of the JAX package.
+``span(name)`` times one stage where it runs, with ``time.perf_counter``:
+
+    with span("count") as sp:
+        ...
+    stats["t_count_s"] = round(sp.seconds, 2)
+
+It adds its seconds and one call, under ``name``, to the TimeInfo that is
+active (``TimeInfo.active()``: cli.main makes one per command line, so a
+-server request has its own); with none active (library calls, the
+server's warm-up) it only measures itself.  While torch's profiler
+records, a span is also a ``torch.profiler.record_function`` range named
+``TRACE_PREFIX + name``, so the stage's edges land on the profiler's clock
+beside the device operations.  A span never synchronises the device: a
+stage that must include its device work synchronises inside the span.
+A child stage is named after its parent plus a dot and a word
+(``count.ingest_wait`` lies inside ``count``).
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from contextlib import contextmanager
-from typing import Dict
+from contextvars import ContextVar
+from typing import Dict, List, Optional
+
+# the root of the program's ranges in a profiler trace
+TRACE_PREFIX = "cdbg.bcalm."
+
+_ACTIVE: ContextVar[Optional["TimeInfo"]] = ContextVar(
+    "bcalm_tpu_torch_timeinfo", default=None)
 
 
 class TimeInfo:
+    """Seconds and calls of each span name, over one command line."""
+
     def __init__(self):
-        self.totals: Dict[str, float] = {}
+        self.spans: Dict[str, List] = {}   # name -> [seconds, calls]
+
+    def add(self, name: str, seconds: float, calls: int = 1) -> None:
+        entry = self.spans.get(name)
+        if entry is None:
+            self.spans[name] = [seconds, calls]
+        else:
+            entry[0] += seconds
+            entry[1] += calls
 
     @contextmanager
-    def timer(self, name: str):
-        t0 = time.time()
+    def active(self):
+        """Make this the recorder that spans add to, until exit."""
+        token = _ACTIVE.set(self)
         try:
-            yield
+            yield self
         finally:
-            self.totals[name] = self.totals.get(name, 0.0) + time.time() - t0
+            _ACTIVE.reset(token)
 
-    def report(self) -> Dict[str, float]:
-        return dict(sorted(self.totals.items(), key=lambda kv: -kv[1]))
+    def report_lines(self) -> List[str]:
+        """``[time:<name>] <s>s`` for each span name, longest first, and
+        ``[calls:<name>] <n>`` after it where the span ran more than once."""
+        lines = []
+        for name, (secs, calls) in sorted(self.spans.items(),
+                                          key=lambda kv: -kv[1][0]):
+            lines.append(f"[time:{name}] {secs:.4f}s")
+            if calls > 1:
+                lines.append(f"[calls:{name}] {calls}")
+        return lines
+
+
+class span:
+    """One timed stage (see the module docstring); ``seconds`` holds its
+    time after exit.  A span that ends in an exception adds its time but
+    no call (a block iterator's last fetch ends in StopIteration)."""
+
+    __slots__ = ("name", "seconds", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+        self._range = None
+
+    # With a range open, each edge is the midpoint of the clock's readings
+    # around its range call: the range stamps the edge somewhere inside the
+    # call, which lets go of the interpreter lock and may wait to take it
+    # back (the ingest's producer thread takes it as a block arrives).
+    def __enter__(self) -> "span":
+        t = time.perf_counter()
+        # no torch imported: no profiler can be recording
+        torch = sys.modules.get("torch")
+        if torch is not None and torch._C._autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(TRACE_PREFIX
+                                                         + self.name)
+            self._range.__enter__()
+            t = 0.5 * (t + time.perf_counter())
+        self._t0 = t
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+            t = 0.5 * (t + time.perf_counter())
+        self.seconds = t - self._t0
+        ti = _ACTIVE.get()
+        if ti is not None:
+            ti.add(self.name, self.seconds, int(exc_type is None))
+        return False
 
 
 def peak_rss_mb() -> float:

@@ -3102,7 +3102,7 @@ def phase_longk(tmp: str, seed: int, dev):
             f"{st['kmer_occurrences']}, distinct_kmers {st['distinct_kmers']}, "
             f"solid_kmers {st['solid_kmers']}, unitigs {st['unitigs']}, links "
             f"{n_links}; device_peak_mb {st.get('device_peak_mb', 'not measured')}"
-            f"; ingest_mbps {st.get('ingest_mbps', 'not printed')}")
+            f"; ingest wait {st.get('time:count.ingest_wait', 'not printed')}")
         say(f"[launches] k = {k}: {json.dumps(launches)}; converging phases "
             f"(K4 rounds launched, rounds that moved a row, host syncs): "
             f"{json.dumps(st['converge_rounds'])}")

@@ -1,7 +1,7 @@
 """The port's own copies of bcalm_tpu's host modules against the originals:
 models/spans.py, io/gfa.py (and its converter entry point), graph/unitigs.py,
 and the single-device CLI's verbose ingest output (utils/logging.py's
-"reads packed" progress, the ingest_mbps stat, the ignored-flag note).
+"reads packed" progress, the ingest figure, the ignored-flag note).
 """
 
 import io
@@ -136,8 +136,9 @@ def _stderr_lines(text):
 
 
 def test_cli_verbose_ingest_output(tmp_path, monkeypatch, capsys):
-    """-verbose 1: the "reads packed" progress line and the ingest_mbps
-    stat, and the note for a mesh-only flag, as bcalm_tpu prints them."""
+    """-verbose 1: the "reads packed" progress line and the note for a
+    mesh-only flag, as bcalm_tpu prints them, and the ingest figure: JAX's
+    ingest_mbps stat, the port's count.ingest_wait span."""
     fa = tmp_path / "reads.fa"
     write_reads(fa, n=200)
     args = ["-in", str(fa), "-kmer-size", "31", "-abundance-min", "2",
@@ -155,5 +156,5 @@ def test_cli_verbose_ingest_output(tmp_path, monkeypatch, capsys):
         "note: -repartition-type only affects the -devices N mesh path; "
         "ignored on the single-device path"]
     assert got_packed == want_packed == ["reads packed: 200"]
-    for out in (jout.out, tout.out):
-        assert "    [ingest_mbps] " in out
+    assert "    [ingest_mbps] " in jout.out
+    assert "    [time:count.ingest_wait] " in tout.out
