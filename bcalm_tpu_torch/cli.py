@@ -202,15 +202,16 @@ def adapt_max_len(bank, cfg) -> None:
             bases * max(0.1, 1.0 - (cfg.k - 1) / max(cfg.k, sampled)))
 
 
-def redo_links(unitigs_path: str, k: int, verbose: int) -> None:
+def redo_links(unitigs_path: str, k: int, verbose: int, device) -> None:
     """Recompute every L: field of an existing unitigs file in place, the
-    other header fields kept (bcalm_tpu.cli.redo_links)."""
+    other header fields kept (bcalm_tpu.cli.redo_links); the links joined
+    on device (K22, K23 on a card)."""
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.io import fasta_writer
 
     seqs, headers = fasta_writer.parse_unitigs_fasta(unitigs_path)
     by_src: dict = {}
-    for (u, su, v, sv) in engine.link_join(seqs, k):
+    for (u, su, v, sv) in engine.link_join(seqs, k, device):
         by_src.setdefault(u, []).append(f"L:{su}:{v}:{sv}")
     with open(unitigs_path, "w") as f:
         for i, s in enumerate(seqs):
@@ -640,16 +641,16 @@ def _run(argv: List[str], ti: TimeInfo) -> int:
     prefix = props.get_str("-out") or default_prefix(in_path)
     unitigs_path = prefix + ".unitigs.fa"
 
-    if props.get_bool("-redo-links"):
-        if not os.path.exists(unitigs_path):
-            print(f"-redo-links: {unitigs_path} not found", file=sys.stderr)
-            return 1
-        redo_links(unitigs_path, k, verbose)
-        return 0
-
+    redo = props.get_bool("-redo-links")
+    if redo and not os.path.exists(unitigs_path):
+        print(f"-redo-links: {unitigs_path} not found", file=sys.stderr)
+        return 1
     device = resolve_device()
     if device is None:
         return 1
+    if redo:
+        redo_links(unitigs_path, k, verbose, device)
+        return 0
 
     from bcalm_tpu_torch import engine
     from bcalm_tpu_torch.io import bank as bank_mod

@@ -1,6 +1,7 @@
 // Decoupled look-back over per-tile status words, shared by the one-pass
 // selections (K9 solid_compact, K18 hier_contract, K10 chain_finish), K8
-// run_scans and K11 spell_unitigs' scan of the unitig lengths.
+// run_scans and K11 spell_unitigs' scan of the unitig lengths; K23
+// link_pairs uses its block_exclusive alone.
 //
 // Each block takes its tile from an atomic ticket, so every tile it waits
 // on is already running.  A tile publishes its own count (kAggregate),
@@ -92,6 +93,35 @@ __device__ void look_back_pair(const unsigned long long* status, long long tile,
     last1 = l > last1 ? l : last1;
     if (found) return;
   }
+}
+
+// Exclusive sum of v over the threads of the block, in thread order;
+// returns this thread's exclusive value and sets total.  sh holds one slot
+// per warp; every thread of the block must call it.
+__device__ long long block_exclusive(long long v, long long* sh,
+                                     long long& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  constexpr int nw = bt::kThreads / 32;
+  long long inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) sh[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    long long s = lane < nw ? sh[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < nw; d <<= 1) {
+      const long long y = __shfl_up_sync(0xFFFFFFFFu, s, d);
+      if (lane >= d) s += y;
+    }
+    if (lane < nw) sh[lane] = s;  // inclusive over warps
+  }
+  __syncthreads();
+  total = sh[nw - 1];
+  return (w > 0 ? sh[w - 1] : 0) + inc - v;
 }
 
 // Called by every thread of the block: the next tile from the ticket.

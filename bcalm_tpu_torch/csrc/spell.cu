@@ -47,35 +47,6 @@ namespace {
 constexpr int kScanItems = 4;  // unitigs per thread of the scan
 constexpr long long kTileU = bt::kThreads * kScanItems;  // 1024 a tile
 
-// Exclusive sum of v over the threads of the block, in thread order;
-// returns this thread's exclusive value and sets total.  sh holds one slot
-// per warp; every thread of the block must call it.
-__device__ long long block_exclusive(long long v, long long* sh,
-                                     long long& total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  constexpr int nw = bt::kThreads / 32;
-  long long inc = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const long long y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-    if (lane >= d) inc += y;
-  }
-  if (lane == 31) sh[w] = inc;
-  __syncthreads();
-  if (w == 0) {
-    long long s = lane < nw ? sh[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < nw; d <<= 1) {
-      const long long y = __shfl_up_sync(0xFFFFFFFFu, s, d);
-      if (lane >= d) s += y;
-    }
-    if (lane < nw) sh[lane] = s;  // inclusive over warps
-  }
-  __syncthreads();
-  total = sh[nw - 1];
-  return (w > 0 ? sh[w - 1] : 0) + inc - v;
-}
-
 // run_start(u) for every unitig, by tiles of kTileU with decoupled
 // look-back; the last tile zeroes the outputs past the unitigs (the counts
 // from run_start(U), codes from offset(U)): nothing else writes there.

@@ -20,13 +20,14 @@ Counterpart of ``bcalm_tpu/engine.py``'s single-device path
      first-occurrence keys (multi-sample counts) goes through compact_solid
      instead: junctions and the chain decomposition of all 2C oriented
      nodes (K3, K17-K19 and K4, K10);
-  5. spelling on the device (K11), link join and UnitigSet on the host.
+  5. spelling on the device (K11), the links on the device (K22, sort,
+     K23, sort) and UnitigSet on the host.
 
 Every function takes an explicit ``device``; tensors stay on it until the
 assembled bytes are fetched.  The host pieces that the JAX package keeps
 in its engine (EngineConfig, configure_chunk, _BlockCache, UnitigSet,
-link_join, combine_sample_counts, auto_abundance_min, chain_stats) are
-carried here, because importing that engine imports JAX.
+combine_sample_counts, auto_abundance_min, chain_stats) are carried here,
+because importing that engine imports JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from bcalm_tpu_torch.ops import count as count_op
 from bcalm_tpu_torch.ops import extract as extract_op
 from bcalm_tpu_torch.ops import junctions as junctions_op
 from bcalm_tpu_torch.ops import runchains
+from bcalm_tpu_torch.ops import sort as sort_op
 from bcalm_tpu_torch.utils import dna
 from bcalm_tpu_torch.utils.timeinfo import span
 
@@ -876,10 +878,12 @@ def spell_unitigs(solid, counts, uid, rank, length, start_oid, n_unitigs: int,
 def assemble_unitigs_device(solid, counts, info, k: int, n_unitigs: int,
                             n_solid: int):
     """Spelling on the device (K11), then host string slicing: (seqs, kc,
-    abundances, circular).  A unitig set of n_solid members spells
-    n_solid + (k-1) U bases."""
+    abundances, circular, codes), codes K11's bases on the device, which
+    the links read.  A unitig set of n_solid members spells n_solid +
+    (k-1) U bases."""
     if n_unitigs == 0:
-        return [], np.zeros(0, np.int64), [], np.zeros(0, bool)
+        return ([], np.zeros(0, np.int64), [], np.zeros(0, bool),
+                torch.zeros((0,), dtype=torch.uint8, device=solid.device))
     codes_d, counts_d = spell_unitigs(solid, counts, info["uid"], info["rank"],
                                       info["length"], info["start_oid"],
                                       n_unitigs, k, n_solid)
@@ -894,65 +898,120 @@ def assemble_unitigs_device(solid, counts, info, k: int, n_unitigs: int,
     run_bounds = np.concatenate([[0], np.cumsum(length)])
     kc = np.add.reduceat(mcounts, run_bounds[:-1])
     abund = np.split(mcounts.astype(np.int32), run_bounds[1:-1])
-    return seqs, kc, abund, circular
+    return seqs, kc, abund, circular, codes_d
 
 
-def _pack_ends(codes: np.ndarray) -> np.ndarray:
-    """(E, k-1) uint8 base codes -> (E, W) uint64 packed key columns."""
-    E, m = codes.shape
-    W = max(1, (m + 31) // 32)
-    out = np.zeros((E, W), dtype=np.uint64)
+def link_ends_plain(codes, ends, k: int):
+    """Plain version of K22: the packed keys (W, 4U) of the unitigs' four
+    ends, W = lanes.end_words(k): out-ends (u,+) = suffix at u, (u,-) =
+    rc(prefix) at U + u; in-ends (u,+) = prefix at 2U + u, (u,-) =
+    rc(suffix) at 3U + u; base j of the (k-1)-mer at bits 2 (31 - j % 32)
+    of word j // 32.  Unitig u's bases start at run_start(u) + (k-1) u
+    (K11's layout), ends the inclusive prefix of the lengths.  One base
+    column of each end at a time: nothing larger than the keys is held."""
+    U, m, W = ends.shape[0], k - 1, ln.end_words(k)
+    dev = codes.device
+    u = torch.arange(U, device=dev)
+    pre = ends - torch.diff(ends, prepend=ends.new_zeros(1)) + m * u
+    suf = ends + m * u
+    keys = torch.zeros((W, 4 * U), dtype=torch.int64, device=dev)
     for j in range(m):
-        out[:, j // 32] |= codes[:, j].astype(np.uint64) << np.uint64(
-            2 * (31 - j % 32))
-    return out
+        row, shift = keys[j // 32], 2 * (31 - j % 32)
+        for i, (at, comp) in enumerate(((suf + j, 0), (pre + (m - 1 - j), 2),
+                                        (pre + j, 0), (suf + (m - 1 - j), 2))):
+            row[i * U:(i + 1) * U] |= (codes[at].to(torch.int64) ^ comp) << shift
+    return keys
 
 
-def link_join(seqs: List[str], k: int) -> List[Tuple[int, str, int, str]]:
-    """All (k-1)-overlap links between unitig extremities, sorted by
-    (src, sign, dst, sign) (numpy; bcalm_tpu engine.link_join)."""
-    U = len(seqs)
+def link_pairs_plain(top, perm, lower, U: int):
+    """Plain version of K23: every out-end (entry < 2U) linked to every
+    in-end of its key group, as ((2 src + sign) << 32) | (2 dst + sign), +
+    = 0, - = 1, in sorted-entry order (K23's order is free: the words are
+    unique).  The sort is stable, so a group holds its out-ends first."""
+    dev = top.device
+    same = top[1:] == top[:-1]
+    for row in ([] if lower is None else lower):
+        w = row[perm]
+        same &= w[1:] == w[:-1]
+    head = torch.cat([torch.ones(min(1, top.shape[0]), dtype=torch.bool,
+                                 device=dev), ~same])
+    gid = torch.cumsum(head, 0) - 1
+    n_groups = int(head.sum())
+    is_out = perm < 2 * U
+    n_out = torch.zeros((n_groups,), dtype=torch.int64, device=dev)
+    n_out.index_add_(0, gid, is_out.to(torch.int64))
+    size = torch.bincount(gid, minlength=n_groups)
+    at = torch.nonzero(is_out).flatten()
+    g = gid[at]
+    cnt = size[g] - n_out[g]
+    first = torch.nonzero(head).flatten()[g] + n_out[g]
+    P = int(cnt.sum())
+    src = torch.repeat_interleave(perm[at], cnt)
+    start = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+    q = torch.repeat_interleave(first, cnt) + torch.arange(P, device=dev) - start
+    dst = perm[q] - 2 * U
+
+    def oriented(e):
+        return torch.where(e < U, 2 * e, 2 * (e - U) + 1)
+    return (oriented(src) << 32) | oriented(dst)
+
+
+def link_ends(codes, ends, k: int):
+    """K22 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if codes.device.type == "cpu":
+        return link_ends_plain(codes, ends, k)
+    return _kernels.link_ends(codes, ends, k)
+
+
+def link_pairs(top, perm, lower, U: int):
+    """K23 entry: kernel for CUDA tensors, plain version for CPU tensors."""
+    if top.device.type == "cpu":
+        return link_pairs_plain(top, perm, lower, U)
+    return _kernels.link_pairs(top, perm, lower, U)
+
+
+_SIGNS = np.array(["+", "-"], dtype=object)
+_BASE_CODE = np.zeros(256, dtype=np.uint8)
+_BASE_CODE[np.frombuffer(b"ACTG", np.uint8)] = np.arange(4, dtype=np.uint8)
+_BASE_CODE[np.frombuffer(b"actg", np.uint8)] = np.arange(4, dtype=np.uint8)
+
+
+def unitig_links(codes, length, k: int) -> List[Tuple[int, str, int, str]]:
+    """All (k-1)-overlap links between the ends of the U unitigs spelled in
+    codes (K11's layout, on its device; length (U,) their k-mer counts),
+    sorted by (src, sign, dst, sign) (bcalm_tpu engine.link_join): K22's
+    end keys, their stable sort, K23's pair words, the sort of those that
+    sets their order, and one copy of them to the host, which builds the
+    tuples."""
+    U = int(length.shape[0])
     if U == 0:
         return []
+    keys = link_ends(codes, torch.cumsum(length, 0), k)
+    perm, top = sort_op.lex_sort_words(list(keys))
+    words = link_pairs(top, perm, keys[1:] if keys.shape[0] > 1 else None, U)
+    del keys, perm, top
+    words = torch.sort(words).values
+    if words.is_cuda:
+        host = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
+        words = host.copy_(words)
+    w = words.numpy()
+    src, dst = (w >> 33).tolist(), ((w & 0xFFFFFFFF) >> 1).tolist()
+    return list(zip(src, _SIGNS[(w >> 32) & 1].tolist(), dst,
+                    _SIGNS[w & 1].tolist()))
+
+
+def link_join(seqs: List[str], k: int,
+              device=None) -> List[Tuple[int, str, int, str]]:
+    """unitig_links of host strings (bcalm_tpu engine.link_join) on device
+    (default: the CPU): each one's first and last k-1 bases encoded on the
+    CPU, as a unitig of k-1 k-mers whose bases are those two ends."""
     m = k - 1
-    lut = np.zeros(256, dtype=np.uint8)
-    lut[np.frombuffer(b"ACTG", np.uint8)] = np.arange(4, dtype=np.uint8)
-    lut[np.frombuffer(b"actg", np.uint8)] = np.arange(4, dtype=np.uint8)
-    pre = lut[np.frombuffer(b"".join(s[:m].encode() for s in seqs),
-                            np.uint8)].reshape(U, m)
-    suf = lut[np.frombuffer(b"".join(s[-m:].encode() for s in seqs),
-                            np.uint8)].reshape(U, m)
-    rc_pre = (pre ^ 2)[:, ::-1]
-    rc_suf = (suf ^ 2)[:, ::-1]
-    # out-ends: (i,+) -> suf, (i,-) -> rc(pre); in-ends: (i,+) -> pre,
-    # (i,-) -> rc(suf)
-    out_keys = _pack_ends(np.concatenate([suf, rc_pre]))
-    in_keys = _pack_ends(np.concatenate([pre, rc_suf]))
-    _, gid = np.unique(np.concatenate([out_keys, in_keys]), axis=0,
-                       return_inverse=True)
-    gid = gid.reshape(-1)
-    g_out, g_in = gid[: 2 * U], gid[2 * U:]
-    ci = np.bincount(g_in, minlength=int(gid.max()) + 1)
-    o_order = np.argsort(g_out, kind="stable")
-    i_order = np.argsort(g_in, kind="stable")
-    g_out_s = g_out[o_order]
-    in_start = np.concatenate([[0], np.cumsum(ci)])
-    rep = ci[g_out_s]
-    P = int(rep.sum())
-    if P == 0:
-        return []
-    out_rep = np.repeat(o_order, rep)
-    g_rep = np.repeat(g_out_s, rep)
-    first_slot = np.concatenate([[0], np.cumsum(rep)])[:-1]
-    within = np.arange(P) - np.repeat(first_slot, rep)
-    in_rep = i_order[in_start[g_rep] + within]
-    src_id = (out_rep % U).astype(np.int64)
-    src_sign = np.where(out_rep < U, "+", "-")
-    dst_id = (in_rep % U).astype(np.int64)
-    dst_sign = np.where(in_rep < U, "+", "-")
-    order = np.lexsort((dst_sign, dst_id, src_sign, src_id))
-    return [(int(src_id[t]), str(src_sign[t]), int(dst_id[t]),
-             str(dst_sign[t])) for t in order]
+    ends = b"".join(s[:m].encode() + s[len(s) - m:].encode() for s in seqs)
+    codes = torch.from_numpy(_BASE_CODE[np.frombuffer(ends, np.uint8)])
+    length = torch.full((len(seqs),), m, dtype=torch.int64)
+    if device is not None:
+        codes, length = codes.to(device), length.to(device)
+    return unitig_links(codes, length, k)
 
 
 def _empty_set(cfg: EngineConfig, histo, stats: Dict) -> UnitigSet:
@@ -974,14 +1033,15 @@ def _finish_build(solid_r, counts_r, info, n_solid: int, cfg: EngineConfig,
         us.chain_info = info_np
         return us
     with span("assemble") as sp:
+        n_unitigs = int(info["n_unitigs"])
         with span("assemble.spell"):
-            seqs, kc, abund, circular = assemble_unitigs_device(
-                solid_r, counts_r, info, cfg.k, int(info["n_unitigs"]),
-                n_solid)
+            seqs, kc, abund, circular, codes = assemble_unitigs_device(
+                solid_r, counts_r, info, cfg.k, n_unitigs, n_solid)
         with span("assemble.links"):
-            links = link_join(seqs, cfg.k)
+            links = unitig_links(codes, info["length"][:n_unitigs], cfg.k)
     stats["t_assemble_s"] = round(sp.seconds, 2)
     stats["unitigs"] = len(seqs)
+    stats["links"] = len(links)
     return UnitigSet(k=cfg.k, seqs=seqs, kc=kc, abundances=abund,
                      circular=circular, links=links, histogram=histo,
                      stats=stats)

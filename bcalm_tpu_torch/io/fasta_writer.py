@@ -23,7 +23,7 @@ from typing import IO, List
 
 def _link_index(us):
     """Links grouped by source id.  links are emitted sorted by (src, ...)
-    (engine.link_join), so the per-unitig slice is a binary search and the
+    (engine.unitig_links), so the per-unitig slice is a binary search and the
     writer is O(U + E) total."""
     srcs = [l[0] for l in us.links]
     if any(srcs[i] > srcs[i + 1] for i in range(len(srcs) - 1)):

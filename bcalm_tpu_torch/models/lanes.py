@@ -40,6 +40,12 @@ def num_lanes(k: int) -> int:
     return (k + BASES_PER_LANE - 1) // BASES_PER_LANE
 
 
+def end_words(k: int) -> int:
+    """int64 words of a (k-1)-mer packed 2 bits a base, 32 a word, most
+    significant first (the unitig ends' link keys, K22)."""
+    return max(1, -(-(k - 1) // 32))
+
+
 def top_lane_bases(k: int) -> int:
     """Number of bases stored in the most-significant lane (in 1..16)."""
     r = k % BASES_PER_LANE

@@ -28,6 +28,7 @@ from pathlib import Path
 
 import torch
 
+from ..models.lanes import end_words
 from ..models.spans import MAX_K
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -51,7 +52,7 @@ LAUNCHES = {"extract_insert": 0, "extract_insert_ranged": 0,
             "glue_answer_uid": 0, "junction_words": 0, "junction_scatter": 0,
             "fixpoint_bits": 0, "hier_round": 0, "hier_contract": 0,
             "hier_expand": 0,
-            "kmer_minimizers": 0}
+            "kmer_minimizers": 0, "link_ends": 0, "link_pairs": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -103,6 +104,8 @@ _SIGNATURES = {
     "bt_hier_expand": [_P, _P, _P, _P, _I64, _I64, _P],
     "bt_kmer_minimizers": [_P, _I64, _I32, _I64, _I32, _I32, _P, _P, _I32, _P,
                            _P],
+    "bt_link_ends": [_P, _P, _I64, _I32, _I32, _P, _P],
+    "bt_link_pairs": [_P, _P, _P, _I32, _I64, _P, _I64, _P, _P],
 }
 ROUTE_TILE = 2048  # entries per look-back tile of csrc/route.cu
 ROUTE_POOL_TILES = 1024  # csrc/route.cu kPoolTiles: a pool block a tile below
@@ -1158,3 +1161,61 @@ def kmer_minimizers(lanes: torch.Tensor, k: int, m: int, rank=None,
     elif histogram:
         out.zero_()
     return out
+
+
+def link_ends(codes: torch.Tensor, ends: torch.Tensor, k: int) -> torch.Tensor:
+    """K22: the exact packed keys (W, 4U) of the four ends of U unitigs
+    spelled in codes (K11's layout), ends the inclusive prefix of their
+    lengths (U,): out-ends (u,+) = suffix at u, (u,-) = rc(prefix) at U + u;
+    in-ends (u,+) = prefix at 2U + u, (u,-) = rc(suffix) at 3U + u.  The
+    caller keeps codes at least ends[-1] + (k-1) U long."""
+    _check(codes, "codes", dtype=torch.uint8, ndim=1)
+    _check(ends, "ends", ndim=1)
+    U = ends.shape[0]
+    if not 2 <= k <= MAX_K:
+        raise ValueError(f"link_ends: k = {k}; the kernels take 2 <= k <= {MAX_K}")
+    W = end_words(k)
+    keys = torch.empty((W, 4 * U), dtype=torch.int64, device=codes.device)
+    if U:
+        _launch("bt_link_ends", codes.data_ptr(), ends.data_ptr(), U, k, W,
+                keys.data_ptr())
+        LAUNCHES["link_ends"] += 1
+    return keys
+
+
+def link_pairs(top: torch.Tensor, perm: torch.Tensor, lower, U: int) -> torch.Tensor:
+    """K23: the links (P,) of U unitigs' ends, each as ((2 src + sign) <<
+    32) | (2 dst + sign) with + = 0, - = 1, unique and in no set order,
+    from the stable sort of K22's keys: top the first key word in sorted
+    order (4U,), perm the permutation, lower the other words (W-1, 4U) in
+    entry order or None.  One launch (a memset of the count and a kernel)
+    into room for 8U pairs, one host read of the count P, and a second
+    launch with room for P where 8U was short."""
+    _check(top, "top", ndim=1)
+    _check(perm, "perm", ndim=1)
+    N = 4 * U
+    nl = 0
+    if lower is not None:
+        _check(lower, "lower", ndim=2)
+        nl = lower.shape[0]
+        if lower.shape[1] != N or nl >= end_words(MAX_K):
+            raise ValueError("link_pairs: shapes do not match")
+    if top.shape[0] != N or perm.shape[0] != N:
+        raise ValueError("link_pairs: shapes do not match")
+    if U >= 1 << 30:  # 2 src + sign < 2^31: the words sort as int64
+        raise ValueError(f"link_pairs: {U} unitigs; the pair words hold < 2^30")
+    dev = top.device
+    if not U:
+        return torch.empty((0,), dtype=torch.int64, device=dev)
+    count = torch.empty((1,), dtype=torch.int64, device=dev)
+    cap = 2 * N
+    while True:
+        words = torch.empty((cap,), dtype=torch.int64, device=dev)
+        _launch("bt_link_pairs", top.data_ptr(), perm.data_ptr(),
+                0 if lower is None else lower.data_ptr(), nl, U,
+                count.data_ptr(), cap, words.data_ptr())
+        LAUNCHES["link_pairs"] += 1
+        P = int(count.item())
+        if P <= cap:
+            return words[:P]
+        cap = P

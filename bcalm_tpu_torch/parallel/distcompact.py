@@ -27,7 +27,8 @@ Counterpart of ``bcalm_tpu/parallel/distcompact.py``'s device path
    round's routing; then the changed flag summed over the ranks), and the
    chain finish through three more exchanges;
 4. rank 0 gathers the glue outputs and the re-sharded solid table and
-   spells the unitigs on its device (K11) and links them (link_join).
+   spells the unitigs on its device (K11) and links them there
+   (engine.unitig_links: K22, K23).
 
 Every exchange has a fixed capacity; an overflow is counted over the
 ranks and the capacities grow, as in the JAX package.  The capacities are
@@ -587,7 +588,7 @@ def assemble_from_glue(outs_np, n_unitigs: int, solid_global: torch.Tensor,
     """Unitigs from the gathered glue outputs (bcalm_tpu
     assemble_from_glue): per-run labels broadcast over the run members on
     the host (numpy), then spelling on the device of the solid table (K11)
-    and the links (link_join)."""
+    and the links from its codes (engine.unitig_links)."""
     from bcalm_tpu_torch import engine
 
     (n_runs_sh, hpos_sh, epos_sh, rlen_sh, uid2_sh, rank2_sh, keep_sh,
@@ -648,9 +649,9 @@ def assemble_from_glue(outs_np, n_unitigs: int, solid_global: torch.Tensor,
             "length": torch.from_numpy(length).to(dev),
             "circular": torch.from_numpy(circular).to(dev)}
     n_solid = int(np.asarray(n_local).sum())
-    seqs, kc, abund, circular_u = engine.assemble_unitigs_device(
+    seqs, kc, abund, circular_u, codes = engine.assemble_unitigs_device(
         solid_global, counts_global, info, k, n_unitigs, n_solid)
-    links = engine.link_join(seqs, k)
+    links = engine.unitig_links(codes, info["length"], k)
     return engine.UnitigSet(
         k=k, seqs=seqs, kc=kc, abundances=abund, circular=circular_u,
         links=links, stats={

@@ -39,7 +39,8 @@ Phases (any failure raises, and the script exits non-zero):
    store and its chains (as many classes as phase 3's unitigs); with the
    input renamed away, ``-skip-bcalm -skip-bglue`` and, after a fresh
    ``-only-uf``, ``-skip-bcalm`` alone (in process too, counters reset)
-   write phase 3's bytes; ``-redo-links`` leaves phase 3's FASTA as it is;
+   write phase 3's bytes; ``-redo-links`` leaves phase 3's FASTA as it is,
+   and (in process) restores its stripped links with K22 and K23;
 3i. the keep-alive server: ``python -m bcalm_tpu_torch -server`` timed
    from its spawn to its listening line (its ready line, kernels and
    ingest library loaded, comes first); phase 3's arguments three times
@@ -310,6 +311,10 @@ KERNELS = {  # wrapper name -> (CUDA source, the JAX device program it replaces)
                     "bcalm_tpu/ops/chains.py:448"),
     "kmer_minimizers": ("bcalm_tpu_torch/csrc/minimizer.cu",
                         "bcalm_tpu/models/minimizer.py:59"),
+    "link_ends": ("bcalm_tpu_torch/csrc/links.cu",
+                  "bcalm_tpu/engine.py:1415"),
+    "link_pairs": ("bcalm_tpu_torch/csrc/links.cu",
+                   "bcalm_tpu/engine.py:1415"),
 }
 HIER = ("fixpoint_bits", "hier_round", "hier_contract", "hier_expand")
 # kernels whose last call is recorded: the upward pass of the hierarchical
@@ -345,10 +350,12 @@ L2_BYTES = 50 * 2**20
 # runs only on chunks owed a fold, so it need not launch), the -skip-bcalm
 # resume (compaction only), and the multi-sample build (counting, then the
 # canonical-order compaction); at the smoke's size both compactions jump
-# hierarchically (K17-K19, K4 at the deepest level)
+# hierarchically (K17-K19, K4 at the deepest level); every build that
+# assembles links its unitigs on the card (K22, K23)
+LINKS = ("link_ends", "link_pairs")
 COMPACT_POS = ("junction_keys", "junction_pairs", "run_scans", "run_contract",
                "jump_round", "chain_finish", "run_broadcast",
-               "spell_unitigs") + HIER
+               "spell_unitigs") + HIER + LINKS
 RESIDENT_PATH = ("extract_insert", "count_sorted", "solid_fold_histogram",
                  "solid_compact") + COMPACT_POS
 OOC_PATH = ("extract_insert", "extract_insert_ranged", "count_sorted",
@@ -356,25 +363,26 @@ OOC_PATH = ("extract_insert", "extract_insert_ranged", "count_sorted",
 SKIP_BCALM_PATH = COMPACT_POS
 CANONICAL_PATH = ("extract_insert", "count_sorted", "junction_keys",
                   "junction_pairs", "jump_round", "chain_finish",
-                  "spell_unitigs") + HIER
+                  "spell_unitigs") + HIER + LINKS
 K21_MODES = tuple(f"glue_answer_{m}" for m in GLUE_ANSWER)
 MESH_PATH = ("form_superkmers", "mmer_histograms", "route_buckets",
              "glue_compose", "extract_insert", "count_sorted", "junction_keys",
              "junction_words", "junction_pairs", "junction_scatter",
-             "solid_fold_histogram", "run_scans", "spell_unitigs") + K21_MODES
+             "solid_fold_histogram", "run_scans",
+             "spell_unitigs") + K21_MODES + LINKS
 # the per-k-mer mesh entry points (phase 3g): the hash-routed count, the
 # per-k-mer minimizers of its solid set, the host-driven compactions
 ENTRY_PATH = ("extract_insert", "route_buckets_hash", "route_buckets",
               "count_sorted",
               "kmer_minimizers", "junction_keys", "junction_words",
               "junction_pairs", "junction_scatter", "run_scans",
-              "glue_compose", "spell_unitigs") + K21_MODES
+              "glue_compose", "spell_unitigs") + K21_MODES + LINKS
 # the long-k resident builds (phase 3h): the resident path, the jump
 # hierarchical only where the run graph reaches 2^18 nodes
 LONGK_PATH = ("extract_insert", "count_sorted", "solid_fold_histogram",
               "solid_compact", "junction_keys", "junction_pairs", "run_scans",
               "run_contract", "jump_round", "chain_finish", "run_broadcast",
-              "spell_unitigs")
+              "spell_unitigs") + LINKS
 
 
 # the fixtures of tests/test_oracle.py (the reference's example inputs)
@@ -1209,8 +1217,22 @@ def phase_resume(tmp: str, fa: str, ref_path: str, ref_stats: dict):
                        "-out", rl], "-redo-links")
     if _read(rl + ".unitigs.fa") != ref:
         raise AssertionError("-redo-links changed phase 3's FASTA")
+    # in process, on phase 3's FASTA with its links stripped: the links
+    # come back byte for byte, joined on the card
+    with open(rl + ".unitigs.fa", "w") as f:
+        f.write("\n".join(" ".join(t for t in line.split(" ")
+                                   if not t.startswith("L:"))
+                          for line in ref.decode().splitlines()) + "\n")
+    wall_in, _, _, launches, _ = _inproc(
+        ["-in", rl, "-redo-links", "-kmer-size", str(K), "-out", rl],
+        "-redo-links")
+    if _read(rl + ".unitigs.fa") != ref:
+        raise AssertionError("-redo-links did not restore phase 3's links")
+    _require_launched(launches, LINKS, "-redo-links")
     say(f"[resume] -redo-links on phase 3's FASTA: wall {wall:.2f}s, "
-        f"byte-identical")
+        f"byte-identical; on it without links, in process: {wall_in:.2f}s, "
+        f"the links restored (K22 {launches['link_ends']}, K23 "
+        f"{launches['link_pairs']} launches)")
 
 
 def _kmer_values(lanes: np.ndarray) -> np.ndarray:
@@ -3276,7 +3298,10 @@ def _max_err(a, b) -> float:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.dtype == torch.bool:
         return float((a != b).sum().item())
-    return float((a.long() - b.long()).abs().max().item()) if a.numel() else 0.0
+    err = float((a.long() - b.long()).abs().max().item()) if a.numel() else 0.0
+    # two int64 words 2^63 apart (a key whose top base differs by 2) wrap
+    # to a negative difference
+    return err if err > 0 or torch.equal(a, b) else float("inf")
 
 
 def _finish_tuple(info):
@@ -3370,6 +3395,23 @@ def _spell_bytes(solid, counts, uid, rank, length, start_oid, U, k,
     and every lane of each unitig's first k-mer."""
     L, C = solid.shape
     return 2 * C * 16 + n_members * 16 + U * (L + 2) * 8
+
+
+def _link_ends_bytes(codes, ends, k) -> int:
+    """What K22 must read: the two ends of k-1 bases and the length prefix
+    of each unitig (its keys, written once, are counted from its output)."""
+    return ends.shape[0] * (2 * (k - 1) + 8)
+
+
+def _sorted_words(words: torch.Tensor) -> torch.Tensor:
+    return torch.sort(words).values
+
+
+def _link_pairs_bytes(top, perm, lower, U) -> int:
+    """What K23 must read: the top word and permutation of every sorted
+    entry, and past one key word each entry's lower words once (its pair
+    words, written once, are counted from its output)."""
+    return _nbytes((top, perm, lower))
 
 
 def _gathered(t: torch.Tensor, queries: int) -> int:
@@ -4123,6 +4165,18 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
     check("spell_unitigs", lambda: _kernels.spell_unitigs(*su_args),
           lambda: engine.spell_unitigs_plain(*su_args),
           read_bytes=_spell_bytes(*su_args))
+    le_args = inputs["link_ends"]
+    check("link_ends", lambda: _kernels.link_ends(*le_args),
+          lambda: engine.link_ends_plain(*le_args),
+          read_bytes=_link_ends_bytes(*le_args))
+    lp_args = inputs["link_pairs"]
+    # K23's words compared in their sorted order (its blocks land in any
+    # order), the kernel alone timed
+    check("link_pairs", lambda: _sorted_words(_kernels.link_pairs(*lp_args)),
+          lambda: _sorted_words(engine.link_pairs_plain(*lp_args)),
+          lambda: _kernels.link_pairs(*lp_args),
+          lambda: engine.link_pairs_plain(*lp_args),
+          read_bytes=_link_pairs_bytes(*lp_args))
     rc_args = inputs["run_contract"]
     r_succ, r_head, r_rid, r_end, R, _ = rc_args
     # every head flag; the rid, end and two successors of each of R heads
@@ -4547,6 +4601,8 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
               "solid_compact": [tuple(sc_args[0].shape), sc_args[6]],
               "chain_finish": tuple(cf_args[3].shape),
               "spell_unitigs": [tuple(su_args[0].shape), su_args[6]],
+              "link_ends": [le_args[1].shape[0], le_args[2]],
+              "link_pairs": [tuple(lp_args[0].shape), lp_args[3]],
               "run_contract": [tuple(rc_args[0].shape), rc_args[4], rc_args[5]],
               "run_broadcast": [tuple(rb_args[3].shape), tuple(rb_args[0].shape)],
               "form_superkmers": [tuple(sw.shape), tuple(table.shape)],
@@ -4670,6 +4726,17 @@ def longk_rows(longk, phases, dev):
     row("spell_unitigs", lambda: _kernels.spell_unitigs(*su_args),
         lambda: engine.spell_unitigs_plain(*su_args),
         read_bytes=_spell_bytes(*su_args))
+    le_args = inputs["link_ends"]
+    row("link_ends", lambda: _kernels.link_ends(*le_args),
+        lambda: engine.link_ends_plain(*le_args),
+        read_bytes=_link_ends_bytes(*le_args))
+    lp_args = inputs["link_pairs"]
+    row("link_pairs", lambda: _sorted_words(_kernels.link_pairs(*lp_args)),
+        lambda: _sorted_words(engine.link_pairs_plain(*lp_args)),
+        lambda: _kernels.link_pairs(*lp_args),
+        lambda: engine.link_pairs_plain(*lp_args),
+        read_bytes=_link_pairs_bytes(*lp_args))
+    del le_args, lp_args
     # the mesh kernels (the -devices path, not run at long k here) on a
     # slice of the solid table
     n20 = min(n_solid, 1 << 20)

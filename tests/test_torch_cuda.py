@@ -2258,3 +2258,67 @@ def test_fixpoint_bits_vector_loads(card, offset, S):
         want = chains.fixpoint_bits_plain(g, valid, salt)
         poisoned(card, 4 * S)
         assert torch.equal(_kernels.fixpoint_bits(gcard, vc, salt).cpu(), want)
+
+
+def link_case(k, U, n_pool, seed):
+    """K11's layout of U unitigs of k-1 to k+4 k-mers (a fifth of them 1-5,
+    whose ends overlap), random bases, each end overwritten half the time by a (k-1)-mer of a pool of n_pool (or its
+    reverse complement; n_pool = 1: every end, the pool's one key): codes
+    u8 and the k-mer counts."""
+    rng = np.random.RandomState(seed)
+    m = k - 1
+    length = np.where(rng.rand(U) < 0.2, rng.randint(1, 6, U),
+                      rng.randint(m, m + 6, U)).astype(np.int64)
+    codes = rng.randint(0, 4, int(length.sum()) + m * U).astype(np.uint8)
+    pool = rng.randint(0, 4, (n_pool, m)).astype(np.uint8)
+    pre = np.concatenate([[0], np.cumsum(length + m)[:-1]])
+    for u in range(U):
+        for at in (pre[u], pre[u] + length[u]):
+            if n_pool == 1 or rng.rand() < 0.5:
+                x = pool[rng.randint(n_pool)]
+                codes[at:at + m] = (x ^ 2)[::-1] if rng.rand() < 0.5 else x
+    return torch.from_numpy(codes), torch.from_numpy(length)
+
+
+@pytest.mark.parametrize("case", ["pool", "one_group", "tiles"])
+@pytest.mark.parametrize("k", [31, 151])
+def test_link_kernels(card, k, case):
+    """K22 and K23 against their plain versions, bitwise, through the
+    stable sort between them (the same permutation on both sides), each
+    launched once; K23's words in their sorted order (its blocks land in
+    any order); one key for every end needs more room than K23's first 8U
+    (a second launch); 70,000 unitigs put groups across its 1024-entry
+    blocks.  Then the whole unitig_links on the card against the CPU's,
+    and link_join of the unitigs' strings on the card."""
+    U, n_pool = {"pool": (3000, 600), "one_group": (40, 1),
+                 "tiles": (70000, 20000)}[case]
+    codes, length = link_case(k, U, n_pool, 7 * k + U)
+    ends = torch.cumsum(length, 0)
+    keys = engine.link_ends_plain(codes, ends, k)
+    perm, top = sort_op.lex_sort_words(list(keys))
+    lower = keys[1:] if keys.shape[0] > 1 else None
+    want = engine.link_pairs_plain(top, perm, lower, U)
+    codes_c, ends_c = codes.to(card), ends.to(card)
+    before = dict(_kernels.LAUNCHES)
+    poisoned(card, 64 * U + (1 << 20))
+    keys_c = _kernels.link_ends(codes_c, ends_c, k)
+    assert torch.equal(keys_c.cpu(), keys)
+    perm_c, top_c = sort_op.lex_sort_words(list(keys_c))
+    assert torch.equal(perm_c.cpu(), perm)
+    poisoned(card, 64 * U + (1 << 20))
+    got = _kernels.link_pairs(top_c, perm_c, keys_c[1:] if lower is not None
+                              else None, U)
+    assert torch.equal(torch.sort(got).values.cpu(), torch.sort(want).values)
+    assert _kernels.LAUNCHES["link_ends"] == before["link_ends"] + 1
+    assert (_kernels.LAUNCHES["link_pairs"]
+            == before["link_pairs"] + (2 if case == "one_group" else 1))
+    if case == "one_group":
+        assert want.shape[0] > 8 * U
+    links = engine.unitig_links(codes, length, k)
+    assert engine.unitig_links(codes_c, length.to(card), k) == links
+    bases = np.frombuffer(b"ACTG", np.uint8)[codes.numpy()].tobytes().decode()
+    at = np.concatenate([[0], np.cumsum(length.numpy() + k - 1)])
+    seqs = [bases[a:b] for a, b in zip(at[:-1], at[1:])]
+    before = dict(_kernels.LAUNCHES)
+    assert engine.link_join(seqs, k, card) == links
+    assert _kernels.LAUNCHES["link_pairs"] > before["link_pairs"]
