@@ -6,20 +6,21 @@
 // junction_keys, one thread per solid k-mer i < C: the suffix and prefix
 // (k-1)-mers, their canonical forms, strands and palindrome flags; writes
 // the strand-0 representative entry of each side (suffix at i, prefix at
-// C+i): the key rows (exact canonical lanes, or the three _hash96 words
-// when k-1 > 48), sentinel-folded where invalid or palindromic, and the
-// payload oid | role << 30.
+// C+i): the exact canonical (k-1)-mer, as its lanes (one row each) or,
+// with `packed` (past 3 lanes), as its packed words (models.lanes.pack_keys:
+// two lanes a word, an odd last lane alone), all lanes the sentinel where
+// invalid or palindromic, and the payload oid | role << 30.
 //
 // junction_pairs, over the sort's own output: the top packed key word in
 // sorted order (the values torch.sort returns), the permutation, and the
-// payload (and, for a three-row key, the second packed word) in entry
-// order; no sorted copy of the keys or the payload exists.  Equal packed
-// words mean equal keys (the packing is a bijection on u32 pairs), and
-// the sentinel test is on the packed word too: an exact key's first row
-// is its top word's high half (or the word itself for one row), a hashed
-// key is a sentinel when every word is the all-sentinel packing.  A group
-// of exactly two entries (one OUT, one IN, on distinct vertices) sets
-// succ[src] = dst and the mirror edge succ[mirror(dst)] = mirror(src).
+// payload and the key's lower packed words in entry order; no sorted copy
+// of the keys or the payload exists.  Equal packed words mean equal keys
+// (the packing is a bijection on u32 pairs), and the sentinel test is on
+// the packed word too: a key's first lane is its top word's high half (or
+// the word itself for one lane); past 3 lanes its last lane, the low half
+// of its last word, must be the sentinel too.  A group of exactly two
+// entries (one OUT, one IN, on distinct vertices) sets succ[src] = dst and
+// the mirror edge succ[mirror(dst)] = mirror(src).
 // Those stores go by window, as junction_scatter's (below): the pair rule
 // runs inside the bin pass (PairEdges), which stages each edge's two
 // words in its window's bin, and a block a window then writes succ whole,
@@ -61,8 +62,8 @@
 // lands, so the table is written once, in whole sectors, with no memset.
 //
 // Bound on this card: memory.  junction_keys reads L*8 bytes per k-mer
-// and writes 2*(K+1)*8 (K key rows); junction_entries writes 4*(K+2)*8
-// and 4 validity bytes.
+// and writes 2*(K+1)*8 (K key rows or words); junction_entries writes
+// 4*(K+2)*8 and 4 validity bytes.
 // Their arithmetic is the two (k-1)-mers' reverse complements, which
 // common.cuh's revcomp_field builds a word at a time (revcomp_word on
 // each lane, then one field shift): O(A) word operations per side, where
@@ -73,10 +74,11 @@
 // as a predicate, so the arrays stay in registers.  A thread's loads and
 // stores are consecutive columns of each row: coalesced per warp.
 // junction_pairs loads each sorted word once (neighbours by shuffle, a
-// warp's edge entries again from L1; for a three-row key the second word
-// through perm: a random 32-byte sector per entry); only a pair head
-// (about half the valid entries) reads perm[i], perm[i+1] and the two
-// payloads (random sectors).  Its bytes are the word (8 per entry),
+// warp's edge entries again from L1; for a key of two words the second
+// through perm: a random 32-byte sector per entry; of three words or more,
+// the lower words through perm one at a time, only where two neighbours'
+// top words tie); only a pair head (about half the valid entries) reads
+// perm[i], perm[i+1] and the two payloads (random sectors).  Its bytes are the word (8 per entry),
 // those sectors and succ written once (16 per k-mer); its bins write 8
 // bytes a word into succ's own slots and the windows read them back.  In
 // the global mode junction_words reads a
@@ -99,12 +101,31 @@ namespace {
 constexpr uint32_t kRoleShift = 30;
 constexpr uint32_t kOidMask = (1u << 30) - 1u;
 
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  return h ^ (h >> 16);
+// models.lanes.pack_keys of the u32 key rows r, r+1: ((hi - 2^31) << 32)
+// | lo, an odd last row alone.
+__device__ __forceinline__ long long pack_word(unsigned long long hi,
+                                               unsigned long long lo,
+                                               bool pair) {
+  return pair ? static_cast<long long>(((hi ^ 0x80000000ull) << 32) | lo)
+              : static_cast<long long>(hi);
+}
+
+// Whether sorted entries a and b, whose top words are equal, agree on the
+// nl lower words of their keys: row j of `lower` (stride lstride, entry
+// order) holds word j + 1, read through perm one word at a time, so that
+// no key is held in registers.  The pair rule of junction_pairs and of
+// junction_edges.
+__device__ __forceinline__ bool lower_equal(const int64_t* __restrict__ lower,
+                                            long long lstride, int nl,
+                                            const int64_t* __restrict__ perm,
+                                            long long a, long long b) {
+  if (nl == 0) return true;
+  const long long pa = perm[a], pb = perm[b];
+  bool eq = true;
+  for (int j = 0; j < nl && eq; ++j) {
+    eq = lower[j * lstride + pa] == lower[j * lstride + pb];
+  }
+  return eq;
 }
 
 // The suffix and prefix (k-1)-mers of solid k-mer i (right-aligned in L
@@ -149,7 +170,7 @@ __device__ __forceinline__ void load_sides(const int64_t* solid,
 template <int L>
 __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
                                      long long stride, long long C,
-                                     long long n_solid, int k, int hashed,
+                                     long long n_solid, int k, int packed,
                                      int64_t* __restrict__ keys,
                                      long long kstride,
                                      int64_t* __restrict__ payload, int lanes) {
@@ -165,47 +186,36 @@ __global__ void junction_keys_kernel(const int64_t* __restrict__ solid,
   long long oid_s = sig ? i + C : i, oid_p = tau ? i + C : i;
   payload[i] = oid_s | (static_cast<long long>(sig ? 1 : 0) << kRoleShift);
   payload[C + i] = oid_p | (static_cast<long long>(tau ? 0 : 1) << kRoleShift);
-  if (!hashed) {
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      if (j < off) continue;
-      uint32_t sc = sig ? s.suf_rc[j] : s.suf[j];
-      uint32_t pc = tau ? s.pre_rc[j] : s.pre[j];
-      keys[(j - off) * kstride + i] = vs ? sc : bt::kSentinel;
-      keys[(j - off) * kstride + C + i] = vp ? pc : bt::kSentinel;
-    }
-    return;
-  }
-  uint32_t hs[3] = {0x9E3779B1u, 0x61C88647u, 0x2545F491u};
-  uint32_t hp[3] = {0x9E3779B1u, 0x61C88647u, 0x2545F491u};
-  const uint32_t mul[3] = {0x85EBCA6Bu, 0xC2B2AE35u, 0x27D4EB2Fu};
+  // key row r = j - off: lane r, or with packed, word r / 2 holds lanes
+  // r and r + 1 (hs, hp keep the even lane until its partner comes)
+  uint32_t hs = 0u, hp = 0u;
 #pragma unroll
   for (int j = 0; j < L; ++j) {
     if (j < off) continue;
-    uint32_t jj = static_cast<uint32_t>(j - off);
-    uint32_t sc = sig ? s.suf_rc[j] : s.suf[j];
-    uint32_t pc = tau ? s.pre_rc[j] : s.pre[j];
-#pragma unroll
-    for (int w = 0; w < 3; ++w) {
-      uint32_t add = static_cast<uint32_t>(w + 1) * jj + 1u;
-      hs[w] = (hs[w] ^ sc) * mul[w] + add;
-      hp[w] = (hp[w] ^ pc) * mul[w] + add;
+    const int r = j - off;
+    const uint32_t sc = vs ? (sig ? s.suf_rc[j] : s.suf[j]) : bt::kSentinel;
+    const uint32_t pc = vp ? (tau ? s.pre_rc[j] : s.pre[j]) : bt::kSentinel;
+    if (!packed) {
+      keys[r * kstride + i] = sc;
+      keys[r * kstride + C + i] = pc;
+    } else if (r % 2 == 0 && j + 1 < L) {
+      hs = sc;
+      hp = pc;
+    } else {
+      const bool pair = r % 2 == 1;
+      keys[(r / 2) * kstride + i] = pack_word(pair ? hs : sc, sc, pair);
+      keys[(r / 2) * kstride + C + i] = pack_word(pair ? hp : pc, pc, pair);
     }
-  }
-#pragma unroll
-  for (int w = 0; w < 3; ++w) {
-    keys[w * kstride + i] = vs ? mix32(hs[w]) : bt::kSentinel;
-    keys[w * kstride + C + i] = vp ? mix32(hp[w]) : bt::kSentinel;
   }
 }
 
 template <int L>
 void launch_keys(const int64_t* solid, long long stride, long long C,
-                 long long n_solid, int k, int hashed, int64_t* keys,
+                 long long n_solid, int k, int packed, int64_t* keys,
                  long long kstride, int64_t* payload, int lanes,
                  cudaStream_t s) {
   junction_keys_kernel<L><<<bt::blocks_for(C), bt::kThreads, 0, s>>>(
-      solid, stride, C, n_solid, k, hashed, keys, kstride, payload, lanes);
+      solid, stride, C, n_solid, k, packed, keys, kstride, payload, lanes);
 }
 
 // Entries per junction_edges block: kPairItems per thread, item q of
@@ -278,15 +288,6 @@ void launch_entries(const int64_t* solid, long long stride, long long N,
       owner, valid, lanes);
 }
 
-// models.lanes.pack_keys of the u32 key rows r, r+1: ((hi - 2^31) << 32)
-// | lo, an odd last row alone.
-__device__ __forceinline__ long long pack_word(unsigned long long hi,
-                                               unsigned long long lo,
-                                               bool pair) {
-  return pair ? static_cast<long long>(((hi ^ 0x80000000ull) << 32) | lo)
-              : static_cast<long long>(hi);
-}
-
 // The compaction in front of the sort: one block a tile of kWordsTile
 // received slots from the ticket, item q of thread t being slot tile *
 // kWordsTile + q * kThreads + t; select_ranks (lookback.cuh) gives each
@@ -357,12 +358,7 @@ junction_edges_kernel(const int64_t* __restrict__ top,
   for (int j = threadIdx.x; j < kPairTile + 2; j += bt::kThreads) {
     const long long e = base - 1 + j;
     bool eq = e >= 0 && e + 1 < E && s0[j] == s0[j + 1];
-    if (eq && W > 1) {
-      const long long a = perm[e], b = perm[e + 1];
-      for (int w = 1; w < W && eq; ++w) {
-        eq = words[w * wstride + a] == words[w * wstride + b];
-      }
-    }
+    if (eq) eq = lower_equal(words + wstride, wstride, W - 1, perm, e, e + 1);
     eqn[j] = eq;
   }
   __syncthreads();
@@ -501,10 +497,12 @@ struct ReceivedEdges {
 // and neither i-1's nor i+2's; a head's two payloads (through perm) give
 // the edge src -> dst (one OUT and one IN on distinct vertices) and its
 // mirror mirror(dst) -> mirror(src); at is the oriented id itself (the
-// table is the whole 2C successor array).  Neighbouring keys come by
-// shuffle, a warp's edge entries from memory; kTwo: the key's second
-// word, read through perm.
-template <bool kTwo>
+// table is the whole 2C successor array).  Neighbouring top words come by
+// shuffle, a warp's edge entries from memory.  kWords: 1, 2 (the second
+// word read through perm and shuffled like the first) or 0, a key of nl + 1
+// >= 3 words, whose lower words lower_equal reads through perm where two
+// neighbours' top words tie.
+template <int kWords>
 struct PairEdges {
   // 2 items a thread: at 4 the pair rule's registers spilled under the
   // bin kernel's 64-register cap (0.63 against 0.48 device ms on an H100
@@ -512,20 +510,41 @@ struct PairEdges {
   static constexpr int kItems = 2;
   static constexpr int kPer = 2;
   const int64_t* w0;
-  const int64_t* w1;
+  const int64_t* lower;   // the key's words 1.. in entry order
+  long long lstride;
+  int nl;
   const int64_t* perm;
   const int64_t* pay;
-  long long E, C, sent0, sent1;
-  int hashed, shift;
+  long long E, C, sent_hi;
+  int shift;
+  int last_sent;  // packed keys (past 3 lanes): the last lane decides too
 
   __device__ __forceinline__ long long second(long long e) const {
-    if constexpr (kTwo) return w1[perm[e]];
+    if constexpr (kWords == 2) return lower[perm[e]];
     else return 0;
   }
 
-  __device__ __forceinline__ bool valid(long long a0, long long a1) const {
-    return hashed ? !(a0 == sent0 && a1 == sent1)
-                  : (a0 >> shift) != (sent0 >> shift);
+  // entries e and e+1, whose top (and second) words are equal, agree on
+  // the rest of their keys
+  __device__ __forceinline__ bool rest_equal(long long e) const {
+    if constexpr (kWords == 0) return lower_equal(lower, lstride, nl, perm, e, e + 1);
+    else return true;
+  }
+
+  // entry i, whose top words are x and x1, is the sentinel: its first
+  // lane is, and with last_sent its last lane too (a valid canonical key
+  // whose first lane is 16 G ends in 16 C).  The last word is read
+  // through perm only where the first lane reads as the sentinel.
+  __device__ __forceinline__ bool sentinel(long long i, long long x,
+                                           long long x1) const {
+    if ((x >> shift) != sent_hi) return false;
+    // a packed key has two words or more: one word is always a key of at
+    // most 2 lanes
+    if constexpr (kWords == 1) return true;
+    if (!last_sent) return true;
+    const long long last =
+        kWords == 2 ? x1 : lower[(nl - 1) * lstride + perm[i]];
+    return (last & 0xFFFFFFFFll) == 0xFFFFFFFFll;
   }
 
   template <int Q>
@@ -533,7 +552,7 @@ struct PairEdges {
                                        long long (&at)[Q][kPer],
                                        long long (&b)[Q][kPer]) const {
     const int lane = threadIdx.x & 31;
-    long long x0[Q], x1[Q];  // entry i's key words
+    long long x0[Q], x1[Q];  // entry i's top words
     long long n0[Q], n1[Q];  // lane 0: entry i-1's; lane 31: entry i+1's
     long long m0[Q], m1[Q];  // lane 31: entry i+2's
 #pragma unroll
@@ -545,7 +564,7 @@ struct PairEdges {
       n0[q] = edge ? w0[e] : 0;
       m0[q] = lane == 31 && i + 2 < E ? w0[i + 2] : 0;
       x1[q] = n1[q] = m1[q] = 0;
-      if constexpr (kTwo) {
+      if constexpr (kWords == 2) {
         if (i < E) x1[q] = second(i);
         if (edge) n1[q] = second(e);
         if (lane == 31 && i + 2 < E) m1[q] = second(i + 2);
@@ -562,12 +581,17 @@ struct PairEdges {
         y0 = n0[q];
         y1 = n1[q];
       }
-      const bool eqn = i + 1 < E && x0[q] == y0 && x1[q] == y1;
+      const bool eqn = i + 1 < E && x0[q] == y0 && x1[q] == y1 && rest_equal(i);
       bool eqp = __shfl_up_sync(0xFFFFFFFFu, eqn, 1);      // i-1 equals i
       bool eqnn = __shfl_down_sync(0xFFFFFFFFu, eqn, 1);   // i+1 equals i+2
-      if (lane == 0) eqp = i > 0 && i < E && n0[q] == x0[q] && n1[q] == x1[q];
-      if (lane == 31) eqnn = i + 2 < E && n0[q] == m0[q] && n1[q] == m1[q];
-      head[q] = eqn && valid(x0[q], x1[q]) && !eqp && !eqnn;
+      if (lane == 0) {
+        eqp = i > 0 && i < E && n0[q] == x0[q] && n1[q] == x1[q] &&
+              rest_equal(i - 1);
+      }
+      if (lane == 31) {
+        eqnn = i + 2 < E && n0[q] == m0[q] && n1[q] == m1[q] && rest_equal(i + 1);
+      }
+      head[q] = eqn && !eqp && !eqnn && !sentinel(i, x0[q], x1[q]);
     }
     // only a pair head reads the permutation and the two payloads
     long long pa[Q], pb[Q];
@@ -768,33 +792,42 @@ int scatter_windows(const Edges& src, long long R, long long T, int* counts,
 
 extern "C" int bt_junction_keys(const int64_t* solid, long long stride,
                                 long long C, long long n_solid, int L, int k,
-                                int hashed, int64_t* keys, long long kstride,
+                                int packed, int64_t* keys, long long kstride,
                                 int64_t* payload, void* stream) {
   if (C == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BT_DISPATCH_LANES(L, launch_keys, solid, stride, C, n_solid, k, hashed,
+  BT_DISPATCH_LANES(L, launch_keys, solid, stride, C, n_solid, k, packed,
                     keys, kstride, payload, L, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 // succ: 2C slots, every one written (-1 where no edge lands); counts:
-// 2 * ceil(2C / 16384) ints of scratch (scatter_windows).  w1: null
-// unless the key packs into two words.  Three device operations: the
-// memset of the counts, the pair rule with its bins, the windows.
-extern "C" int bt_junction_pairs(const int64_t* w0, const int64_t* w1,
+// 2 * ceil(2C / 16384) ints of scratch (scatter_windows).  lower: the
+// key's nl lower words (row stride lstride, entry order), null when the
+// key is one word.  A key is a sentinel when w0 >> shift == sent_hi and,
+// with last_sent, its last lane (the low half of its last word) is too.
+// Three device operations: the memset of the counts, the pair rule with
+// its bins, the windows.
+extern "C" int bt_junction_pairs(const int64_t* w0, const int64_t* lower,
+                                 long long lstride, int nl,
                                  const int64_t* perm, const int64_t* pay,
-                                 long long E, long long C, int hashed,
-                                 long long sent0, long long sent1, int shift,
-                                 int* counts, int64_t* succ, void* stream) {
+                                 long long E, long long C, long long sent_hi,
+                                 int shift, int last_sent, int* counts,
+                                 int64_t* succ, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long R = E < 2 ? 0 : E;   // a pair needs two entries
-  if (w1 != nullptr) {
-    const PairEdges<true> src{w0, w1, perm, pay, E, C, sent0, sent1, hashed,
-                              shift};
+  if (nl == 0) {
+    const PairEdges<1> src{w0, lower, lstride, nl, perm, pay, E, C, sent_hi,
+                           shift, last_sent};
     return scatter_windows(src, R, 2 * C, counts, succ, s);
   }
-  const PairEdges<false> src{w0, w1, perm, pay, E, C, sent0, sent1, hashed,
-                             shift};
+  if (nl == 1) {
+    const PairEdges<2> src{w0, lower, lstride, nl, perm, pay, E, C, sent_hi,
+                           shift, last_sent};
+    return scatter_windows(src, R, 2 * C, counts, succ, s);
+  }
+  const PairEdges<0> src{w0, lower, lstride, nl, perm, pay, E, C, sent_hi,
+                         shift, last_sent};
   return scatter_windows(src, R, 2 * C, counts, succ, s);
 }
 

@@ -1097,6 +1097,8 @@ def compact_from_counts(solid_np: np.ndarray, counts_np: np.ndarray,
             _, info = compact_solid(solid, n_solid, cfg.k)
         _sync(device)
     stats["t_compact_s"] = round(sp.seconds, 2)
+    if chain_info is None:
+        stats["junction_key_words"] = junctions_op.key_words(cfg.k)
     us = _finish_build(solid, counts, info, n_solid, cfg, None, stats,
                        only_uf, uf_stats)
     if device.type == "cuda":
@@ -1223,6 +1225,7 @@ def build_from_blocks(blocks: Iterable[packing.ReadBlock], cfg: EngineConfig,
                     solid, counts_s, pos_s, n_solid, cfg.k)
                 _sync(device)
             stats["t_compact_s"] = round(sp.seconds, 2)
+            stats["junction_key_words"] = junctions_op.key_words(cfg.k)
         if fetch is not None:
             with span("checkpoint") as sp:
                 write_store(*fetch.materialize(), histo)

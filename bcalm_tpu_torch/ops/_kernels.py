@@ -65,8 +65,8 @@ _SIGNATURES = {
                         _P, _P, _P],
     "bt_junction_keys": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _P, _I64, _P,
                          _P],
-    "bt_junction_pairs": [_P, _P, _P, _P, _I64, _I64, _I32, _I64, _I64, _I32,
-                          _P, _P, _P],
+    "bt_junction_pairs": [_P, _P, _I64, _I32, _P, _P, _I64, _I64, _I64, _I32,
+                          _I32, _P, _P, _P],
     "bt_jump_round": [_P, _P, _I64, _P, _P, _P],
     "bt_range_fold": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P],
     "bt_lower_bound": [_P, _I64, _I64, _I32, _P, _I64, _I32, _P, _P],
@@ -370,9 +370,11 @@ def count_sorted(top: torch.Tensor, perm: torch.Tensor, lower, L: int,
     return unique, counts, minpos, n_unique[0]
 
 
-def junction_keys(solid: torch.Tensor, n_solid: int, k: int, hashed: bool,
+def junction_keys(solid: torch.Tensor, n_solid: int, k: int, packed: bool,
                   key_rows: int):
-    """K3a: (key_rows, 2C) sentinel-folded keys and the (2C,) payload."""
+    """K3a: (key_rows, 2C) sentinel-folded keys (the exact lanes as rows,
+    or with packed their packed words, models.lanes.pack_keys) and the
+    (2C,) payload."""
     _check(solid, "solid", ndim=2)
     L, C = solid.shape
     _lanes_ok(L, "junction_keys")
@@ -381,22 +383,23 @@ def junction_keys(solid: torch.Tensor, n_solid: int, k: int, hashed: bool,
     payload = torch.empty((2 * C,), dtype=torch.int64, device=solid.device)
     if C:
         _launch("bt_junction_keys", solid.data_ptr(), solid.stride(0), C,
-                n_solid, L, k, int(hashed), keys.data_ptr(), keys.stride(0),
+                n_solid, L, k, int(packed), keys.data_ptr(), keys.stride(0),
                 payload.data_ptr())
         LAUNCHES["junction_keys"] += 1
     return keys, payload
 
 
 def junction_pairs(s_word: torch.Tensor, perm: torch.Tensor,
-                   payload: torch.Tensor, C: int, K: int, hashed: bool,
-                   word2=None) -> torch.Tensor:
+                   payload: torch.Tensor, C: int, K: int,
+                   lower=None) -> torch.Tensor:
     """K3b on the sort's output: the (2C,) successor array (-1 = none).
     s_word: the top packed key word in sorted order; perm: the sort's
-    permutation; payload and word2 (the second word of a three-row key, or
-    None): in entry order.  One C call: the memset of the windows' counts,
-    the pair rule binning each edge and its mirror by 16384-slot window of
-    succ, and a block a window writing it whole (no memset of succ)."""
-    from .junctions import sentinel_words
+    permutation; payload and lower (the key's other packed words, (W-1,
+    2C), or None): in entry order; K: the key's lanes.  One C call: the
+    memset of the windows' counts, the pair rule binning each edge and its
+    mirror by 16384-slot window of succ, and a block a window writing it
+    whole (no memset of succ)."""
+    from .junctions import exact_sentinel, sentinel_words
 
     for t, name in ((s_word, "s_word"), (perm, "perm"), (payload, "payload")):
         _check(t, name, ndim=1)
@@ -404,25 +407,27 @@ def junction_pairs(s_word: torch.Tensor, perm: torch.Tensor,
     if perm.shape[0] != E or payload.shape[0] != E:
         raise ValueError("junction_pairs: s_word, perm and payload differ in "
                          "length")
-    if (word2 is not None) != (K == 3) or not 1 <= K <= 3 or (hashed and K != 3):
-        raise ValueError(f"junction_pairs: {K} key rows, hashed {hashed}, "
-                         f"second word {word2 is not None}")
-    if word2 is not None:
-        _check(word2, "word2", ndim=1)
-        if word2.shape[0] != E:
-            raise ValueError("junction_pairs: word2 differs in length")
+    nl = 0
+    if lower is not None:
+        _check(lower, "lower", ndim=2, rows_strided=True)
+        nl = lower.shape[0]
+        if lower.shape[1] != E:
+            raise ValueError("junction_pairs: lower differs in length")
+    if not 1 <= K <= MAX_LANES or 1 + nl != (K + 1) // 2:
+        raise ValueError(f"junction_pairs: {K} key lanes, {1 + nl} words")
     if not 0 <= 2 * C < 2**31:
         raise ValueError(f"junction_pairs: 2C = {2 * C} slots")
     succ = torch.empty((2 * C,), dtype=torch.int64, device=s_word.device)
     # each window's bottom count, then each window's top count
     counts = torch.empty((2 * -(-2 * C // SCATTER_WINDOW),), dtype=torch.int32,
                          device=s_word.device)
-    sent0, sent1, shift = sentinel_words(K)
+    sent0, shift = sentinel_words(K)
     if C:
         _launch("bt_junction_pairs", s_word.data_ptr(),
-                None if word2 is None else word2.data_ptr(), perm.data_ptr(),
-                payload.data_ptr(), E, C, int(hashed), sent0, sent1, shift,
-                counts.data_ptr(), succ.data_ptr())
+                None if lower is None else lower.data_ptr(),
+                0 if lower is None else lower.stride(0), nl, perm.data_ptr(),
+                payload.data_ptr(), E, C, sent0 >> shift, shift,
+                int(exact_sentinel(K)), counts.data_ptr(), succ.data_ptr())
         LAUNCHES["junction_pairs"] += 1
     return succ
 
@@ -812,7 +817,7 @@ def junction_edges(s_word: torch.Tensor, perm: torch.Tensor,
     apart: the first E columns of junction_words' output).  Returns (ok
     (E,) bool, edges (2, E): src, dst, owner (E,): the rank owning src's
     slot) per sorted entry, (-1, -1, 0) where not ok."""
-    from .junctions import sentinel_words
+    from .junctions import exact_sentinel, sentinel_words
 
     for t, name in ((s_word, "s_word"), (perm, "perm"), (payload, "payload")):
         _check(t, name, ndim=1)
@@ -825,7 +830,7 @@ def junction_edges(s_word: torch.Tensor, perm: torch.Tensor,
     ok = torch.empty((E,), dtype=torch.bool, device=dev)
     edges = torch.empty((2, E), dtype=torch.int64, device=dev)
     owner = torch.empty((E,), dtype=torch.int64, device=dev)
-    sent0, _, shift = sentinel_words(K)
+    sent0, shift = sentinel_words(K)
     if E:
         _launch("bt_junction_edges", s_word.data_ptr(), perm.data_ptr(),
                 words.data_ptr(), words.stride(0), words.shape[0],

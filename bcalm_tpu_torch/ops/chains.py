@@ -31,7 +31,7 @@ import torch
 
 from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import _kernels
-from bcalm_tpu_torch.ops.junctions import _mul32
+from bcalm_tpu_torch.ops.hashing import _mul32
 
 _PTR, _DSF, _MN, _DMN = 0, 1, 2, 3
 _F_SETTLED = 1 << 28

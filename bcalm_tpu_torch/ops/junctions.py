@@ -3,15 +3,22 @@
 Counterpart of ``bcalm_tpu/ops/junctions.py:successor_arrays``.  Oriented
 node (i, +) = i and (i, -) = i + C.  Each k-mer side (suffix, prefix)
 emits its strand-0 representative entry keyed by its canonical (k-1)-mer
-(exact lanes, or a 96-bit hash when k-1 > 48) with payload
-``oid | role << 30``; palindromic sides are dropped.  After the sort, a
-group of exactly two entries, one OUT and one IN on distinct vertices, is
-a unitig edge: ``succ[src] = dst`` and its mirror edge.
+with payload ``oid | role << 30``; palindromic sides are dropped.  After
+the sort, a group of exactly two entries, one OUT and one IN on distinct
+vertices, is a unitig edge: ``succ[src] = dst`` and its mirror edge.
+
+The key is always the exact (k-1)-mer.  Up to 3 lanes (k-1 <= 48) K3a
+writes its lanes as rows and ``sort.lex_sort`` packs them (one or two
+words); past 3 lanes it writes the W = ceil(L2/2) packed words itself
+(models.lanes.pack_keys) and ``sort.lex_sort_words`` sorts them.  The JAX
+package keys k-1 > 48 by a 96-bit hash instead, in which two (k-1)-mers
+can collide (a flip of bit 31 in two adjacent lanes cancels): the port's
+groups differ from JAX's only at such collisions.
 
 :func:`junction_keys` and :func:`junction_pairs` launch the CUDA kernels
 (csrc/junctions.cu) for CUDA tensors and run their plain versions for
-CPU tensors; the sort between them is ``torch.sort`` (sort.lex_sort),
-whose sorted top word, permutation and the unsorted payload are what the
+CPU tensors; the sort between them is ``torch.sort``, whose sorted top
+word, permutation, the lower words and the unsorted payload are what the
 pair step reads.
 """
 
@@ -24,59 +31,36 @@ import torch
 from bcalm_tpu_torch.models import lanes as ln
 from bcalm_tpu_torch.ops import _kernels
 from bcalm_tpu_torch.ops import sort as sort_op
+from bcalm_tpu_torch.utils.timeinfo import span
 
 SENTINEL = ln.SENTINEL
 ROLE_OUT = 0
 _ROLE_SHIFT = 30
 _OID_MASK = (1 << 30) - 1
 
-_H = (0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
-_H_INIT = (0x9E3779B1, 0x61C88647, 0x2545F491)
-_F1 = 0x7FEB352D
-_F2 = 0x846CA68B
+
+def packed_keys(k: int) -> bool:
+    """K3a writes the packed key words when the key has more than 3 lanes
+    (k-1 > 48), else the key lanes as rows."""
+    return ln.num_lanes(k - 1) > 3
 
 
-def use_hash_keys(k: int) -> bool:
-    """96-bit hashed keys when the exact key needs more than 3 lanes
-    (k-1 > 48), as in the JAX package."""
-    return ln.num_lanes(k - 1) + 1 > 4
+def key_words(k: int) -> int:
+    """Packed words a junction key sorts on: ceil(L2 / 2) of its L2 lanes."""
+    return (ln.num_lanes(k - 1) + 1) // 2
 
 
 def key_rows(k: int) -> int:
-    return 3 if use_hash_keys(k) else ln.num_lanes(k - 1)
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2**32 for u32 a in int64 without int64 overflow."""
-    lo = a * (c & 0xFFFF)
-    hi = ((a * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & ln.U32
-
-
-def _mix32(h: torch.Tensor) -> torch.Tensor:
-    h = h ^ (h >> 16)
-    h = _mul32(h, _F1)
-    h = h ^ (h >> 15)
-    h = _mul32(h, _F2)
-    return h ^ (h >> 16)
-
-
-def hash96(keys: torch.Tensor):
-    """(L2, N) key lanes -> three u32 hash words (bcalm_tpu _hash96)."""
-    hs = []
-    for w in range(3):
-        h = torch.full((keys.shape[1],), _H_INIT[w], dtype=torch.int64,
-                       device=keys.device)
-        for j in range(keys.shape[0]):
-            h = (_mul32(h ^ keys[j], _H[w]) + (w + 1) * j + 1) & ln.U32
-        hs.append(_mix32(h))
-    return hs
+    """Rows of K3a's key output: the packed words past 3 lanes, else the
+    lanes."""
+    return key_words(k) if packed_keys(k) else ln.num_lanes(k - 1)
 
 
 def junction_keys_plain(solid: torch.Tensor, n_solid: int, k: int):
     """Plain PyTorch version of the key-build kernel: returns
-    (keys (K, 2C), payload (2C,)), suffix entries at [0, C), prefix
-    entries at [C, 2C)."""
+    (keys (key_rows(k), 2C), payload (2C,)), suffix entries at [0, C),
+    prefix entries at [C, 2C); an invalid or palindromic side's lanes are
+    all the sentinel."""
     C = solid.shape[1]
     suf = ln.suffix_kminus1(solid, k)
     pre = ln.prefix_kminus1(solid, k)
@@ -90,67 +74,71 @@ def junction_keys_plain(solid: torch.Tensor, n_solid: int, k: int):
     oid_p = torch.where(tau, ids + C, ids)
     payload = torch.cat([oid_s | (sig.to(torch.int64) << _ROLE_SHIFT),
                          oid_p | ((~tau).to(torch.int64) << _ROLE_SHIFT)])
-    if use_hash_keys(k):
-        hs, hp = hash96(suf_c), hash96(pre_c)
-        keys = torch.stack([
-            torch.cat([torch.where(vs, hs[i], SENTINEL),
-                       torch.where(vp, hp[i], SENTINEL)]) for i in range(3)])
-    else:
-        keys = torch.cat([torch.where(vs[None], suf_c, SENTINEL),
-                          torch.where(vp[None], pre_c, SENTINEL)], dim=1)
-    return keys, payload
+    keys = torch.cat([torch.where(vs[None], suf_c, SENTINEL),
+                      torch.where(vp[None], pre_c, SENTINEL)], dim=1)
+    return (ln.pack_rows(keys) if packed_keys(k) else keys), payload
 
 
 def junction_keys(solid: torch.Tensor, n_solid: int, k: int):
     if solid.device.type == "cpu":
         return junction_keys_plain(solid, n_solid, k)
-    return _kernels.junction_keys(solid, n_solid, k, use_hash_keys(k),
+    return _kernels.junction_keys(solid, n_solid, k, packed_keys(k),
                                   key_rows(k))
 
 
 @functools.lru_cache(maxsize=None)
 def sentinel_words(K: int):
-    """(sent0, sent1, shift) of K key rows: the packed words of an
-    all-sentinel key (models.lanes.pack_keys; sent1 = 0 when the key packs
-    into one word) and the shift that takes the first word to its first
-    row.  An exact key is a sentinel when first_word >> shift equals
-    sent0 >> shift (its first row is the sentinel); a hashed key when
-    every packed word equals the all-sentinel packing."""
-    words = [int(w) for w in ln.pack_keys([torch.tensor(SENTINEL)] * K)]
-    return words[0], words[1] if len(words) > 1 else 0, 32 if K >= 2 else 0
+    """(sent0, shift) of a key of K lanes: the top packed word of an
+    all-sentinel key (models.lanes.pack_keys) and the shift that takes a
+    top word to its first lane (32 when it packs two lanes).  A key is a
+    sentinel when top_word >> shift equals sent0 >> shift: its first lane
+    is the sentinel."""
+    word = int(ln.pack_keys([torch.tensor(SENTINEL)] * min(K, 2))[0])
+    return word, 32 if K >= 2 else 0
 
 
-def pair_heads(s_word: torch.Tensor, s_word2, K: int, hashed: bool):
+def exact_sentinel(K: int) -> bool:
+    """Whether a junction key of K lanes is the sentinel only where its
+    last lane is too.  Past 3 lanes (packed keys) it is: a valid canonical
+    (k-1)-mer whose first lane is 16 G ends in 16 C, so its last lane is
+    never the sentinel.  Up to 3 lanes the first lane decides alone, as in
+    bcalm_tpu, whose FASTA the port matches byte for byte there."""
+    return K > 3
+
+
+def pair_heads(s_word: torch.Tensor, s_lower, K: int, exact: bool = False):
     """Pair heads of the sorted entries: the first entry of each group of
     exactly two equal keys, the key not a sentinel (bcalm_tpu
-    junctions.successor_arrays :207-216).  s_word2: the lower packed
-    words in sorted order (one row or several), or None.  Equal packed
-    words mean equal keys: pack_keys is a bijection on u32 pairs."""
-    sent0, sent1, shift = sentinel_words(K)
-    low = None if s_word2 is None else s_word2.reshape(-1, s_word.shape[0])
-    if hashed:
-        s_valid = ~((s_word == sent0) & (low[0] == sent1))
-    else:
-        s_valid = (s_word >> shift) != (sent0 >> shift)
+    junctions.successor_arrays :207-216).  s_word: the top packed words in
+    sorted order; s_lower: the lower packed words in sorted order (W-1,
+    E), or None; K: the key's lanes; exact: the last lane decides too
+    (:func:`exact_sentinel`).  Equal packed words mean equal keys:
+    pack_keys is a bijection on u32 pairs."""
+    sent0, shift = sentinel_words(K)
+    s_valid = (s_word >> shift) != (sent0 >> shift)
+    if exact:
+        last = s_word if s_lower is None else s_lower[-1]
+        s_valid |= (last & SENTINEL) != SENTINEL
     f = torch.zeros((1,), dtype=torch.bool, device=s_word.device)
     eq = s_word[1:] == s_word[:-1]
-    if low is not None:
-        eq &= (low[:, 1:] == low[:, :-1]).all(dim=0)
+    if s_lower is not None:
+        eq &= (s_lower[:, 1:] == s_lower[:, :-1]).all(dim=0)
     eq_prev = torch.cat([f, eq])
     eq_next = torch.cat([eq, f])
     return s_valid & ~eq_prev & eq_next & ~torch.cat([eq_next[1:], f])
 
 
 def junction_pairs_plain(s_word: torch.Tensor, perm: torch.Tensor,
-                         payload: torch.Tensor, C: int, K: int, hashed: bool,
-                         word2=None) -> torch.Tensor:
+                         payload: torch.Tensor, C: int, K: int,
+                         lower=None) -> torch.Tensor:
     """Plain PyTorch version of the pair kernel: s_word is the most
-    significant packed key word in sorted order (sort.lex_sort), perm the
-    sort's permutation, payload (and word2, the second packed word of a
-    three-row key) in entry order."""
+    significant packed key word in sorted order (sort.lex_sort or
+    lex_sort_words), perm the sort's permutation, payload and lower (the
+    key's other packed words, (W-1, 2C), or None) in entry order; K the
+    key's lanes."""
     dev = s_word.device
-    s_word2 = None if word2 is None else word2[perm]
-    pair_head = pair_heads(s_word, s_word2, K, hashed)
+    s_lower = None if lower is None else lower[:, perm]
+    pair_head = pair_heads(s_word, s_lower, K, exact_sentinel(K))
     s_pay = payload[perm]
     nxt_pay = torch.cat([s_pay[1:], torch.zeros((1,), dtype=torch.int64,
                                                 device=dev)])
@@ -168,25 +156,31 @@ def junction_pairs_plain(s_word: torch.Tensor, perm: torch.Tensor,
     return succ
 
 
-def junction_pairs(s_word, perm, payload, C: int, K: int, hashed: bool,
-                   word2=None) -> torch.Tensor:
+def junction_pairs(s_word, perm, payload, C: int, K: int,
+                   lower=None) -> torch.Tensor:
     if s_word.device.type == "cpu":
-        return junction_pairs_plain(s_word, perm, payload, C, K, hashed, word2)
-    return _kernels.junction_pairs(s_word, perm, payload, C, K, hashed, word2)
+        return junction_pairs_plain(s_word, perm, payload, C, K, lower)
+    return _kernels.junction_pairs(s_word, perm, payload, C, K, lower)
 
 
 def successor_arrays(solid: torch.Tensor, n_solid: int, k: int) -> torch.Tensor:
     """(2C,) int64 unitig-successor oriented id per oriented node, -1 if
     none (solid: (L, C), columns >= n_solid ignored).  The pair step gets
-    the sort's own top word, its permutation and the unsorted payload (and
-    second word): no sorted copy of the keys or the payload is made."""
-    C = solid.shape[1]
-    keys, payload = junction_keys(solid, n_solid, k)
-    K = keys.shape[0]
-    perm, s_word = sort_op.lex_sort([keys[r] for r in range(K)])
-    # pack_keys keeps an odd third row as a word of its own
-    word2 = keys[2] if K == 3 else None
-    return junction_pairs(s_word, perm, payload, C, K, use_hash_keys(k), word2)
+    the sort's own top word, its permutation, the key's lower words and
+    the unsorted payload: no sorted copy of the keys or the payload is
+    made.  Timed as the span compaction.junctions."""
+    with span("compaction.junctions"):
+        C = solid.shape[1]
+        keys, payload = junction_keys(solid, n_solid, k)
+        if packed_keys(k):
+            perm, s_word = sort_op.lex_sort_words(list(keys))
+            lower = keys[1:]
+        else:
+            perm, s_word = sort_op.lex_sort([keys[r] for r in range(keys.shape[0])])
+            # pack_keys keeps an odd third row as a word of its own
+            lower = keys[2:] if keys.shape[0] == 3 else None
+        return junction_pairs(s_word, perm, payload, C, ln.num_lanes(k - 1),
+                              lower)
 
 
 # ---- global mode: the sharded junction matching of the -devices N build
@@ -199,7 +193,7 @@ def strand_folded(k: int) -> bool:
 
 def entry_key_rows(k: int) -> int:
     """Rows of a global-mode entry key: the (k-1)-mer lanes, plus a strand
-    row when k-1 is a multiple of 16 (always exact, never hashed)."""
+    row when k-1 is a multiple of 16."""
     return ln.num_lanes(k - 1) + (0 if strand_folded(k) else 1)
 
 
@@ -297,7 +291,7 @@ def junction_edges_plain(s_word: torch.Tensor, perm: torch.Tensor,
     exactly two equal keys, one OUT and one IN, on distinct vertices);
     (-1, -1, 0) where not ok."""
     pair_head = pair_heads(s_word, words[1:, perm] if words.shape[0] > 1
-                           else None, K, False)
+                           else None, K)
     s_pay = payload[perm]
     nxt_pay = torch.cat([s_pay[1:], torch.zeros((1,), dtype=torch.int64,
                                                 device=s_word.device)])

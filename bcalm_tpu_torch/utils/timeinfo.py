@@ -12,9 +12,9 @@ It adds its seconds and one call, under ``name``, to the TimeInfo that is
 active (``TimeInfo.active()``: cli.main makes one per command line, so a
 -server request has its own); with none active (library calls, the
 server's warm-up) it only measures itself.  While torch's profiler
-records, a span is also a ``torch.profiler.record_function`` range named
-``TRACE_PREFIX + name``, so the stage's edges land on the profiler's clock
-beside the device operations.  A span never synchronises the device: a
+records, a span is also a user range named ``TRACE_PREFIX + name`` (what
+``torch.profiler.record_function`` opens), so the stage's edges land on
+the profiler's clock beside the device operations.  A span never synchronises the device: a
 stage that must include its device work synchronises inside the span.
 A child stage is named after its parent plus a dot and a word
 (``count.ingest_wait`` lies inside ``count``).
@@ -22,6 +22,8 @@ A child stage is named after its parent plus a dot and a word
 
 from __future__ import annotations
 
+import functools
+import operator
 import sys
 import time
 from contextlib import contextmanager
@@ -60,12 +62,13 @@ class TimeInfo:
 
     def report_lines(self) -> List[str]:
         """``[time:<name>] <s>s`` for each span name, longest first, and
-        ``[calls:<name>] <n>`` after it where the span ran more than once."""
+        ``[calls:<name>] <n>`` after it where the span ran more than once
+        or is a child stage (how often it ran inside its parent)."""
         lines = []
         for name, (secs, calls) in sorted(self.spans.items(),
                                           key=lambda kv: -kv[1][0]):
             lines.append(f"[time:{name}] {secs:.4f}s")
-            if calls > 1:
+            if calls > 1 or "." in name:
                 lines.append(f"[calls:{name}] {calls}")
         return lines
 
@@ -82,28 +85,32 @@ class span:
         self.seconds = 0.0
         self._range = None
 
-    # With a range open, each edge is the midpoint of the clock's readings
-    # around its range call: the range stamps the edge somewhere inside the
-    # call, which lets go of the interpreter lock and may wait to take it
-    # back (the ingest's producer thread takes it as a block arrives).
+    # With a profiler recording, each edge's clock reading and the range's
+    # own stamp are taken back to back by one C call: map() runs the range
+    # call and time.perf_counter without the interpreter loop between them,
+    # and the range call holds the interpreter lock, so no other thread
+    # (the ingest's producer takes the lock as a block arrives) can run
+    # between the two readings.
     def __enter__(self) -> "span":
-        t = time.perf_counter()
         # no torch imported: no profiler can be recording
         torch = sys.modules.get("torch")
         if torch is not None and torch._C._autograd._profiler_enabled():
-            self._range = torch.profiler.record_function(TRACE_PREFIX
-                                                         + self.name)
-            self._range.__enter__()
-            t = 0.5 * (t + time.perf_counter())
-        self._t0 = t
+            ag = torch._C._autograd
+            enter = functools.partial(ag._record_function_with_args_enter,
+                                      TRACE_PREFIX + self.name)
+            handle, self._t0 = map(operator.call, (enter, time.perf_counter))
+            self._range = functools.partial(
+                ag._record_function_with_args_exit, handle)
+        else:
+            self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        t = time.perf_counter()
         if self._range is not None:
-            self._range.__exit__(exc_type, exc, tb)
+            t, _ = map(operator.call, (time.perf_counter, self._range))
             self._range = None
-            t = 0.5 * (t + time.perf_counter())
+        else:
+            t = time.perf_counter()
         self.seconds = t - self._t0
         ti = _ACTIVE.get()
         if ti is not None:

@@ -102,7 +102,8 @@ Phases (any failure raises, and the script exits non-zero):
    quarter with ``-kmer-size 255`` (16 lanes), the counters reset just
    before each build: each build's wall, device_peak_mb and launches, its
    resident path's kernels all launched, and the phase 4 invariants held
-   at its k;
+   at its k; the k = 151 build is also judged by the benchmark's plain
+   reference (cdbg_bench/reference.py), every compared count 0;
 4. output invariants of the phase 3 run: each solid canonical k-mer once,
    KC sums, every L: link a real (k-1)-overlap;
 5. each kernel vs its plain PyTorch version on the card, on the inputs
@@ -165,7 +166,8 @@ Phases (any failure raises, and the script exits non-zero):
    table, lexicographic minimizers, each with the L2 operations that set
    its pace (N(k-m+1) atomics or random rank sectors) and their rate.  Then
    one row per lane-dependent kernel at L = 10, on the inputs phase 3h's
-   k = 151 build fed it (K1, K2, K3a, K7, K9, K11), or made from them where
+   k = 151 build fed it (K1, K2, K3a with its five packed words, K3b on
+   them, K7, K9, K11), or made from them where
    that build does not run the kernel (K5 and K6 on its sorted chunk, K3's
    global mode and K20's three modes on a 2^20-column slice of its solid
    table, K20 also at L = 16 on the k = 255 build's), and one for K9 in
@@ -2152,7 +2154,7 @@ def digest_of(t):
 # and at 2^24, K19 at the same levels as K17 and K11 at SPELL_SHAPES, by
 # device operation.  Prints one JSON line.
 SPLIT = r"""
-import json, sys, time
+import inspect, json, sys, time
 import torch
 sys.path.insert(0, ".")
 dev = torch.device("cuda", 0)
@@ -2191,12 +2193,14 @@ def host_ms(fn, reps=50):
     return t
 
 out = {}
+# a tree before exact keys past 3 lanes takes K3b's `hashed` flag
+JP_HASHED = (False,) if "hashed" in inspect.signature(_kernels.junction_pairs).parameters else ()
 solid, n, C = step_solid()
 keys, pay = junctions.junction_keys(solid, n, 31)
 rows = [keys[r] for r in range(keys.shape[0])]
 perm, word = sort_op.lex_sort(rows)
 pieces = {"sort": lambda: sort_op.lex_sort(rows),
-          "junction_pairs": lambda: _kernels.junction_pairs(word, perm, pay, C, 2, False),
+          "junction_pairs": lambda: _kernels.junction_pairs(word, perm, pay, C, 2, *JP_HASHED),
           "successor_arrays": lambda: junctions.successor_arrays(solid, n, 31)}
 out.update({"entries": 2 * C, "heads_and_edges": None, "pieces": {}})
 for name, fn in pieces.items():
@@ -2480,7 +2484,10 @@ r2 = np.random.RandomState(2)
 for L, kk, C in ((10, 151, 5595027), (16, 255, 1175295)):
     sl = torch.from_numpy(r2.randint(0, 2**32, size=(L, C), dtype=np.uint64).astype(np.int64)).to(dev)
     sl[0] &= (1 << (2 * (kk % 16 or 16))) - 1
-    kargs = (sl, C, kk, junctions.use_hash_keys(kk), junctions.key_rows(kk))
+    # past 3 lanes: the exact packed words, or in a tree before them the
+    # three hash words (not the same work)
+    long_flag = getattr(junctions, "packed_keys", None) or junctions.use_hash_keys
+    kargs = (sl, C, kk, long_flag(kk), junctions.key_rows(kk))
     same(_kernels.junction_keys(*kargs), junctions.junction_keys_plain(sl, C, kk),
          f"junction_keys L={L}")
     fns[f"junction_keys L={L}"] = (lambda kargs=kargs: _kernels.junction_keys(*kargs), 20)
@@ -2541,10 +2548,11 @@ fns["unique_consecutive (not the same function: no weights, no min pos)"] = (
 solid_s, n_s, C_s = step_solid()
 keys_s, pay_s = junctions.junction_keys(solid_s, n_s, 31)
 rows_s = [keys_s[r] for r in range(keys_s.shape[0])]
+JP_HASHED = (False,) if "hashed" in inspect.signature(_kernels.junction_pairs).parameters else ()
 if hasattr(sort_op, "lex_sort"):
     perm_s, word_s = sort_op.lex_sort(rows_s)
-    step = lambda: _kernels.junction_pairs(word_s, perm_s, pay_s, C_s, 2, False)
-    plain_step = lambda: junctions.junction_pairs_plain(word_s, perm_s, pay_s, C_s, 2, False)
+    step = lambda: _kernels.junction_pairs(word_s, perm_s, pay_s, C_s, 2, *JP_HASHED)
+    plain_step = lambda: junctions.junction_pairs_plain(word_s, perm_s, pay_s, C_s, 2, *JP_HASHED)
 else:
     perm_s = sort_op.lex_argsort(rows_s)
     step = lambda: _kernels.junction_pairs(keys_s[:, perm_s].contiguous(), pay_s[perm_s], C_s, False)
@@ -3116,6 +3124,9 @@ def phase_longk(tmp: str, seed: int, dev):
                                  f"{st.get('ingest_parser')}, expected native")
         n_links = phase_invariants(os.path.join(tmp, f"long{k}.unitigs.fa"),
                                    st, k, dev)
+        if k == LONG_K:
+            judge_by_reference(reads_fa, os.path.join(tmp, f"long{k}.unitigs.fa"),
+                               k, 2, dev)
         say(f"[longk] k = {k} ({(k + 15) // 16} lanes), in process: wall "
             f"{wall:.2f}s (kernel inputs recorded to the host: "
             f"{len(record)} kernels), "
@@ -3130,6 +3141,30 @@ def phase_longk(tmp: str, seed: int, dev):
             f"{json.dumps(st['converge_rounds'])}")
         out[k] = inputs, launches, st["converge_rounds"]
     return out
+
+
+def judge_by_reference(reads_fa: str, fasta: str, k: int, amin: int, dev):
+    """The benchmark's plain reference (cdbg_bench/reference.py, exact
+    keys at any k) built from the same reads on the card, and its
+    comparison with the build's FASTA: every compared count must be 0."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "cdbg_bench", "reference.py")
+    spec = importlib.util.spec_from_file_location("cdbg_bench_reference", path)
+    reference = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = reference   # its dataclasses look it up
+    spec.loader.exec_module(reference)
+    t0 = time.time()
+    sol = reference.reference(reads_fa, k, amin, dev)
+    checks, detail = reference.judge(sol, fasta)
+    del sol
+    torch.cuda.empty_cache()
+    say(f"[reference] k = {k}: {json.dumps(checks)} ({json.dumps(detail)}) "
+        f"in {time.time() - t0:.1f}s")
+    if any(checks.values()):
+        raise AssertionError(f"k = {k}: the build differs from the plain "
+                             f"reference: {checks}")
 
 
 def _canonical_kmers(seqs, k: int) -> np.ndarray:
@@ -3347,19 +3382,26 @@ def _fold_bytes(body: torch.Tensor, lo, hi) -> int:
     return 8 * int(seen.sum()) + 8 * (L + 1) * n_fold + 8
 
 
-def _pairs_bytes(s_word, perm, payload, C, K, hashed, word2) -> tuple:
+def _pairs_bytes(s_word, perm, payload, C, K, lower=None) -> tuple:
     """(read, written) bytes K3b must move: the sorted top word; for a
-    three-row key the permutation and the second word through it (random:
-    a 32-byte sector each); else the sectors of perm that the pair heads'
-    perm[i], perm[i+1] touch; the two payloads of each head (random
-    sectors); succ written once (its windows are written whole)."""
+    two-word key the permutation and the second word through it (random:
+    a 32-byte sector each); for a key of three words or more what
+    pair_rule_bytes counts (the lower words and perm only where the top
+    words tie); else the sectors of perm that the pair heads' perm[i],
+    perm[i+1] touch; the two payloads of each head (random sectors); succ
+    written once (its windows are written whole)."""
     from bcalm_tpu_torch.ops import junctions
 
     E = s_word.shape[0]
-    s2 = None if word2 is None else word2[perm]
-    heads = torch.nonzero(junctions.pair_heads(s_word, s2, K, hashed)).flatten()
+    if lower is not None and lower.shape[0] > 1:
+        # pair_rule_bytes reads words 1.. of a (W, E) stack
+        words = torch.cat([s_word[None], lower])
+        return pair_rule_bytes(s_word, perm, words, K), 16 * C
+    s_lower = None if lower is None else lower[:, perm]
+    heads = torch.nonzero(junctions.pair_heads(
+        s_word, s_lower, K, junctions.exact_sentinel(K))).flatten()
     read = 8 * E + 2 * 32 * heads.numel()
-    if word2 is not None:
+    if lower is not None:
         read += 8 * E + 32 * E
     else:
         read += 32 * torch.unique(torch.cat([heads, heads + 1]) // 4).numel()
@@ -3432,7 +3474,7 @@ def pair_rule_bytes(s_word, perm, words, K: int) -> int:
     sorts the valid entries alone)."""
     from bcalm_tpu_torch.ops import junctions
 
-    sent0, _, shift = junctions.sentinel_words(K)
+    sent0, shift = junctions.sentinel_words(K)
     E, W = s_word.shape[0], words.shape[0]
     valid = (s_word >> shift) != (sent0 >> shift)
     n_valid = int(valid.sum())
@@ -4065,9 +4107,9 @@ def phase_kernels(inputs, launches, canon_hier, canon_launches, solid_table,
               lambda a=c_args: count.count_sorted_plain(*a),
               read_bytes=_count_bytes(*c_args), label=key, launched=launched)
         del c_args
-    solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
+    solid, n_solid, k, packed, rows_k = inputs["junction_keys"]
     check("junction_keys",
-          lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
+          lambda: _kernels.junction_keys(solid, n_solid, k, packed, rows_k),
           lambda: junctions.junction_keys_plain(solid, n_solid, k),
           reads=solid)
     jp_args = inputs["junction_pairs"]
@@ -4663,12 +4705,12 @@ def longk_rows(longk, phases, dev):
                        f"extract_insert@L{(LONG_K2 + 15) // 16}",
                        "extract_insert", phases, reps=5))
     del k255
-    solid, n_solid, k, hashed, rows_k = inputs["junction_keys"]
+    # K3a writing the exact key's five packed words, and K3b on them (the
+    # top word, the four lower words through perm where top words tie)
+    solid, n_solid, k, packed, rows_k = inputs["junction_keys"]
     row("junction_keys",
-        lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
+        lambda: _kernels.junction_keys(solid, n_solid, k, packed, rows_k),
         lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid)
-    # K3b in its hashed mode (three hashed key rows: the top word and the
-    # second word through perm)
     jp_args = inputs["junction_pairs"]
     jp_read, jp_written = _pairs_bytes(*jp_args)
     row("junction_pairs", lambda: _kernels.junction_pairs(*jp_args),
@@ -4750,11 +4792,11 @@ def longk_rows(longk, phases, dev):
     # and a table; not on 3h's path)
     rows += k20_rows(sl, k, 10, *_rank_and_table(sl, k, 10), 0, tag, reps=5)
     del sl, inputs
-    solid, n_solid, k, hashed, rows_k = on_card(
+    solid, n_solid, k, packed, rows_k = on_card(
         {"junction_keys": inputs2["junction_keys"]})["junction_keys"]
     rows.append(check_kernel(
         "junction_keys", launches2,
-        lambda: _kernels.junction_keys(solid, n_solid, k, hashed, rows_k),
+        lambda: _kernels.junction_keys(solid, n_solid, k, packed, rows_k),
         lambda: junctions.junction_keys_plain(solid, n_solid, k), reads=solid,
         label=f"junction_keys@L{solid.shape[0]}", reps=5))
     # K20 at L = 16 on a 2^20-column slice of the k = 255 solid table

@@ -150,7 +150,7 @@ def test_cli_album_fastq_gz_counts_byte_identical(tmp_path, monkeypatch):
 
 
 def test_cli_devices_k63_byte_identical(tmp_path, monkeypatch):
-    """-devices 2 at k = 63 (hashed junction keys): the same unitigs bytes."""
+    """-devices 2 at k = 63 (four key lanes): the same unitigs bytes."""
     fa = tmp_path / "reads.fa"
     write_reads(fa, seed=63, n=200)
     args = ["-in", str(fa), "-kmer-size", "63", "-abundance-min", "2",

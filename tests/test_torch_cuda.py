@@ -93,46 +93,88 @@ def test_count_runs(card, L, weighted):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
 
 
-def sorted_pairs_inputs(keys, pay):
-    """K3b's inputs from the key rows and payload: (s_word, perm, payload,
-    K, word2), the sort's own top word and permutation."""
-    K = keys.shape[0]
-    perm, s_word = sort_op.lex_sort(list(keys))
-    return s_word, perm, pay, K, keys[2] if K == 3 else None
+def sorted_pairs_inputs(keys, pay, K=None):
+    """K3b's inputs from K3a's keys and payload: (s_word, perm, payload,
+    K, lower), the sort's own top word and permutation.  keys: the K key
+    lanes as rows (K <= 3), or the packed words of a key of K lanes."""
+    K = keys.shape[0] if K is None else K
+    if keys.shape[0] == K:
+        perm, s_word = sort_op.lex_sort(list(keys))
+        return s_word, perm, pay, K, keys[2:] if K == 3 else None
+    perm, s_word = sort_op.lex_sort_words(list(keys))
+    return s_word, perm, pay, K, keys[1:] if keys.shape[0] > 1 else None
 
 
-@pytest.mark.parametrize("k", [13, 31, 32, 49, 63])
+# 1, 2 and 3 key rows (k = 13, 31-32, 49), then the packed words of 4
+# lanes (63), W = 3, 5, 8 and 16 (97, 151, 255, 512)
+@pytest.mark.parametrize("k", [13, 31, 32, 49, 63, 97, 151, 255, 512])
 def test_junctions(card, k):
-    """K3a, then K3b on the sort's word and permutation: 1, 2 and 3 exact
-    key rows (k = 13, 31-32, 49) and hashed keys (63)."""
+    """K3a, then K3b on the sort's word and permutation (and past one word
+    the lower words), each bitwise against its plain version."""
     L = ln.num_lanes(k)
     kmers = sorted(brute.count_kmers(reads(k, k=k), k))
     cols = [[(x >> (32 * (L - 1 - j))) & 0xFFFFFFFF for x in kmers]
             for j in range(L)]
     solid = torch.tensor(cols, dtype=torch.int64, device=card)
     n = solid.shape[1]
-    hashed = junctions.use_hash_keys(k)
-    keys, pay = _kernels.junction_keys(solid, n - 3, k, hashed,
+    keys, pay = _kernels.junction_keys(solid, n - 3, k,
+                                       junctions.packed_keys(k),
                                        junctions.key_rows(k))
     pkeys, ppay = junctions.junction_keys_plain(solid, n - 3, k)
     assert torch.equal(keys, pkeys) and torch.equal(pay, ppay)
-    s_word, perm, pay, K, word2 = sorted_pairs_inputs(keys, pay)
-    succ = _kernels.junction_pairs(s_word, perm, pay, n, K, hashed, word2)
+    assert keys.shape[0] == (junctions.key_words(k) if k > 49 else ln.num_lanes(k - 1))
+    s_word, perm, pay, K, lower = sorted_pairs_inputs(keys, pay,
+                                                      ln.num_lanes(k - 1))
+    succ = _kernels.junction_pairs(s_word, perm, pay, n, K, lower)
     assert torch.equal(succ, junctions.junction_pairs_plain(
-        s_word, perm, pay, n, K, hashed, word2))
+        s_word, perm, pay, n, K, lower))
     assert torch.equal(succ.cpu(), junctions.successor_arrays(
         solid.cpu(), n - 3, k))
     assert int((succ >= 0).sum()) > 0
 
 
-def pair_groups(K: int, hashed: bool, C: int, seed: int):
-    """Key rows (K, 2C) and payload (2C,) of 2C junction entries (entry i
-    < C the suffix of vertex i, C + i its prefix, payloads by K3a's rule
-    with random strands) in groups of 1-4 equal keys, most of two, in a
-    random entry order; a fifth of the keys share all but the last row
-    with the key before; 5% are sentinels (exact: the first row; a hashed
-    key: every row, and as many keys with only the first two rows
-    sentinel, which are valid).  The groups are laid out in key order, a
+@pytest.mark.parametrize("k", [65, 97])
+def test_junctions_first_lane_all_g(card, k):
+    """k-1 a multiple of 16, past 3 lanes: the junction (k-1)-mer G^16 X
+    C^16 of a read, whose top packed word reads as the sentinel's, is
+    glued by K3b as by the plain pair rule, and the read is one unitig."""
+    m = k - 1
+    rng = np.random.RandomState(k)
+    while True:
+        mid = "".join("ACGT"[c] for c in rng.randint(0, 4, m - 32))
+        x = "G" * 16 + mid + "C" * 16
+        if (brute.canonical_num(brute.str2num(x), m) == brute.str2num(x)
+                and brute.revcomp_str(x) != x):
+            break
+    read = "".join("ACGT"[c] for c in rng.randint(0, 4, 30)) + x + "TTGACCA"
+    L = ln.num_lanes(k)
+    kmers = sorted(brute.count_kmers([read], k))
+    solid = torch.tensor([[(v >> (32 * (L - 1 - j))) & 0xFFFFFFFF
+                           for v in kmers] for j in range(L)],
+                         dtype=torch.int64)
+    n = solid.shape[1]
+    want = junctions.successor_arrays(solid, n, k)
+    got = junctions.successor_arrays(solid.to(card), n, k)
+    assert torch.equal(got.cpu(), want)
+    # a path of n k-mers: n - 1 edges, each with its mirror
+    assert int((want >= 0).sum()) == 2 * (n - 1)
+
+
+def packed(keys: torch.Tensor, K: int) -> torch.Tensor:
+    """K key lanes as K3a writes them: rows up to 3 lanes, else packed
+    words (models.lanes.pack_rows)."""
+    return keys if K <= 3 else ln.pack_rows(keys)
+
+
+def pair_groups(K: int, C: int, seed: int):
+    """Keys (K3a's layout of K lanes: rows, or packed words past 3) and
+    payload (2C,) of 2C junction entries (entry i < C the suffix of vertex
+    i, C + i its prefix, payloads by K3a's rule with random strands) in
+    groups of 1-4 equal keys, most of two, in a random entry order; a
+    fifth of the keys share all but the last lane with the key before,
+    past 3 lanes a tenth only the first two (the top word); 5% have the
+    sentinel as their first lane, and half of those as every lane (K3a's
+    invalid entries): past 3 lanes the others are valid keys.  The groups are laid out in key order, a
     group of two at entry 1023 of every 1024-entry tile."""
     rng = np.random.RandomState(seed)
     E = 2 * C
@@ -143,10 +185,12 @@ def pair_groups(K: int, hashed: bool, C: int, seed: int):
     pool = rng.randint(0, 2**32, size=(K, E), dtype=np.uint64).astype(np.int64)
     share = np.flatnonzero(rng.rand(E) < 0.2)[1:]
     pool[:K - 1, share] = pool[:K - 1, share - 1]
+    if K > 3:
+        share = np.flatnonzero(rng.rand(E) < 0.1)[1:]
+        pool[:2, share] = pool[:2, share - 1]
     r = rng.rand(E)
-    pool[:K if hashed else 1, r < 0.05] = ln.SENTINEL
-    if hashed:
-        pool[:2, (r >= 0.05) & (r < 0.1)] = ln.SENTINEL
+    pool[:1, r < 0.05] = ln.SENTINEL
+    pool[:, r < 0.025] = ln.SENTINEL
     pool = pool[:, np.lexsort(tuple(pool[::-1]))]
     keys = np.empty((K, E), np.int64)
     order = rng.permutation(E)
@@ -157,36 +201,37 @@ def pair_groups(K: int, hashed: bool, C: int, seed: int):
         keys[:, order[a:a + size]] = pool[:, g, None]
         a += size
         g += 1
-    return torch.from_numpy(keys), torch.from_numpy(pay)
+    return packed(torch.from_numpy(keys), K), torch.from_numpy(pay)
 
 
-@pytest.mark.parametrize("K,hashed", [(1, False), (2, False), (3, False),
-                                      (3, True)])
+# key lanes: 1, 2 and 3 rows, then W = 2, 3, 5, 8 and 16 packed words
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 6, 10, 16, 32])
 @pytest.mark.parametrize("C", [5000, 2048])
-def test_junction_pairs_tiles(card, K, hashed, C):
+def test_junction_pairs_tiles(card, K, C):
     """K3b against its plain version on groups of 1-4 equal keys, pair
     heads at the last entry of a 1024-entry tile (the partner in the next
     tile), E = 2C not (C = 5000) and exactly (2048) a multiple of the
     tile; run twice for equal bytes."""
-    keys, pay = pair_groups(K, hashed, C, seed=K + 7 * hashed + C)
-    s_word, perm, pay, K, word2 = sorted_pairs_inputs(keys, pay)
-    s2 = None if word2 is None else word2[perm]
-    heads = junctions.pair_heads(s_word, s2, K, hashed)
+    keys, pay = pair_groups(K, C, seed=K + C)
+    s_word, perm, pay, K, lower = sorted_pairs_inputs(keys, pay, K)
+    heads = junctions.pair_heads(s_word, None if lower is None
+                                 else lower[:, perm], K,
+                                 junctions.exact_sentinel(K))
     assert bool(heads[1023::1024].any()) and int(heads.sum()) > C // 4
-    want = junctions.junction_pairs_plain(s_word, perm, pay, C, K, hashed, word2)
+    want = junctions.junction_pairs_plain(s_word, perm, pay, C, K, lower)
     args = [t if t is None else t.to(card) for t in (s_word, perm, pay)]
-    w2 = None if word2 is None else word2.to(card)
+    low = None if lower is None else lower.to(card)
     for _ in range(2):
-        got = _kernels.junction_pairs(*args, C, K, hashed, w2)
+        got = _kernels.junction_pairs(*args, C, K, low)
         assert torch.equal(got.cpu(), want)
     assert int((want >= 0).sum()) > C // 4
 
 
-def ring_pairs(K: int, hashed: bool, C: int, linked: bool, seed: int):
-    """Key rows (K, 2C) and payload (2C,) in a random entry order: linked,
-    vertex i's suffix (OUT) shares a key with vertex i+1's prefix (IN) in
-    a ring, so every one of the 2C slots of succ gets an edge; else every
-    key is distinct and no slot gets one."""
+def ring_pairs(K: int, C: int, linked: bool, seed: int):
+    """Keys of K lanes (K3a's layout) and payload (2C,) in a random entry
+    order: linked, vertex i's suffix (OUT) shares a key with vertex i+1's
+    prefix (IN) in a ring, so every one of the 2C slots of succ gets an
+    edge; else every key is distinct and no slot gets one."""
     rng = np.random.RandomState(seed)
     ids = np.arange(C)
     pay = np.concatenate([ids, ids | (1 << 30)])   # all strands +
@@ -196,28 +241,29 @@ def ring_pairs(K: int, hashed: bool, C: int, linked: bool, seed: int):
     if linked:
         keys[:, C + (ids + 1) % C] = keys[:, ids]
     order = torch.from_numpy(rng.permutation(2 * C))
-    return (torch.from_numpy(keys)[:, order].contiguous(),
+    return (packed(torch.from_numpy(keys), K)[:, order].contiguous(),
             torch.from_numpy(pay)[order].contiguous())
 
 
 @pytest.mark.parametrize("case,C", [
     ("no_edge", 20000), ("every_slot", 20000),
     ("partial_window", 3 * 8192 + 77), ("every_slot", (1 << 23) + 4099)])
-@pytest.mark.parametrize("K,hashed", [(1, False), (3, False), (3, True)])
-def test_junction_pairs_windows(card, case, C, K, hashed):
+@pytest.mark.parametrize("K", [1, 3, 10])
+def test_junction_pairs_windows(card, case, C, K):
     """K3b's windowed succ: no edge (every slot -1), every slot written (a
     ring), random groups in a succ whose 2C is not a multiple of the
     16384-slot window, and 2C past 2^24 (more windows than one block
-    stages, so the pair rule runs once a window group); exact one-word,
-    two-word (word2) and hashed keys; on poisoned memory, twice."""
+    stages, so the pair rule runs once a window group); one-word,
+    two-word and five-word keys (1, 3 and 10 lanes); on poisoned memory,
+    twice."""
     if case == "partial_window":
-        keys, pay = pair_groups(K, hashed, C, seed=C + K)
+        keys, pay = pair_groups(K, C, seed=C + K)
     else:
-        keys, pay = ring_pairs(K, hashed, C, case == "every_slot", seed=K)
-    s_word, perm, pay, K, word2 = [t.to(card) if isinstance(t, torch.Tensor)
+        keys, pay = ring_pairs(K, C, case == "every_slot", seed=K)
+    s_word, perm, pay, K, lower = [t.to(card) if isinstance(t, torch.Tensor)
                                    else t for t in sorted_pairs_inputs(
-                                       keys.to(card), pay.to(card))]
-    want = junctions.junction_pairs_plain(s_word, perm, pay, C, K, hashed, word2)
+                                       keys.to(card), pay.to(card), K)]
+    want = junctions.junction_pairs_plain(s_word, perm, pay, C, K, lower)
     n_edge = int((want >= 0).sum())
     if case == "partial_window":
         assert 2 * C % _kernels.SCATTER_WINDOW and n_edge > C // 4
@@ -226,7 +272,7 @@ def test_junction_pairs_windows(card, case, C, K, hashed):
     for _ in range(2):
         poisoned(card, 16 * C + (1 << 20))
         before = _kernels.LAUNCHES["junction_pairs"]
-        got = _kernels.junction_pairs(s_word, perm, pay, C, K, hashed, word2)
+        got = _kernels.junction_pairs(s_word, perm, pay, C, K, lower)
         assert _kernels.LAUNCHES["junction_pairs"] == before + 1
         assert torch.equal(got, want)
 
@@ -1516,17 +1562,17 @@ def test_junctions_long_k(card, k):
     kmers = sorted(brute.count_kmers(reads(k, k=k), k))
     solid = solid_columns(kmers, L)
     n = solid.shape[1]
-    hashed = junctions.use_hash_keys(k)
-    keys, pay = _kernels.junction_keys(solid.to(card), n - 3, k, hashed,
+    keys, pay = _kernels.junction_keys(solid.to(card), n - 3, k,
+                                       junctions.packed_keys(k),
                                        junctions.key_rows(k))
     pkeys, ppay = junctions.junction_keys_plain(solid, n - 3, k)
     assert torch.equal(keys.cpu(), pkeys) and torch.equal(pay.cpu(), ppay)
-    s_word, perm, ppay, K, word2 = sorted_pairs_inputs(pkeys, ppay)
+    s_word, perm, ppay, K, lower = sorted_pairs_inputs(pkeys, ppay,
+                                                       ln.num_lanes(k - 1))
     succ = _kernels.junction_pairs(
-        s_word.to(card), perm.to(card), ppay.to(card), n, K, hashed,
-        None if word2 is None else word2.to(card))
-    want = junctions.junction_pairs_plain(s_word, perm, ppay, n, K, hashed,
-                                          word2)
+        s_word.to(card), perm.to(card), ppay.to(card), n, K,
+        None if lower is None else lower.to(card))
+    want = junctions.junction_pairs_plain(s_word, perm, ppay, n, K, lower)
     assert torch.equal(succ.cpu(), want) and int((want >= 0).sum()) > 0
     gbase, tot = 3 * n, 8 * n
     got = junctions.junction_entries(solid.to(card), n - 3, k, gbase, tot, 4)
@@ -2093,16 +2139,17 @@ RESIDUE_L = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 16, 17, 32]
 @pytest.mark.parametrize("L", RESIDUE_L)
 def test_junction_keys_residues(card, L):
     """K3a and its global mode (junction_entries) at every residue of
-    (k-1) mod 16 for k-mers of L lanes (k = 16(L-1)+1 .. 16L), exact and
-    hashed keys, with palindromic sides and columns past n_solid."""
+    (k-1) mod 16 for k-mers of L lanes (k = 16(L-1)+1 .. 16L), key lanes
+    as rows and, past 3 lanes, as packed words, with palindromic sides and
+    columns past n_solid."""
     for k in range(16 * (L - 1) + 1, 16 * L + 1):
         if k < 2:
             continue
         kmers = kmer_set(k, 300, k)
         solid = solid_columns(kmers, L)
         n = solid.shape[1]
-        hashed = junctions.use_hash_keys(k)
-        keys, pay = _kernels.junction_keys(solid.to(card), n - 5, k, hashed,
+        keys, pay = _kernels.junction_keys(solid.to(card), n - 5, k,
+                                           junctions.packed_keys(k),
                                            junctions.key_rows(k))
         pkeys, ppay = junctions.junction_keys_plain(solid, n - 5, k)
         assert torch.equal(keys.cpu(), pkeys) and torch.equal(pay.cpu(), ppay)

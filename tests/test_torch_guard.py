@@ -130,8 +130,7 @@ def test_loader_raises_without_nvcc(tmp_path, monkeypatch):
     lambda t: _kernels.extract_insert(t((3, 64)), t((2, 2)), t((2,)), 31, 0, 0),
     lambda t: _kernels.count_sorted(t((8,)), t((8,)), None, 2, None, None),
     lambda t: _kernels.junction_keys(t((2, 16)), 16, 31, False, 2),
-    lambda t: _kernels.junction_pairs(t((32,)), t((32,)), t((32,)), 16, 2,
-                                      False),
+    lambda t: _kernels.junction_pairs(t((32,)), t((32,)), t((32,)), 16, 2),
     lambda t: _kernels.jump_round(t((8, 4)), t((8, 4)),
                                   torch.zeros(1, dtype=torch.int32)),
     lambda t: _kernels.range_fold(t((3, 64)), (0, 0), (1, 1)),

@@ -2,7 +2,9 @@
 
 The solid sets come from reads over a repeat-seeded genome plus reads
 holding palindromic (k-1)-mers and hairpins (a sequence followed by its
-reverse complement); k-1 > 48 takes the 96-bit hashed key path.  The
+reverse complement); past 3 key lanes (k-1 > 48) the keys are the exact
+(k-1)-mers' packed words, where bcalm_tpu hashes them (its 96-bit hash
+does not collide on these sets, so the arrays still agree).  The
 table is shuffled and padded with sentinel columns past n_solid, as the
 engine hands it over.  The pair step reads the sort's own top word
 (sort.lex_sort, held against JAX's stable sort); the edge cases put groups
@@ -52,7 +54,7 @@ def solid_table(k: int, seed: int):
     return np.concatenate([lanes, pad], axis=1), n
 
 
-# (k-1) mod 16 in {0, 1, 15}, both sides of the hash threshold (k-1 > 48),
+# (k-1) mod 16 in {0, 1, 15}, both sides of the packed-key threshold (k-1 > 48),
 # 2, 4, 5, 9, 11, 17 and 32 lanes
 LONG_K = [17, 49, 50, 65, 129, 161, 257, 512]
 
@@ -60,7 +62,7 @@ LONG_K = [17, 49, 50, 65, 129, 161, 257, 512]
 @pytest.mark.parametrize("k", [13, 21, 31, 32, 33, 51, 63] + LONG_K)
 def test_successor_arrays_match(k):
     solid, n = solid_table(k, k)
-    assert tjunc.use_hash_keys(k) == jjunc.use_hash_keys(k) == (k - 1 > 48)
+    assert tjunc.packed_keys(k) == (k - 1 > 48)
     js, _ = jjunc.successor_arrays(jnp.asarray(solid), jnp.asarray(n, jnp.int32), k)
     ts = tjunc.successor_arrays(convert.lanes_from_numpy(solid, "cpu"), n, k)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -70,8 +72,9 @@ def test_successor_arrays_match(k):
 @pytest.mark.parametrize("k", [31, 63])
 def test_successor_arrays_partial_window(k):
     """A successor array of 2C = 16,538 slots, one whole 16,384-slot
-    window of the card's scatter and a partial one (exact and hashed
-    keys), against bcalm_tpu's successor_arrays."""
+    window of the card's scatter and a partial one (a key of two lanes,
+    and of four lanes in two packed words), against bcalm_tpu's
+    successor_arrays."""
     rng = np.random.RandomState(k)
     genome = "".join("ACGT"[c] for c in rng.randint(0, 4, 8260))
     kmers = sorted(brute.count_kmers([genome, genome[:3000]], k))
@@ -86,19 +89,10 @@ def test_successor_arrays_partial_window(k):
     assert int((ts[16384:] >= 0).sum()) > 0 and (ts >= 0).sum() > n
 
 
-def test_hash96_matches():
-    rng = np.random.RandomState(0)
-    keys = rng.randint(0, 2**32, size=(4, 257), dtype=np.uint64).astype(np.uint32)
-    keys[:, 0] = 0xFFFFFFFF
-    jh = jjunc._hash96(jnp.asarray(keys))
-    th = tjunc.hash96(convert.lanes_from_numpy(keys, "cpu"))
-    for a, b in zip(th, jh):
-        np.testing.assert_array_equal(convert.lanes_to_numpy(a), np.asarray(b))
-
-
 def jax_junction_keys(solid: np.ndarray, n: int, k: int):
-    """The key rows and payload bcalm_tpu.ops.junctions.successor_arrays
-    sorts, built from its own lane functions (before its sort)."""
+    """The exact key lanes and the payload of bcalm_tpu.ops.junctions'
+    entries, built from its own lane functions (what its exact path
+    sorts; past 3 lanes it sorts a hash of these lanes instead)."""
     C = solid.shape[1]
     suf = jln.suffix_kminus1(jnp.asarray(solid), k)
     pre = jln.prefix_kminus1(jnp.asarray(solid), k)
@@ -110,14 +104,8 @@ def jax_junction_keys(solid: np.ndarray, n: int, k: int):
     sig, tau = np.asarray(sig), np.asarray(tau)
     payload = np.concatenate([np.where(sig, ids + C, ids) | (sig.astype(np.int64) << 30),
                               np.where(tau, ids + C, ids) | ((~tau).astype(np.int64) << 30)])
-    if jjunc.use_hash_keys(k):
-        hs, hp = jjunc._hash96(suf_c), jjunc._hash96(pre_c)
-        keys = np.stack([np.concatenate([np.where(vs, np.asarray(hs[i]), 0xFFFFFFFF),
-                                         np.where(vp, np.asarray(hp[i]), 0xFFFFFFFF)])
-                         for i in range(3)])
-    else:
-        keys = np.concatenate([np.where(vs[None], np.asarray(suf_c), 0xFFFFFFFF),
-                               np.where(vp[None], np.asarray(pre_c), 0xFFFFFFFF)], axis=1)
+    keys = np.concatenate([np.where(vs[None], np.asarray(suf_c), 0xFFFFFFFF),
+                           np.where(vp[None], np.asarray(pre_c), 0xFFFFFFFF)], axis=1)
     return keys.astype(np.uint32), payload
 
 
@@ -125,13 +113,20 @@ def jax_junction_keys(solid: np.ndarray, n: int, k: int):
 def test_junction_keys_plain_match(k):
     """K3a's plain version (what the kernel is held against on the card):
     keys and payload of every entry, palindromic and past n_solid
-    included."""
+    included; past 3 lanes the keys are the packed words of JAX's exact
+    lanes (models.lanes.pack_keys)."""
     solid, n = solid_table(k, k + 1)
     keys, payload = tjunc.junction_keys_plain(
         convert.lanes_from_numpy(solid, "cpu"), n - 2, k)
     want_keys, want_payload = jax_junction_keys(solid, n - 2, k)
     assert keys.shape[0] == tjunc.key_rows(k)
-    np.testing.assert_array_equal(convert.lanes_to_numpy(keys), want_keys)
+    if tjunc.packed_keys(k):
+        want = torch.stack(tln.pack_keys(
+            [torch.from_numpy(r.astype(np.int64)) for r in want_keys]))
+        assert keys.shape[0] == tjunc.key_words(k) == (want_keys.shape[0] + 1) // 2
+        assert torch.equal(keys, want)
+    else:
+        np.testing.assert_array_equal(convert.lanes_to_numpy(keys), want_keys)
     np.testing.assert_array_equal(payload.numpy(), want_payload)
     assert (want_keys[0] == 0xFFFFFFFF).sum() >= 4  # the two cut columns' sides
 
@@ -157,18 +152,18 @@ def test_lex_sort_word_and_perm(K):
 
 
 def test_sentinel_words_follow_pack_keys():
-    """An all-sentinel key's packed words, and the first row read back from
-    the top word by the shift."""
+    """An all-sentinel key's top packed word, and the first lane read back
+    from the top word by the shift, for keys of 1 to 10 lanes."""
     S = 0xFFFFFFFF
-    assert tjunc.sentinel_words(1) == (S, 0, 0)
+    assert tjunc.sentinel_words(1) == (S, 0)
     hi = (S - 2**31) << 32
-    assert tjunc.sentinel_words(2) == (hi | S, 0, 32)
-    assert tjunc.sentinel_words(3) == (hi | S, S, 32)
-    for K in (1, 2, 3):
-        sent0, _, shift = tjunc.sentinel_words(K)
-        word = tln.pack_keys([torch.tensor([S, 7, 9][j]) for j in range(K)])[0]
+    for K in (2, 3, 4, 10):
+        assert tjunc.sentinel_words(K) == (hi | S, 32)
+    for K in (1, 2, 3, 4, 10):
+        sent0, shift = tjunc.sentinel_words(K)
+        word = tln.pack_keys([torch.tensor([S, 7, 9, S][j % 4]) for j in range(K)])[0]
         assert int(word) >> shift == sent0 >> shift
-        word = tln.pack_keys([torch.tensor([S - 1, S, S][j]) for j in range(K)])[0]
+        word = tln.pack_keys([torch.tensor([S - 1, S, S][j % 3]) for j in range(K)])[0]
         assert int(word) >> shift != sent0 >> shift
 
 
@@ -204,15 +199,17 @@ def edge_table(k: int, case: str):
 
 
 def sorted_groups(solid: np.ndarray, n: int, k: int):
-    """Sizes of the runs of equal sorted keys (the port's plain key build
-    and lex_sort), and the number of sentinel entries."""
+    """Sizes of the runs of equal sorted keys (the port's plain key build,
+    its lanes read back from packed words, and lex_sort), the number of
+    sentinel entries and K3a's key rows."""
     keys, _ = tjunc.junction_keys_plain(convert.lanes_from_numpy(solid, "cpu"),
                                         n, k)
     K = keys.shape[0]
+    if tjunc.packed_keys(k):
+        keys = tln.unpack_keys(list(keys), tln.num_lanes(k - 1))
     perm, top = tsort.lex_sort(list(keys))
     s_keys = keys[:, perm]
-    sent = torch.all(s_keys == tjunc.SENTINEL, dim=0) if tjunc.use_hash_keys(k) \
-        else s_keys[0] == tjunc.SENTINEL
+    sent = s_keys[0] == tjunc.SENTINEL
     valid = s_keys[:, ~sent]
     change = torch.any(valid[:, 1:] != valid[:, :-1], dim=0)
     bounds = [0] + (torch.nonzero(change).flatten() + 1).tolist() + [valid.shape[1]]
@@ -224,12 +221,13 @@ def sorted_groups(solid: np.ndarray, n: int, k: int):
                                     (32, "hairpin"), (50, "hairpin")])
 def test_successor_arrays_edge_groups(k, case):
     """Groups of exactly two and three equal keys at both ends of the
-    sorted entries (1, 2 and 3 key rows: one and two packed words), a
-    hairpin (rejected: equal vertices) and sentinel columns (never paired),
-    against bcalm_tpu's successor_arrays."""
+    sorted entries (1, 2 and 3 key rows: one and two packed words; at k =
+    50 four lanes in the two words K3a packs itself), a hairpin (rejected:
+    equal vertices) and sentinel columns (never paired), against
+    bcalm_tpu's successor_arrays."""
     solid, n = edge_table(k, case)
     sizes, n_sent, K = sorted_groups(solid, n, k)
-    assert K == {16: 1, 32: 2, 34: 3, 50: 3}[k]
+    assert K == {16: 1, 32: 2, 34: 3, 50: 2}[k]
     want = {"two": 2, "three": 3}.get(case)
     if want:
         assert sizes[0] == sizes[-1] == want and n_sent == 0
@@ -422,7 +420,7 @@ def test_compaction_cases_match_jax(k, case):
     ok, _, _, words = _assert_pairing_is_jax(recv, ev, K, tot, slot_cap)
     sent = torch.tensor(ln_sentinel_packing(K))[:, None]
     assert not (words == sent).all(dim=0).any()
-    sent0, _, shift = tjunc.sentinel_words(K)
+    sent0, shift = tjunc.sentinel_words(K)
     assert ((words[0] >> shift) != (sent0 >> shift)).all()
     if case in ("full", "scattered", "homopolymer"):
         assert int(ok.sum()) > 10
@@ -501,7 +499,7 @@ def test_pair_rule_bytes_counts_the_data(k):
     perm, top = tsort.lex_sort_words(words)
     got = _chip_smoke().pair_rule_bytes(top, perm, words, K)
 
-    sent0, _, shift = tjunc.sentinel_words(K)
+    sent0, shift = tjunc.sentinel_words(K)
     E, W = top.numel(), words.shape[0]
     t, p, w = top.tolist(), perm.tolist(), words.tolist()
     ok_valid = [(x >> shift) != (sent0 >> shift) for x in t]

@@ -1,11 +1,12 @@
 """The port's stage spans (utils/timeinfo.py): the recorder's totals, calls
 and nesting, the profiler ranges they open only while torch's profiler
 records, the CLI's -verbose report, the engine's t_*_s stats read from
-them, the benchmark's readers of three of them, and their names against
-the names the benchmark uses."""
+them, the junction step's span and key-word stat, the benchmark's readers
+of them, and their names against the names the benchmark uses."""
 
 import ast
 import importlib.util
+import json
 import pathlib
 import re
 import time
@@ -17,6 +18,7 @@ import torch
 from bcalm_tpu_torch import cli as tcli
 from bcalm_tpu_torch import engine
 from bcalm_tpu_torch.io import packing
+from bcalm_tpu_torch.ops import junctions
 from bcalm_tpu_torch.storage.store import Store
 from bcalm_tpu_torch.utils import timeinfo
 from bcalm_tpu_torch.utils.timeinfo import TRACE_PREFIX, TimeInfo, span
@@ -26,8 +28,8 @@ BENCH = REPO / "cdbg_bench"
 # the spans of a resident single-device CLI build (the benchmark's cell)
 CLI_SPANS = {"build", "count", "count.pass", "count.ingest_wait",
              "count.upload", "count.final_merge", "solid", "compaction",
-             "checkpoint", "assemble", "assemble.spell", "assemble.links",
-             "write", "remove_store"}
+             "compaction.junctions", "checkpoint", "assemble",
+             "assemble.spell", "assemble.links", "write", "remove_store"}
 # every span the program opens
 ALL_SPANS = CLI_SPANS | {
     "count.settle_wait", "count.split", "count.split.merge",
@@ -81,41 +83,42 @@ def test_recorder_totals_calls_and_nesting():
     lines = ti.report_lines()
     assert lines[0].startswith("[time:outer") and "[calls:outer] 1" not in lines
     assert "[calls:outer.inner] 3" in lines
+    # a child stage reports its calls even where it ran once
+    one = TimeInfo()
+    with one.active():
+        with span("outer"):
+            with span("outer.inner"):
+                pass
+    assert "[calls:outer.inner] 1" in one.report_lines()
+    assert not any(l.startswith("[calls:outer]") for l in one.report_lines())
     assert all(re.fullmatch(r"\[time:[\w.]+\] \d+\.\d{4}s", l)
                for l in lines if l.startswith("[time:"))
 
 
-class _Counted:
-    """A stand-in for torch.profiler.record_function that counts the
-    ranges entered."""
-    entered = []
-
-    def __init__(self, name):
-        self.name = name
-
-    def __enter__(self):
-        _Counted.entered.append(self.name)
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
 def test_untraced_build_enters_no_record_function(monkeypatch):
-    monkeypatch.setattr(torch.profiler, "record_function", _Counted)
-    _Counted.entered = []
+    """No profiler: no range is entered.  Under one, a span enters its
+    range (torch's user-range call, the one record_function makes)."""
+    entered = []
+    real = torch._C._autograd._record_function_with_args_enter
+
+    def counting(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch._C._autograd,
+                        "_record_function_with_args_enter", counting)
     ti = TimeInfo()
     with ti.active():
         us = engine.build_from_seqs(_reads(300), engine.EngineConfig(k=21),
                                     "cpu")
     assert us.seqs and {"count", "assemble.links"} <= set(ti.spans)
-    assert _Counted.entered == []
+    assert entered == []
     # under the profiler the same spans enter their ranges
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         with span("count"):
             pass
-    assert _Counted.entered == [TRACE_PREFIX + "count"]
+    assert entered == [TRACE_PREFIX + "count"]
 
 
 def _program_ranges(prof):
@@ -193,6 +196,7 @@ def test_cli_verbose_prints_span_times_and_calls(tmp_path, monkeypatch,
         assert re.fullmatch(r"\d+\.\d{4}s", st[f"time:{name}"]), name
     for name in ("build", "write", "count", "assemble"):
         assert f"calls:{name}" not in st
+    assert st["calls:compaction.junctions"] == "1"
     assert "ingest_mbps" not in st
     # the stats keep their keys, rounded from the spans' totals
     assert float(st["t_count_s"]) == pytest.approx(
@@ -205,6 +209,26 @@ def test_cli_verbose_prints_span_times_and_calls(tmp_path, monkeypatch,
     again = _stats(capsys.readouterr().out)
     assert int(again["calls:count.ingest_wait"]) == len(blocks)
     assert "calls:build" not in again
+
+
+@pytest.mark.parametrize("k,words", [(31, 1), (151, 5)])
+def test_junction_step_span_and_key_words(tmp_path, monkeypatch, capsys, k,
+                                          words):
+    """-verbose 1 reports the junction step's span (K3a, the key words'
+    sort, K3b), its one call inside compaction, and the packed words a
+    junction key sorts on: 1 at k = 31, 5 at k = 151 (10 lanes)."""
+    fa = tmp_path / "reads.fa"
+    _write_fasta(fa, _reads(400, genome_len=3000, read_len=k + 50))
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    assert tcli.main(["-in", str(fa), "-kmer-size", str(k), "-abundance-min",
+                      "2", "-verbose", "1", "-out", str(tmp_path / "o")]) == 0
+    st = _stats(capsys.readouterr().out)
+    assert st["junction_key_words"] == str(words)
+    assert re.fullmatch(r"\d+\.\d{4}s", st["time:compaction.junctions"])
+    assert st["calls:compaction.junctions"] == "1"
+    assert (float(st["time:compaction.junctions"][:-1])
+            <= float(st["time:compaction"][:-1]))
+    assert int(st["unitigs"]) > 0
 
 
 def test_stats_are_the_rounded_span_totals(tmp_path):
@@ -321,3 +345,91 @@ def test_engine_stages_time_with_spans_only():
     assert "time.time(" not in src and "perf_counter" not in src
     assert timeinfo.TRACE_PREFIX == "cdbg.bcalm."
     assert "ingest_mbps" not in (REPO / "bcalm_tpu_torch" / "cli.py").read_text()
+
+
+def _bench_run():
+    spec = importlib.util.spec_from_file_location("spans_test_bench_run",
+                                                  BENCH / "run.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _junction_record(**over):
+    rec = {"builds": [{"stats": {"junction_key_words": 5.0}},
+                      {"stats": {"time:build": 3.0}}],
+           "host_spans": {"cdbg.junction_step": [0.002]},
+           "trace": {"span_device_s": {"cdbg.junction_step": 0.001}},
+           "work": {"junction_step": [1.675e9, 1.675e9]},
+           "peaks": {"card": {"hbm_bytes_per_s": 3.35e12}},
+           "device_kind": "card"}
+    rec.update(over)
+    return rec
+
+
+def test_junction_metric_readers():
+    """junction_ms reads the synchronised span's host time; the roofline
+    share the step's bytes at the card's rate over the span's device
+    time; neither reads where the span or its work is missing.  Their
+    synchronised span lies inside compact_ms's, so no cell lists both."""
+    ms = _metric("junction_ms").read
+    roof = _metric("junction_step_roofline_pct").read
+    assert ms(_junction_record()) == pytest.approx(2.0)
+    assert roof(_junction_record()) == pytest.approx(100.0)
+    rec = _junction_record(host_spans={}, work={}, trace=None)
+    assert ms(rec) is None and roof(rec) is None
+    assert roof(_junction_record(trace={"span_device_s": {}})) is None
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    cells = {m["name"]: set(m["workloads"]) for m in bench["per_layer"]}
+    assert cells["junction_ms"] == cells["junction_step_roofline_pct"]
+    assert cells["junction_ms"] and not cells["junction_ms"] & cells["compact_ms"]
+    # both declare one synchronised span, with the step's work
+    decls = [d for name in ("junction_ms", "junction_step_roofline_pct")
+             for d in _metric(name).SPANS]
+    assert len({(d["target"], d["name"], d["sync"], d["work"])
+                for d in decls}) == 1
+    owner, attr = _bench_run().resolve(decls[0]["target"])
+    assert getattr(owner, attr) is junctions.successor_arrays
+
+
+def test_junction_step_work():
+    """work/junction_step.py: W is the junction key's packed words (the
+    program's own count, 1 at k = 31, 5 at k = 151); the bytes of a call
+    on a (10, C) table at k = 151 from the list in its docstring."""
+    spec = importlib.util.spec_from_file_location(
+        "spans_test_work_junction_step", BENCH / "work" / "junction_step.py")
+    work = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(work)
+    for k in range(2, 513):
+        assert work.key_words(k) == junctions.key_words(k), k
+    assert (work.key_words(31), work.key_words(151)) == (1, 5)
+    solid = torch.zeros((10, 1024), dtype=torch.int64)
+    E = 2048
+    want = (600 * 8 * 5 + E * 8 * 6 + 5 * E * 32 + E * 8 * 6 + E * 8)
+    assert work.of_call((solid, 600, 151), {}, None) == want
+    assert work.of_call((solid,), {"n_solid": 600, "k": 151}, None) == want
+
+
+def test_harness_reads_the_junction_step_on_the_new_cell(monkeypatch):
+    """The benchmark's cell ecoli300_k151.resident at a test's size (20
+    kbp of genome at 10x, 300 bp reads, k = 151) on the CPU, traced: the
+    build is correct against the plain reference, junction_ms reads the
+    step's span, and every per-layer metric the cell lists that reads the
+    program's stats or the set-up has a reading (the device's need a
+    card)."""
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    run = _bench_run()
+    spec = run.load_spec("ecoli300_k151.resident")
+    assert spec["config"]["k"] == 151 and spec["cell"]["chips"] == 1
+    assert {"junction_ms", "junction_step_roofline_pct"} <= {
+        m["name"] for m in spec["per_layer"]}
+    spec["config"] = dict(spec["config"], reads=dict(
+        spec["config"]["reads"], genome_len=20000, coverage=10))
+    out, checks = run.run(spec, 2147483700, 0.5, True, "cpu")
+    assert out["correct"] and not any(checks.values())
+    assert out["metrics"]["junction_ms"]["value"] > 0
+    assert {"port_start_s", "count_s", "assemble_s", "write_s",
+            "ingest_wait_s", "spell_s", "links_s"} <= set(out["metrics"])
+    assert {m["name"] for m in spec["per_layer"]} - set(out["metrics"]) <= {
+        "device_idle_pct", "count_step_roofline_pct",
+        "junction_step_roofline_pct"}
